@@ -1,0 +1,6 @@
+"""SuperPointBN, SuperGlue and their Matching composition."""
+from image_matching_tpu_torch.models.matching import Matching, MatchingConfig
+from image_matching_tpu_torch.models.superglue import SuperGlue
+from image_matching_tpu_torch.models.superpoint import SuperPointBN
+
+__all__ = ["Matching", "MatchingConfig", "SuperGlue", "SuperPointBN"]

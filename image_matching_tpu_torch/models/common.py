@@ -1,0 +1,151 @@
+"""Shared building blocks — the counterpart of
+`image_matching_tpu/models/common.py`, inference only.
+
+Parameters live in f32; convolutions and matmuls run in the compute
+dtype given at call time; normalisation is computed in f32 and cast
+back, as JAX's dtype promotion does in the reference. Module attribute
+names follow the JAX package's (`Conv_0`, `BatchNorm_0`, `Dense_0`,
+`MaskedBatchNorm1d_0`, ...) so weights map across by path
+(`image_matching_tpu_torch/weights.py`). The training branch of the
+batch norms (batch statistics, running-average updates) is not ported.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from image_matching_tpu_torch.ops.entry_conv import entry_conv, fold_bn
+
+EPS = 1e-5
+
+
+class BatchNorm(nn.Module):
+    """Inference batch norm over the channel axis `dim` with running
+    statistics: (x - mean) * rsqrt(var + eps) * scale + bias in f32.
+    Serves both flax `nn.BatchNorm` and `MaskedBatchNorm1d` (whose
+    inference branch ignores the mask)."""
+
+    def __init__(self, features: int, dim: int = -1):
+        super().__init__()
+        self.dim = dim
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x):
+        shape = [1] * x.dim()
+        shape[self.dim] = -1
+        inv = self.weight * torch.rsqrt(self.running_var + EPS)
+        y = (x.float() - self.running_mean.reshape(shape)) * inv.reshape(shape)
+        return (y + self.bias.reshape(shape)).to(x.dtype)
+
+
+class ConvBNReLU(nn.Module):
+    """SAME conv -> inference BN -> ReLU on NCHW (channels_last) maps."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 3):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_channels, features, kernel, padding=kernel // 2)
+        self.BatchNorm_0 = BatchNorm(features, dim=1)
+
+    def forward(self, x, dtype):
+        return torch.relu(self.BatchNorm_0(conv2d(x, self.Conv_0, dtype)))
+
+    def entry(self, image):
+        """The same layer on a (B, H, W) image in the compute dtype, as one
+        fused pass (`ops/entry_conv.py`: the CUDA kernel on the card)."""
+        bn = self.BatchNorm_0
+        scale, shift = fold_bn(self.Conv_0.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var, EPS)
+        return entry_conv(image, self.Conv_0.weight.permute(2, 3, 1, 0), scale, shift)
+
+
+class DoubleConv(nn.Module):
+    """(conv => BN => ReLU) * 2. A 3-dim input is the 1-channel image, and
+    the first layer then runs as the fused entry conv."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__()
+        self.ConvBNReLU_0 = ConvBNReLU(in_channels, features)
+        self.ConvBNReLU_1 = ConvBNReLU(features, features)
+
+    def forward(self, x, dtype):
+        x = self.ConvBNReLU_0.entry(x) if x.dim() == 3 else self.ConvBNReLU_0(x, dtype)
+        return self.ConvBNReLU_1(x, dtype)
+
+
+def max_pool_stride2(x):
+    return F.max_pool2d(x, 2, 2)
+
+
+def conv2d(x, conv: nn.Conv2d, dtype):
+    """flax `nn.Conv` numerics: conv and bias add in the compute dtype."""
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), padding=conv.padding)
+
+
+def dense(x, linear: nn.Linear, dtype):
+    """flax `nn.Dense` numerics: matmul and bias add in the compute dtype."""
+    return x.to(dtype) @ linear.weight.t().to(dtype) + linear.bias.to(dtype)
+
+
+def split_dense(x, x2, linear: nn.Linear, x2_fold: nn.Linear, dtype):
+    """`dense` over an implicit concat([x, x2 @ Wf + bf], -1) without
+    forming it: the projection `x2_fold` is folded into the x2 half of the
+    kernel, in f32, once per call (the JAX package's `_SplitDense` with
+    `x2_fold`, its inference form)."""
+    c1 = x.shape[-1]
+    kernel = linear.weight.t()  # (c1 + c2, out), f32
+    k2 = (x2_fold.weight.t().float() @ kernel[c1:]).to(dtype)
+    bias = linear.bias + x2_fold.bias.float() @ kernel[c1:]
+    y = x.to(dtype) @ kernel[:c1].to(dtype) + x2.to(dtype) @ k2
+    return y + bias.to(dtype)
+
+
+class SeqMLP(nn.Module):
+    """1x1-conv MLP over (B, N, C): Dense + (BN + ReLU) between layers,
+    plain Dense at the end. `channels` includes the input width."""
+
+    def __init__(self, channels):
+        super().__init__()
+        self.n = len(channels) - 1
+        for i in range(self.n):
+            setattr(self, f"Dense_{i}", nn.Linear(channels[i], channels[i + 1]))
+            if i < self.n - 1:
+                setattr(self, f"MaskedBatchNorm1d_{i}", BatchNorm(channels[i + 1]))
+
+    def forward(self, x, dtype, x2=None, x2_fold=None):
+        """`x2`, `x2_fold`: a second input that the first layer takes as if
+        concatenated onto x after the projection `x2_fold` (`split_dense`)."""
+        for i in range(self.n):
+            lin = getattr(self, f"Dense_{i}")
+            if i == 0 and x2 is not None:
+                x = split_dense(x, x2, lin, x2_fold, dtype)
+            else:
+                x = dense(x, lin, dtype)
+            if i < self.n - 1:
+                x = torch.relu(getattr(self, f"MaskedBatchNorm1d_{i}")(x))
+        return x
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, seed: int) -> None:
+    """Seeded initialisation matching the JAX package's initialisers in
+    kind: LeCun-normal conv/dense kernels (untruncated), zero biases, unit
+    norm scales, zero mean / unit variance statistics, dustbin score 1."""
+    gen = torch.Generator().manual_seed(seed)
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            m.weight.copy_(torch.randn(m.weight.shape, generator=gen) / math.sqrt(fan_in))
+            m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+    for name, p in module.named_parameters():
+        if name.endswith("bin_score"):
+            p.fill_(1.0)

@@ -1,0 +1,159 @@
+"""SuperGlue attentional graph matcher — the counterpart of
+`image_matching_tpu/models/superglue.py`, inference only.
+
+Keypoint normalisation, MLP keypoint encoder, alternating self/cross
+4-head attention layers (fused QKV or KV projections, the merge
+projection folded into the message MLP), final projection, scores / sqrt(D),
+dustbin Sinkhorn and mutual-max extraction, all on fixed-K masked sets.
+
+Attention goes through `ops/attention.py` (the CUDA kernel on the card,
+at every key count) and Sinkhorn through `ops/sinkhorn.py` (the CUDA
+kernels on the card). The JAX package's `attention_impl`,
+`sinkhorn_impl` and `stack_sides` choose among TPU implementations and
+layouts of the same function, so the port has none of them; its
+`logits_dtype` only matters to the plain CPU attention (see
+`ops/attention.py`).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from image_matching_tpu_torch.device import resolve_device
+from image_matching_tpu_torch.models.common import SeqMLP, dense, init_weights
+from image_matching_tpu_torch.ops.attention import attention
+from image_matching_tpu_torch.ops.sinkhorn import (
+    extract_matches_from_transport,
+    log_optimal_transport,
+)
+from image_matching_tpu_torch.structs import Keypoints
+
+
+def normalize_keypoints(xy, height: int, width: int):
+    """Centre and scale keypoints by 0.7 * max(H, W)."""
+    size = torch.tensor([width, height], dtype=xy.dtype, device=xy.device)
+    return (xy - size / 2.0) / (size.max() * 0.7)
+
+
+class MultiHeadedAttention(nn.Module):
+    def __init__(self, num_heads: int, dim: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.proj_q = nn.Linear(dim, dim)
+        self.proj_k = nn.Linear(dim, dim)
+        self.proj_v = nn.Linear(dim, dim)
+        self.merge = nn.Linear(dim, dim)
+
+    def forward(self, query, source, source_mask, dtype, logits_dtype):
+        """The attention output before `merge` (the JAX package's
+        `return_premerge=True`, its inference form): the caller folds
+        `merge` into its next matmul. One fused projection for Q, K, V when
+        `source is query` (self layers), Q plus a fused K/V projection
+        otherwise; q/k/v stay views of the fused result, which the kernel
+        reads by row stride."""
+        d = query.shape[-1]
+        w = lambda lin: lin.weight.t()
+        if source is query:
+            kernel = torch.cat([w(self.proj_q), w(self.proj_k), w(self.proj_v)], 1).to(dtype)
+            bias = torch.cat([self.proj_q.bias, self.proj_k.bias, self.proj_v.bias]).to(dtype)
+            qkv = query.to(dtype) @ kernel + bias
+            q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        else:
+            q = dense(query, self.proj_q, dtype)
+            kernel = torch.cat([w(self.proj_k), w(self.proj_v)], 1).to(dtype)
+            bias = torch.cat([self.proj_k.bias, self.proj_v.bias]).to(dtype)
+            kv = source.to(dtype) @ kernel + bias
+            k, v = kv[..., :d], kv[..., d:]
+        return attention(q, k, v, source_mask, self.num_heads, logits_dtype)
+
+
+class AttentionalPropagation(nn.Module):
+    """Attention + MLP([2D, 2D, D]) residual message; the merge projection
+    is folded into the MLP's first kernel (inference)."""
+
+    def __init__(self, dim: int, num_heads: int = 4):
+        super().__init__()
+        self.attn = MultiHeadedAttention(num_heads, dim)
+        self.mlp = SeqMLP([dim * 2, dim * 2, dim])
+
+    def forward(self, x, source, source_mask, dtype, logits_dtype):
+        message = self.attn(x, source, source_mask, dtype, logits_dtype)
+        return self.mlp(x, dtype, x2=message, x2_fold=self.attn.merge)
+
+
+class AttentionalGNN(nn.Module):
+    """Alternating self/cross layers; each layer's weights serve both
+    directions, run as two calls per layer."""
+
+    def __init__(self, dim: int, layer_names):
+        super().__init__()
+        self.names = [f"layer_{i}_{name}" for i, name in enumerate(layer_names)]
+        for name in self.names:
+            setattr(self, name, AttentionalPropagation(dim))
+
+    def forward(self, desc0, desc1, mask0, mask1, dtype, logits_dtype):
+        for name in self.names:
+            layer = getattr(self, name)
+            if name.endswith("cross"):
+                src0, sm0, src1, sm1 = desc1, mask1, desc0, mask0
+            else:
+                src0, sm0, src1, sm1 = desc0, mask0, desc1, mask1
+            delta0 = layer(desc0, src0, sm0, dtype, logits_dtype)
+            delta1 = layer(desc1, src1, sm1, dtype, logits_dtype)
+            desc0, desc1 = desc0 + delta0, desc1 + delta1
+        return desc0, desc1
+
+
+class SuperGlue(nn.Module):
+    """Feature matching GNN with optimal-transport assignment. Defaults
+    follow the reference's (`logits_dtype` f32, as in the JAX SuperGlue)."""
+
+    def __init__(self, descriptor_dim: int = 256, keypoint_encoder=(32, 64, 128, 256),
+                 gnn_layers: int = 18, sinkhorn_iterations: int = 100,
+                 match_threshold: float = 0.2, compute_dtype: str = "float32",
+                 logits_dtype: str = "float32", device=None, seed: int = 0):
+        super().__init__()
+        d = descriptor_dim
+        self.descriptor_dim = d
+        self.sinkhorn_iterations = sinkhorn_iterations
+        self.match_threshold = match_threshold
+        self.dtype = getattr(torch, compute_dtype)
+        self.logits_dtype = logits_dtype
+        self.kenc = SeqMLP([3, *keypoint_encoder, d])
+        names = ["self" if i % 2 == 0 else "cross" for i in range(gnn_layers)]
+        self.gnn = AttentionalGNN(d, names)
+        self.final_proj = nn.Linear(d, d)
+        self.bin_score = nn.Parameter(torch.tensor(1.0))
+        init_weights(self, seed)
+        self.to(resolve_device(device))
+
+    def forward(self, kpts0: Keypoints, kpts1: Keypoints, image_shape0, image_shape1) -> dict:
+        dt, d = self.dtype, self.descriptor_dim
+        mask0, mask1 = kpts0.mask, kpts1.mask
+        n0 = normalize_keypoints(kpts0.xy, *image_shape0)
+        n1 = normalize_keypoints(kpts1.xy, *image_shape1)
+        enc0 = torch.cat([n0, kpts0.score[..., None]], -1).to(dt)
+        enc1 = torch.cat([n1, kpts1.score[..., None]], -1).to(dt)
+        desc0 = kpts0.desc.to(dt) + self.kenc(enc0, dt)
+        desc1 = kpts1.desc.to(dt) + self.kenc(enc1, dt)
+
+        desc0, desc1 = self.gnn(desc0, desc1, mask0, mask1, dt, self.logits_dtype)
+        mdesc0 = dense(desc0, self.final_proj, dt)
+        mdesc1 = dense(desc1, self.final_proj, dt)
+        # f32 products of the compute-dtype values (TF32 must be off)
+        scores = mdesc0.float() @ mdesc1.float().transpose(1, 2) / math.sqrt(d)
+
+        z = log_optimal_transport(scores, self.bin_score, self.sinkhorn_iterations,
+                                  mask0=mask0, mask1=mask1)
+        matches0, matches1, mscores0, mscores1 = extract_matches_from_transport(
+            z, self.match_threshold, mask0=mask0, mask1=mask1)
+        return {
+            "matches0": matches0,
+            "matches1": matches1,
+            "matching_scores0": mscores0,
+            "matching_scores1": mscores1,
+            "log_coupling": z,
+        }
+

@@ -1,0 +1,83 @@
+"""Fused image entry conv: relu(conv3x3_same(img, w) * scale + shift).
+
+The counterpart of `image_matching_tpu/ops/pallas/entry_h.py`
+(`entry_h_fused`): the first ConvBNReLU of SuperPointBN with the conv
+bias and inference BatchNorm folded into one per-channel f32 affine.
+The TPU kernel emits the H-space-to-depth layout its MXU wants; this one
+emits the direct layout, returned as an NCHW-shaped tensor in
+`torch.channels_last` memory so the next `F.conv2d` reads it as is.
+
+On a CUDA tensor `entry_conv` launches `csrc/entry_conv.cu`; on a CPU
+tensor it runs `entry_conv_plain`. Both round the image and the taps to
+the compute dtype and accumulate in f32, so they differ only in the
+order of the nine products and in one final rounding.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from image_matching_tpu_torch.ops import _build
+
+CHANNELS = 64
+
+
+def fold_bn(conv_bias, bn_scale, bn_bias, mean, var, eps: float = 1e-5):
+    """Conv bias + inference BatchNorm as one affine, computed in f32 as
+    `models/common.py` of the JAX package does: inv = g * rsqrt(var + eps),
+    shift = (bias - mu) * inv + beta."""
+    inv = bn_scale.float() * torch.rsqrt(var.float() + eps)
+    return inv, (conv_bias.float() - mean.float()) * inv + bn_bias.float()
+
+
+def entry_conv_plain(img, w, scale, shift):
+    """img (B, H, W) in the compute dtype; w (3, 3, 1, co) f32 taps;
+    scale, shift (co,) f32. Returns (B, co, H, W) channels_last."""
+    dtype = img.dtype
+    wt = w.to(dtype).float().permute(3, 2, 0, 1)  # (co, 1, 3, 3)
+    acc = F.conv2d(img.float()[:, None], wt, padding=1)
+    y = torch.relu(acc * scale[:, None, None] + shift[:, None, None])
+    return y.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def entry_conv(img, w, scale, shift):
+    """Dispatch on the tensor's device: the CUDA kernel on the card, the
+    plain version on the CPU."""
+    if img.device.type == "cpu":
+        return entry_conv_plain(img, w, scale, shift)
+    return _entry_conv_cuda(img, w, scale, shift)
+
+
+def _entry_conv_cuda(img, w, scale, shift):
+    if img.device.type != "cuda":
+        raise ValueError(f"entry_conv: unsupported device {img.device}")
+    if img.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"entry_conv: image dtype {img.dtype} not in (bfloat16, float32)")
+    if img.dim() != 3 or not img.is_contiguous():
+        raise ValueError(f"entry_conv: need a contiguous (B, H, W) image, got {tuple(img.shape)}")
+    if tuple(w.shape) != (3, 3, 1, CHANNELS):
+        raise ValueError(f"entry_conv: kernel shape {tuple(w.shape)} != (3, 3, 1, {CHANNELS})")
+    for name, t in (("scale", scale), ("shift", shift)):
+        if tuple(t.shape) != (CHANNELS,) or t.dtype != torch.float32:
+            raise ValueError(f"entry_conv: {name} must be ({CHANNELS},) float32")
+        if t.device != img.device:
+            raise ValueError(f"entry_conv: {name} on {t.device}, image on {img.device}")
+    b, h, wd = img.shape
+    if b * h * wd >= 2 ** 31 // CHANNELS:
+        raise ValueError("entry_conv: image too large for 32-bit pixel indexing")
+    taps = w.to(img.device, img.dtype).float().reshape(9, CHANNELS).contiguous()
+    scale, shift = scale.contiguous(), shift.contiguous()
+    out = torch.empty((b, h, wd, CHANNELS), dtype=img.dtype, device=img.device)
+    lib = _build.library("entry_conv")
+    fn = lib.entry_conv_bf16 if img.dtype == torch.bfloat16 else lib.entry_conv_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(
+        fn(_build.ptr(img), _build.ptr(taps), _build.ptr(scale), _build.ptr(shift),
+           _build.ptr(out), b, h, wd, _build.stream_ptr(img.device)),
+        "entry_conv",
+    )
+    _build.LAUNCHES["entry_conv"] += 1
+    return out.permute(0, 3, 1, 2)  # (B, co, H, W) in channels_last memory

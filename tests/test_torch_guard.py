@@ -1,0 +1,46 @@
+"""Guards on the port: it imports no JAX, and it never falls back to the
+CPU on its own."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import image_matching_tpu_torch
+from image_matching_tpu_torch.models import Matching, MatchingConfig, SuperGlue, SuperPointBN
+
+PACKAGE = Path(image_matching_tpu_torch.__file__).parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "image_matching_tpu")
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    sources = sorted(PACKAGE.rglob("*.py"))
+    assert len(sources) >= 10
+    for path in sources:
+        for mod in _imported_modules(ast.parse(path.read_text(), str(path))):
+            top = mod.split(".")[0]
+            assert top not in FORBIDDEN, f"{path.relative_to(PACKAGE)} imports {mod}"
+
+
+@pytest.mark.parametrize("build", [
+    lambda: Matching(MatchingConfig(gnn_layers=2)),
+    lambda: SuperPointBN(64),
+    lambda: SuperGlue(64, (16,), gnn_layers=2),
+])
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch, build):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
+
+
+def test_cpu_on_request():
+    model = Matching(MatchingConfig(gnn_layers=2, max_keypoints=16), device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
