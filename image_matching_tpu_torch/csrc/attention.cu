@@ -41,6 +41,17 @@
 // holding dh/4 of the row's q and output in registers, partial dot products
 // joined by two warp shuffles; a thread's dims are interleaved in 4-float
 // chunks so the 4 threads of a row read 64 consecutive bytes of a staged key.
+//
+// Forward with LSE (training): the same two kernels with LSE = true also
+// write the f32 log-sum-exp of every query row, (B, H, N), for the backward
+// kernels of csrc/attention_bwd.cu. This replaces _flash_forward_with_lse
+// (_flash_kernel_with_lse, attention.py:100/560). Inference instantiates
+// LSE = false, which is the kernel above unchanged. A batch element with no
+// valid key ("dead") has every logit at -1e9, where m + log(l) rounds back
+// to -1e9 in f32 and the backward could no longer tell p = 1/M from p = 1;
+// for it the kernel writes log(l) = log(M), the LSE of the row with the
+// masked logits shifted to 0, and the backward kernels recognise the dead
+// element from the mask the same way (no valid key in mask[b, :]).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -55,6 +66,15 @@ constexpr float MASKED = -1e9f;
 __device__ __forceinline__ float key_bias(const uint8_t* mask, int b, int M, int key) {
   if (key >= M) return -INFINITY;
   return (mask != nullptr && !mask[(int64_t)b * M + key]) ? MASKED : 0.f;
+}
+
+// True when batch element b has no valid key. Every thread of the block
+// must call it.
+__device__ __forceinline__ bool dead_batch(const uint8_t* mask, int b, int M) {
+  if (mask == nullptr) return false;
+  int any = 0;
+  for (int j = threadIdx.x; j < M; j += blockDim.x) any |= mask[(int64_t)b * M + j];
+  return !__syncthreads_or(any);
 }
 
 // ------------------------------------------------------------------ bf16, mma
@@ -76,13 +96,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int DH>
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(MMA_WARPS * 32)
 attention_mma(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
               const __nv_bfloat16* __restrict__ k, int64_t k_bs, int64_t k_rs,
               const __nv_bfloat16* __restrict__ v, int64_t v_bs, int64_t v_rs,
               const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out,
-              int N, int M, int H, float scale) {
+              float* __restrict__ lse, int N, int M, int H, float scale) {
   constexpr int KSTEPS = DH / 16;  // k-steps of Q K^T
   constexpr int DTILES = DH / 8;   // n-tiles of O
   __shared__ __align__(16) __nv_bfloat16 ks[KT][DH + PAD];   // K, row-major
@@ -93,6 +113,8 @@ attention_mma(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;  // fragment row group, column pair
   const int r0 = blockIdx.x * MMA_ROWS + warp * 16 + g;  // this thread's rows r0, r0 + 8
+  bool dead = false;
+  if constexpr (LSE) dead = dead_batch(mask, b, M);
 
   // Q as A fragments: a0 (r0, 2t), a1 (r0+8, 2t), a2 (r0, 2t+8), a3 (r0+8, 2t+8)
   uint32_t qa[KSTEPS][4];
@@ -203,6 +225,9 @@ attention_mma(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= N) continue;
+    if constexpr (LSE) {
+      if (t == 0) lse[((int64_t)b * H + h) * N + row] = dead ? logf(l[r]) : m[r] + logf(l[r]);
+    }
     const float inv = 1.f / l[r];
     __nv_bfloat16* orow = out + ((int64_t)b * N + row) * (int64_t)(H * DH) + h * DH + 2 * t;
 #pragma unroll
@@ -222,13 +247,13 @@ __device__ __forceinline__ void load4(const float* p, float* d) {
   d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
 }
 
-template <int DH>
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(SIMT_THREADS)
 attention_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
                const float* __restrict__ k, int64_t k_bs, int64_t k_rs,
                const float* __restrict__ v, int64_t v_bs, int64_t v_rs,
                const uint8_t* __restrict__ mask, float* __restrict__ out,
-               int N, int M, int H, float scale) {
+               float* __restrict__ lse, int N, int M, int H, float scale) {
   constexpr int CHUNKS = DH / 16;  // 4-float chunks per thread
   __shared__ __align__(16) float sk[KT][DH];
   __shared__ __align__(16) float sv[KT][DH];
@@ -238,6 +263,8 @@ attention_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
   const int row = blockIdx.x * SIMT_ROWS + threadIdx.x / TPR;
   const int part = threadIdx.x % TPR;
   const bool row_ok = row < N;
+  bool dead = false;
+  if constexpr (LSE) dead = dead_batch(mask, b, M);
 
   float qr[CHUNKS][4], acc[CHUNKS][4];
 #pragma unroll
@@ -311,6 +338,9 @@ attention_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
   }
 
   if (row_ok) {
+    if constexpr (LSE) {
+      if (part == 0) lse[((int64_t)b * H + h) * N + row] = dead ? logf(l) : m + logf(l);
+    }
     const float inv = 1.f / l;
     float* o = out + ((int64_t)b * N + row) * (int64_t)(H * DH) + h * DH;
 #pragma unroll
@@ -324,29 +354,31 @@ attention_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
 
 #define ATTENTION_ARGS(T)                                                          \
   const T *q, int64_t q_bs, int64_t q_rs, const T *k, int64_t k_bs, int64_t k_rs, \
-      const T *v, int64_t v_bs, int64_t v_rs, const uint8_t *mask, T *out, int B,  \
-      int N, int M, int H, int DH, float scale, cudaStream_t stream
+      const T *v, int64_t v_bs, int64_t v_rs, const uint8_t *mask, T *out,         \
+      float *lse, int B, int N, int M, int H, int DH, float scale, cudaStream_t stream
 
-#define ATTENTION_PASS q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, out, N, M, H, scale
+#define ATTENTION_PASS q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, out, lse, N, M, H, scale
 
+template <bool LSE>
 int launch_bf16(ATTENTION_ARGS(__nv_bfloat16)) {
   const dim3 grid((N + MMA_ROWS - 1) / MMA_ROWS, H, B);
   const int threads = MMA_WARPS * 32;
   switch (DH) {
-    case 16: attention_mma<16><<<grid, threads, 0, stream>>>(ATTENTION_PASS); break;
-    case 32: attention_mma<32><<<grid, threads, 0, stream>>>(ATTENTION_PASS); break;
-    case 64: attention_mma<64><<<grid, threads, 0, stream>>>(ATTENTION_PASS); break;
+    case 16: attention_mma<16, LSE><<<grid, threads, 0, stream>>>(ATTENTION_PASS); break;
+    case 32: attention_mma<32, LSE><<<grid, threads, 0, stream>>>(ATTENTION_PASS); break;
+    case 64: attention_mma<64, LSE><<<grid, threads, 0, stream>>>(ATTENTION_PASS); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool LSE>
 int launch_f32(ATTENTION_ARGS(float)) {
   const dim3 grid((N + SIMT_ROWS - 1) / SIMT_ROWS, H, B);
   switch (DH) {
-    case 16: attention_simt<16><<<grid, SIMT_THREADS, 0, stream>>>(ATTENTION_PASS); break;
-    case 32: attention_simt<32><<<grid, SIMT_THREADS, 0, stream>>>(ATTENTION_PASS); break;
-    case 64: attention_simt<64><<<grid, SIMT_THREADS, 0, stream>>>(ATTENTION_PASS); break;
+    case 16: attention_simt<16, LSE><<<grid, SIMT_THREADS, 0, stream>>>(ATTENTION_PASS); break;
+    case 32: attention_simt<32, LSE><<<grid, SIMT_THREADS, 0, stream>>>(ATTENTION_PASS); break;
+    case 64: attention_simt<64, LSE><<<grid, SIMT_THREADS, 0, stream>>>(ATTENTION_PASS); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -354,22 +386,31 @@ int launch_f32(ATTENTION_ARGS(float)) {
 
 }  // namespace
 
-extern "C" int attention_bf16(const void* q, int64_t q_bs, int64_t q_rs, const void* k,
-                              int64_t k_bs, int64_t k_rs, const void* v, int64_t v_bs,
-                              int64_t v_rs, const void* mask, void* out, int B, int N,
-                              int M, int H, int DH, float scale, void* stream) {
-  using T = __nv_bfloat16;
-  return launch_bf16(static_cast<const T*>(q), q_bs, q_rs, static_cast<const T*>(k), k_bs, k_rs,
-                     static_cast<const T*>(v), v_bs, v_rs, static_cast<const uint8_t*>(mask),
-                     static_cast<T*>(out), B, N, M, H, DH, scale, static_cast<cudaStream_t>(stream));
+#define C_ARGS                                                                         \
+  const void *q, int64_t q_bs, int64_t q_rs, const void *k, int64_t k_bs, int64_t k_rs, \
+      const void *v, int64_t v_bs, int64_t v_rs, const void *mask, void *out
+
+#define C_PASS(T)                                                                          \
+  static_cast<const T*>(q), q_bs, q_rs, static_cast<const T*>(k), k_bs, k_rs,              \
+      static_cast<const T*>(v), v_bs, v_rs, static_cast<const uint8_t*>(mask), static_cast<T*>(out)
+
+#define C_TAIL int B, int N, int M, int H, int DH, float scale, void *stream
+#define C_TAIL_PASS B, N, M, H, DH, scale, static_cast<cudaStream_t>(stream)
+
+// Inference: softmax attention only.
+extern "C" int attention_bf16(C_ARGS, C_TAIL) {
+  return launch_bf16<false>(C_PASS(__nv_bfloat16), nullptr, C_TAIL_PASS);
 }
 
-extern "C" int attention_f32(const void* q, int64_t q_bs, int64_t q_rs, const void* k,
-                             int64_t k_bs, int64_t k_rs, const void* v, int64_t v_bs,
-                             int64_t v_rs, const void* mask, void* out, int B, int N,
-                             int M, int H, int DH, float scale, void* stream) {
-  using T = float;
-  return launch_f32(static_cast<const T*>(q), q_bs, q_rs, static_cast<const T*>(k), k_bs, k_rs,
-                    static_cast<const T*>(v), v_bs, v_rs, static_cast<const uint8_t*>(mask),
-                    static_cast<T*>(out), B, N, M, H, DH, scale, static_cast<cudaStream_t>(stream));
+extern "C" int attention_f32(C_ARGS, C_TAIL) {
+  return launch_f32<false>(C_PASS(float), nullptr, C_TAIL_PASS);
+}
+
+// Training forward: also writes lse (B, H, N) f32.
+extern "C" int attention_lse_bf16(C_ARGS, void* lse, C_TAIL) {
+  return launch_bf16<true>(C_PASS(__nv_bfloat16), static_cast<float*>(lse), C_TAIL_PASS);
+}
+
+extern "C" int attention_lse_f32(C_ARGS, void* lse, C_TAIL) {
+  return launch_f32<true>(C_PASS(float), static_cast<float*>(lse), C_TAIL_PASS);
 }

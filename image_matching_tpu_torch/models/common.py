@@ -1,13 +1,15 @@
 """Shared building blocks — the counterpart of
-`image_matching_tpu/models/common.py`, inference only.
+`image_matching_tpu/models/common.py`.
 
 Parameters live in f32; convolutions and matmuls run in the compute
 dtype given at call time; normalisation is computed in f32 and cast
 back, as JAX's dtype promotion does in the reference. Module attribute
 names follow the JAX package's (`Conv_0`, `BatchNorm_0`, `Dense_0`,
 `MaskedBatchNorm1d_0`, ...) so weights map across by path
-(`image_matching_tpu_torch/weights.py`). The training branch of the
-batch norms (batch statistics, running-average updates) is not ported.
+(`image_matching_tpu_torch/weights.py`). Of the training branches, the
+port has `MaskedBatchNorm1d`'s (SuperGlue training): the convolutional
+`BatchNorm` stays inference-only, since SuperPoint is frozen in the only
+trainer ported so far.
 """
 from __future__ import annotations
 
@@ -25,8 +27,8 @@ EPS = 1e-5
 class BatchNorm(nn.Module):
     """Inference batch norm over the channel axis `dim` with running
     statistics: (x - mean) * rsqrt(var + eps) * scale + bias in f32.
-    Serves both flax `nn.BatchNorm` and `MaskedBatchNorm1d` (whose
-    inference branch ignores the mask)."""
+    Serves flax `nn.BatchNorm`, and is the inference branch of
+    `MaskedBatchNorm1d` (which ignores the mask there)."""
 
     def __init__(self, features: int, dim: int = -1):
         super().__init__()
@@ -42,6 +44,36 @@ class BatchNorm(nn.Module):
         inv = self.weight * torch.rsqrt(self.running_var + EPS)
         y = (x.float() - self.running_mean.reshape(shape)) * inv.reshape(shape)
         return (y + self.bias.reshape(shape)).to(x.dtype)
+
+
+class MaskedBatchNorm1d(BatchNorm):
+    """Batch norm over (B, N, C) sequence features with a validity mask,
+    the JAX package's `MaskedBatchNorm1d`. Inference uses the running
+    statistics and ignores the mask. Training normalises with the mean and
+    the biased variance over the valid (b, n) positions, in f32, and
+    updates the running statistics with flax's convention,
+    ra = 0.9 * ra + 0.1 * batch (in place, without grad)."""
+
+    MOMENTUM = 0.9
+
+    def forward(self, x, mask=None, train: bool = False):
+        if not train:
+            return super().forward(x)
+        xf = x.float()
+        if mask is None:
+            mean = xf.mean(dim=(0, 1))
+            var = xf.var(dim=(0, 1), unbiased=False)
+        else:
+            w = mask.float()[..., None]
+            denom = w.sum().clamp_min(1.0)
+            mean = (xf * w).sum(dim=(0, 1)) / denom
+            var = (w * (xf - mean) ** 2).sum(dim=(0, 1)) / denom
+        with torch.no_grad():
+            mom = self.MOMENTUM
+            self.running_mean.copy_(mom * self.running_mean + (1 - mom) * mean)
+            self.running_var.copy_(mom * self.running_var + (1 - mom) * var)
+        y = (xf - mean) * torch.rsqrt(var + EPS) * self.weight + self.bias
+        return y.to(x.dtype)
 
 
 class ConvBNReLU(nn.Module):
@@ -91,13 +123,17 @@ def dense(x, linear: nn.Linear, dtype):
     return x.to(dtype) @ linear.weight.t().to(dtype) + linear.bias.to(dtype)
 
 
-def split_dense(x, x2, linear: nn.Linear, x2_fold: nn.Linear, dtype):
-    """`dense` over an implicit concat([x, x2 @ Wf + bf], -1) without
-    forming it: the projection `x2_fold` is folded into the x2 half of the
-    kernel, in f32, once per call (the JAX package's `_SplitDense` with
-    `x2_fold`, its inference form)."""
+def split_dense(x, x2, linear: nn.Linear, x2_fold, dtype):
+    """`dense` over an implicit concat([x, x2], -1) without forming it
+    (the JAX package's `_SplitDense`). With `x2_fold` (its inference
+    form), x2 stands for x2 @ Wf + bf, and that projection is folded into
+    the x2 half of the kernel, in f32, once per call; without it (the
+    training form), y = x @ K[:c1] + x2 @ K[c1:] + b."""
     c1 = x.shape[-1]
     kernel = linear.weight.t()  # (c1 + c2, out), f32
+    if x2_fold is None:
+        k = kernel.to(dtype)
+        return x.to(dtype) @ k[:c1] + x2.to(dtype) @ k[c1:] + linear.bias.to(dtype)
     k2 = (x2_fold.weight.t().float() @ kernel[c1:]).to(dtype)
     bias = linear.bias + x2_fold.bias.float() @ kernel[c1:]
     y = x.to(dtype) @ kernel[:c1].to(dtype) + x2.to(dtype) @ k2
@@ -114,11 +150,13 @@ class SeqMLP(nn.Module):
         for i in range(self.n):
             setattr(self, f"Dense_{i}", nn.Linear(channels[i], channels[i + 1]))
             if i < self.n - 1:
-                setattr(self, f"MaskedBatchNorm1d_{i}", BatchNorm(channels[i + 1]))
+                setattr(self, f"MaskedBatchNorm1d_{i}", MaskedBatchNorm1d(channels[i + 1]))
 
-    def forward(self, x, dtype, x2=None, x2_fold=None):
+    def forward(self, x, dtype, x2=None, x2_fold=None, mask=None, train: bool = False):
         """`x2`, `x2_fold`: a second input that the first layer takes as if
-        concatenated onto x after the projection `x2_fold` (`split_dense`)."""
+        concatenated onto x, after the projection `x2_fold` if one is given
+        (`split_dense`). `mask`, `train`: the batch norms' (B, N) validity
+        mask and training switch."""
         for i in range(self.n):
             lin = getattr(self, f"Dense_{i}")
             if i == 0 and x2 is not None:
@@ -126,7 +164,7 @@ class SeqMLP(nn.Module):
             else:
                 x = dense(x, lin, dtype)
             if i < self.n - 1:
-                x = torch.relu(getattr(self, f"MaskedBatchNorm1d_{i}")(x))
+                x = torch.relu(getattr(self, f"MaskedBatchNorm1d_{i}")(x, mask, train))
         return x
 
 

@@ -1,5 +1,5 @@
 """SuperGlue attentional graph matcher — the counterpart of
-`image_matching_tpu/models/superglue.py`, inference only.
+`image_matching_tpu/models/superglue.py`.
 
 Keypoint normalisation, MLP keypoint encoder, alternating self/cross
 4-head attention layers (fused QKV or KV projections, the merge
@@ -13,6 +13,14 @@ kernels on the card). The JAX package's `attention_impl`,
 layouts of the same function, so the port has none of them; its
 `logits_dtype` only matters to the plain CPU attention (see
 `ops/attention.py`).
+
+`forward(..., train=True)` is the JAX package's training path: masked
+batch statistics in every MLP (running statistics updated at each of the
+two calls per layer, as flax does when one module is applied twice),
+`merge` applied after attention instead of folded into the MLP,
+attention through `ops/attention.AttentionFunction` (forward with LSE,
+then the dK/dV and dQ kernels on the card) and the differentiable
+Sinkhorn loop.
 """
 from __future__ import annotations
 
@@ -46,10 +54,10 @@ class MultiHeadedAttention(nn.Module):
         self.proj_v = nn.Linear(dim, dim)
         self.merge = nn.Linear(dim, dim)
 
-    def forward(self, query, source, source_mask, dtype, logits_dtype):
+    def forward(self, query, source, source_mask, dtype, logits_dtype, train: bool = False):
         """The attention output before `merge` (the JAX package's
         `return_premerge=True`, its inference form): the caller folds
-        `merge` into its next matmul. One fused projection for Q, K, V when
+        `merge` into its next matmul. With `train`, after `merge`. One fused projection for Q, K, V when
         `source is query` (self layers), Q plus a fused K/V projection
         otherwise; q/k/v stay views of the fused result, which the kernel
         reads by row stride."""
@@ -66,20 +74,23 @@ class MultiHeadedAttention(nn.Module):
             bias = torch.cat([self.proj_k.bias, self.proj_v.bias]).to(dtype)
             kv = source.to(dtype) @ kernel + bias
             k, v = kv[..., :d], kv[..., d:]
-        return attention(q, k, v, source_mask, self.num_heads, logits_dtype)
+        out = attention(q, k, v, source_mask, self.num_heads, logits_dtype)
+        return dense(out, self.merge, dtype) if train else out
 
 
 class AttentionalPropagation(nn.Module):
-    """Attention + MLP([2D, 2D, D]) residual message; the merge projection
-    is folded into the MLP's first kernel (inference)."""
+    """Attention + MLP([2D, 2D, D]) residual message; at inference the
+    merge projection is folded into the MLP's first kernel."""
 
     def __init__(self, dim: int, num_heads: int = 4):
         super().__init__()
         self.attn = MultiHeadedAttention(num_heads, dim)
         self.mlp = SeqMLP([dim * 2, dim * 2, dim])
 
-    def forward(self, x, source, source_mask, dtype, logits_dtype):
-        message = self.attn(x, source, source_mask, dtype, logits_dtype)
+    def forward(self, x, source, x_mask, source_mask, dtype, logits_dtype, train: bool = False):
+        message = self.attn(x, source, source_mask, dtype, logits_dtype, train)
+        if train:
+            return self.mlp(x, dtype, x2=message, mask=x_mask, train=True)
         return self.mlp(x, dtype, x2=message, x2_fold=self.attn.merge)
 
 
@@ -93,15 +104,15 @@ class AttentionalGNN(nn.Module):
         for name in self.names:
             setattr(self, name, AttentionalPropagation(dim))
 
-    def forward(self, desc0, desc1, mask0, mask1, dtype, logits_dtype):
+    def forward(self, desc0, desc1, mask0, mask1, dtype, logits_dtype, train: bool = False):
         for name in self.names:
             layer = getattr(self, name)
             if name.endswith("cross"):
                 src0, sm0, src1, sm1 = desc1, mask1, desc0, mask0
             else:
                 src0, sm0, src1, sm1 = desc0, mask0, desc1, mask1
-            delta0 = layer(desc0, src0, sm0, dtype, logits_dtype)
-            delta1 = layer(desc1, src1, sm1, dtype, logits_dtype)
+            delta0 = layer(desc0, src0, mask0, sm0, dtype, logits_dtype, train)
+            delta1 = layer(desc1, src1, mask1, sm1, dtype, logits_dtype, train)
             desc0, desc1 = desc0 + delta0, desc1 + delta1
         return desc0, desc1
 
@@ -129,24 +140,27 @@ class SuperGlue(nn.Module):
         init_weights(self, seed)
         self.to(resolve_device(device))
 
-    def forward(self, kpts0: Keypoints, kpts1: Keypoints, image_shape0, image_shape1) -> dict:
+    def forward(self, kpts0: Keypoints, kpts1: Keypoints, image_shape0, image_shape1,
+                train: bool = False) -> dict:
+        """`train`: the training path (batch statistics, differentiable
+        attention and Sinkhorn); otherwise inference."""
         dt, d = self.dtype, self.descriptor_dim
         mask0, mask1 = kpts0.mask, kpts1.mask
         n0 = normalize_keypoints(kpts0.xy, *image_shape0)
         n1 = normalize_keypoints(kpts1.xy, *image_shape1)
         enc0 = torch.cat([n0, kpts0.score[..., None]], -1).to(dt)
         enc1 = torch.cat([n1, kpts1.score[..., None]], -1).to(dt)
-        desc0 = kpts0.desc.to(dt) + self.kenc(enc0, dt)
-        desc1 = kpts1.desc.to(dt) + self.kenc(enc1, dt)
+        desc0 = kpts0.desc.to(dt) + self.kenc(enc0, dt, mask=mask0, train=train)
+        desc1 = kpts1.desc.to(dt) + self.kenc(enc1, dt, mask=mask1, train=train)
 
-        desc0, desc1 = self.gnn(desc0, desc1, mask0, mask1, dt, self.logits_dtype)
+        desc0, desc1 = self.gnn(desc0, desc1, mask0, mask1, dt, self.logits_dtype, train)
         mdesc0 = dense(desc0, self.final_proj, dt)
         mdesc1 = dense(desc1, self.final_proj, dt)
         # f32 products of the compute-dtype values (TF32 must be off)
         scores = mdesc0.float() @ mdesc1.float().transpose(1, 2) / math.sqrt(d)
 
         z = log_optimal_transport(scores, self.bin_score, self.sinkhorn_iterations,
-                                  mask0=mask0, mask1=mask1)
+                                  mask0=mask0, mask1=mask1, train=train)
         matches0, matches1, mscores0, mscores1 = extract_matches_from_transport(
             z, self.match_threshold, mask0=mask0, mask1=mask1)
         return {

@@ -32,29 +32,137 @@ def attention_plain(q, k, v, key_mask=None, num_heads: int = 4,
     the compute-dtype inputs, or (logits_dtype="bfloat16") a pre-scaled
     q and logits rounded to bf16; softmax in f32; probabilities in the
     compute dtype for the value product."""
+    if logits_dtype != "bfloat16":
+        return _softmax_v(_logits(q, k, key_mask, num_heads, NEG_INF), v, num_heads)
     b, n, dt = q.shape
-    m = k.shape[1]
     dh = dt // num_heads
-    qh = q.reshape(b, n, num_heads, dh)
-    kh = k.reshape(b, m, num_heads, dh)
-    vh = v.reshape(b, m, num_heads, dh)
-    if logits_dtype == "bfloat16":
-        qs = qh * torch.tensor(1.0 / math.sqrt(dh), dtype=q.dtype)
-        logits = torch.einsum("bnhd,bmhd->bhnm", qs.float(), kh.float()).to(torch.bfloat16)
-    else:
-        logits = torch.einsum("bnhd,bmhd->bhnm", qh.float(), kh.float()) / math.sqrt(dh)
+    qs = q.reshape(b, n, num_heads, dh) * torch.tensor(1.0 / math.sqrt(dh), dtype=q.dtype)
+    logits = torch.einsum("bnhd,bmhd->bhnm", qs.float(), _heads(k, num_heads)).to(torch.bfloat16)
     if key_mask is not None:
         logits = logits.masked_fill(~key_mask[:, None, None, :], NEG_INF)
+    return _softmax_v(logits, v, num_heads)
+
+
+def _softmax_v(logits, v, num_heads):
+    """Softmax of (B, H, N, M) logits in f32, probabilities rounded to the
+    compute dtype, times V: (B, N, H*dh)."""
     probs = torch.softmax(logits.float(), dim=-1).to(v.dtype)
-    out = torch.einsum("bhnm,bmhd->bnhd", probs, vh)
-    return out.reshape(b, n, dt)
+    b, m, dt = v.shape
+    out = torch.einsum("bhnm,bmhd->bnhd", probs, v.reshape(b, m, num_heads, dt // num_heads))
+    return out.reshape(b, -1, dt)
+
+
+def _heads(t, num_heads):
+    b, n, dt = t.shape
+    return t.float().reshape(b, n, num_heads, dt // num_heads)
+
+
+def _logits(q, k, key_mask, num_heads, masked_fill):
+    """f32 (B, H, N, M) logits of the compute-dtype inputs, masked keys
+    set to `masked_fill` (a float or a (B,) tensor)."""
+    dh = q.shape[-1] // num_heads
+    s = torch.einsum("bnhd,bmhd->bhnm", _heads(q, num_heads), _heads(k, num_heads)) / math.sqrt(dh)
+    if key_mask is None:
+        return s
+    fill = torch.as_tensor(masked_fill, dtype=s.dtype, device=s.device)
+    return torch.where(key_mask[:, None, None, :], s, fill.reshape(-1, 1, 1, 1))
+
+
+def _dead(key_mask):
+    """(B,) True where a batch element has no valid key."""
+    return ~key_mask.any(-1)
+
+
+def attention_lse_plain(q, k, v, key_mask=None, num_heads: int = 4):
+    """The plain version of the forward with LSE: `attention_plain` at f32
+    logits, and the f32 log-sum-exp of every row, (B, H, N), log(M) for a
+    dead batch element."""
+    s = _logits(q, k, key_mask, num_heads, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    if key_mask is not None:
+        lse = torch.where(_dead(key_mask)[:, None, None], math.log(k.shape[1]), lse)
+    return _softmax_v(s, v, num_heads), lse
+
+
+def attention_backward_plain(q, k, v, key_mask, lse, dout, num_heads: int = 4, delta=None):
+    """FA2's backward in f32, the plain version of the dK/dV and dQ
+    kernels: P = exp(S - lse) with masked logits at 0 in a dead element
+    and -inf elsewhere, dP = dO V^T, delta = rowsum(P * dP) / rowsum(P),
+    dS = P (dP - delta) * scale, 0 at masked keys; dQ = dS K, dK = dS^T Q,
+    dV = P^T dO. Returns (dq, dk, dv) in the inputs' dtype and (B, ., H*dh)
+    layout. A given `delta` (B, H, N) f32 replaces rowsum(P * dP), as when
+    FA2 takes rowsum(dO * O) from the stored output."""
+    b, n, dt = q.shape
+    m = k.shape[1]
+    scale = 1.0 / math.sqrt(dt // num_heads)
+    fill = -math.inf if key_mask is None else torch.where(_dead(key_mask), 0.0, -math.inf)
+    p = torch.exp(_logits(q, k, key_mask, num_heads, fill) - lse[..., None])
+    do = _heads(dout, num_heads)
+    dp = torch.einsum("bnhd,bmhd->bhnm", do, _heads(v, num_heads))
+    if delta is None:
+        delta = (p * dp).sum(-1, keepdim=True) / p.sum(-1, keepdim=True)
+    else:
+        delta = delta[..., None]
+    ds = p * (dp - delta) * scale
+    if key_mask is not None:
+        ds = ds.masked_fill(~key_mask[:, None, None, :], 0.0)
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, _heads(k, num_heads))
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, _heads(q, num_heads))
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, do)
+    return (dq.reshape(b, n, dt).to(q.dtype), dk.reshape(b, m, dt).to(k.dtype),
+            dv.reshape(b, m, dt).to(v.dtype))
+
+
+def attention_lse(q, k, v, key_mask=None, num_heads: int = 4):
+    """Forward with LSE, dispatched on the device: `csrc/attention.cu`
+    (LSE on) on the card, `attention_lse_plain` on the CPU. Returns
+    (out (B, N, H*dh), lse (B, H, N) f32)."""
+    if q.device.type == "cpu":
+        return attention_lse_plain(q, k, v, key_mask, num_heads)
+    return _attention_cuda(q, k, v, key_mask, num_heads, with_lse=True)
+
+
+def attention_backward(q, k, v, key_mask, lse, dout, num_heads: int = 4):
+    """(dq, dk, dv) of attention, dispatched on the device: the dQ and
+    dK/dV kernels of `csrc/attention_bwd.cu` on the card,
+    `attention_backward_plain` on the CPU. Both take delta as
+    rowsum(P * dP) / rowsum(P) from the backward's own P and dP, so that
+    every row of dS sums to 0 whatever the LSE's rounding, not as FA2's
+    rowsum(dO * O), so they need no output: in bf16 the rounded O leaves
+    every row's dS with a nonzero sum, a bias in dQ (`chip_smoke.py`
+    measures it on a training step's calls)."""
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, key_mask, lse, dout, num_heads)
+    return _attention_backward_cuda(q, k, v, key_mask, lse, dout, num_heads)
+
+
+class AttentionFunction(torch.autograd.Function):
+    """Differentiable masked multi-head attention: forward with LSE, FA2
+    backward, each on the inputs' device (kernels on the card, plain
+    versions on the CPU). The mask and the head count get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, num_heads):
+        out, lse = attention_lse(q, k, v, key_mask, num_heads)
+        ctx.save_for_backward(q, k, v, key_mask, lse)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_mask, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, key_mask, lse, dout, ctx.num_heads)
+        return dq, dk, dv, None, None
 
 
 def attention(q, k, v, key_mask=None, num_heads: int = 4,
               logits_dtype: str = "float32"):
-    """Dispatch on the tensors' device: the CUDA kernel on the card (any
-    key count; `logits_dtype` has no effect there), the plain version on
-    the CPU."""
+    """Under grad, when q, k or v requires grad: `AttentionFunction` (f32
+    logits). Otherwise dispatch on the tensors' device: the CUDA kernel on
+    the card (any key count; `logits_dtype` has no effect there), the
+    plain version on the CPU."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return AttentionFunction.apply(q, k, v, key_mask, num_heads)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, key_mask, num_heads, logits_dtype)
     return _attention_cuda(q, k, v, key_mask, num_heads)
@@ -76,7 +184,8 @@ def _check_operand(name, t, ref, rows):
         )
 
 
-def _attention_cuda(q, k, v, key_mask, num_heads):
+def _check_call(q, k, v, key_mask, num_heads):
+    """Validate what the kernels take; returns (b, n, m, dh)."""
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -94,21 +203,78 @@ def _attention_cuda(q, k, v, key_mask, num_heads):
         if (key_mask.dtype != torch.bool or tuple(key_mask.shape) != (b, m)
                 or key_mask.device != q.device or not key_mask.is_contiguous()):
             raise ValueError("attention: key_mask must be a contiguous (B, M) bool tensor on q's device")
-    dh = dt // num_heads
-    out = torch.empty((b, n, dt), dtype=q.dtype, device=q.device)
-    lib = _build.library("attention")
-    fn = lib.attention_bf16 if q.dtype == torch.bfloat16 else lib.attention_f32
-    i64, vp = ctypes.c_int64, ctypes.c_void_p
-    fn.argtypes = [vp, i64, i64] * 3 + [vp, vp] + [ctypes.c_int] * 5 + [ctypes.c_float, vp]
-    fn.restype = ctypes.c_int
+    return b, n, m, dt // num_heads
+
+
+def _qkv_args(q, k, v, key_mask):
     args = []
     for t in (q, k, v):
         args += [_build.ptr(t), t.stride(0), t.stride(1)]
-    mask_ptr = _build.ptr(key_mask) if key_mask is not None else vp(None)
-    _build.check(
-        fn(*args, mask_ptr, _build.ptr(out), b, n, m, num_heads, dh,
-           1.0 / math.sqrt(dh), _build.stream_ptr(q.device)),
-        "attention",
-    )
-    _build.LAUNCHES["attention"] += 1
-    return out
+    return args + [_build.ptr(key_mask) if key_mask is not None else ctypes.c_void_p(None)]
+
+
+_QKV_TYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] * 3 + [ctypes.c_void_p]
+_TAIL_TYPES = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def _attention_cuda(q, k, v, key_mask, num_heads, with_lse=False):
+    b, n, m, dh = _check_call(q, k, v, key_mask, num_heads)
+    dt = num_heads * dh
+    out = torch.empty((b, n, dt), dtype=q.dtype, device=q.device)
+    suffix = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    lib = _build.library("attention")
+    args = _qkv_args(q, k, v, key_mask) + [_build.ptr(out)]
+    if with_lse:
+        lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=q.device)
+        fn, name = getattr(lib, f"attention_lse_{suffix}"), "attention_lse"
+        args.append(_build.ptr(lse))
+    else:
+        fn, name = getattr(lib, f"attention_{suffix}"), "attention"
+    fn.argtypes = _QKV_TYPES + [ctypes.c_void_p] * (2 if with_lse else 1) + _TAIL_TYPES
+    fn.restype = ctypes.c_int
+    _build.check(fn(*args, b, n, m, num_heads, dh, 1.0 / math.sqrt(dh), _build.stream_ptr(q.device)), name)
+    _build.LAUNCHES[name] += 1
+    return (out, lse) if with_lse else out
+
+
+def _attention_backward_cuda(q, k, v, key_mask, lse, dout, num_heads):
+    b, n, m, dh = _check_call(q, k, v, key_mask, num_heads)
+    dt = num_heads * dh
+    if tuple(dout.shape) != (b, n, dt):
+        raise ValueError("attention backward: dout must be (B, N, H*dh) like q")
+    dout = dout.to(q.dtype).contiguous()
+    lse = lse.contiguous()
+    delta = torch.empty((b, num_heads, n), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, n, dt), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, m, dt), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, m, dt), dtype=q.dtype, device=q.device)
+    # the dQ kernel writes delta, which the dK/dV kernel reads
+    attention_backward_kernel("attention_dq", q, k, v, key_mask, dout, lse, delta, (dq,), num_heads)
+    attention_backward_kernel("attention_dkdv", q, k, v, key_mask, dout, lse, delta, (dk, dv), num_heads)
+    return dq, dk, dv
+
+
+def attention_backward_kernel(name, q, k, v, key_mask, dout, lse, delta, outs, num_heads):
+    """Launch one backward kernel of `csrc/attention_bwd.cu` on the card:
+    "attention_dq" into outs = (dq,), which also writes delta, or
+    "attention_dkdv" into (dk, dv), which reads the delta that the dQ
+    kernel wrote. dout (B, N, H*dh) is contiguous in q's dtype; lse and
+    delta are (B, H, N) f32; the outputs are contiguous in q's dtype."""
+    b, n, m, dh = _check_call(q, k, v, key_mask, num_heads)
+    dt = num_heads * dh
+    rows = {"attention_dkdv": (m, m), "attention_dq": (n,)}[name]
+    if dout.dtype != q.dtype or tuple(dout.shape) != (b, n, dt) or not dout.is_contiguous():
+        raise ValueError(f"{name}: dout must be a contiguous {q.dtype} {(b, n, dt)}")
+    for t in (lse, delta):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, num_heads, n) or not t.is_contiguous():
+            raise ValueError(f"{name}: lse and delta must be contiguous float32 {(b, num_heads, n)}")
+    for t, r in zip(outs, rows, strict=True):
+        if t.dtype != q.dtype or tuple(t.shape) != (b, r, dt) or not t.is_contiguous():
+            raise ValueError(f"{name}: outputs must be contiguous {q.dtype} {(b, r, dt)}")
+    suffix = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    fn = getattr(_build.library("attention_bwd"), f"{name}_{suffix}")
+    fn.argtypes = _QKV_TYPES + [ctypes.c_void_p] * (3 + len(outs)) + _TAIL_TYPES
+    fn.restype = ctypes.c_int
+    args = _qkv_args(q, k, v, key_mask) + [_build.ptr(t) for t in (dout, lse, delta, *outs)]
+    _build.check(fn(*args, b, n, m, num_heads, dh, 1.0 / math.sqrt(dh), _build.stream_ptr(q.device)), name)
+    _build.LAUNCHES[name] += 1

@@ -11,6 +11,10 @@ On a CUDA tensor `entry_conv` launches `csrc/entry_conv.cu`; on a CPU
 tensor it runs `entry_conv_plain`. Both round the image and the taps to
 the compute dtype and accumulate in f32, so they differ only in the
 order of the nine products and in one final rounding.
+
+Like the TPU kernel (`entry_h.py`, inference-only), the CUDA kernel has
+no backward: its wrapper raises under grad when an input requires grad,
+so the frozen detector of the trainer runs it under `torch.no_grad()`.
 """
 from __future__ import annotations
 
@@ -53,6 +57,8 @@ def entry_conv(img, w, scale, shift):
 def _entry_conv_cuda(img, w, scale, shift):
     if img.device.type != "cuda":
         raise ValueError(f"entry_conv: unsupported device {img.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (img, w, scale, shift)):
+        raise RuntimeError("entry_conv: the CUDA kernel has no backward; run it under torch.no_grad()")
     if img.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"entry_conv: image dtype {img.dtype} not in (bfloat16, float32)")
     if img.dim() != 3 or not img.is_contiguous():

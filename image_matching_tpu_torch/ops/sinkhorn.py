@@ -6,6 +6,15 @@ The counterpart of `image_matching_tpu/ops/sinkhorn.py`
 the masked marginals, `- norm` and the match extraction are plain torch;
 the iteration loop is `log_sinkhorn`, which launches `csrc/sinkhorn.cu`
 on a CUDA tensor and runs `log_sinkhorn_plain` on a CPU tensor.
+
+Training (`log_optimal_transport(..., train=True)`) runs
+`log_sinkhorn_scan` instead on every device: the counterpart of the JAX
+package's `lax.scan` loop (`ops/sinkhorn.log_sinkhorn`), which is what
+its trainer differentiates. The TPU kernel (`ops/pallas/sinkhorn.py`) is
+inference-only and has no backward, so the port has no Sinkhorn kernel
+for training either: the loop is plain torch ops that autograd records.
+The CUDA kernel's wrapper raises under grad rather than return a result
+that autograd cannot differentiate.
 """
 from __future__ import annotations
 
@@ -34,6 +43,19 @@ def log_sinkhorn_plain(z, log_mu, log_nu, iters: int):
     return z + u[:, :, None] + v[:, None, :]
 
 
+def log_sinkhorn_scan(z, log_mu, log_nu, iters: int):
+    """The differentiable loop of the JAX package's `log_sinkhorn`:
+    u = log_mu - logsumexp(z + v), v = log_nu - logsumexp(z + u), from
+    zeros, `iters` times; returns z + u + v."""
+    z = z.float()
+    u = torch.zeros_like(log_mu, dtype=torch.float32)
+    v = torch.zeros_like(log_nu, dtype=torch.float32)
+    for _ in range(iters):
+        u = log_mu - torch.logsumexp(z + v[:, None, :], dim=2)
+        v = log_nu - torch.logsumexp(z + u[:, :, None], dim=1)
+    return z + u[:, :, None] + v[:, None, :]
+
+
 def log_sinkhorn(z, log_mu, log_nu, iters: int):
     """Dispatch on the tensor's device: the CUDA kernels on the card (one
     call = 2 * iters + 1 launches), the plain loop on the CPU."""
@@ -45,6 +67,9 @@ def log_sinkhorn(z, log_mu, log_nu, iters: int):
 def _log_sinkhorn_cuda(z, log_mu, log_nu, iters):
     if z.device.type != "cuda":
         raise ValueError(f"log_sinkhorn: unsupported device {z.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (z, log_mu, log_nu)):
+        raise RuntimeError("log_sinkhorn: the CUDA kernel has no backward; train with "
+                           "log_optimal_transport(..., train=True)")
     if z.dim() != 3:
         raise ValueError(f"log_sinkhorn: need (B, M, N), got {tuple(z.shape)}")
     b, m, n = z.shape
@@ -71,9 +96,12 @@ def _log_sinkhorn_cuda(z, log_mu, log_nu, iters):
     return out
 
 
-def log_optimal_transport(scores, bin_score, iters: int = 100, mask0=None, mask1=None):
+def log_optimal_transport(scores, bin_score, iters: int = 100, mask0=None, mask1=None,
+                          train: bool = False):
     """(B, M, N) scores + scalar dustbin score -> (B, M+1, N+1)
-    log-coupling, scaled by the valid count as the reference's `Z - norm`."""
+    log-coupling, scaled by the valid count as the reference's `Z - norm`.
+    `train`: iterate with the differentiable `log_sinkhorn_scan` (the JAX
+    trainer's scan) instead of `log_sinkhorn`."""
     scores = scores.float()
     b, m, n = scores.shape
     dev = scores.device
@@ -98,7 +126,8 @@ def log_optimal_transport(scores, bin_score, iters: int = 100, mask0=None, mask1
                         (torch.log(ns.clamp_min(1e-12)) + norm)[:, None]], dim=-1)
     log_nu = torch.cat([torch.where(mask1, norm[:, None], neg),
                         (torch.log(ms.clamp_min(1e-12)) + norm)[:, None]], dim=-1)
-    z = log_sinkhorn(couplings, log_mu, log_nu, iters)
+    sinkhorn = log_sinkhorn_scan if train else log_sinkhorn
+    z = sinkhorn(couplings, log_mu, log_nu, iters)
     return z - norm[:, None, None]
 
 

@@ -17,8 +17,16 @@ by its collection and leaf alone:
 Both the `Matching` tree (`params::superpoint::...`,
 `params::superglue::...`) and the bare SuperPoint / SuperGlue trees of
 `weights/sp_*.npz` and `weights/sg_*.npz` map this way.
+
+`params_to_jax` and `save_npz` go the other way, so weights trained by
+the port load into the JAX package (`utils/weights.load_npz_into`). A
+state_dict `weight` is a conv kernel (4 dims), a dense kernel (2 dims)
+or a norm scale (1 dim).
 """
 from __future__ import annotations
+
+import io
+import os
 
 import numpy as np
 import torch
@@ -66,3 +74,35 @@ def load_npz(module: torch.nn.Module, path: str) -> None:
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     load_jax_params(module, flat)
+
+
+def params_to_jax(state_dict: dict) -> dict[str, np.ndarray]:
+    """Map a torch state_dict to the JAX package's flat variables dict
+    (f32 numpy arrays keyed by `::`-joined tree path)."""
+    flat = {}
+    for key, t in state_dict.items():
+        *path, leaf = key.split(".")
+        a = t.detach().float().cpu().numpy()
+        if leaf in ("running_mean", "running_var"):
+            coll, name = "batch_stats", leaf[len("running_"):]
+        elif leaf in ("bias", "bin_score"):
+            coll, name = "params", leaf
+        elif leaf == "weight" and a.ndim in (1, 2, 4):
+            coll, name = "params", "scale" if a.ndim == 1 else "kernel"
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        else:
+            raise KeyError(f"no JAX counterpart for state_dict entry {key!r} {tuple(a.shape)}")
+        flat[_SEP.join([coll, *path, name])] = np.array(a, order="C")
+    return flat
+
+
+def save_npz(module: torch.nn.Module, path: str) -> None:
+    """Write `module`'s weights as the JAX package's `save_npz` does: one
+    compressed npz keyed by tree path, written through one atomic rename."""
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **params_to_jax(module.state_dict()))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(buf.getvalue())
+    os.replace(tmp, path)

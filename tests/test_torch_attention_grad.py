@@ -1,0 +1,168 @@
+"""The port's differentiable attention (`AttentionFunction`: forward with
+LSE, FA2 backward; plain versions on the CPU) against the JAX package:
+the Pallas forward-with-LSE and flash backward (interpreted on the CPU),
+and `jax.vjp` of the einsum oracle `attention_reference_heads`.
+
+All in f32. The two sides differ in summation order (and the Pallas
+backward takes delta = rowsum(dO * O) where the port takes
+rowsum(P * dP) / rowsum(P), equal in exact arithmetic): 2e-5 on outputs,
+LSE and gradients of O(1) inputs.
+
+A batch element with no valid key is held to the einsum oracle (output
+mean(V), dV = sum dO / M, dQ = dK = 0), not to the Pallas flash kernel,
+whose LSE rounds to -1e9 there and whose dS is not zeroed at masked keys:
+flash comparisons cover the live elements only.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from image_matching_tpu.ops.pallas.attention import (
+    _auto_blocks,
+    _flash_forward_with_lse,
+    attention_reference_heads,
+    flash_attention,
+)
+from image_matching_tpu_torch.ops.attention import (
+    AttentionFunction,
+    attention,
+    attention_backward_plain,
+    attention_lse,
+    attention_plain,
+)
+
+HEADS = 4
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _inputs(b, n, m, dh, seed, dead=False):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(b, x, HEADS * dh)).astype(np.float32) for x in (n, m, m))
+    mask = rng.uniform(size=(b, m)) < 0.7
+    mask[:, 0] = True
+    if dead:
+        mask[-1] = False
+    g = rng.normal(size=(b, n, HEADS * dh)).astype(np.float32)
+    return q, k, v, mask, g
+
+
+def _fold(x, b, dh):
+    """(B, N, H*dh) -> (B*H, N, dh), the Pallas kernels' layout."""
+    return x.reshape(b, -1, HEADS, dh).transpose(0, 2, 1, 3).reshape(b * HEADS, -1, dh)
+
+
+def _unfold(x, b, dh):
+    return x.reshape(b, HEADS, -1, dh).transpose(0, 2, 1, 3).reshape(b, -1, HEADS * dh)
+
+
+def _port_grads(q, k, v, mask, g):
+    """Output and (dq, dk, dv) of sum(out * g) through `attention` under grad."""
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = attention(tq, tk, tv, torch.from_numpy(mask), HEADS)
+    assert out.grad_fn is not None and "AttentionFunction" in type(out.grad_fn).__name__
+    (out * torch.from_numpy(g)).sum().backward()
+    return out.detach().numpy(), tq.grad.numpy(), tk.grad.numpy(), tv.grad.numpy()
+
+
+@pytest.mark.parametrize("dh", [16, 32])
+@pytest.mark.parametrize("n,m", [(40, 50), (70, 33)])
+def test_forward_lse_matches_pallas(dh, n, m):
+    b = 2
+    q, k, v, mask, _ = _inputs(b, n, m, dh, seed=dh + n)
+    out, lse = attention_lse(*(torch.from_numpy(a) for a in (q, k, v, mask)), num_heads=HEADS)
+    assert lse.shape == (b, HEADS, n) and lse.dtype == torch.float32
+    bq, bk = _auto_blocks(n, m)
+    ref_out, ref_lse = _flash_forward_with_lse(
+        *(jnp.asarray(_fold(a, b, dh)) for a in (q, k, v)), jnp.repeat(jnp.asarray(mask), HEADS, 0),
+        None, bq, bk)
+    np.testing.assert_allclose(out.numpy(), _unfold(np.asarray(ref_out), b, dh), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[:, 0, :n].reshape(b, HEADS, n), **TOL)
+
+
+@pytest.mark.parametrize("dh", [16, 32])
+@pytest.mark.parametrize("n,m", [(40, 50), (70, 33)])
+def test_gradients_match_pallas_flash_on_live_elements(dh, n, m):
+    b = 2
+    q, k, v, mask, g = _inputs(b, n, m, dh, seed=3 * dh + m)
+    out, dq, dk, dv = _port_grads(q, k, v, mask, g)
+    km = jnp.repeat(jnp.asarray(mask), HEADS, 0)
+    gf = jnp.asarray(_fold(g, b, dh))
+    ref_out, vjp = jax.vjp(lambda a, c, d: flash_attention(a, c, d, km),
+                           *(jnp.asarray(_fold(a, b, dh)) for a in (q, k, v)))
+    np.testing.assert_allclose(out, _unfold(np.asarray(ref_out), b, dh), **TOL)
+    for got, ref in zip((dq, dk, dv), vjp(gf)):
+        np.testing.assert_allclose(got, _unfold(np.asarray(ref), b, dh), **TOL)
+
+
+@pytest.mark.parametrize("dh", [16, 32])
+def test_plain_backward_with_fa2_delta_matches_pallas(dh):
+    # given FA2's delta = rowsum(dO * O), the plain backward is the Pallas
+    # flash backward's function
+    b, n, m = 2, 40, 50
+    q, k, v, mask, g = _inputs(b, n, m, dh, seed=7 * dh)
+    tq, tk, tv, tmask, tg = map(torch.from_numpy, (q, k, v, mask, g))
+    out, lse = attention_lse(tq, tk, tv, tmask, HEADS)
+    delta = (out * tg).reshape(b, n, HEADS, dh).sum(-1).transpose(1, 2)
+    got = attention_backward_plain(tq, tk, tv, tmask, lse, tg, HEADS, delta)
+    km = jnp.repeat(jnp.asarray(mask), HEADS, 0)
+    _, vjp = jax.vjp(lambda a, c, d: flash_attention(a, c, d, km),
+                     *(jnp.asarray(_fold(a, b, dh)) for a in (q, k, v)))
+    for have, ref in zip(got, vjp(jnp.asarray(_fold(g, b, dh)))):
+        np.testing.assert_allclose(have.numpy(), _unfold(np.asarray(ref), b, dh), **TOL)
+
+
+@pytest.mark.parametrize("dh", [16, 32])
+@pytest.mark.parametrize("n,m", [(40, 50), (70, 33)])
+def test_gradients_match_einsum_oracle_with_a_dead_element(dh, n, m):
+    b = 3
+    q, k, v, mask, g = _inputs(b, n, m, dh, seed=5 * dh + n, dead=True)
+    out, dq, dk, dv = _port_grads(q, k, v, mask, g)
+    ref_out, vjp = jax.vjp(
+        lambda a, c, d: attention_reference_heads(a, c, d, jnp.asarray(mask), num_heads=HEADS),
+        *map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(out, np.asarray(ref_out), **TOL)
+    for got, ref in zip((dq, dk, dv), vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+    # the dead element: uniform softmax, no gradient through the logits
+    np.testing.assert_allclose(out[-1], np.broadcast_to(v[-1].mean(0), out[-1].shape), **TOL)
+    np.testing.assert_allclose(dv[-1], np.broadcast_to(g[-1].sum(0) / m, dv[-1].shape), **TOL)
+    assert not dq[-1].any() and not dk[-1].any()
+
+
+@pytest.mark.parametrize("dead", [False, True])
+def test_gradients_match_torch_autograd_of_plain(dead):
+    b, n, m, dh = 3, 45, 60, 32
+    q, k, v, mask, g = _inputs(b, n, m, dh, seed=11, dead=dead)
+    out, dq, dk, dv = _port_grads(q, k, v, mask, g)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    ref = attention_plain(tq, tk, tv, torch.from_numpy(mask), HEADS, "float32")
+    (ref * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(out, ref.detach().numpy(), **TOL)
+    for got, want in zip((dq, dk, dv), (tq.grad, tk.grad, tv.grad)):
+        np.testing.assert_allclose(got, want.numpy(), **TOL)
+
+
+def test_no_mask_and_strided_views():
+    # q/k/v as views of one fused projection, no mask
+    b, n, dh = 2, 30, 16
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * HEADS * dh)).astype(np.float32)).requires_grad_()
+    d = HEADS * dh
+    out = AttentionFunction.apply(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], None, HEADS)
+    out.square().sum().backward()
+    ref_qkv = qkv.detach().clone().requires_grad_()
+    ref = attention_plain(ref_qkv[..., :d], ref_qkv[..., d:2 * d], ref_qkv[..., 2 * d:], None, HEADS)
+    ref.square().sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(), **TOL)
+    np.testing.assert_allclose(qkv.grad.numpy(), ref_qkv.grad.numpy(), **TOL)
+
+
+def test_inference_path_outside_grad():
+    # without grad, `attention` keeps the inference path: no autograd node
+    q, k, v, mask, _ = _inputs(2, 20, 20, 16, seed=13)
+    tq = torch.from_numpy(q).requires_grad_()
+    with torch.no_grad():
+        out = attention(tq, torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(mask), HEADS)
+    assert out.grad_fn is None

@@ -5,14 +5,30 @@ torch has no CUDA device. Run them on a machine with an H100 with
 `python -m pytest tests/test_torch_gpu.py -m gpu -q`. TF32 is off, so
 f32 references are full f32.
 """
+import math
+from unittest import mock
+
 import pytest
 import torch
 
-from image_matching_tpu_torch.models import Matching, MatchingConfig
+from image_matching_tpu_torch.models import Matching, MatchingConfig, SuperGlue, SuperPointBN
 from image_matching_tpu_torch.ops import _build
-from image_matching_tpu_torch.ops.attention import attention, attention_plain
+from image_matching_tpu_torch.ops import attention as attention_ops
+from image_matching_tpu_torch.ops.attention import (
+    attention,
+    attention_backward,
+    attention_backward_plain,
+    attention_lse,
+    attention_lse_plain,
+    attention_plain,
+)
 from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_plain
 from image_matching_tpu_torch.ops.sinkhorn import log_sinkhorn, log_sinkhorn_plain
+from image_matching_tpu_torch.train.state import TrainState
+from image_matching_tpu_torch.train.superglue_trainer import (
+    SuperGluePairConfig,
+    make_superglue_train_step,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -107,3 +123,137 @@ def test_matching_runs_through_the_kernels(cuda):
     assert dict(_build.LAUNCHES) == {"entry_conv": 1, "attention": 8, "sinkhorn": 1}
     assert out["log_coupling"].shape == (2, 129, 129)
     assert torch.isfinite(out["log_coupling"]).all()
+
+
+def _attention_case(cuda, dh, dtype, b=3, n=70, m=133, h=4):
+    """q, k, v as row-strided views of fused projections; a mask with one
+    batch element that has no valid key; an upstream gradient."""
+    g = _gen()
+    q = torch.randn(b, n, 3 * h * dh, generator=g).to(cuda, dtype)[..., h * dh:2 * h * dh]
+    src = torch.randn(b, m, 2 * h * dh, generator=g).to(cuda, dtype)
+    k, v = src[..., :h * dh], src[..., h * dh:]
+    mask = torch.rand(b, m, generator=g) < 0.6
+    mask[-1] = False
+    dout = torch.randn(b, n, h * dh, generator=g).to(cuda, dtype)
+    return q, k, v, mask.to(cuda), dout
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_forward_with_lse_kernel(cuda, dh, dtype):
+    q, k, v, mask, _ = _attention_case(cuda, dh, dtype)
+    before = _build.LAUNCHES["attention_lse"]
+    out, lse = attention_lse(q, k, v, mask, 4)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["attention_lse"] == before + 1
+    ref_out, ref_lse = attention_lse_plain(q, k, v, mask, 4)
+    # f32 logits on both sides; the kernel's exponentials are the fast
+    # approximations, and bf16 rounds the probabilities for the value
+    # product on both sides in another order
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=2e-4 if dtype == torch.bfloat16 else 1e-5)
+    torch.testing.assert_close(lse[-1], torch.full_like(lse[-1], math.log(k.shape[1])))
+
+
+def _assert_backward_close(got, ref, dtype):
+    """bf16 rounds P for dV's tensor-core product (f32 on the plain side),
+    and dS enters dQ and dK as a bf16 part plus its residue: at most a few
+    bf16 steps of the largest gradient entry. f32: full f32. Returns the
+    tolerance."""
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, r in zip(got, ref, strict=True):
+        assert a.dtype == dtype and a.shape == r.shape and a.is_contiguous()
+        assert ((a.float() - r.float()).abs().max() / r.float().abs().max()) <= tol
+    return tol
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_backward_kernels(cuda, dh, dtype):
+    q, k, v, mask, dout = _attention_case(cuda, dh, dtype)
+    _, lse = attention_lse_plain(q, k, v, mask, 4)
+    before = dict(_build.LAUNCHES)
+    got = attention_backward(q, k, v, mask, lse, dout, 4)
+    torch.cuda.synchronize()
+    for name in ("attention_dkdv", "attention_dq"):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+    tol = _assert_backward_close(got, attention_backward_plain(q, k, v, mask, lse, dout, 4), dtype)
+    dq, dk, dv = got
+    # the dead element: dQ = dK = 0, dV = sum(dO) / M
+    assert not dq[-1].float().any() and not dk[-1].float().any()
+    torch.testing.assert_close(dv[-1].float(), (dout[-1].float().sum(0) / k.shape[1]).expand_as(dv[-1]),
+                               rtol=tol, atol=tol)
+
+
+def test_attention_function_under_grad_uses_the_kernels(cuda):
+    q, k, v, mask, dout = _attention_case(cuda, 32, torch.bfloat16)
+    q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    _build.reset_launch_counts()
+    out = attention(q, k, v, mask, 4)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"attention_lse": 1, "attention_dkdv": 1, "attention_dq": 1}
+    assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+def test_kernels_without_backward_raise_under_grad(cuda):
+    img = torch.rand(2, 8, 8, device=cuda, requires_grad=True)
+    w = torch.zeros(3, 3, 1, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        entry_conv(img, w, torch.ones(64, device=cuda), torch.zeros(64, device=cuda))
+    z = torch.zeros(1, 3, 3, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        log_sinkhorn(z, torch.zeros(1, 3, device=cuda), torch.zeros(1, 3, device=cuda), 2)
+    with torch.no_grad():
+        entry_conv(img, w, torch.ones(64, device=cuda), torch.zeros(64, device=cuda))
+
+
+def test_train_step_runs_through_the_kernels(cuda):
+    layers = 2
+    sp = SuperPointBN(64, compute_dtype="bfloat16", seed=0)
+    sg = SuperGlue(64, (16, 32), gnn_layers=layers, sinkhorn_iterations=10,
+                   compute_dtype="bfloat16", seed=1)
+    state = TrainState.create(sg, 1e-3)
+    step = make_superglue_train_step(sg, sp, SuperGluePairConfig(max_keypoints=64))
+    images = torch.rand(2, 64, 96, 1, generator=_gen()).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    _build.reset_launch_counts()
+    metrics = step(state, images, gen)
+    torch.cuda.synchronize()
+    n = 2 * layers  # two sides per layer
+    assert dict(_build.LAUNCHES) == {"entry_conv": 1, "attention_lse": n, "attention_dkdv": n,
+                                     "attention_dq": n}
+    assert metrics["skipped_nonfinite"] == 0 and torch.isfinite(metrics["loss"])
+    assert state.step == 1
+
+
+def test_train_step_backward_calls_match_plain(cuda):
+    # each attention backward of a bf16 train step, on the model's own
+    # inputs, against the plain version
+    layers = 2
+    sp = SuperPointBN(64, compute_dtype="bfloat16", seed=0)
+    sg = SuperGlue(64, (16, 32), gnn_layers=layers, sinkhorn_iterations=10,
+                   compute_dtype="bfloat16", seed=1)
+    step = make_superglue_train_step(sg, sp, SuperGluePairConfig(max_keypoints=64))
+    images = torch.rand(2, 64, 96, 1, generator=_gen()).to(cuda)
+    calls, real = [], attention_ops.attention_backward
+
+    def record(*args):
+        calls.append(tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return real(*args)
+
+    with mock.patch.object(attention_ops, "attention_backward", record):
+        step(TrainState.create(sg, 1e-3), images, torch.Generator(device=cuda).manual_seed(0))
+    assert len(calls) == 2 * layers
+    for args in calls:
+        got = attention_backward(*args)
+        _assert_backward_close(got, attention_backward_plain(*args), torch.bfloat16)
+        # and the exact gradient of the call, autograd of the plain
+        # attention on the f32 upcast of its inputs: same direction
+        q, k, v, mask, _, dout, h = args
+        qkv = [t.float().requires_grad_() for t in (q, k, v)]
+        exact = torch.autograd.grad(attention_plain(*qkv, mask, h, "float32"), qkv, dout.float())
+        for a, e in zip(got, exact, strict=True):
+            a = a.float().flatten()
+            assert (a @ e.flatten()) / (a.norm() * e.norm()) >= 0.99

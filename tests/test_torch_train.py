@@ -1,0 +1,389 @@
+"""The port's SuperGlue training slice (plain CPU path) against the JAX
+package on the same inputs and weights: the masked batch norm's training
+statistics, SuperGlue's training forward and gradients, the loss, the
+ground truth, the geometry, Adam and one full train step.
+
+Everything runs in f32 with JAX's implementation knobs pinned (einsum
+attention, scan Sinkhorn, f32 logits, `s2d=False`). Tolerances:
+  * integer results (ground truth, keypoints, counts) and the match
+    metrics are exact; the loss, a sum in another order, is one rounding
+    apart;
+  * one f32 op chain (geometry, batch norm, Adam) is held to 1e-5 / 1e-6,
+    its rounding differences, except the 4-point DLT solve (1e-4, see
+    there);
+  * a whole SuperGlue forward and backward (a few layers, a 20-iteration
+    Sinkhorn) is held to 1e-4: sums in another order, compounded;
+  * after one train step, Adam's first update is -lr * g / (|g| + eps),
+    about -lr * sign(g). Where the gradient stands well above rounding
+    noise, the two sides' updates are held to rtol 1e-3 (the f32 rounding
+    of a parameter of a few units is 5e-4 of lr); a gradient entry near
+    0, whose sign is rounding noise, may move a parameter by up to lr
+    either way on either side, so there the parameters are held to 2 * lr.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from image_matching_tpu.geometry import homography as jh
+from image_matching_tpu.geometry.warp import warp_image as jax_warp_image
+from image_matching_tpu.losses import superglue_loss as jl
+from image_matching_tpu.models.common import MaskedBatchNorm1d as JaxMaskedBN
+from image_matching_tpu.models.superglue import SuperGlue as JaxSuperGlue
+from image_matching_tpu.models.superpoint import SuperPointBN as JaxSuperPointBN
+from image_matching_tpu.structs import Keypoints as JaxKeypoints
+from image_matching_tpu.train import create_train_state, make_superglue_train_step as jax_make_step
+from image_matching_tpu.train.metrics import matching_precision_recall as jax_pr
+from image_matching_tpu.train.superglue_trainer import SuperGluePairConfig as JaxPairConfig
+from image_matching_tpu.train.superglue_trainer import generate_pair
+from image_matching_tpu.utils.weights import flatten_tree, load_npz_into
+from image_matching_tpu_torch.geometry import homography as th
+from image_matching_tpu_torch.geometry.warp import warp_image
+from image_matching_tpu_torch.losses.superglue_loss import make_gt_matches, superglue_nll_loss
+from image_matching_tpu_torch.models import SuperGlue, SuperPointBN
+from image_matching_tpu_torch.models.common import MaskedBatchNorm1d
+from image_matching_tpu_torch.structs import Keypoints
+from image_matching_tpu_torch.train.metrics import matching_precision_recall
+from image_matching_tpu_torch.train.state import TrainState
+from image_matching_tpu_torch.train.superglue_trainer import (
+    SuperGluePairConfig,
+    generate_pair_from_homographies,
+    make_superglue_train_step,
+    train_on_pair,
+)
+from image_matching_tpu_torch.weights import load_jax_params, params_to_jax, save_npz
+
+SG_KW = dict(descriptor_dim=32, keypoint_encoder=(8, 16), gnn_layers=2, sinkhorn_iterations=20)
+T = torch.from_numpy
+# jitted: op-by-op JAX would dominate the tests' time
+jax_generate_pair = jax.jit(generate_pair, static_argnums=(1, 4))
+
+
+def _np(t):
+    return t.detach().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _perturb(variables, seed):
+    """Non-trivial statistics and norm affines."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        name = str(path[-1].key)
+        if name == "var":
+            return jnp.asarray(rng.uniform(0.5, 2.0, x.shape).astype(np.float32))
+        if name in ("mean", "bias"):
+            return jnp.asarray(rng.normal(0, 0.1, x.shape).astype(np.float32))
+        if name == "scale":
+            return jnp.asarray(rng.normal(1, 0.1, x.shape).astype(np.float32))
+        return x
+
+    return jax.tree_util.tree_map_with_path(leaf, variables)
+
+
+def _keypoint_pair(seed, b=2, k=24, d=32):
+    """Two masked keypoint sets where about half of set 1 lies within a
+    pixel of a point of set 0; returns JAX and port Keypoints of both."""
+    rng = np.random.default_rng(seed)
+    xy0 = rng.uniform(4, 60, (b, k, 2)).astype(np.float32)
+    xy1 = rng.uniform(4, 60, (b, k, 2)).astype(np.float32)
+    near = rng.uniform(size=(b, k)) < 0.5
+    xy1[near] = xy0[:, ::-1][near] + rng.uniform(-1, 1, (near.sum(), 2)).astype(np.float32)
+    sides = []
+    for xy, n_valid in ((xy0, (k, k - 5)), (xy1, (k - 3, k))):
+        mask = np.arange(k)[None] < np.asarray(n_valid)[:, None]
+        score = (rng.uniform(0.1, 1, (b, k)) * mask).astype(np.float32)
+        desc = rng.normal(size=(b, k, d)).astype(np.float32)
+        desc = desc / np.linalg.norm(desc, axis=-1, keepdims=True) * mask[..., None]
+        arrays = dict(xy=xy, score=score, mask=mask, desc=desc)
+        sides.append((JaxKeypoints(**{n: jnp.asarray(a) for n, a in arrays.items()}),
+                      Keypoints(**{n: T(a) for n, a in arrays.items()})))
+    return sides
+
+
+# ---------------------------------------------------------------- batch norm
+
+def test_masked_batch_norm_training_matches_flax():
+    rng = np.random.default_rng(0)
+    xs = [rng.normal(1.0, 2.0, (3, 10, 6)).astype(np.float32) for _ in range(2)]
+    mask = rng.uniform(size=(3, 10)) < 0.7
+    jm = JaxMaskedBN()
+    v = _perturb(jm.init(jax.random.PRNGKey(0), jnp.asarray(xs[0]), jnp.asarray(mask), False), 1)
+    tm = MaskedBatchNorm1d(6)
+    load_jax_params(tm, flatten_tree(v))
+    for x in xs:  # two successive calls: the second starts from the first's statistics
+        ref, state = jm.apply(v, jnp.asarray(x), jnp.asarray(mask), True, mutable=["batch_stats"])
+        v = {"params": v["params"], **state}
+        got = tm(T(x), T(mask), train=True)
+        np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(_np(tm.running_mean), np.asarray(state["batch_stats"]["mean"]), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(_np(tm.running_var), np.asarray(state["batch_stats"]["var"]), rtol=1e-6, atol=1e-6)
+    # inference ignores the mask and uses the running statistics
+    ref = jm.apply(v, jnp.asarray(xs[0]), None, False)
+    np.testing.assert_allclose(_np(tm(T(xs[0]))), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------- SuperGlue
+
+def _jax_sg_value_and_grad(jm, shape):
+    def loss_fn(params, batch_stats, j0, j1, gt0, gt1):
+        out, state = jm.apply({"params": params, "batch_stats": batch_stats}, j0, j1, shape, shape,
+                              train=True, mutable=["batch_stats"])
+        loss = jl.superglue_nll_loss(out["log_coupling"], gt0, gt1, j0.mask, j1.mask)
+        return loss, (out, state["batch_stats"])
+
+    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+
+
+def test_superglue_training_forward_and_gradients_match_jax():
+    (j0, t0), (j1, t1) = _keypoint_pair(1)
+    shape = (48, 64)
+    gt0, gt1 = jl.make_gt_matches(j0.xy, j1.xy, j0.mask, j1.mask, 3.0)
+    assert int(jnp.sum(gt0 < 24)) > 5
+    jm = JaxSuperGlue(**SG_KW, attention_impl="einsum", sinkhorn_impl="scan", logits_dtype="float32")
+    v = _perturb(jm.init(jax.random.PRNGKey(3), j0, j1, shape, shape), 4)
+    (loss, (out, new_bs)), grads = _jax_sg_value_and_grad(jm, shape)(
+        v["params"], v["batch_stats"], j0, j1, gt0, gt1)
+
+    tm = SuperGlue(**SG_KW, device="cpu")
+    load_jax_params(tm, flatten_tree(v))
+    got = tm(t0, t1, shape, shape, train=True)
+    tloss = superglue_nll_loss(got["log_coupling"], T(np.array(gt0)), T(np.array(gt1)), t0.mask, t1.mask)
+    tloss.backward()
+    np.testing.assert_allclose(_np(got["log_coupling"]), np.asarray(out["log_coupling"]), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(tloss.detach()), float(loss), rtol=1e-5)
+
+    want = flatten_tree({"params": grads})
+    have = params_to_jax({n: p.grad for n, p in tm.named_parameters()})
+    assert set(have) == set(want)
+    # relative to the largest gradient entry: the biases ahead of a batch
+    # norm have a gradient of 0 in exact arithmetic, so both sides hold
+    # only rounding noise there
+    scale = max(np.abs(g).max() for g in want.values())
+    for key in want:
+        np.testing.assert_allclose(have[key] / scale, want[key] / scale, atol=1e-4, err_msg=key)
+    stats = {k: v for k, v in params_to_jax(tm.state_dict()).items() if k.startswith("batch_stats")}
+    want_stats = flatten_tree({"batch_stats": new_bs})
+    assert set(stats) == set(want_stats)
+    for key in want_stats:
+        np.testing.assert_allclose(stats[key], want_stats[key], rtol=1e-5, atol=1e-6, err_msg=key)
+
+
+def test_inference_path_unchanged_by_training_flag():
+    # train=False keeps the inference path: running statistics untouched,
+    # no autograd graph
+    (_, t0), (_, t1) = _keypoint_pair(2)
+    tm = SuperGlue(**SG_KW, device="cpu")
+    before = {k: v.clone() for k, v in tm.state_dict().items()}
+    with torch.no_grad():
+        a = tm(t0, t1, (48, 64), (48, 64))
+    assert all(torch.equal(before[k], v) for k, v in tm.state_dict().items())
+    assert a["log_coupling"].grad_fn is None
+    tm(t0, t1, (48, 64), (48, 64), train=True)
+    assert not torch.equal(before["kenc.MaskedBatchNorm1d_0.running_mean"],
+                           tm.kenc.MaskedBatchNorm1d_0.running_mean)
+
+
+# ---------------------------------------------------------------- loss, GT, metrics
+
+def test_gt_loss_and_metrics_exact():
+    (j0, t0), (j1, t1) = _keypoint_pair(5)
+    rng = np.random.default_rng(6)
+    xy0w = np.asarray(j0.xy) + rng.uniform(-1, 1, j0.xy.shape).astype(np.float32)
+    rgt0, rgt1 = jl.make_gt_matches(jnp.asarray(xy0w), j1.xy, j0.mask, j1.mask, 3.0)
+    gt0, gt1 = make_gt_matches(T(xy0w), t1.xy, t0.mask, t1.mask, 3.0)
+    assert gt0.dtype == torch.int32 and gt1.dtype == torch.int32
+    np.testing.assert_array_equal(_np(gt0), np.asarray(rgt0))
+    np.testing.assert_array_equal(_np(gt1), np.asarray(rgt1))
+    assert (_np(gt0) < 24).sum() > 5
+
+    # the loss sums ~50 f32 terms in another order: one rounding apart
+    z = rng.normal(-3, 1, (2, 25, 25)).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(superglue_nll_loss(T(z), gt0, gt1, t0.mask, t1.mask)),
+        np.asarray(jl.superglue_nll_loss(jnp.asarray(z), rgt0, rgt1, j0.mask, j1.mask)), rtol=1e-6)
+
+    m0 = np.where(rng.uniform(size=(2, 24)) < 0.5, np.asarray(rgt0), rng.integers(-1, 24, (2, 24)))
+    m0 = np.where(m0 == 24, -1, m0).astype(np.int32)
+    want = jax_pr(jnp.asarray(m0), rgt0, j0.mask, 24)
+    have = matching_precision_recall(T(m0), gt0, t0.mask, 24)
+    for key in want:
+        np.testing.assert_array_equal(_np(have[key]), np.asarray(want[key]))
+
+
+# ---------------------------------------------------------------- geometry
+
+def test_homography_geometry_matches_jax():
+    rng = np.random.default_rng(7)
+    src = rng.uniform(0, 64, (3, 4, 2)).astype(np.float32)
+    dst = (src + rng.uniform(-8, 8, src.shape)).astype(np.float32)
+    hs = th.homography_from_4pts(T(src), T(dst))
+    ref = np.array(jh.homography_from_4pts(jnp.asarray(src), jnp.asarray(dst)))
+    # the DLT system at pixel scale mixes entries of 1 and ~4e3, so two f32
+    # LU solves agree to a few 1e-5 relative: 1e-4 here, 1e-5 elsewhere
+    np.testing.assert_allclose(_np(hs), ref, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(_np(th.warp_points(T(src), hs)), dst, rtol=1e-4, atol=1e-3)
+
+    inv = th.invert_homography(T(ref))
+    np.testing.assert_allclose(_np(inv), np.asarray(jh.invert_homography(jnp.asarray(ref))), rtol=1e-5, atol=1e-5)
+    pts = rng.uniform(0, 64, (3, 50, 2)).astype(np.float32)
+    np.testing.assert_allclose(_np(th.warp_points(T(pts), T(ref))),
+                               np.asarray(jh.warp_points(jnp.asarray(pts), jnp.asarray(ref))), rtol=1e-5, atol=1e-5)
+
+    img = rng.uniform(0, 1, (3, 40, 56, 2)).astype(np.float32)
+    np.testing.assert_allclose(_np(warp_image(T(img), inv)),
+                               np.asarray(jax_warp_image(jnp.asarray(img), jnp.asarray(_np(inv)))),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_homography_sampler_properties():
+    h, w = 60, 80
+    cfg = th.HomographyConfig(patch_ratio=0.7)
+    a = th.sample_homography_batch(torch.Generator().manual_seed(3), 16, h, w, cfg)
+    b = th.sample_homography_batch(torch.Generator().manual_seed(3), 16, h, w, cfg)
+    c = th.sample_homography_batch(torch.Generator().manual_seed(4), 16, h, w, cfg)
+    assert a.shape == (16, 3, 3) and torch.equal(a, b) and not torch.equal(a, c)
+    # without artifacts the image's corners land inside the image
+    corners = torch.tensor([[0.0, 0.0], [0.0, h], [w, h], [w, 0.0]]).expand(16, 4, 2)
+    warped = th.warp_points(corners, a)
+    assert (warped >= -1e-3).all() and (warped[..., 0] <= w + 1e-3).all() and (warped[..., 1] <= h + 1e-3).all()
+    # every flag off and the whole image as the patch: the identity
+    off = th.HomographyConfig(perspective=False, scaling=False, rotation=False, translation=False,
+                              patch_ratio=1.0)
+    eye = th.sample_homography(torch.Generator().manual_seed(0), h, w, off)
+    np.testing.assert_allclose(_np(eye), np.eye(3), atol=1e-5)
+    # with artifacts (the trainer's setting) the draws vary and stay finite
+    hs = th.sample_homography_batch(torch.Generator().manual_seed(1), 16, h, w,
+                                    SuperGluePairConfig().homography)
+    assert torch.isfinite(hs).all() and hs.std(0).max() > 0
+
+
+# ---------------------------------------------------------------- pair generation and steps
+
+def _superpoint_pair():
+    """JAX and port SuperPointBN (D=32, f32) on the same perturbed weights."""
+    jm = JaxSuperPointBN(descriptor_dim=32, s2d=False)
+    v = _perturb(jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 48, 64, 1))), 1)
+    tm = SuperPointBN(32, device="cpu")
+    load_jax_params(tm, flatten_tree(v))
+    return jm, v, tm
+
+
+def _images(seed, b=2, h=48, w=64):
+    return np.random.default_rng(seed).uniform(0, 1, (b, h, w, 1)).astype(np.float32)
+
+
+JAX_CFG = JaxPairConfig(max_keypoints=32, keypoint_threshold=0.0)
+PORT_CFG = SuperGluePairConfig(max_keypoints=32, keypoint_threshold=0.0)
+
+
+def test_generate_pair_matches_jax_on_its_homographies():
+    jm, v, tm = _superpoint_pair()
+    images = _images(2)
+    key = jax.random.PRNGKey(3)
+    hs = jh.sample_homography_batch(jax.random.split(key, 3)[0], 2, 48, 64, JAX_CFG.homography)
+    rk0, rk1, rgt0, rgt1, rwarped = jax_generate_pair(key, jm, v, jnp.asarray(images), JAX_CFG)
+    k0, k1, gt0, gt1, warped = generate_pair_from_homographies(T(np.array(hs)), tm, T(images), PORT_CFG)
+    np.testing.assert_allclose(_np(warped), np.asarray(rwarped), rtol=1e-5, atol=1e-5)
+    for got, ref in ((k0, rk0), (k1, rk1)):
+        np.testing.assert_array_equal(_np(got.mask), np.asarray(ref.mask))
+        np.testing.assert_array_equal(_np(got.xy), np.asarray(ref.xy))
+        np.testing.assert_allclose(_np(got.desc), np.asarray(ref.desc), rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(_np(gt0), np.asarray(rgt0))
+    np.testing.assert_array_equal(_np(gt1), np.asarray(rgt1))
+    assert (_np(gt0) < 32).sum() > 0
+
+
+def test_adam_step_matches_optax():
+    rng = np.random.default_rng(8)
+    p0 = rng.normal(size=(5, 7)).astype(np.float32)
+    grads = [rng.normal(size=p0.shape).astype(np.float32) * s for s in (1.0, 1e-3, 10.0)]
+    param = torch.nn.Parameter(T(p0.copy()))
+    opt = torch.optim.Adam([param], lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+    tx = optax.adam(1e-3)
+    ref, opt_state = jnp.asarray(p0), tx.init(jnp.asarray(p0))
+    for g in grads:
+        param.grad = T(g)
+        opt.step()
+        upd, opt_state = tx.update(jnp.asarray(g), opt_state, ref)
+        ref = optax.apply_updates(ref, upd)
+        np.testing.assert_allclose(_np(param), np.asarray(ref), rtol=1e-6, atol=1e-7)
+
+
+def test_train_step_matches_jax():
+    jm_sp, sp_vars, tm_sp = _superpoint_pair()
+    images = _images(9)
+    key = jax.random.PRNGKey(5)
+    lr = 1e-3
+    jsg = JaxSuperGlue(**SG_KW)
+    rk0, rk1, _, _, _ = jax_generate_pair(key, jm_sp, sp_vars, jnp.asarray(images), JAX_CFG)
+    state = create_train_state(jax.random.PRNGKey(4), jsg, (rk0, rk1, (48, 64), (48, 64)),
+                               tx=optax.adam(lr), init_kwargs={"train": True})
+    state = state.replace(params=_perturb(state.params, 6), batch_stats=_perturb(state.batch_stats, 7))
+    tsg = SuperGlue(**SG_KW, device="cpu")
+    load_jax_params(tsg, flatten_tree(state.variables))
+    new_state, metrics = jax_make_step(jsg, jm_sp, sp_vars, JAX_CFG, donate=False)(
+        state, {"image": jnp.asarray(images)}, key)
+
+    hs = jh.sample_homography_batch(jax.random.split(key, 3)[0], 2, 48, 64, JAX_CFG.homography)
+    pair = generate_pair_from_homographies(T(np.array(hs)), tm_sp, T(images), PORT_CFG)
+    tstate = TrainState.create(tsg, lr)
+    got = train_on_pair(tstate, *pair[:4], (48, 64))
+    assert tstate.step == 1 and got["skipped_nonfinite"] == 0
+    np.testing.assert_allclose(float(got["loss"]), float(metrics["loss"]), rtol=1e-4)
+    for key_ in ("gt_matches", "pred_matches"):
+        assert int(got[key_]) == int(metrics[key_])
+    old = flatten_tree(state.variables)
+    want = flatten_tree(new_state.variables)
+    have = params_to_jax(tsg.state_dict())
+    grads = params_to_jax({n: p.grad for n, p in tsg.named_parameters()})
+    # well above rounding: the other tests hold these gradients to JAX's to
+    # 1e-4 of the largest entry
+    big = {k: np.abs(g) > 1e-3 * max(np.abs(x).max() for x in grads.values()) for k, g in grads.items()}
+    assert sum(b.sum() for b in big.values()) > 0.5 * sum(b.size for b in big.values())
+    for k in want:
+        if not k.startswith("params"):
+            np.testing.assert_allclose(have[k], want[k], rtol=1e-4, atol=1e-5, err_msg=k)
+            continue
+        np.testing.assert_allclose((have[k] - old[k])[big[k]], (want[k] - old[k])[big[k]],
+                                   rtol=1e-3, atol=1e-3 * lr, err_msg=k)
+        np.testing.assert_allclose(have[k], want[k], atol=2 * lr, err_msg=k)
+
+
+def test_port_loss_falls_on_one_batch():
+    _, _, tm_sp = _superpoint_pair()
+    images = T(_images(2))
+    tsg = SuperGlue(**SG_KW, device="cpu", seed=4)
+    state = TrainState.create(tsg, 1e-3)
+    step = make_superglue_train_step(tsg, tm_sp, PORT_CFG)
+    losses = [float(step(state, images, torch.Generator().manual_seed(5))["loss"]) for _ in range(10)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert state.step == 10
+
+
+def test_nonfinite_loss_skips_the_update():
+    (_, t0), (_, t1) = _keypoint_pair(3)
+    tsg = SuperGlue(**SG_KW, device="cpu")
+    state = TrainState.create(tsg, 1e-3)
+    before = {k: v.clone() for k, v in tsg.state_dict().items()}
+    gt0, gt1 = make_gt_matches(t0.xy, t1.xy, t0.mask, t1.mask)
+    bad = Keypoints(xy=t0.xy, score=t0.score, mask=t0.mask, desc=t0.desc * float("nan"))
+    got = train_on_pair(state, bad, t1, gt0, gt1, (48, 64))
+    assert got["skipped_nonfinite"] == 1 and state.step == 0
+    assert all(torch.equal(before[k], v) for k, v in tsg.state_dict().items())
+
+
+def test_save_npz_loads_into_jax(tmp_path):
+    (j0, _), (j1, _) = _keypoint_pair(4)
+    tsg = SuperGlue(**SG_KW, device="cpu", seed=9)
+    with torch.no_grad():
+        tsg.kenc.MaskedBatchNorm1d_0.running_var.uniform_(0.5, 2.0)
+    path = str(tmp_path / "sg.npz")
+    save_npz(tsg, path)
+    template = JaxSuperGlue(**SG_KW).init(jax.random.PRNGKey(0), j0, j1, (48, 64), (48, 64))
+    loaded = flatten_tree(load_npz_into(template, path))
+    ref = params_to_jax(tsg.state_dict())
+    assert set(loaded) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(loaded[k], ref[k])
