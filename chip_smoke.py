@@ -6,8 +6,8 @@
 In order, it:
   1. prints the card (torch's name and count, and `nvidia-smi`'s name and
      power limit);
-  2. builds the three CUDA kernels from `image_matching_tpu_torch/csrc/`
-     (one `nvcc` each, in parallel) and prints `-Xptxas -v`;
+  2. builds the CUDA kernels from `image_matching_tpu_torch/csrc/` (one
+     `nvcc` for each source, all in parallel) and prints `-Xptxas -v`;
   3. holds each kernel against its plain PyTorch version on the card at
      the main path's shapes, and times kernel, plain version and one
      PyTorch yardstick with CUDA events;
@@ -29,13 +29,26 @@ In order, it:
      kernel path's gradients against the all-plain path's on one step,
      every attention backward call of a bf16 step against the plain
      version on its own inputs, and a falling loss from a random init on
-     one fixed batch.
+     one fixed batch;
+  8. holds the two kernels of the 2x2 space-to-depth backbone (the s2d
+     entry conv and the realigning max pool) against their plain versions
+     at the shapes one detect of 4 images at 480x640 gives them, and times
+     them beside a library convolution / max pool;
+  9. registers image pairs (detect each side -> SuperGlue -> homography
+     RANSAC with 512 hypotheses -> warp) at the headline's width through
+     the 2x2 backbone, `SuperPointBN` and `SuperPointVGG`: launch counts
+     per call, pairs/s, peak memory, busy share, the 2x2 backbone's detect
+     time beside the plain backbone's and their agreement;
+ 10. registers seeded textured pairs with known homographies with the
+     banked weights, subpixel refinement on, through both backbones and
+     both matchers: corner error against the truth, every pair held to
+     less than 5 px.
 
 Every check that fails raises; nothing is caught. TF32 is off for every
 phase, timed ones included, so f32 convolutions and matmuls are full f32.
 The last two lines are the kernels' numbers as JSON (each kernel's
 launches counted on its own path: inference per forward, training per
-step) and the run's result as JSON. Without a CUDA device, or without the package beside it, the
+step, the 2x2 backbone's per registration call) and the run's result as JSON. Without a CUDA device, or without the package beside it, the
 script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -87,14 +100,14 @@ def device_ms(fn, reps: int, warmup: int = 3) -> float:
     """Device time per call of `fn`: the sum of its kernels' time from
     torch.profiler over `reps` calls, without the host's launch gaps. Every
     call launches the same kernels, so a profile whose kernel count is not
-    a multiple of `reps` lost events; it is taken again, up to 3 times."""
+    a multiple of `reps` lost events; it is taken again, up to 5 times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -104,7 +117,36 @@ def device_ms(fn, reps: int, warmup: int = 3) -> float:
         if count and count % reps == 0:
             return sum(_dev_us(e) for e in events) / reps / 1e3
         print(f"  profiler: {count} kernel events for {reps} calls; profiling again")
-    fail("the profiler lost kernel events three times")
+    fail("the profiler lost kernel events five times")
+
+
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Device time per call of `fn`: `reps` calls captured into one CUDA
+    graph and replayed, timed with CUDA events. No host launch gaps and no
+    profiler; the few microseconds between a graph's nodes are in it. `fn`
+    must not synchronise with the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants it
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
 
 
 def _dev_us(e) -> float:
@@ -269,16 +311,30 @@ def plain_path():
     """Route the model's kernel call sites to the plain versions. Plain
     attention runs at f32 logits, the kernel's semantics, so the two paths
     compute the same function."""
-    from image_matching_tpu_torch.models import common, superglue
-    from image_matching_tpu_torch.ops import attention, entry_conv, sinkhorn
+    from image_matching_tpu_torch.models import common, superglue, superpoint
+    from image_matching_tpu_torch.ops import attention, entry_conv, s2d_conv, sinkhorn
 
     def attention_f32_logits(q, k, v, key_mask, num_heads, logits_dtype):
         return attention.attention_plain(q, k, v, key_mask, num_heads, "float32")
 
     with mock.patch.object(common, "entry_conv", entry_conv.entry_conv_plain), \
+            mock.patch.object(superpoint, "entry_conv", entry_conv.entry_conv_plain), \
+            mock.patch.object(common, "s2d_entry_conv", s2d_conv.conv3x3_s2d_entry), \
+            mock.patch.object(superpoint, "s2d_entry_conv", s2d_conv.conv3x3_s2d_entry), \
+            mock.patch.object(superpoint, "pool_from_raw", s2d_conv.maxpool2x2_s2d_from_raw), \
             mock.patch.object(superglue, "attention", attention_f32_logits), \
             mock.patch.object(sinkhorn, "log_sinkhorn", sinkhorn.log_sinkhorn_plain):
         yield
+
+
+def keypoint_set_iou(got, want) -> float:
+    """The worst image's IoU of two batches of keypoints, as sets of (x, y)."""
+    worst = 1.0
+    for i in range(got.xy.shape[0]):
+        a = {tuple(p) for p in got.xy[i][got.mask[i]].tolist()}
+        r = {tuple(p) for p in want.xy[i][want.mask[i]].tolist()}
+        worst = min(worst, len(a & r) / max(len(a | r), 1))
+    return worst
 
 
 def compare_with_plain(torch, model, image0, image1, out, label, min_kp_iou):
@@ -296,13 +352,8 @@ def compare_with_plain(torch, model, image0, image1, out, label, min_kp_iou):
         ref = model(image0, image1, kpts0=out["keypoints0"], kpts1=out["keypoints1"])
         torch.cuda.synchronize()
         check(not _build.LAUNCHES, f"plain path launched kernels: {dict(_build.LAUNCHES)}")
-    kp_share = 1.0
-    for s, sl in (("keypoints0", slice(None, b)), ("keypoints1", slice(b, None))):
-        got, want = out[s], kp_ref.select(sl)
-        for i in range(b):
-            a = {tuple(p) for p in got.xy[i][got.mask[i]].tolist()}
-            r = {tuple(p) for p in want.xy[i][want.mask[i]].tolist()}
-            kp_share = min(kp_share, len(a & r) / max(len(a | r), 1))
+    kp_share = min(keypoint_set_iou(out["keypoints0"], kp_ref.select(slice(None, b))),
+                   keypoint_set_iou(out["keypoints1"], kp_ref.select(slice(b, None))))
     k = out["matches0"].shape[-1]
     valid = out["keypoints0"].mask[:, :, None] & out["keypoints1"].mask[:, None, :]
     z_err = (out["log_coupling"][:, :k, :k] - ref["log_coupling"][:, :k, :k])[valid].abs().max().item()
@@ -430,30 +481,41 @@ def texture(torch, rng, h, w):
     return (img - img.min()) / (img.max() - img.min())
 
 
-def textured_pair(torch, dev, rng, h=480, w=640):
-    """A seeded textured image and its warp by a known homography H
-    (pixel (x, y), image0 -> image1)."""
+def warped_pair(torch, dev, img, H):
+    """A (h, w) numpy image and its warp by the homography H (pixel (x, y),
+    image0 -> image1), both as (1, h, w, 1) tensors on the card."""
     import numpy as np
     import torch.nn.functional as F
 
-    img = texture(torch, rng, h, w)
-
-    a = math.radians(8.0)
-    cx, cy = w / 2, h / 2
-    rot = np.array([[math.cos(a), -math.sin(a), 0], [math.sin(a), math.cos(a), 0], [0, 0, 1]])
-    t0 = np.array([[1, 0, -cx], [0, 1, -cy], [0, 0, 1]])
-    t1 = np.array([[0.95, 0, cx + 12], [0, 0.95, cy - 9], [0, 0, 1]])
-    persp = np.array([[1, 0, 0], [0, 1, 0], [2e-5, -1e-5, 1]])
-    H = t1 @ rot @ persp @ t0
+    h, w = img.shape
     ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    pts = np.stack([xs.ravel(), ys.ravel(), np.ones(h * w)]) .astype(np.float64)
-    src = np.linalg.inv(H) @ pts
+    src = np.linalg.inv(H) @ np.stack([xs.ravel(), ys.ravel(), np.ones(h * w)]).astype(np.float64)
     src = src[:2] / src[2]
     grid = np.stack([src[0] / (w - 1) * 2 - 1, src[1] / (h - 1) * 2 - 1], -1).reshape(1, h, w, 2)
     im0 = torch.from_numpy(img)[None, None].to(dev)
     im1 = F.grid_sample(im0, torch.from_numpy(grid.astype("float32")).to(dev),
                         mode="bilinear", padding_mode="zeros", align_corners=True)
-    return im0[0, 0][None, :, :, None], im1[0, 0][None, :, :, None], H
+    return im0[0, 0][None, :, :, None], im1[0, 0][None, :, :, None]
+
+
+def pair_homography(h, w, degrees, scale, shift, persp):
+    """Rotation about the image centre, scale, shift (dx, dy) and a little
+    perspective (two entries of the last row), as one (3, 3) float64 matrix."""
+    import numpy as np
+
+    a = math.radians(degrees)
+    cx, cy = w / 2, h / 2
+    rot = np.array([[math.cos(a), -math.sin(a), 0], [math.sin(a), math.cos(a), 0], [0, 0, 1]])
+    t0 = np.array([[1, 0, -cx], [0, 1, -cy], [0, 0, 1]])
+    t1 = np.array([[scale, 0, cx + shift[0]], [0, scale, cy + shift[1]], [0, 0, 1]])
+    return t1 @ rot @ np.array([[1, 0, 0], [0, 1, 0], [persp[0], persp[1], 1]]) @ t0
+
+
+def textured_pair(torch, dev, rng, h=480, w=640):
+    """A seeded textured image and its warp by a known homography H
+    (pixel (x, y), image0 -> image1)."""
+    H = pair_homography(h, w, 8.0, 0.95, (12, -9), (2e-5, -1e-5))
+    return (*warped_pair(torch, dev, texture(torch, rng, h, w), H), H)
 
 
 def run_banked_weights(torch, dev):
@@ -641,9 +703,10 @@ def check_attention_training(torch, dev, rng):
 
 # ---------------------------------------------------------------- training path
 
-def profile_steps(torch, run, sec, reps: int = 2):
-    """Device time per training step by kernel (torch.profiler over `reps`
-    steps) and the device's busy share of the median step."""
+def profile_calls(torch, run, sec, label: str, unit: str, reps: int):
+    """Device time per call of `run` by kernel (torch.profiler over `reps`
+    calls) and the device's busy share of the median call. `unit` names a
+    call in the print: a training step, a registration call."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -653,8 +716,8 @@ def profile_steps(torch, run, sec, reps: int = 2):
     events = _kernel_events(prof)
     total = sum(_dev_us(e) for e in events) / reps / 1e3
     launches = sum(e.count for e in events) / reps
-    print(f"training profile: device time {total:.3f} ms per step in {launches:.0f} kernel launches, busy "
-          f"{total / (sec * 1e3):.3f} of the median step ({sec * 1e3:.2f} ms)")
+    print(f"{label} profile: device time {total:.3f} ms per {unit} in {launches:.0f} kernel launches, busy "
+          f"{total / (sec * 1e3):.3f} of the median {unit} ({sec * 1e3:.2f} ms)")
     for e in sorted(events, key=_dev_us, reverse=True)[:14]:
         print(f"  {_dev_us(e) / reps / 1e3:8.3f} ms  {e.count / reps:6.0f} calls  {e.key[:100]}")
 
@@ -892,7 +955,7 @@ def run_training(torch, dev):
         check(all(math.isfinite(x) for x in vals.values()), f"training step {i}: non-finite metrics {vals}")
         check(vals["skipped_nonfinite"] == 0, f"training step {i} was skipped")
     check(state.step == 13, f"train state step {state.step} != 13")
-    profile_steps(torch, lambda: step(state, images, gen), sec)
+    profile_calls(torch, lambda: step(state, images, gen), sec, "training", "step", reps=2)
     check(all(torch.isfinite(p).all() for p in sg.parameters()), "non-finite parameters after training")
 
     # kernel path vs all-plain path, one step: same parameters, same pair
@@ -909,6 +972,300 @@ def run_training(torch, dev):
     print("training: random init, lr 1e-3, one fixed batch: loss " + ", ".join(f"{x:.4f}" for x in curve))
     check(all(math.isfinite(x) for x in curve) and curve[-1] < curve[0], "loss did not fall on one batch")
     return launches
+
+
+# ---------------------------------------------------------------- 2x2 s2d backbone: kernels
+
+# one detect of 4 images at 480x640 through the 2x2 backbone: (ci, co, H, W) of
+# its four entry convs and (H, W, C) of its three pools' outputs
+S2D_BATCH = 4
+S2D_ENTRY_SHAPES = ((1, 64, 480, 640), (64, 64, 240, 320), (64, 128, 120, 160), (128, 128, 60, 80))
+S2D_POOL_SHAPES = ((240, 320, 64), (120, 160, 64), (60, 80, 128))
+
+
+def _rel_err(got, ref):
+    """max |got - ref| / max(|ref|, 1), and max |got - ref|."""
+    d = (got.float() - ref.float()).abs()
+    return (d / ref.float().abs().clamp_min(1.0)).max().item(), d.max().item()
+
+
+def check_s2d_entry_conv(torch, dev, rng):
+    import torch.nn.functional as F
+    from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_entry, space_to_depth
+    from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
+
+    b = S2D_BATCH
+    worst, totals, bound_ms, bytes_bound_ms = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}, 0.0, 0.0
+    for ci, co, h, w in S2D_ENTRY_SHAPES:
+        x = torch.from_numpy(rng.normal(size=(b, h, w, ci)).astype("float32")).to(dev, torch.bfloat16)
+        k = torch.from_numpy(rng.normal(0, 0.3, (3, 3, ci, co)).astype("float32")).to(dev, torch.bfloat16)
+        got, ref = s2d_entry_conv(x, k), conv3x3_s2d_entry(x, k)
+        torch.cuda.synchronize()
+        rel, err = _rel_err(got, ref)
+        worst = max(worst, err)
+        # the same bf16 products summed in f32 in another order, one rounding
+        # to bf16 each: at most one bf16 step (2^-7 relative)
+        check(rel <= 2 ** -7, f"s2d_entry_conv {ci}->{co} at {h}x{w} disagrees with its plain version ({rel})")
+        # the library's way: one cuDNN conv on the NCHW (channels_last) view, then the re-layout
+        x_nchw, k_oihw = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        lib = lambda: space_to_depth(F.conv2d(x_nchw, k_oihw, padding=1).permute(0, 2, 3, 1))
+        t = {"ms": graph_ms(lambda: s2d_entry_conv(x, k), 10), "plain_ms": graph_ms(lambda: conv3x3_s2d_entry(x, k), 5),
+             "library_ms": graph_ms(lib, 10)}
+        npix = b * h * w
+        # the 1-channel image conv runs f32 FMAs; the others bf16 tensor-core products
+        bms, by = bound(npix * ci * 2 + 9 * ci * co * 2 + npix * co * 2, 2.0 * npix * co * 9 * ci,
+                        F32_FLOPS if ci == 1 else BF16_TENSOR_FLOPS)
+        print(f"s2d_entry_conv ({b}, {h}, {w}) {ci}->{co} bf16: max_abs_err {err:.3e}, max err/max(|y|,1) {rel:.3e} "
+              f"(tolerance 2^-7); device time (CUDA graph replay) kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN conv + "
+              f"space_to_depth {t['library_ms']:.4f} ms; bound {bms:.4f} ms ({by})")
+        for name in totals:
+            totals[name] += t[name]
+        bound_ms += bms
+        bytes_bound_ms += bms if by == "bytes" else 0.0
+    # f32 through the SIMT kernel, at sizes no tile divides
+    x = torch.from_numpy(rng.normal(size=(3, 38, 50, 8)).astype("float32")).to(dev)
+    k = torch.from_numpy(rng.normal(0, 0.3, (3, 3, 8, 16)).astype("float32")).to(dev)
+    r32, _ = _rel_err(s2d_entry_conv(x, k), conv3x3_s2d_entry(x, k))
+    print(f"s2d_entry_conv (3, 38, 50) 8->16 f32: max err/max(|y|,1) {r32:.3e} (tolerance 1e-5)")
+    check(r32 <= 1e-5, "s2d_entry_conv f32 disagrees with its plain version")
+    # bf16 on tensor cores in 16-channel chunks, ragged tiles
+    x = torch.from_numpy(rng.normal(size=(2, 22, 36, 16)).astype("float32")).to(dev, torch.bfloat16)
+    k = torch.from_numpy(rng.normal(0, 0.3, (3, 3, 16, 64)).astype("float32")).to(dev, torch.bfloat16)
+    r16, _ = _rel_err(s2d_entry_conv(x, k), conv3x3_s2d_entry(x, k))
+    print(f"s2d_entry_conv (2, 22, 36) 16->64 bf16: max err/max(|y|,1) {r16:.3e} (tolerance 2^-7)")
+    check(r16 <= 2 ** -7, "s2d_entry_conv bf16 (16-channel chunks) disagrees with its plain version")
+    n = len(S2D_ENTRY_SHAPES)
+    print(f"s2d_entry_conv: one detect of {b} images (4 launches): kernel {totals['ms']:.4f} ms, plain "
+          f"{totals['plain_ms']:.4f} ms, library {totals['library_ms']:.4f} ms, bound {bound_ms:.4f} ms; the JSON "
+          f"line holds the mean per launch")
+    return dict(name="s2d_entry_conv", route="cuda", source="image_matching_tpu_torch/csrc/s2d_entry_conv.cu",
+                replaces="image_matching_tpu/ops/pallas/entry_conv.py:66", max_abs_err=worst,
+                ms=totals["ms"] / n, plain_ms=totals["plain_ms"] / n, bound_ms=bound_ms / n,
+                # what sets most of the summed bound of the four shapes
+                bound_by="bytes" if bytes_bound_ms >= 0.5 * bound_ms else "operations",
+                library_ms=totals["library_ms"] / n)
+
+
+def check_realign(torch, dev, rng):
+    import torch.nn.functional as F
+    from image_matching_tpu_torch.ops.realign import maxpool_realign
+    from image_matching_tpu_torch.ops.s2d_conv import depth_to_space, maxpool2x2_s2d_from_raw, realign
+
+    b = S2D_BATCH
+    worst, totals, bound_ms = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}, 0.0
+    for h, w, c in S2D_POOL_SHAPES:
+        u = torch.from_numpy(rng.normal(size=(b, h + 1, w + 1, 4 * c)).astype("float32")).to(dev, torch.bfloat16)
+        got, ref = maxpool_realign(u), maxpool2x2_s2d_from_raw(u)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        worst = max(worst, err)
+        check(err == 0.0, f"realign at U ({b}, {h + 1}, {w + 1}, {4 * c}) differs from its plain version ({err})")
+        # the library's way: realign, back to the direct layout, F.max_pool2d
+        lib = lambda: F.max_pool2d(depth_to_space(realign(u)).permute(0, 3, 1, 2), 2, 2)
+        check(bool((lib().permute(0, 2, 3, 1) == ref).all()), "max_pool2d of the realigned U differs")
+        t = {"ms": graph_ms(lambda: maxpool_realign(u), 10), "plain_ms": graph_ms(lambda: maxpool2x2_s2d_from_raw(u), 5),
+             "library_ms": graph_ms(lib, 5)}
+        bms, by = bound(u.numel() * 2 + got.numel() * 2, 3.0 * got.numel(), F32_FLOPS)
+        print(f"realign U ({b}, {h + 1}, {w + 1}, {4 * c}) bf16 -> ({b}, {h}, {w}, {c}): max_abs_err {err:.1e} "
+              f"(exact); device time (CUDA graph replay) kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, realign + d2s + "
+              f"F.max_pool2d {t['library_ms']:.4f} ms; bound {bms:.4f} ms ({by})")
+        for name in totals:
+            totals[name] += t[name]
+        bound_ms += bms
+    # f32, a U widened by extra columns, odd sizes, a NaN
+    u = torch.from_numpy(rng.normal(size=(3, 8, 17, 4 * 12)).astype("float32")).to(dev)
+    u[1, 2, 3, 12] = float("nan")
+    got, ref = maxpool_realign(u, out_w=11), maxpool2x2_s2d_from_raw(u, 11)
+    check(bool(torch.isnan(got[1, 2, 2, 0])) and int(torch.isnan(got).sum()) == 1, "realign: a NaN tap is not carried")
+    check(bool(((got == ref) | (torch.isnan(got) & torch.isnan(ref))).all()), "realign f32 / out_w differs from its plain version")
+    print("realign U (3, 8, 17, 48) f32, out_w 11, one NaN tap: equal to the plain version, NaN carried")
+    n = len(S2D_POOL_SHAPES)
+    print(f"realign: one detect of {b} images (3 launches): kernel {totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} "
+          f"ms, library {totals['library_ms']:.4f} ms, bound {bound_ms:.4f} ms; the JSON line holds the mean per launch")
+    return dict(name="realign", route="cuda", source="image_matching_tpu_torch/csrc/realign.cu",
+                replaces="image_matching_tpu/ops/pallas/realign.py:77", max_abs_err=worst,
+                ms=totals["ms"] / n, plain_ms=totals["plain_ms"] / n, bound_ms=bound_ms / n, bound_by="bytes",
+                library_ms=totals["library_ms"] / n)
+
+
+# ---------------------------------------------------------------- registration path
+
+REGISTRATION_LAUNCHES = {"s2d_entry_conv": 8, "realign": 6, "attention": 36, "sinkhorn": 1}
+
+
+def compare_backbones(torch, model, plain_model, images, label, tol):
+    """The 2x2 backbone through its kernels against (a) the same 2x2 path on
+    the plain versions and (b) the plain backbone with the same weights, on
+    `semi` and `desc_map`; then both backbones' time."""
+    from image_matching_tpu_torch.ops import _build
+
+    with torch.inference_mode():
+        got = model.superpoint(images)
+        with plain_path():
+            _build.reset_launch_counts()
+            same_path = model.superpoint(images)
+            torch.cuda.synchronize()
+            check(not _build.LAUNCHES, f"plain 2x2 path launched kernels: {dict(_build.LAUNCHES)}")
+        other = plain_model.superpoint(images)
+    errs = {}
+    for key in ("semi", "desc_map"):
+        scale = other[key].abs().max().item()
+        errs[key] = ((got[key] - same_path[key]).abs().max().item() / scale,
+                     (got[key] - other[key]).abs().max().item() / scale)
+    print(f"{label}: 2x2 backbone through the kernels, max error relative to the largest entry: against the 2x2 path "
+          f"on the plain versions semi {errs['semi'][0]:.3e}, desc_map {errs['desc_map'][0]:.3e}; against the plain "
+          f"backbone semi {errs['semi'][1]:.3e}, desc_map {errs['desc_map'][1]:.3e} (tolerance {tol})")
+    check(max(max(e) for e in errs.values()) <= tol, f"{label}: the 2x2 backbone disagrees with the plain one")
+    # the backbone alone can be captured into a CUDA graph (the postprocess,
+    # the same for both, copies small constants from the host)
+    with torch.inference_mode():
+        t = {name: (graph_ms(lambda: m.superpoint(images), 3), cuda_ms(lambda: m.detect(images), 5))
+             for name, m in (("2x2", model), ("plain", plain_model))}
+    print(f"{label}: {images.shape[0]} images: backbone alone, device time (CUDA graph replay): 2x2 {t['2x2'][0]:.3f} "
+          f"ms, plain {t['plain'][0]:.3f} ms; whole detect, CUDA events over back-to-back eager calls (the host's "
+          f"launch rate included): 2x2 {t['2x2'][1]:.3f} ms, plain {t['plain'][1]:.3f} ms")
+
+
+def run_registration(torch, dev, backbone: str, timed: bool):
+    """Registration at the headline's width through the 2x2 s2d backbone:
+    detect each side, SuperGlue, homography RANSAC with 512 hypotheses,
+    warp. Returns the launch counts of one call."""
+    import dataclasses
+
+    import numpy as np
+    from image_matching_tpu_torch.models import Matching, MatchingConfig
+    from image_matching_tpu_torch.ops import _build
+    from image_matching_tpu_torch.registration import build_registration_fn
+
+    batch, h, w, k = 4, 480, 640, 1024
+    cfg = MatchingConfig(backbone=backbone, s2d_backbone=True, s2d_layout="2x2", descriptor_dim=256,
+                         max_keypoints=k, keypoint_threshold=0.005, gnn_layers=18, sinkhorn_iterations=30,
+                         match_threshold=0.1, compute_dtype="bfloat16")
+    model = Matching(cfg, device=dev, seed=0)
+    plain_model = Matching(dataclasses.replace(cfg, s2d_backbone=False), device=dev, seed=0)
+    plain_model.load_state_dict(model.state_dict(), strict=True)
+    register = build_registration_fn(model, matcher="superglue", ransac_model="homography", num_hypotheses=512)
+    rng = np.random.default_rng(3)
+    image0 = torch.from_numpy(rng.uniform(0, 1, (batch, h, w, 1)).astype("float32")).to(dev)
+    image1 = torch.from_numpy(rng.uniform(0, 1, (batch, h, w, 1)).astype("float32")).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    label = f"registration ({backbone}, 2x2)"
+
+    for _ in range(2):  # warm-up: cuDNN algorithm choice, allocator
+        register(image0, image1, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    res = register(image0, image1, gen)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label} launches per call of {batch} pairs: {launches}")
+    check(launches == REGISTRATION_LAUNCHES, f"{label} launch counts {launches} != {REGISTRATION_LAUNCHES}")
+    check(tuple(res.fit.matrix.shape) == (batch, 3, 3) and bool(torch.isfinite(res.fit.matrix).all()),
+          f"{label}: fit matrix")
+    check(tuple(res.warped.shape) == (batch, h, w, 1) and bool(torch.isfinite(res.warped).all()), f"{label}: warp")
+    check(tuple(res.kpts0.desc.shape) == (batch, k, 256) and tuple(res.fit.inliers.shape) == (batch, k),
+          f"{label}: shapes")
+    print(f"{label}: keypoints per image {res.kpts0.num_valid().tolist()} / {res.kpts1.num_valid().tolist()}, matches "
+          f"{res.matches.num_matches().tolist()}, fits valid {res.fit.valid.tolist()} (random weights)")
+    # bf16 rounds at other places on the two backbones (the plain one's first
+    # layer is one fused pass, the 2x2 one rounds the conv before the bias);
+    # a dozen layers carry that on: a few bf16 steps of the largest entry
+    compare_backbones(torch, model, plain_model, image0, label, tol=5e-2)
+    if timed:
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            register(image0, image1, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        sec = statistics.median(times)
+        print(f"{label}: {batch / sec:.2f} pairs/s (median of 10 calls, {sec * 1e3:.2f} ms per batch of {batch}; min "
+              f"{min(times) * 1e3:.2f} ms, max {max(times) * 1e3:.2f} ms); peak memory {peak_gib:.3f} GiB; TF32 off")
+        profile_calls(torch, lambda: register(image0, image1, gen), sec, label, "call", reps=3)
+        plain_register = build_registration_fn(plain_model, matcher="superglue", ransac_model="homography",
+                                               num_hypotheses=512)
+        for _ in range(2):
+            plain_register(image0, image1, gen)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            plain_register(image0, image1, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        print(f"registration ({backbone}, plain backbone), same weights: {batch / statistics.median(times):.2f} pairs/s "
+              f"(median of 10 calls, {statistics.median(times) * 1e3:.2f} ms)")
+    return launches
+
+
+def random_pair(torch, dev, rng, h=480, w=640):
+    """A seeded textured image and its warp by a seeded mild homography
+    (rotation up to 10 degrees, scale 0.9-1.1, shift up to 20 px, a little
+    perspective). Returns (image0, image1, H) with H (3, 3) float32 numpy,
+    image0 -> image1 in pixels."""
+    img = texture(torch, rng, h, w)
+    H = pair_homography(h, w, rng.uniform(-10, 10), rng.uniform(0.9, 1.1), rng.uniform(-20, 20, 2),
+                        rng.uniform(-3e-5, 3e-5, 2))
+    return (*warped_pair(torch, dev, img, H), H.astype("float32"))
+
+
+def run_banked_registration(torch, dev, n_pairs: int = 4):
+    """Registration quality with the banked weights (sp_photo + sg_photo,
+    D=128), subpixel refinement on: seeded textured pairs with known
+    homographies through both backbones and both matchers."""
+    import dataclasses
+
+    import numpy as np
+    from image_matching_tpu_torch.evaluation import EvalPair, evaluate_pipeline
+    from image_matching_tpu_torch.models import Matching, MatchingConfig
+    from image_matching_tpu_torch.models.superpoint import superpoint_postprocess
+    from image_matching_tpu_torch.ops import _build
+    from image_matching_tpu_torch.registration import build_registration_fn
+    from image_matching_tpu_torch.weights import load_npz
+
+    models = {}
+    for name, s2d in (("2x2", True), ("plain", False)):
+        cfg = dataclasses.replace(MatchingConfig.self_trained_128(), s2d_backbone=s2d, subpixel=True)
+        models[name] = Matching(cfg, device=dev, seed=0)
+        load_npz(models[name].superpoint, str(ROOT / "weights" / "sp_photo.npz"))
+        load_npz(models[name].superglue, str(ROOT / "weights" / "sg_photo.npz"))
+    rng = np.random.default_rng(4)
+    pairs, images = [], []
+    for _ in range(n_pairs):
+        im0, im1, H = random_pair(torch, dev, rng)
+        pairs.append(EvalPair(im0[0].cpu().numpy(), im1[0].cpu().numpy(), H))
+        images += [im0, im1]
+
+    # detection: the two backbones' keypoint sets (before refinement)
+    cfg = models["2x2"].config
+    kp = {}
+    with torch.inference_mode():
+        for name, m in models.items():
+            kp[name] = superpoint_postprocess(m.superpoint(torch.cat(images, 0)), cfg.max_keypoints,
+                                              cfg.keypoint_threshold, cfg.nms_radius, cfg.border)
+    iou = keypoint_set_iou(kp["2x2"], kp["plain"])
+    print(f"banked registration: keypoint sets of the 2x2 and the plain backbone on {len(images)} images: IoU "
+          f"{iou:.4f} (worst image; held to 0.9: bf16 NMS survivors tie within one step of the K-th score)")
+    check(iou >= 0.9, f"banked registration: the backbones' keypoints differ ({iou})")
+
+    for matcher in ("superglue", "ratio"):
+        for name, m in models.items():
+            register = build_registration_fn(m, matcher=matcher, ransac_model="homography", num_hypotheses=512,
+                                             produce_warp=False)
+            _build.reset_launch_counts()
+            out = evaluate_pipeline(register, pairs, torch.Generator(device=dev).manual_seed(5), success_px=5.0,
+                                    per_pair=True)
+            errs = ", ".join("none" if p["corner_err_px"] is None else f"{p['corner_err_px']:.3f}" for p in out["per_pair"])
+            print(f"banked registration ({matcher}, {name} backbone, subpixel): corner error per pair [{errs}] px, "
+                  f"median {out['median_corner_err_px']}, success (< 5 px) {out['success_rate']:.2f}, mean matches "
+                  f"{out['mean_matches']:.0f}, mean inliers {out['mean_inliers']:.0f}; launches over the "
+                  f"{n_pairs} pairs {dict(_build.LAUNCHES)}")
+            check(out["success_rate"] == 1.0, f"banked registration ({matcher}, {name}): a pair failed ({errs})")
+            if name == "2x2":
+                check(_build.LAUNCHES["s2d_entry_conv"] == 8 * n_pairs and _build.LAUNCHES["realign"] == 6 * n_pairs,
+                      f"banked registration ({matcher}, 2x2) missed the kernels")
 
 
 def main() -> int:
@@ -953,6 +1310,14 @@ def main() -> int:
     for kern in train_kernels:
         kern["launches"] = train_launches.get(kern["name"], 0)
     kernels += train_kernels
+
+    s2d_kernels = [check_s2d_entry_conv(torch, dev, rng), check_realign(torch, dev, rng)]
+    reg_launches = run_registration(torch, dev, "bn", timed=True)
+    run_registration(torch, dev, "vgg", timed=False)
+    for kern in s2d_kernels:
+        kern["launches"] = reg_launches.get(kern["name"], 0)
+    kernels += s2d_kernels
+    run_banked_registration(torch, dev)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
-"""Homographies: solving, inverting, warping points and random sampling —
+"""Homographies: solving, inverting, rescaling, warping and normalising
+points, and random sampling —
 the counterpart of `image_matching_tpu/geometry/homography.py`.
 
 Points are (..., 2) (x, y) pixels; a homography H is (..., 3, 3) acting
@@ -20,6 +21,10 @@ from typing import NamedTuple
 import torch
 
 
+def identity_homography(dtype=torch.float32, device=None):
+    return torch.eye(3, dtype=dtype, device=device)
+
+
 def invert_homography(h):
     return torch.linalg.inv(h)
 
@@ -31,9 +36,41 @@ def warp_points(points, homography):
     return warped[..., :2] / (warped[..., 2:3] + 1e-12)
 
 
-def homography_from_4pts(src, dst):
+def points_in_bounds(points, height: int, width: int):
+    """Boolean mask of points inside [0, W-1] x [0, H-1] (inclusive)."""
+    x, y = points[..., 0], points[..., 1]
+    return (x >= 0) & (x <= width - 1) & (y >= 0) & (y <= height - 1)
+
+
+def normalize_points(points, height: int, width: int):
+    """Pixel coordinates -> [-1, 1] (p / shape * 2 - 1)."""
+    shape = torch.tensor([width, height], dtype=points.dtype, device=points.device)
+    return points / shape * 2.0 - 1.0
+
+
+def denormalize_points(points, height: int, width: int):
+    shape = torch.tensor([width, height], dtype=points.dtype, device=points.device)
+    return (points + 1.0) * shape / 2.0
+
+
+def scale_homography(h, height: int, width: int, to_normalized: bool = False):
+    """Convert a homography between the pixel frame and the [-1, 1]
+    normalized frame: by default from one acting on normalized coordinates
+    to its pixel-frame equivalent; with `to_normalized`, the reverse."""
+    t = torch.tensor([[2.0 / width, 0.0, -1.0], [0.0, 2.0 / height, -1.0], [0.0, 0.0, 1.0]],
+                     dtype=h.dtype, device=h.device)
+    t_inv = torch.linalg.inv(t)
+    if to_normalized:
+        return t @ h @ t_inv
+    return t_inv @ h @ t
+
+
+def homography_from_4pts(src, dst, check: bool = True):
     """The exact homography mapping 4 source points onto 4 destination
-    points (cv2.getPerspectiveTransform's DLT, h33 = 1). src, dst (..., 4, 2)."""
+    points (cv2.getPerspectiveTransform's DLT, h33 = 1). src, dst (..., 4, 2).
+    A singular system (coincident or collinear points) raises; with
+    `check=False` its homography is NaN instead, for callers that sort
+    degenerate samples out themselves (`ops/ransac.py`)."""
     x, y = src[..., 0], src[..., 1]
     u, v = dst[..., 0], dst[..., 1]
     zeros, ones = torch.zeros_like(x), torch.ones_like(x)
@@ -41,7 +78,11 @@ def homography_from_4pts(src, dst):
     ay = torch.stack([zeros, zeros, zeros, x, y, ones, -x * v, -y * v], dim=-1)
     a = torch.cat([ax, ay], dim=-2)  # (..., 8, 8)
     rhs = torch.cat([u, v], dim=-1)[..., None]
-    h8 = torch.linalg.solve(a, rhs)[..., 0]
+    if check:
+        h8 = torch.linalg.solve(a, rhs)[..., 0]
+    else:
+        sol, info = torch.linalg.solve_ex(a, rhs)
+        h8 = torch.where(info[..., None] == 0, sol[..., 0], math.nan)
     h9 = torch.cat([h8, torch.ones_like(h8[..., :1])], dim=-1)
     return h9.reshape(*h9.shape[:-1], 3, 3)
 

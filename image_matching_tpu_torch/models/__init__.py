@@ -1,6 +1,6 @@
-"""SuperPointBN, SuperGlue and their Matching composition."""
+"""SuperPoint (BN and VGG), SuperGlue and their Matching composition."""
 from image_matching_tpu_torch.models.matching import Matching, MatchingConfig
 from image_matching_tpu_torch.models.superglue import SuperGlue
-from image_matching_tpu_torch.models.superpoint import SuperPointBN
+from image_matching_tpu_torch.models.superpoint import SuperPointBN, SuperPointVGG
 
-__all__ = ["Matching", "MatchingConfig", "SuperGlue", "SuperPointBN"]
+__all__ = ["Matching", "MatchingConfig", "SuperGlue", "SuperPointBN", "SuperPointVGG"]

@@ -6,7 +6,10 @@ dtype given at call time; normalisation is computed in f32 and cast
 back, as JAX's dtype promotion does in the reference. Module attribute
 names follow the JAX package's (`Conv_0`, `BatchNorm_0`, `Dense_0`,
 `MaskedBatchNorm1d_0`, ...) so weights map across by path
-(`image_matching_tpu_torch/weights.py`). Of the training branches, the
+(`image_matching_tpu_torch/weights.py`). `S2DConvBNReLU` and
+`S2DDoubleConv` are the plain blocks with a second way to run, in the 2x2
+space-to-depth layout on NHWC maps (`ops/s2d_conv.py`), on the same
+parameters. Of the training branches, the
 port has `MaskedBatchNorm1d`'s (SuperGlue training): the convolutional
 `BatchNorm` stays inference-only, since SuperPoint is frozen in the only
 trainer ported so far.
@@ -20,6 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from image_matching_tpu_torch.ops.entry_conv import entry_conv, fold_bn
+from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_raw
+from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
 
 EPS = 1e-5
 
@@ -38,9 +43,11 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x):
+    def forward(self, x, dim=None):
+        """`dim` overrides the channel axis for this call (the s2d path
+        normalises NHWC views of maps whose modules are built for NCHW)."""
         shape = [1] * x.dim()
-        shape[self.dim] = -1
+        shape[self.dim if dim is None else dim] = -1
         inv = self.weight * torch.rsqrt(self.running_var + EPS)
         y = (x.float() - self.running_mean.reshape(shape)) * inv.reshape(shape)
         return (y + self.bias.reshape(shape)).to(x.dtype)
@@ -107,6 +114,70 @@ class DoubleConv(nn.Module):
     def forward(self, x, dtype):
         x = self.ConvBNReLU_0.entry(x) if x.dim() == 3 else self.ConvBNReLU_0(x, dtype)
         return self.ConvBNReLU_1(x, dtype)
+
+
+def fold_parity(x, groups: int = 4):
+    """View an s2d / U tensor (..., W', G*C) as (..., W'*G, C), so that
+    per-channel ops (batch norm) see C features. G = 4 for the 2x2 layout."""
+    *lead, wh, cg = x.shape
+    return x.reshape(*lead, wh * groups, cg // groups)
+
+
+def unfold_parity(x, cg: int, groups: int = 4):
+    *lead, wg, _ = x.shape
+    return x.reshape(*lead, wg // groups, cg)
+
+
+def s2d_bias_bn(y, bias, bn: BatchNorm, dtype):
+    """What follows a conv in the s2d layout, on an NHWC aligned or U
+    tensor (..., 4C): the bias, tiled over the four parity groups and added
+    in the compute dtype to the conv's rounded output, then the inference
+    batch norm per channel."""
+    y = y + bias.to(dtype).repeat(4)
+    return unfold_parity(bn(fold_parity(y), dim=-1), y.shape[-1])
+
+
+class S2DConvBNReLU(ConvBNReLU):
+    """`ConvBNReLU` that can also run in the 2x2 s2d layout (`s2d`), on
+    NHWC maps, with the same parameters under the same names (`Conv_0`,
+    `BatchNorm_0`): a state_dict loads into either class. `mode` selects the
+    s2d conv: "entry" takes a direct map through
+    `ops/s2d_entry.s2d_entry_conv` (the CUDA kernel on the card) and gives
+    aligned s2d; "raw" takes aligned s2d and gives the unaligned U, whose
+    realignment is left to the consumer. Inference only (running
+    statistics). `forward` stays the plain layer, for inputs the s2d path
+    does not take."""
+
+    def __init__(self, in_channels: int, features: int, mode: str):
+        super().__init__(in_channels, features)
+        if mode not in ("entry", "raw"):
+            raise ValueError(f"S2DConvBNReLU: mode {mode!r} not in ('entry', 'raw')")
+        self.mode = mode
+
+    def s2d(self, x, dtype):
+        kernel = self.Conv_0.weight.permute(2, 3, 1, 0).to(dtype)  # (3, 3, ci, co)
+        x = x.to(dtype)
+        if self.mode == "entry":
+            y = s2d_entry_conv(x.contiguous(), kernel)
+        else:
+            y = conv3x3_s2d_raw(x, kernel)
+        return torch.relu(s2d_bias_bn(y, self.Conv_0.bias, self.BatchNorm_0, dtype))
+
+
+class S2DDoubleConv(DoubleConv):
+    """`DoubleConv` that can also run in the 2x2 s2d layout (`s2d`): entry
+    conv, then raw conv. Direct NHWC map in, U out (a pool or a realign
+    follows). The JAX package's `extra_cols` (a U widened to the 8-aligned
+    width its TPU pool wants) is left to `ops/s2d_conv.conv3x3_s2d_raw`: the
+    CUDA pool takes any width."""
+
+    def __init__(self, in_channels: int, features: int):
+        nn.Module.__init__(self)
+        self.ConvBNReLU_0 = S2DConvBNReLU(in_channels, features, "entry")
+        self.ConvBNReLU_1 = S2DConvBNReLU(features, features, "raw")
+
+    def s2d(self, x, dtype):
+        return self.ConvBNReLU_1.s2d(self.ConvBNReLU_0.s2d(x, dtype), dtype)
 
 
 def max_pool_stride2(x):

@@ -5,12 +5,15 @@
 `MatchingConfig` keeps the JAX defaults, including the mismatch that
 `Matching` stores attention logits in bf16 while `SuperGlue` alone
 defaults to f32 (on the card the attention kernel keeps f32 logits
-either way; the setting reaches only the plain CPU attention). Left out
-are the JAX config's TPU-only choices of layout and implementation —
-`s2d_backbone`, `s2d_layout`, `stack_sides`, `attention_impl`,
-`sinkhorn_impl` — which change how the same network runs on a TPU, not
-what it computes, and the options whose code is not in this slice:
-`backbone="vgg"` (SuperPointVGG) and `subpixel`.
+either way; the setting reaches only the plain CPU attention), with two
+exceptions. `s2d_backbone` defaults to False and `s2d_layout` to "2x2":
+the space-to-depth layouts are devices for the TPU's 128-lane matrix
+unit, and on an H100 the 2x2 layout does 16/9 of the useful
+multiply-adds in its in-level convs, so the plain backbone is the
+port's default; "2x2" is the one s2d layout ported ("h" raises, see
+`ROADMAP.md`). Left out are the JAX config's choices among TPU
+implementations of one function: `stack_sides`, `attention_impl`,
+`sinkhorn_impl`.
 """
 from __future__ import annotations
 
@@ -22,17 +25,25 @@ from torch import nn
 
 from image_matching_tpu_torch.device import resolve_device
 from image_matching_tpu_torch.models.superglue import SuperGlue
-from image_matching_tpu_torch.models.superpoint import SuperPointBN, superpoint_postprocess
+from image_matching_tpu_torch.models.superpoint import (
+    SuperPointBN,
+    SuperPointVGG,
+    superpoint_postprocess,
+)
 from image_matching_tpu_torch.structs import Keypoints
 
 
 @dataclasses.dataclass(frozen=True)
 class MatchingConfig:
+    backbone: str = "bn"  # "bn" (SuperPointBN) | "vgg" (SuperPointVGG)
+    s2d_backbone: bool = False  # run the backbone in the s2d layout (H, W divisible by 16)
+    s2d_layout: str = "2x2"
     descriptor_dim: int = 256
     max_keypoints: int = 1024
     keypoint_threshold: float = 0.005
     nms_radius: int = 4
     border: int = 4
+    subpixel: bool = False  # soft-argmax keypoint refinement (registration-quality work)
     keypoint_encoder: Tuple[int, ...] = (32, 64, 128, 256)
     gnn_layers: int = 18
     sinkhorn_iterations: int = 100
@@ -58,8 +69,11 @@ class Matching(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
-        self.superpoint = SuperPointBN(config.descriptor_dim, config.compute_dtype,
-                                       device=dev, seed=seed)
+        if config.backbone not in ("bn", "vgg"):
+            raise ValueError(f"unknown backbone {config.backbone!r}")
+        sp_cls = SuperPointBN if config.backbone == "bn" else SuperPointVGG
+        self.superpoint = sp_cls(config.descriptor_dim, config.compute_dtype, device=dev, seed=seed,
+                                 s2d=config.s2d_backbone, s2d_layout=config.s2d_layout)
         self.superglue = SuperGlue(
             descriptor_dim=config.descriptor_dim,
             keypoint_encoder=config.keypoint_encoder,
@@ -71,12 +85,20 @@ class Matching(nn.Module):
             device=dev, seed=seed + 1,
         )
 
+    @torch.inference_mode()
     def detect(self, image) -> Keypoints:
+        """image (B, H, W, 1) in [0, 1] -> fixed-K keypoints with descriptors."""
         cfg = self.config
         return superpoint_postprocess(
             self.superpoint(image), max_keypoints=cfg.max_keypoints,
             threshold=cfg.keypoint_threshold, nms_radius=cfg.nms_radius, border=cfg.border,
+            subpixel=cfg.subpixel,
         )
+
+    @torch.inference_mode()
+    def match_keypoints(self, kpts0: Keypoints, kpts1: Keypoints, image_shape0, image_shape1) -> dict:
+        """SuperGlue on precomputed keypoints; shapes are (H, W)."""
+        return self.superglue(kpts0, kpts1, image_shape0, image_shape1)
 
     @torch.inference_mode()
     def forward(self, image0, image1, kpts0: Optional[Keypoints] = None,

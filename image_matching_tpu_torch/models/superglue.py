@@ -36,7 +36,7 @@ from image_matching_tpu_torch.ops.sinkhorn import (
     extract_matches_from_transport,
     log_optimal_transport,
 )
-from image_matching_tpu_torch.structs import Keypoints
+from image_matching_tpu_torch.structs import Keypoints, MatchResult
 
 
 def normalize_keypoints(xy, height: int, width: int):
@@ -171,3 +171,7 @@ class SuperGlue(nn.Module):
             "log_coupling": z,
         }
 
+
+def match_result_from_outputs(outputs: dict) -> MatchResult:
+    return MatchResult(matches0=outputs["matches0"], matches1=outputs["matches1"],
+                       scores0=outputs["matching_scores0"], scores1=outputs["matching_scores1"])

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("entry_conv", "attention", "attention_bwd", "sinkhorn")
+KERNELS = ("entry_conv", "attention", "attention_bwd", "sinkhorn", "s2d_entry_conv", "realign")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -6,6 +6,9 @@ bias and inference BatchNorm folded into one per-channel f32 affine.
 The TPU kernel emits the H-space-to-depth layout its MXU wants; this one
 emits the direct layout, returned as an NCHW-shaped tensor in
 `torch.channels_last` memory so the next `F.conv2d` reads it as is.
+(The TPU's other entry kernel, `ops/pallas/entry_conv.py`, the conv fused
+with 2x2 space-to-depth that starts every level of the 2x2 s2d backbone,
+has its counterpart in `ops/s2d_entry.py`.)
 
 On a CUDA tensor `entry_conv` launches `csrc/entry_conv.cu`; on a CPU
 tensor it runs `entry_conv_plain`. Both round the image and the taps to

@@ -1,5 +1,7 @@
-"""Bilinear descriptor sampling at keypoints — the counterpart of
-`image_matching_tpu/ops/sampling.py` (`sample_descriptors`) and
+"""Bilinear descriptor sampling at keypoints, patch extraction and the
+soft-argmax subpixel refinement — the counterpart of
+`image_matching_tpu/ops/sampling.py` (`sample_descriptors`,
+`extract_patches`, `soft_argmax_2d`, `refine_keypoints_subpixel`) and
 `geometry/warp.py` (`bilinear_sample`)."""
 from __future__ import annotations
 
@@ -44,3 +46,39 @@ def sample_descriptors(xy, desc_map, cell: int = 8):
     desc = bilinear_sample(desc_map, pc)
     norm = torch.linalg.vector_norm(desc, dim=-1, keepdim=True)
     return desc / norm.clamp_min(1e-12)
+
+
+def extract_patches(image, xy, patch_size: int = 5):
+    """Gather patch_size x patch_size patches centred at the rounded
+    keypoints. image (B, H, W) or (B, H, W, 1); xy (B, K, 2) ->
+    (B, K, P, P) f32. Taps outside the image read 0."""
+    if image.dim() == 4:
+        image = image[..., 0]
+    r = patch_size // 2
+    steps = torch.arange(-r, patch_size - r, dtype=torch.float32, device=xy.device)
+    dy, dx = torch.meshgrid(steps, steps, indexing="ij")
+    offsets = torch.stack([dx, dy], dim=-1).reshape(-1, 2)
+    coords = (torch.round(xy)[:, :, None, :] + offsets).reshape(xy.shape[0], -1, 2)  # (B, K*P*P, 2)
+    patches = bilinear_sample(image[..., None].float(), coords)[..., 0]
+    return patches.reshape(xy.shape[0], xy.shape[1], patch_size, patch_size)
+
+
+def soft_argmax_2d(patches):
+    """Spatial soft-argmax over (..., P, P) patches -> (..., 2) expected
+    (x, y) in patch coordinates [0, P-1]."""
+    *lead, ph, pw = patches.shape
+    prob = torch.softmax(patches.reshape(*lead, ph * pw), dim=-1).reshape(*lead, ph, pw)
+    ys = torch.arange(ph, dtype=patches.dtype, device=patches.device)
+    xs = torch.arange(pw, dtype=patches.dtype, device=patches.device)
+    ey = (prob * ys[:, None]).sum(dim=(-2, -1))
+    ex = (prob * xs[None, :]).sum(dim=(-2, -1))
+    return torch.stack([ex, ey], dim=-1)
+
+
+def refine_keypoints_subpixel(heatmap, xy, patch_size: int = 5):
+    """Subpixel refinement: the soft-argmax of the log of the heatmap patch
+    around each keypoint (with the reference's 1e-6 floor), as an offset
+    from the patch centre added to the rounded keypoint."""
+    patches = extract_patches(heatmap, xy, patch_size)
+    sub = soft_argmax_2d(torch.log(patches + 1e-6))
+    return torch.round(xy) + (sub - (patch_size - 1) / 2.0)

@@ -1,5 +1,6 @@
 """Fixed-capacity masked keypoint and match sets — the counterpart of
-`image_matching_tpu/structs.py` (`Keypoints`, `MatchResult`)."""
+`image_matching_tpu/structs.py` (`Keypoints`, `MatchResult`,
+`RobustFit`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,3 +42,19 @@ class MatchResult:
     matches1: torch.Tensor
     scores0: torch.Tensor
     scores1: torch.Tensor
+
+    def num_matches(self) -> torch.Tensor:
+        return (self.matches0 >= 0).sum(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class RobustFit:
+    """A robust (RANSAC) model fit: matrix (..., 2, 3) affine or
+    (..., 3, 3) homography; inliers (..., N) bool over the match
+    candidates; num_inliers (...,) int; valid (...,) bool, False when
+    there were too few matches to fit."""
+
+    matrix: torch.Tensor
+    inliers: torch.Tensor
+    num_inliers: torch.Tensor
+    valid: torch.Tensor

@@ -18,6 +18,12 @@ Both the `Matching` tree (`params::superpoint::...`,
 `params::superglue::...`) and the bare SuperPoint / SuperGlue trees of
 `weights/sp_*.npz` and `weights/sg_*.npz` map this way.
 
+`SuperPointVGG`'s tree is the flat `params::conv1a::kernel` ...
+`params::convDb::bias`, which maps the same way. Its layers carry the
+official MagicLeap checkpoint's names, so that checkpoint's state_dict
+loads with `load_magicleap_superpoint` (the JAX package converts it with
+`utils/torch_convert.convert_superpoint_vgg`).
+
 `params_to_jax` and `save_npz` go the other way, so weights trained by
 the port load into the JAX package (`utils/weights.load_npz_into`). A
 state_dict `weight` is a conv kernel (4 dims), a dense kernel (2 dims)
@@ -74,6 +80,16 @@ def load_npz(module: torch.nn.Module, path: str) -> None:
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     load_jax_params(module, flat)
+
+
+def load_magicleap_superpoint(module: torch.nn.Module, state: dict) -> None:
+    """Strictly load an official MagicLeap SuperPoint state_dict
+    (`conv1a.weight` ... `convDb.bias`, with or without DataParallel's
+    `module.` prefix) into a `SuperPointVGG`."""
+    prefix = "module."
+    state = {(k[len(prefix):] if k.startswith(prefix) else k): torch.as_tensor(v, dtype=torch.float32)
+             for k, v in state.items()}
+    module.load_state_dict(state, strict=True)
 
 
 def params_to_jax(state_dict: dict) -> dict[str, np.ndarray]:

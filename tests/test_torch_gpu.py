@@ -5,6 +5,7 @@ torch has no CUDA device. Run them on a machine with an H100 with
 `python -m pytest tests/test_torch_gpu.py -m gpu -q`. TF32 is off, so
 f32 references are full f32.
 """
+import dataclasses
 import math
 from unittest import mock
 
@@ -23,6 +24,10 @@ from image_matching_tpu_torch.ops.attention import (
     attention_plain,
 )
 from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_plain
+from image_matching_tpu_torch.ops.realign import maxpool_realign
+from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_entry, maxpool2x2_s2d_from_raw
+from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
+from image_matching_tpu_torch.registration import build_registration_fn
 from image_matching_tpu_torch.ops.sinkhorn import log_sinkhorn, log_sinkhorn_plain
 from image_matching_tpu_torch.train.state import TrainState
 from image_matching_tpu_torch.train.superglue_trainer import (
@@ -257,3 +262,130 @@ def test_train_step_backward_calls_match_plain(cuda):
         for a, e in zip(got, exact, strict=True):
             a = a.float().flatten()
             assert (a @ e.flatten()) / (a.norm() * e.norm()) >= 0.99
+
+
+# (ci, co, B, H, W, dtype): the 2x2 backbone's four entry convs at 480x640 (one
+# image each), then the paths the table does not reach: 16-channel chunks on
+# tensor cores, widths and tiles that do not divide, SIMT in bf16 and f32
+S2D_ENTRY_CASES = [
+    (1, 64, 1, 480, 640, torch.bfloat16), (64, 64, 1, 240, 320, torch.bfloat16),
+    (64, 128, 1, 120, 160, torch.bfloat16), (128, 128, 2, 60, 80, torch.bfloat16),
+    (16, 64, 2, 22, 36, torch.bfloat16), (8, 8, 2, 14, 10, torch.bfloat16),
+    (8, 16, 3, 38, 50, torch.float32), (1, 64, 2, 30, 26, torch.float32),
+]
+
+
+@pytest.mark.parametrize("ci,co,b,h,w,dtype", S2D_ENTRY_CASES)
+def test_s2d_entry_conv_kernel(cuda, ci, co, b, h, w, dtype):
+    g = _gen()
+    x = torch.randn(b, h, w, ci, generator=g).to(cuda, dtype)
+    k = (torch.randn(3, 3, ci, co, generator=g) * 0.3).to(cuda, dtype)
+    before = _build.LAUNCHES["s2d_entry_conv"]
+    got = s2d_entry_conv(x, k)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["s2d_entry_conv"] == before + 1
+    assert got.shape == (b, h // 2, w // 2, 4 * co) and got.dtype == dtype and got.is_contiguous()
+    ref = conv3x3_s2d_entry(x, k)
+    # the same products summed in f32 in another order, rounded once: at
+    # most one step of the type apart
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert ((got.float() - ref.float()).abs() / ref.float().abs().clamp_min(1)).max() <= tol
+
+
+# (B, H, W, C, extra columns, dtype): the 2x2 backbone's three pools at 480x640,
+# then a U widened by extra_cols and odd sizes
+REALIGN_CASES = [
+    (1, 240, 320, 64, 0, torch.bfloat16), (1, 120, 160, 64, 0, torch.bfloat16),
+    (2, 60, 80, 128, 0, torch.bfloat16), (2, 13, 9, 8, 3, torch.bfloat16),
+    (3, 7, 11, 4, 0, torch.float32), (2, 6, 5, 12, 6, torch.float32),
+]
+
+
+@pytest.mark.parametrize("b,h,w,c,extra,dtype", REALIGN_CASES)
+def test_realign_kernel(cuda, b, h, w, c, extra, dtype):
+    u = torch.randn(b, h + 1, w + 1 + extra, 4 * c, generator=_gen()).to(cuda, dtype)
+    u[0, 1, 1, 2 * c] = float("nan")  # group (1, 0) at U[1, 1]: output (0, 1), channel 0
+    out_w = w if extra else None
+    before = _build.LAUNCHES["realign"]
+    got = maxpool_realign(u, out_w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["realign"] == before + 1
+    assert got.shape == (b, h, w, c) and got.dtype == dtype
+    ref = maxpool2x2_s2d_from_raw(u, out_w)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)  # a max rounds nothing
+    assert torch.isnan(got[0, 0, 1, 0]) and int(torch.isnan(got).sum()) == 1
+
+
+def test_s2d_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(1, 8, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="even"):
+        s2d_entry_conv(x[:, :7], torch.zeros(3, 3, 8, 8, device=cuda))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        s2d_entry_conv(x, torch.zeros(3, 3, 8, 12, device=cuda))
+    with pytest.raises(ValueError):
+        s2d_entry_conv(x, torch.zeros(3, 3, 8, 8, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        s2d_entry_conv(x.half(), torch.zeros(3, 3, 8, 8, device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match="contiguous"):
+        maxpool_realign(torch.zeros(1, 5, 4 * 8, 5, device=cuda).transpose(2, 3))
+    with pytest.raises(ValueError, match="multiple"):
+        maxpool_realign(torch.zeros(1, 5, 5, 4 * 6, device=cuda))
+    with pytest.raises(ValueError, match="no .* output"):
+        maxpool_realign(torch.zeros(1, 5, 5, 4 * 8, device=cuda), out_w=5)
+
+
+def test_s2d_functions_under_grad(cuda):
+    """Forward through the kernels, backward by autograd of the plain
+    versions: the same gradients as the plain versions' own."""
+    g = _gen()
+    x = torch.randn(2, 12, 16, 16, generator=g).to(cuda).requires_grad_()
+    k = (torch.randn(3, 3, 16, 8, generator=g) * 0.3).to(cuda).requires_grad_()
+    _build.reset_launch_counts()
+    u = torch.nn.functional.pad(s2d_entry_conv(x, k), (0, 0, 0, 1, 0, 1))  # (2, 7, 9, 32): a stand-in U
+    out = maxpool_realign(u)
+    dout = torch.randn(out.shape, generator=g).to(cuda)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"s2d_entry_conv": 1, "realign": 1}
+    xr, kr = x.detach().clone().requires_grad_(), k.detach().clone().requires_grad_()
+    ref = maxpool2x2_s2d_from_raw(torch.nn.functional.pad(conv3x3_s2d_entry(xr, kr), (0, 0, 0, 1, 0, 1)))
+    ref.backward(dout)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    # the pool may pick another of two taps that differ by rounding: compare the sums
+    torch.testing.assert_close(x.grad, xr.grad, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(k.grad, kr.grad, rtol=1e-3, atol=1e-3)
+
+
+def test_detect_called_directly_runs_on_the_card(cuda):
+    """`Matching.detect` outside `forward`, parameters requiring grad (as
+    registration calls it): the entry conv kernel has no backward, so
+    `detect` brings its own inference mode."""
+    model = Matching(MatchingConfig(descriptor_dim=64, keypoint_encoder=(16, 32), gnn_layers=2, max_keypoints=64))
+    assert all(p.requires_grad for p in model.parameters()) and torch.is_grad_enabled()
+    _build.reset_launch_counts()
+    kp = model.detect(torch.rand(2, 64, 96, 1, generator=_gen()).to(cuda))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"entry_conv": 1}
+    assert kp.desc.shape == (2, 64, 64) and kp.desc.is_inference()
+
+
+@pytest.mark.parametrize("backbone", ["bn", "vgg"])
+def test_registration_runs_through_the_s2d_kernels(cuda, backbone):
+    cfg = MatchingConfig(descriptor_dim=64, keypoint_encoder=(16, 32), gnn_layers=2, sinkhorn_iterations=10,
+                         max_keypoints=128, compute_dtype="float32", backbone=backbone, s2d_backbone=True)
+    model = Matching(cfg)
+    plain = Matching(dataclasses.replace(cfg, s2d_backbone=False))
+    plain.load_state_dict(model.state_dict(), strict=True)
+    g = _gen()
+    a, b = (torch.rand(2, 64, 96, 1, generator=g).to(cuda) for _ in range(2))
+    register = build_registration_fn(model, matcher="superglue", ransac_model="homography", num_hypotheses=64)
+    _build.reset_launch_counts()
+    res = register(a, b, torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"s2d_entry_conv": 8, "realign": 6, "attention": 4, "sinkhorn": 1}
+    assert res.fit.matrix.shape == (2, 3, 3) and res.warped.shape == a.shape
+    with torch.inference_mode():
+        got, ref = model.superpoint(a), plain.superpoint(a)
+    # f32, TF32 off: the same network with sums in another order
+    for key in ("semi", "desc_map"):
+        torch.testing.assert_close(got[key], ref[key], rtol=1e-3, atol=1e-3)

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 import image_matching_tpu_torch
-from image_matching_tpu_torch.models import Matching, MatchingConfig, SuperGlue, SuperPointBN
+from image_matching_tpu_torch.models import Matching, MatchingConfig, SuperGlue, SuperPointBN, SuperPointVGG
 
 PACKAGE = Path(image_matching_tpu_torch.__file__).parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "image_matching_tpu")
@@ -24,6 +24,9 @@ def _imported_modules(tree):
 def test_port_imports_no_jax():
     sources = sorted(PACKAGE.rglob("*.py"))
     assert len(sources) >= 10
+    names = {str(p.relative_to(PACKAGE)) for p in sources}
+    assert {"registration.py", "evaluation.py", "ops/s2d_conv.py", "ops/s2d_entry.py", "ops/realign.py",
+            "ops/matching.py", "ops/ransac.py"} <= names
     for path in sources:
         for mod in _imported_modules(ast.parse(path.read_text(), str(path))):
             top = mod.split(".")[0]
@@ -34,6 +37,8 @@ def test_port_imports_no_jax():
     lambda: Matching(MatchingConfig(gnn_layers=2)),
     lambda: SuperPointBN(64),
     lambda: SuperGlue(64, (16,), gnn_layers=2),
+    lambda: SuperPointVGG(64),
+    lambda: Matching(MatchingConfig(gnn_layers=2, backbone="vgg", s2d_backbone=True)),
 ])
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch, build):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
