@@ -10,7 +10,8 @@ In order, it:
      `nvcc` for each source, all in parallel) and prints `-Xptxas -v`;
   3. holds each kernel against its plain PyTorch version on the card at
      the main path's shapes, and times kernel, plain version and one
-     PyTorch yardstick with CUDA events;
+     PyTorch yardstick with CUDA events, kernel and yardstick also by
+     replaying a CUDA graph (no host launch gaps);
   4. runs the headline configuration through `Matching` (480x640, batch
      4, K=1024, D=256, 18 GNN layers, 30 Sinkhorn iterations, bf16,
      seeded random weights, seeded uniform images), checks that the path
@@ -19,9 +20,12 @@ In order, it:
   5. runs `MatchingConfig.self_trained_128()` with the banked
      `weights/sp_photo.npz` + `weights/sg_photo.npz` on a seeded textured
      image and its warp by a known homography;
-  6. holds the training kernels (attention forward with LSE, dK/dV, dQ)
-     against their plain versions and against autograd of the plain
-     attention, at the training path's shapes and beyond, and times them;
+  6. holds the training kernels (attention forward with LSE, dQ with its
+     delta, dK/dV) against their plain versions and against autograd of
+     the plain attention, at the training path's shapes, beyond, and at
+     ragged ones, and times them (CUDA graph replay at three shapes, the
+     profiler's device time at the training path's) beside their bounds
+     and `scaled_dot_product_attention`'s forward and backward;
   7. trains SuperGlue at the training CLI's default configuration (240x320,
      batch 4, K=512, D=128, 18 GNN layers, 100 Sinkhorn iterations, lr
      1e-4, bf16; frozen SuperPoint and warm start from the banked weights):
@@ -96,11 +100,12 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, warmup: int = 3) -> float:
+def device_ms(fn, reps: int, warmup: int = 3):
     """Device time per call of `fn`: the sum of its kernels' time from
     torch.profiler over `reps` calls, without the host's launch gaps. Every
     call launches the same kernels, so a profile whose kernel count is not
-    a multiple of `reps` lost events; it is taken again, up to 5 times."""
+    a multiple of `reps` lost events; it is taken again, up to 5 times, and
+    then given up: None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -117,7 +122,10 @@ def device_ms(fn, reps: int, warmup: int = 3) -> float:
         if count and count % reps == 0:
             return sum(_dev_us(e) for e in events) / reps / 1e3
         print(f"  profiler: {count} kernel events for {reps} calls; profiling again")
-    fail("the profiler lost kernel events five times")
+    return None
+
+
+_SIDE_STREAM: list = []
 
 
 def graph_ms(fn, reps: int, replays: int = 5) -> float:
@@ -127,7 +135,12 @@ def graph_ms(fn, reps: int, replays: int = 5) -> float:
     must not synchronise with the host."""
     import torch
 
-    side = torch.cuda.Stream()
+    # one side stream for every warm-up and capture: cuBLAS keeps a workspace of
+    # 32 MiB for each stream it has run on, which would add up in the later
+    # phases' peak memory
+    if not _SIDE_STREAM:
+        _SIDE_STREAM.append(torch.cuda.Stream())
+    side = _SIDE_STREAM[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants it
         for _ in range(3):
@@ -135,7 +148,7 @@ def graph_ms(fn, reps: int, replays: int = 5) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -147,6 +160,16 @@ def graph_ms(fn, reps: int, replays: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (replays * reps)
+
+
+def print_replayed(label, ms, lib_ms, lib_name, fn, lib, reps: int = 20):
+    """Print a kernel's and its library call's time by CUDA graph replay
+    beside the CUDA-event figures `ms` and `lib_ms`, which hold the host's
+    launch rate too."""
+    g_ms, g_lib = graph_ms(fn, reps), graph_ms(lib, reps)
+    print(f"{label}: ms per call, CUDA events over back-to-back calls: kernel {ms:.4f}, {lib_name} {lib_ms:.4f} "
+          f"({ms / lib_ms:.3f} of it); CUDA graph replay of {reps} calls: kernel {g_ms:.4f}, {lib_name} {g_lib:.4f} "
+          f"({g_ms / g_lib:.3f} of it)")
 
 
 def _dev_us(e) -> float:
@@ -209,6 +232,8 @@ def check_entry_conv(torch, dev, rng):
     ms = cuda_ms(lambda: entry_conv(img, k, scale, shift), 20)
     plain_ms = cuda_ms(lambda: entry_conv_plain(img, k, scale, shift), 5)
     lib_ms = cuda_ms(lib, 20)
+    print_replayed("entry_conv (8, 480, 640) -> 64 bf16", ms, lib_ms, "cuDNN conv + affine + ReLU",
+                   lambda: entry_conv(img, k, scale, shift), lib)
     npix = b * h * w
     bms, by = bound(npix * 2 + npix * 64 * 2 + (9 + 2) * 64 * 4, npix * 64 * (2 * 9 + 2), F32_FLOPS)
     return dict(name="entry_conv", route="cuda", source="image_matching_tpu_torch/csrc/entry_conv.cu",
@@ -249,9 +274,12 @@ def check_attention(torch, dev, rng):
     q, k, v, mask, err = results[(b, n, h, dh)]
     qh, kh, vh = (t.reshape(b, n, h, dh).transpose(1, 2).contiguous() for t in (q, k, v))
     m4 = mask[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4)
     ms = cuda_ms(lambda: attention(q, k, v, mask, h), 20)
     plain_ms = cuda_ms(lambda: attention_plain(q, k, v, mask, h, "float32"), 10)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4), 20)
+    lib_ms = cuda_ms(lib, 20)
+    print_replayed(f"attention ({b}, {n}, {h}x{dh}) bf16", ms, lib_ms, "scaled_dot_product_attention",
+                   lambda: attention(q, k, v, mask, h), lib)
     flops = 4.0 * b * h * n * n * dh
     bms, by = bound(4 * b * n * h * dh * 2 + b * n, flops, BF16_TENSOR_FLOPS)
     return dict(name="attention", route="cuda", source="image_matching_tpu_torch/csrc/attention.cu",
@@ -296,6 +324,8 @@ def check_sinkhorn(torch, dev, rng):
     ms = cuda_ms(lambda: log_sinkhorn(z, mu, nu, iters), 10)
     plain_ms = cuda_ms(lambda: log_sinkhorn_plain(z, mu, nu, iters), 5)
     lib_ms = cuda_ms(lib, 5)
+    print_replayed("sinkhorn (4, 1025, 1025) x 30 f32", ms, lib_ms, "torch.logsumexp loop",
+                   lambda: log_sinkhorn(z, mu, nu, iters), lib, reps=5)
     elems = b * m * m
     # per element and pass: add, max, subtract, exp, add
     bms, by = bound(2 * elems * 4 + 2 * b * m * 4, iters * 2 * elems * 5, F32_FLOPS)
@@ -578,22 +608,25 @@ def check_attention_training(torch, dev, rng):
     """The forward with LSE and the dK/dV, dQ kernels against their plain
     versions (and the gradients against autograd of the plain attention at
     f32 logits) at the training path's shapes and beyond; then their times
-    at the training path's shape."""
-    import torch.nn.functional as F
+    at the training path's shape and two larger ones."""
     from image_matching_tpu_torch.ops import attention as A
 
     cases = (((4, 512, 512, 4, 32), torch.bfloat16, "trainer, D=128"),
              ((4, 1024, 1024, 4, 64), torch.bfloat16, "D=256"),
              ((2, 2048, 2048, 4, 64), torch.bfloat16, "the TPU's flash band"),
-             ((3, 70, 133, 4, 32), torch.float32, "ragged N != M, one dead element"))
+             ((3, 70, 133, 4, 32), torch.float32, "ragged N != M, one dead element"),
+             ((3, 70, 133, 4, 32), torch.bfloat16, "ragged N != M, one dead element"),
+             ((2, 333, 40, 4, 16), torch.bfloat16, "M under one tile, one dead element"),
+             ((2, 50, 1100, 2, 64), torch.bfloat16, "N under one tile, 18 key tiles, one dead element"))
     errs = {"attention_lse": 0.0, "attention_dkdv": 0.0, "attention_dq": 0.0}
     for (b, n, m, h, dh), dtype, label in cases:
+        dead = "dead element" in label
         q = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev, dtype)
         kv = torch.from_numpy(rng.normal(size=(b, m, 2 * h * dh)).astype("float32")).to(dev, dtype)
         k, v = kv[..., :h * dh], kv[..., h * dh:]  # views of a fused projection, as in the model
         mask = torch.from_numpy(rng.uniform(size=(b, m)) < 0.8).to(dev)
         mask[:, 0] = True
-        if dtype == torch.float32:
+        if dead:
             mask[-1] = False
         dout = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev, dtype)
         out, lse = A.attention_lse(q, k, v, mask, h)
@@ -624,19 +657,48 @@ def check_attention_training(torch, dev, rng):
         check(e_out <= t_out and e_lse <= t_lse, f"attention forward with LSE disagrees ({label})")
         check(e_bwd <= t_bwd, f"attention backward kernels disagree with the plain FA2 ({label})")
         check(e_auto <= t_auto, f"attention backward kernels disagree with autograd ({label})")
-        if dtype == torch.float32:
+        if dead:
             dq, dk, dv = grads
             check(not dq[-1].any() and not dk[-1].any(), "dead element: dq, dk not zero")
-            want = (dout[-1].sum(0) / m).expand_as(dv[-1])
-            check((dv[-1] - want).abs().max().item() <= 1e-5, "dead element: dv != sum(dO) / M")
+            want = (dout[-1].float().sum(0) / m).expand_as(dv[-1])
+            # bf16: P = 1/M and the stored dV are each rounded once
+            check((dv[-1].float() - want).abs().max().item() <= (2e-2 * want.abs().max().item() if bf16 else 1e-5),
+                  "dead element: dv != sum(dO) / M")
             check((lse[-1] - math.log(m)).abs().max().item() <= 1e-5, "dead element: lse != log M")
+        # the delta that the dQ kernel writes for the dK/dV kernel, against its plain version:
+        # f32 from the same products and the same lse, another order of sums (bf16: fast
+        # exponentials too)
+        got_delta = torch.empty((b, h, n), dtype=torch.float32, device=dev)
+        A.attention_backward_kernel("attention_dq", q, k, v, mask, dout, lse, got_delta, (torch.empty_like(q),), h)
+        ref_delta = A.attention_delta_plain(q, k, v, mask, lse, dout, h)
+        e_delta = (got_delta - ref_delta).abs().max().item() / ref_delta.abs().max().item()
+        print(f"  delta written by the dQ kernel vs its plain version: {e_delta:.3e} of the largest entry (tol 1e-4)")
+        check(e_delta <= 1e-4, f"the dQ kernel's delta disagrees ({label})")
         errs["attention_lse"] = max(errs["attention_lse"], e_out)
         errs["attention_dkdv"] = max(errs["attention_dkdv"], (grads[1].float() - plain[1].float()).abs().max().item(),
                                      (grads[2].float() - plain[2].float()).abs().max().item())
         errs["attention_dq"] = max(errs["attention_dq"], (grads[0].float() - plain[0].float()).abs().max().item())
 
-    # times at the training path's shape: (4, 512, 4x32) bf16, 36 calls per step
-    b, n, h, dh = 4, 512, 4, 32
+    # times: the training path's shape, (4, 512, 4x32) bf16, 36 calls per step, whose
+    # numbers go into the JSON line; and two larger shapes, where the bound means more
+    rows = None
+    for shape in ((4, 512, 4, 32), (4, 1024, 4, 64), (2, 2048, 4, 64)):
+        timed = time_attention_training(torch, dev, rng, *shape, profiled=rows is None)
+        rows = rows or timed
+    for row in rows:
+        row["max_abs_err"] = errs[row["name"]]
+    return rows
+
+
+def time_attention_training(torch, dev, rng, b, n, h, dh, profiled):
+    """Times of the forward with LSE and the two backward kernels at one
+    bf16 shape, beside their bounds, plain versions and
+    `scaled_dot_product_attention`: by CUDA graph replay, which is what the
+    returned JSON rows hold if `profiled`, and then by the profiler's
+    device time too, where it keeps its events."""
+    import torch.nn.functional as F
+    from image_matching_tpu_torch.ops import attention as A
+
     q = torch.from_numpy(rng.normal(size=(b, n, 3 * h * dh)).astype("float32")).to(dev, torch.bfloat16)
     q, k, v = q[..., :h * dh], q[..., h * dh:2 * h * dh], q[..., 2 * h * dh:]
     mask = torch.from_numpy(rng.uniform(size=(b, n)) < 0.8).to(dev)
@@ -645,11 +707,7 @@ def check_attention_training(torch, dev, rng):
     out, lse = A.attention_lse(q, k, v, mask, h)
     delta = torch.empty((b, h, n), dtype=torch.float32, device=dev)  # written by the dQ kernel
     dq, dk, dv = (torch.empty((b, n, h * dh), dtype=torch.bfloat16, device=dev) for _ in range(3))
-    fwd = lambda: A.attention_lse(q, k, v, mask, h)
-    dkdv = lambda: A.attention_backward_kernel("attention_dkdv", q, k, v, mask, dout, lse, delta, (dk, dv), h)
-    dqk = lambda: A.attention_backward_kernel("attention_dq", q, k, v, mask, dout, lse, delta, (dq,), h)
-    plain_fwd = lambda: A.attention_lse_plain(q, k, v, mask, h)
-    plain_bwd = lambda: A.attention_backward_plain(q, k, v, mask, lse, dout, h)
+    kernel = lambda name, outs: lambda: A.attention_backward_kernel(name, q, k, v, mask, dout, lse, delta, outs, h)
     qh, kh, vh = (t.reshape(b, n, h, dh).transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
     m4 = mask[:, None, None, :]
     doh = dout.reshape(b, n, h, dh).transpose(1, 2).contiguous()
@@ -658,46 +716,70 @@ def check_attention_training(torch, dev, rng):
         with torch.no_grad():
             return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4)
 
-    lib_fb = lambda: torch.autograd.grad(F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4),
-                                         (qh, kh, vh), doh)
-    # device time (profiler) is the kernels' own; CUDA events over back-to-back
-    # calls also count the host's launch rate, which bounds calls this small
-    dev_ms = {name: device_ms(fn, 20) for name, fn in (("fwd", fwd), ("dq", dqk), ("dkdv", dkdv),
-                                                      ("plain_fwd", plain_fwd), ("plain_bwd", plain_bwd),
-                                                      ("lib_fwd", lib_fwd), ("lib_fb", lib_fb))}
-    wall = {name: cuda_ms(fn, 20) for name, fn in (("fwd", fwd), ("dq", dqk), ("dkdv", dkdv))}
-    dev_ms["lib_bwd"] = dev_ms["lib_fb"] - dev_ms["lib_fwd"]
-    print(f"attention training kernels at ({b}, {n}, {h}x{dh}) bf16, device time per call (profiler): "
-          f"forward with LSE {dev_ms['fwd']:.4f} ms, dK/dV {dev_ms['dkdv']:.4f} ms, dQ {dev_ms['dq']:.4f} ms; "
-          f"plain forward {dev_ms['plain_fwd']:.4f} ms, plain backward (dq, dk, dv together) "
-          f"{dev_ms['plain_bwd']:.4f} ms; scaled_dot_product_attention forward {dev_ms['lib_fwd']:.4f} ms, "
-          f"forward + backward {dev_ms['lib_fb']:.4f} ms (backward {dev_ms['lib_bwd']:.4f} ms). CUDA events "
-          f"over back-to-back calls (launch rate included): forward with LSE {wall['fwd']:.4f} ms, "
-          f"dK/dV {wall['dkdv']:.4f} ms, dQ {wall['dq']:.4f} ms")
-    fwd_ms, dkdv_ms, dq_ms = dev_ms["fwd"], dev_ms["dkdv"], dev_ms["dq"]
-    plain_fwd_ms, plain_bwd_ms, lib_fwd_ms, lib_bwd_ms = (dev_ms["plain_fwd"], dev_ms["plain_bwd"],
-                                                          dev_ms["lib_fwd"], dev_ms["lib_bwd"])
+    fns = {"fwd": lambda: A.attention_lse(q, k, v, mask, h),
+           "dq": kernel("attention_dq", (dq,)), "dkdv": kernel("attention_dkdv", (dk, dv)),
+           "bwd": lambda: A.attention_backward(q, k, v, mask, lse, dout, h),  # the two, with their allocations
+           "plain_fwd": lambda: A.attention_lse_plain(q, k, v, mask, h),
+           "plain_bwd": lambda: A.attention_backward_plain(q, k, v, mask, lse, dout, h),
+           "lib_fwd": lib_fwd,
+           "lib_fb": lambda: torch.autograd.grad(F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4),
+                                                 (qh, kh, vh), doh)}
+    fns["dq"]()  # writes the delta that dK/dV reads
     pair = b * h * n * n * dh  # one (N x M x dh) product is 2 * pair operations
     qkv_bytes = 3 * b * n * h * dh * 2
+    one = b * n * h * dh * 2  # dO, or one gradient
     row_bytes = b * h * n * 4  # lse or delta
+    # the products the function needs, every input read and output written once, delta
+    # an output of dQ and an input of dK/dV (the dQ kernel does more: its first pass,
+    # for delta, computes S and dP too)
+    needs = {"fwd": (2, qkv_bytes + one + row_bytes + b * n),             # S, P V
+             "dq": (3, qkv_bytes + 2 * one + 2 * row_bytes + b * n),      # S, dP, dS K
+             "dkdv": (4, qkv_bytes + 3 * one + 2 * row_bytes + b * n)}    # S^T, P^T dO, dP^T, dS^T Q
+    bounds = {name: bound(nbytes, products * 2 * pair, BF16_TENSOR_FLOPS) for name, (products, nbytes) in needs.items()}
+
+    def report(method, t):
+        t["lib_bwd"] = t["lib_fb"] - t["lib_fwd"]
+        both = t["dq"] + t["dkdv"]
+        whole = f" (one call of both with their allocations {t['bwd']:.4f})" if "bwd" in t else ""
+        print(f"attention training kernels at ({b}, {n}, {h}x{dh}) bf16, ms per call, {method}: forward with LSE "
+              f"{t['fwd']:.4f} (bound {bounds['fwd'][0]:.5f}); dQ {t['dq']:.4f} (bound {bounds['dq'][0]:.5f}), dK/dV "
+              f"{t['dkdv']:.4f} (bound {bounds['dkdv'][0]:.5f}), the pair {both:.4f}{whole}; plain forward "
+              f"{t['plain_fwd']:.4f}, plain backward (dq, dk, dv together) {t['plain_bwd']:.4f}; "
+              f"scaled_dot_product_attention forward {t['lib_fwd']:.4f}, forward + backward {t['lib_fb']:.4f} "
+              f"(backward {t['lib_bwd']:.4f}): the pair takes {both / t['lib_bwd']:.3f} of its backward, the forward "
+              f"{t['fwd'] / t['lib_fwd']:.3f} of its forward")
+
+    if profiled:
+        # the profiler's device time is the kernels' own, as a graph's replay is but for the
+        # few microseconds between its nodes; it loses events now and then, and is read
+        # first because it loses more once graphs have been replayed
+        dev_ms = {}
+        for name, fn in fns.items():
+            if name != "bwd" and None not in dev_ms.values():
+                dev_ms[name] = device_ms(fn, 20)
+        if None in dev_ms.values():
+            print(f"attention training kernels at ({b}, {n}, {h}x{dh}) bf16: device time (profiler) not measured: "
+                  f"the profiler lost kernel events five times running")
+        else:
+            report("device time (profiler)", dev_ms)
+    replayed = {name: graph_ms(fn, 20) for name, fn in fns.items()}
+    report("CUDA graph replay of 20 calls", replayed)
+    if not profiled:
+        return None
+    # CUDA events over back-to-back calls also count the host's launch rate, which bounds
+    # calls this small
+    wall = {name: cuda_ms(fns[name], 20) for name in ("fwd", "dq", "dkdv")}
+    print(f"  CUDA events over back-to-back calls (launch rate included): forward with LSE {wall['fwd']:.4f} ms, "
+          f"dQ {wall['dq']:.4f} ms, dK/dV {wall['dkdv']:.4f} ms")
     rows = []
-    for name, flops, nbytes, ms, plain_ms, lib_ms, line in (
-            ("attention_lse", 2 * 2 * pair, qkv_bytes + b * n * h * dh * 2 + row_bytes + b * n, fwd_ms,
-             plain_fwd_ms, lib_fwd_ms, "image_matching_tpu/ops/pallas/attention.py:560"),
-            # the products the function needs, with delta an input of dK/dV and
-            # an output of dQ (the kernels do more: dS split in bf16 hi + lo,
-            # and dQ's delta pass recomputes S and dP). dK/dV: S^T, P^T dO,
-            # dP^T, dS^T Q
-            ("attention_dkdv", 4 * 2 * pair, qkv_bytes + 3 * b * n * h * dh * 2 + 2 * row_bytes + b * n, dkdv_ms,
-             plain_bwd_ms, lib_bwd_ms, "image_matching_tpu/ops/pallas/attention.py:121"),
-            # dQ: S, dP, dS K
-            ("attention_dq", 3 * 2 * pair, qkv_bytes + 2 * b * n * h * dh * 2 + 2 * row_bytes + b * n, dq_ms,
-             plain_bwd_ms, lib_bwd_ms, "image_matching_tpu/ops/pallas/attention.py:168")):
-        bms, by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+    for name, key, plain, lib, line in (
+            ("attention_lse", "fwd", "plain_fwd", "lib_fwd", "image_matching_tpu/ops/pallas/attention.py:560"),
+            ("attention_dkdv", "dkdv", "plain_bwd", "lib_bwd", "image_matching_tpu/ops/pallas/attention.py:121"),
+            ("attention_dq", "dq", "plain_bwd", "lib_bwd", "image_matching_tpu/ops/pallas/attention.py:168")):
         source = "attention.cu" if name == "attention_lse" else "attention_bwd.cu"
         rows.append(dict(name=name, route="cuda", source=f"image_matching_tpu_torch/csrc/{source}",
-                         replaces=line, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                         bound_by=by, library_ms=lib_ms))
+                         replaces=line, ms=replayed[key], plain_ms=replayed[plain], bound_ms=bounds[key][0],
+                         bound_by=bounds[key][1], library_ms=replayed[lib]))
     return rows
 
 

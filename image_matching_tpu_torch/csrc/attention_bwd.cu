@@ -34,29 +34,58 @@
 // What bounds it on an H100: the function needs 7 matrix products of
 // 2*B*H*N*M*dh (dK/dV: S, dP, P^T dO, dS^T Q; dQ: S, dP, dS K), 1.9 GFLOP
 // at the training path's (4, 512, 4 x 32) bf16, against ~3 MB of
-// q/k/v/dO/dq/dk/dv: 1.9 us at the tensor-core peak, 0.9 us at HBM's
-// rate. The kernels do 11: the dQ kernel's delta pass recomputes S and
-// dP, and dS enters each of its two products as two (below). At that
-// size one call is 128 blocks, under one wave, so latency, not a peak,
-// bounds it.
+// q/k/v/dO/dq/dk/dv: 1.9 us at the tensor-core peak, 0.9 us at HBM's rate.
+// The bf16 kernels do 9: the dQ kernel's delta pass computes S and dP too.
+// At that size a 64-row block per (b, head) tile makes 128 blocks, under
+// one wave of the 132 SMs, and a warp owns 16 rows: with one warp per row
+// group an SM holds 4 warps and each walks the whole other side in turn,
+// so latency, not a peak, bounds it; of a call's ~10 us more than half is
+// spent outside the loop over tiles (launch, first loads, mask, partial
+// sums, stores; PERF.md). At (4, 1024, 4 x 64) and beyond the products
+// themselves count. What the design does about it:
+//  - NG warpgroups of 4 warps share a block's 64 own rows and split the
+//    looped side: group g takes 64-row tiles g, g + NG, ... of it, and the
+//    partial sums are added through shared memory in the groups' order.
+//  - Every group runs its own pipeline: its 128 threads bring tile i + 1
+//    of the looped side (Q, dO, lse, delta for dK/dV; K, V for dQ) into a
+//    2-stage ring by `cp.async` (16-byte copies, rows past the end
+//    zero-filled by a source size of 0) while tile i is multiplied, and
+//    meet at a named barrier of their own, so the groups drift apart and
+//    one's exponentials overlap another's products.
+//  - Up to dh = 32: mma.sync.m16n8k16 (f32 accumulate), as the forward,
+//    from one row-major copy of each tile, rows padded by
+//    8 bf16 so that the 8 rows of an `ldmatrix` fall on distinct banks. B
+//    fragments of S and dP come by `ldmatrix`, those of the products that
+//    contract over the tile's rows (P^T dO, dS^T Q, dS K) by
+//    `ldmatrix.trans` from the same copy; the block's own rows are staged
+//    once and read as A fragments. NG = 4: one block of 16 warps on an SM.
+//  - At dh = 64: wgmma (m64n64k16) on whole 64 x 64 tiles straight from
+//    shared memory in the 128-byte swizzle, S and dP with both operands in
+//    shared memory, the three products that contract over the tile's rows
+//    with A (P^T, dS) from registers and B read transposed by its
+//    descriptor. 4 (dQ) and 3 (dK/dV) warpgroups of one block on an SM.
+//  - The inner loops over P and dS run without a branch: a key's state is
+//    folded into factors and the exponential stands outside every choice
+//    (a conditional around it cost a quarter of a dK/dV call's time).
+//  - The dQ kernel's second pass walks the keys last tile first, so the
+//    tiles the delta pass left in the ring need no second load: none at
+//    all up to NG * 2 * 64 keys (512 at dh = 32, the training path).
+//  - The key mask is read once per block (the whole row into shared
+//    memory for dQ, an any-reduction for dK/dV's dead flag).
 //
-// No carry between blocks (the TPU grid's "arbitrary" axis): one block per
-// (b, head, 64-key tile) loops over every query tile for dK/dV, and one
-// block per (b, head, 64-query tile) loops over every key tile for dQ, with
-// the sums in registers. No atomics, so every sum has a fixed order.
+// No carry between blocks (the TPU grid's "arbitrary" axis) and no atomics:
+// every sum has a fixed order, so two runs give the same bits.
 //
-// bf16: tensor cores through mma.sync.m16n8k16 (f32 accumulate), as the
-// forward. 4 warps, 16 rows each. The warp's own 16 rows (keys for dK/dV,
-// queries for dQ) stay in registers as A fragments; the other side is
-// staged in shared memory both row-major and transposed (8 bf16 of padding
-// per row), so every B fragment is one conflict-free 32-bit read. The
-// C-fragment layout of P^T and dS is reused as A fragments. P, dP and dS
-// are f32. P is rounded to bf16 for dV = P^T dO (P >= 0, so the rounding
-// stays relative to the sum, as the forward's P V). dS is not rounded: the
-// TPU kernel takes dS K and dS^T Q as f32 products (attention.py:157-160,
-// 199-201). Here dS enters each as a bf16 part plus its bf16 residue, two
-// products that come within f32 rounding of the f32 one. No cp.async, TMA
-// or wgmma yet.
+// The C-fragment layout of P^T and dS is reused as A fragments. P, dP and
+// dS are f32. P is rounded to bf16 for dV = P^T dO (P >= 0, so the rounding
+// stays relative to the sum, as the forward's P V). dS is rounded to bf16
+// for dS K and dS^T Q: the rounding is relative to each entry, so a row's
+// sum stays 0 to within 2^-9 of its norm, and on a training step's calls
+// the gradients keep a cosine of 0.9999 and more to the exact ones. The
+// TPU kernel takes those two as f32 products (attention.py:157-160,
+// 199-201); dS as a bf16 part plus its bf16 residue, two products, bought
+// 5 times smaller errors, the same cosines, and cost a tenth of the time
+// (PERF.md).
 //
 // f32: plain FMAs, no tensor cores, 4 threads per row as the forward's SIMT
 // kernel; products and exponentials in full f32.
@@ -67,9 +96,14 @@
 
 namespace {
 
-constexpr int T = 64;   // rows per staged tile
-constexpr int PAD = 8;  // bf16 of padding per staged row
-constexpr int WARPS = 4;
+constexpr int T = 64;        // rows per staged tile, and own rows per block
+constexpr int PAD = 8;       // bf16 of padding per staged row
+constexpr int STAGES = 2;    // tiles of the looped side in a group's ring
+constexpr int GROUP = 128;   // threads of a warpgroup: 4 warps, 16 own rows each
+// Warpgroups of a block, each measured on the card against its neighbours
+// (PERF.md): the mma.sync kernels; the wgmma kernels, which registers cap
+// (128 a thread for dQ at 4 groups, 168 for dK/dV at 3).
+constexpr int MMA_GROUPS = 4, WG_GROUPS_DQ = 4, WG_GROUPS_DKDV = 3;
 
 // key state: 0 valid, 1 masked in a dead batch element (logit 0), 2 masked
 // in a live element or past M (P = 0)
@@ -101,82 +135,117 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// A fragments of 16 rows x DH from a row-strided bf16 matrix, rows r0 and
-// r0 + 8 of this thread (zero past `rows`):
-// a0 (r0, 2t), a1 (r0+8, 2t), a2 (r0, 2t+8), a3 (r0+8, 2t+8) per k-step.
+// 16 (or 4) bytes from device memory to shared memory without passing
+// through registers; `ok` false copies nothing and writes zeros.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most PENDING of this thread's committed groups are in flight.
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// Barrier of one warpgroup (ids 1.., 0 is __syncthreads').
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(grp + 1), "n"(GROUP) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. r[m] holds (row lane / 4, columns 2 (lane % 4)
+// and + 1) of matrix m, or with .trans (rows 2 (lane % 4) and + 1, column
+// lane / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// Rows [r0, r0 + T) of a row-strided (rows, DH) bf16 matrix into a padded
+// row-major tile by `NTHREADS` threads, zeros past `rows`.
+template <int DH, int NTHREADS>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* tile, const __nv_bfloat16* base, int64_t rs,
+                                           int r0, int rows, int tid) {
+  constexpr int CH = DH / 8;  // 16-byte chunks per row
+  for (int c = tid; c < T * CH; c += NTHREADS) {
+    const int row = c / CH, col = (c % CH) * 8;
+    const bool ok = r0 + row < rows;
+    cp_async_16(tile + row * (DH + PAD) + col, ok ? base + (r0 + row) * rs + col : base, ok);
+  }
+}
+
+// A fragments of the warp's 16 rows (from `wr`) of a staged tile, per
+// k-step: a0 (g, 2t), a1 (g+8, 2t), a2 (g, 2t+8), a3 (g+8, 2t+8).
 template <int DH>
-__device__ __forceinline__ void load_a(uint32_t (*a)[4], const __nv_bfloat16* base, int64_t rs,
-                                       int r0, int rows, int t) {
+__device__ __forceinline__ void load_a(uint32_t (*a)[4], const __nv_bfloat16* tile, int wr, int lane) {
+  const int row = wr + (lane % 8) + ((lane / 8) % 2) * 8, col = (lane / 16) * 8;
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + (i & 1) * 8, col = kk * 16 + (i >> 1) * 8 + 2 * t;
-      a[kk][i] = row < rows ? ld32(base + row * rs + col) : 0u;
-    }
+  for (int ks = 0; ks < DH / 16; ++ks) ldsm_x4(a[ks], smem_addr(tile + row * (DH + PAD) + ks * 16 + col));
 }
 
-// Stage rows [r0, r0 + T) of a row-strided (rows, DH) bf16 matrix into
-// `rm` (row-major) and/or `tr` (transposed), zero past `rows`.
+// c (16 own rows x 16 tile rows) += A (16 x DH, fragments) . tile^T, for the
+// 16 tile rows at `tile_nt`: the tile's address in shared memory plus the
+// lane's and the rows' offsets. One ldmatrix brings both 8-row halves'
+// B fragments of a k-step.
 template <int DH>
-__device__ __forceinline__ void stage(__nv_bfloat16 (*rm)[DH + PAD], __nv_bfloat16 (*tr)[T + PAD],
-                                      const __nv_bfloat16* base, int64_t rs, int r0, int rows) {
-  for (int idx = threadIdx.x; idx < T * DH / 4; idx += WARPS * 32) {
-    const int j = idx / (DH / 4), d = (idx % (DH / 4)) * 4;
-    uint2 x = make_uint2(0u, 0u);
-    if (r0 + j < rows) x = *reinterpret_cast<const uint2*>(base + (r0 + j) * rs + d);
-    if (rm != nullptr) *reinterpret_cast<uint2*>(&rm[j][d]) = x;
-    if (tr != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
+__device__ __forceinline__ void mma_nt(float (*c)[4], const uint32_t (*a)[4], uint32_t tile_nt) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) tr[d + i][j] = e[i];
-    }
+  for (int ks = 0; ks < DH / 16; ++ks) {
+    uint32_t r[4];
+    ldsm_x4(r, tile_nt + ks * 32);
+    mma_bf16(c[0], a[ks], r[0], r[1]);
+    mma_bf16(c[1], a[ks], r[2], r[3]);
   }
 }
 
-// C (16 x 8*NT) += A (16 x 16*KS, fragments) . B, with B's fragment for
-// n-tile n and k-step kk read from `bs` (rows n, contiguous along k).
-template <int NT, int KS, int LD>
-__device__ __forceinline__ void mma_rows(float (*c)[4], const uint32_t (*a)[4],
-                                         const __nv_bfloat16 (*bs)[LD], int g, int t) {
+// c (16 own rows x DH) += A (16 x 16: one k-step over 16 tile rows) . tile,
+// for the 16 tile rows at `tile_tn` (address plus the lane's and the rows'
+// offsets), B fragments transposed on the way in.
+template <int DH>
+__device__ __forceinline__ void mma_tn(float (*c)[4], const uint32_t* a, uint32_t tile_tn) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-      mma_bf16(c[n], a[kk], ld32(&bs[n * 8 + g][kk * 16 + 2 * t]),
-               ld32(&bs[n * 8 + g][kk * 16 + 8 + 2 * t]));
-}
-
-// The C layout of a 16 x 64 f32 tile as bf16 A fragments over its 64 columns.
-__device__ __forceinline__ void c_to_a(uint32_t (*a)[4], const float (*c)[4]) {
-#pragma unroll
-  for (int kk = 0; kk < T / 16; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  for (int np = 0; np < DH / 16; ++np) {
+    uint32_t r[4];
+    ldsm_x4_trans(r, tile_tn + np * 32);
+    mma_bf16(c[2 * np], a, r[0], r[1]);
+    mma_bf16(c[2 * np + 1], a, r[2], r[3]);
   }
 }
 
-// The rounding residue of the same tile, c - bf16(c), as bf16 A fragments:
-// A = hi + lo carries c to ~16 significant bits, so two products with an
-// exact bf16 B come within f32 rounding of the f32 product.
-__device__ __forceinline__ float residue(float x) {
-  return x - __bfloat162float(__float2bfloat16_rn(x));
+// The C layout of a 16 x 16 f32 tile as the bf16 A fragment of one k-step.
+__device__ __forceinline__ void c_to_a(uint32_t* a, const float (*c)[4]) {
+  a[0] = pack_bf16(c[0][0], c[0][1]);
+  a[1] = pack_bf16(c[0][2], c[0][3]);
+  a[2] = pack_bf16(c[1][0], c[1][1]);
+  a[3] = pack_bf16(c[1][2], c[1][3]);
 }
 
-__device__ __forceinline__ void c_to_a_lo(uint32_t (*a)[4], const float (*c)[4]) {
-#pragma unroll
-  for (int kk = 0; kk < T / 16; ++kk) {
-    a[kk][0] = pack_bf16(residue(c[2 * kk][0]), residue(c[2 * kk][1]));
-    a[kk][1] = pack_bf16(residue(c[2 * kk][2]), residue(c[2 * kk][3]));
-    a[kk][2] = pack_bf16(residue(c[2 * kk + 1][0]), residue(c[2 * kk + 1][1]));
-    a[kk][3] = pack_bf16(residue(c[2 * kk + 1][2]), residue(c[2 * kk + 1][3]));
-  }
+// c (16 x DH) += dS (16 x 16, f32 in the C layout, rounded to bf16) . tile
+// rows at `tile_tn`
+template <int DH>
+__device__ __forceinline__ void mma_ds(float (*c)[4], const float (*ds)[4], uint32_t tile_tn) {
+  uint32_t a[4];
+  c_to_a(a, ds);
+  mma_tn<DH>(c, a, tile_tn);
 }
 
 template <int NT>
@@ -185,6 +254,21 @@ __device__ __forceinline__ void zero(float (*c)[4]) {
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+}
+
+// This thread's NT x 4 partial sums to / from a group's scratch, laid out
+// so that a warp's accesses are contiguous; thread `gt` of every group
+// owns the same elements of the block's 64 x DH output.
+template <int NT>
+__device__ __forceinline__ void put_partial(float* scratch, const float (*c)[4], int gt) {
+#pragma unroll
+  for (int i = 0; i < NT * 4; ++i) scratch[i * GROUP + gt] = c[i / 4][i % 4];
+}
+
+template <int NT>
+__device__ __forceinline__ void add_partial(float (*c)[4], const float* scratch, int gt) {
+#pragma unroll
+  for (int i = 0; i < NT * 4; ++i) c[i / 4][i % 4] += scratch[i * GROUP + gt];
 }
 
 // Write a 16 x DH f32 C tile (rows r0, r0+8) to a contiguous (., H*DH) bf16 output.
@@ -202,10 +286,63 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, int b, int rows, 
   }
 }
 
+template <int DH>
+__host__ __device__ constexpr int tile_elems() { return T * (DH + PAD); }
+
+// A key's part in P and dS, as factors, so that the inner loops run without
+// a branch (a conditional around the exponential compiles to one, and with
+// one warp on a scheduler nothing hides it): P = exp(S * s_scale - lse) for
+// a key that counts (s_scale = scale if valid, 0 in a dead batch element:
+// exp(-lse) = 1/M), else 0; dS = P (dP - delta) * ds_scale, ds_scale = scale
+// for a valid key, else 0.
+struct KeyRow {
+  float s_scale, ds_scale;
+  bool counts;
+};
+
+__device__ __forceinline__ KeyRow key_row(uint8_t state, float scale) {
+  const float s = state == VALID ? scale : 0.f;
+  return {s, s, state != NO_KEY};
+}
+
+// The rows of this thread's two own keys, `first` and `first` + 8. The
+// keys' own mask bytes are asked for ahead of the block's reduction over
+// the whole mask row, so that the two trips to device memory overlap.
+__device__ __forceinline__ void own_key_rows(KeyRow* key, const uint8_t* mask, int b, int M, int first,
+                                             float scale) {
+  bool valid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    valid[r] = first + 8 * r < M && (mask == nullptr || mask[(int64_t)b * M + first + 8 * r]);
+  const bool dead = dead_batch(mask, b, M);
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    key[r] = key_row(valid[r] ? VALID : (dead && first + 8 * r < M ? DEAD_KEY : NO_KEY), scale);
+}
+
+// P of one (key, query) entry from its S
+__device__ __forceinline__ float p_of(float s, const KeyRow& key, float lse) {
+  const float e = __expf(fmaf(s, key.s_scale, -lse));
+  return key.counts ? e : 0.f;
+}
+
+// s -> P and dp -> dS in place, for one (key, query) entry
+__device__ __forceinline__ void p_ds(float& s, float& dp, const KeyRow& key, float lse, float delta) {
+  s = p_of(s, key, lse);
+  dp = s * (dp - delta) * key.ds_scale;
+}
+
 // ------------------------------------------------------------------ bf16 dK/dV
 
+// One stage of a dK/dV group's ring: Q and dO tiles, then lse and delta rows.
 template <int DH>
-__global__ void __launch_bounds__(WARPS * 32)
+__host__ __device__ constexpr int dkdv_stage_bytes() { return 2 * tile_elems<DH>() * 2 + 2 * T * 4; }
+
+template <int DH, int NG>
+__host__ __device__ constexpr int dkdv_smem_bytes() { return 2 * tile_elems<DH>() * 2 + NG * STAGES * dkdv_stage_bytes<DH>(); }
+
+template <int DH, int NG>
+__global__ void __launch_bounds__(NG * GROUP)
 dkdv_mma(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
          const __nv_bfloat16* __restrict__ k, int64_t k_bs, int64_t k_rs,
          const __nv_bfloat16* __restrict__ v, int64_t v_bs, int64_t v_rs,
@@ -213,179 +350,663 @@ dkdv_mma(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
          const float* __restrict__ lse, const float* __restrict__ delta,
          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
          int N, int M, int H, float scale) {
-  constexpr int KS = DH / 16, DT = DH / 8;
-  __shared__ __align__(16) __nv_bfloat16 qs[T][DH + PAD];    // Q, row-major: B of S^T = K Q^T
-  __shared__ __align__(16) __nv_bfloat16 qt[DH][T + PAD];    // Q^T: B of dK += dS^T Q
-  __shared__ __align__(16) __nv_bfloat16 dos[T][DH + PAD];   // dO: B of dP^T = V dO^T
-  __shared__ __align__(16) __nv_bfloat16 dot_[DH][T + PAD];  // dO^T: B of dV += P^T dO
-  __shared__ float lse_s[T], delta_s[T];
+  constexpr int LD = DH + PAD, KS = DH / 16, DT = DH / 8, TILE = tile_elems<DH>();
+  constexpr int STAGE = dkdv_stage_bytes<DH>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* own_k = reinterpret_cast<__nv_bfloat16*>(smem);  // A of S^T = K Q^T
+  __nv_bfloat16* own_v = own_k + TILE;                            // A of dP^T = V dO^T
+  unsigned char* rings = smem + 2 * TILE * 2;
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = blockIdx.x * T + warp * 16 + g;  // this thread's keys r0, r0 + 8
-  const bool dead = dead_batch(mask, b, M);
-  uint8_t st[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) st[r] = key_state(mask, b, M, r0 + 8 * r, dead);
+  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, grp = warp / 4, gt = tid % GROUP;
+  const int wr = (warp % 4) * 16, g = lane / 4, t = lane % 4;
+  const int k0 = blockIdx.x * T;            // the block's keys k0 .. k0 + 63
+  const int ntiles = (N + T - 1) / T;       // query tiles; group grp takes grp, grp + NG, ...
+  const int cnt = grp < ntiles ? (ntiles - grp + NG - 1) / NG : 0;
+  const int64_t do_rs = (int64_t)H * DH;
+  const __nv_bfloat16* q_b = q + b * q_bs + h * DH;
+  const __nv_bfloat16* do_b = dout + b * N * do_rs + h * DH;
+  const float* lse_b = lse + ((int64_t)b * H + h) * N;
+  const float* delta_b = delta + ((int64_t)b * H + h) * N;
+  unsigned char* ring = rings + grp * STAGES * STAGE;
 
+  // Q, dO (B fragments both ways), lse and delta of query tile `tile` into stage `s`
+  auto stage = [&](int s, int tile) {
+    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(ring + s * STAGE);
+    float* rows = reinterpret_cast<float*>(ring + s * STAGE + 2 * TILE * 2);
+    const int r0 = tile * T;
+    stage_tile<DH, GROUP>(qs, q_b, q_rs, r0, N, gt);
+    stage_tile<DH, GROUP>(qs + TILE, do_b, do_rs, r0, N, gt);
+    const int j = gt % T;
+    const bool ok = r0 + j < N;
+    const float* src = gt < T ? lse_b : delta_b;
+    cp_async_4(rows + gt, ok ? src + r0 + j : src, ok);  // rows past N: lse = delta = 0 beside dO = 0
+  };
+
+  stage_tile<DH, NG * GROUP>(own_k, k + b * k_bs + h * DH, k_rs, k0, M, tid);
+  stage_tile<DH, NG * GROUP>(own_v, v + b * v_bs + h * DH, v_rs, k0, M, tid);
+  cp_async_commit();
+  if (cnt > 0) stage(0, grp);
+  cp_async_commit();
+
+  KeyRow key[2];
+  own_key_rows(key, mask, b, M, k0 + wr + g, scale);
+
+  cp_async_wait<1>();  // the own tiles have landed
+  __syncthreads();
   uint32_t ka[KS][4], va[KS][4];
-  load_a<DH>(ka, k + b * k_bs + h * DH, k_rs, r0, M, t);
-  load_a<DH>(va, v + b * v_bs + h * DH, v_rs, r0, M, t);
+  load_a<DH>(ka, own_k, wr, lane);
+  load_a<DH>(va, own_v, wr, lane);
   float dkc[DT][4], dvc[DT][4];
   zero<DT>(dkc);
   zero<DT>(dvc);
 
-  const int64_t do_rs = (int64_t)H * DH;
-  const float* lse_b = lse + ((int64_t)b * H + h) * N;
-  const float* delta_b = delta + ((int64_t)b * H + h) * N;
-  for (int qt0 = 0; qt0 < N; qt0 += T) {
-    __syncthreads();  // the previous tile is consumed
-    stage<DH>(qs, qt, q + b * q_bs + h * DH, q_rs, qt0, N);
-    stage<DH>(dos, dot_, dout + b * N * do_rs + h * DH, do_rs, qt0, N);
-    for (int j = threadIdx.x; j < T; j += WARPS * 32) {
-      const bool in = qt0 + j < N;
-      lse_s[j] = in ? lse_b[qt0 + j] : INFINITY;  // P = 0 for rows past N
-      delta_s[j] = in ? delta_b[qt0 + j] : 0.f;
-    }
-    __syncthreads();
+  // lane offsets of the two ldmatrix patterns, in bytes
+  const uint32_t lane_nt = (((lane % 8) + (lane / 16) * 8) * LD + ((lane / 8) % 2) * 8) * 2;
+  const uint32_t lane_tn = (((lane % 8) + ((lane / 8) % 2) * 8) * LD + (lane / 16) * 8) * 2;
 
-    // S^T: rows = keys r0, r0+8; columns = the tile's 64 queries.
-    // C layout: c[n][0..1] key r0, c[n][2..3] key r0+8, queries 8n+2t+{0,1}
-    float p[T / 8][4];
-    zero<T / 8>(p);
-    mma_rows<T / 8, KS, DH + PAD>(p, ka, qs, g, t);
+  for (int it = 0; it < cnt; ++it) {
+    if (it + 1 < cnt) stage((it + 1) % STAGES, grp + (it + 1) * NG);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: tile `it` has landed
+    group_sync(grp);
+    const unsigned char* cur = ring + (it % STAGES) * STAGE;
+    const uint32_t qs = smem_addr(cur), dos = qs + TILE * 2;
+    const float* lse_s = reinterpret_cast<const float*>(cur + 2 * TILE * 2);
+    const float* delta_s = lse_s + T;
 #pragma unroll
-    for (int n = 0; n < T / 8; ++n)
+    for (int kk = 0; kk < T / 16; ++kk) {  // 16 queries at a time
+      const uint32_t rows_nt = kk * 16 * LD * 2 + lane_nt, rows_tn = kk * 16 * LD * 2 + lane_tn;
+      // S^T and dP^T: rows = keys g, g+8 of the warp; columns = queries.
+      // C layout: c[n][0..1] key g, c[n][2..3] key g+8, queries 8n+2t+{0,1}
+      float p[2][4], ds[2][4];
+      zero<2>(p);
+      zero<2>(ds);
+      mma_nt<DH>(p, ka, qs + rows_nt);
+      mma_nt<DH>(ds, va, dos + rows_nt);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float l = lse_s[n * 8 + 2 * t + (e & 1)];
-        const uint8_t s = st[e >> 1];
-        p[n][e] = s == VALID ? __expf(p[n][e] * scale - l) : (s == DEAD_KEY ? __expf(-l) : 0.f);
+      for (int n = 0; n < 2; ++n) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + kk * 16 + n * 8 + 2 * t);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_s + kk * 16 + n * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p_ds(p[n][e], ds[n][e], key[e >> 1], (e & 1) ? l2.y : l2.x, (e & 1) ? d2.y : d2.x);
       }
-    uint32_t pa[T / 16][4];
-    c_to_a(pa, p);
-    mma_rows<DT, T / 16, T + PAD>(dvc, pa, dot_, g, t);  // dV += P^T dO
-
-    float ds[T / 8][4];
-    zero<T / 8>(ds);
-    mma_rows<T / 8, KS, DH + PAD>(ds, va, dos, g, t);  // dP^T = V dO^T
-#pragma unroll
-    for (int n = 0; n < T / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[n][e] = st[e >> 1] == VALID
-                       ? p[n][e] * (ds[n][e] - delta_s[n * 8 + 2 * t + (e & 1)]) * scale
-                       : 0.f;
-    c_to_a(pa, ds);
-    mma_rows<DT, T / 16, T + PAD>(dkc, pa, qt, g, t);  // dK += dS^T Q, dS's bf16 part
-    c_to_a_lo(pa, ds);
-    mma_rows<DT, T / 16, T + PAD>(dkc, pa, qt, g, t);  // and its residue
+      uint32_t pa[4];
+      c_to_a(pa, p);
+      mma_tn<DH>(dvc, pa, dos + rows_tn);  // dV += P^T dO
+      mma_ds<DH>(dkc, ds, qs + rows_tn);   // dK += dS^T Q
+    }
+    group_sync(grp);  // the stage is free for tile it + 2
   }
-  store_rows<DH>(dk, b, M, H, h, r0, t, dkc);
-  store_rows<DH>(dv, b, M, H, h, r0, t, dvc);
+
+  // partial sums of groups 1.. through their own (now idle) rings, added in order
+  if (grp > 0) {
+    float* scratch = reinterpret_cast<float*>(ring);
+    put_partial<DT>(scratch, dkc, gt);
+    put_partial<DT>(scratch + DT * 4 * GROUP, dvc, gt);
+  }
+  __syncthreads();
+  if (grp == 0) {
+#pragma unroll
+    for (int o = 1; o < NG; ++o) {
+      const float* scratch = reinterpret_cast<const float*>(rings + o * STAGES * STAGE);
+      add_partial<DT>(dkc, scratch, gt);
+      add_partial<DT>(dvc, scratch + DT * 4 * GROUP, gt);
+    }
+    store_rows<DH>(dk, b, M, H, h, k0 + wr + g, t, dkc);
+    store_rows<DH>(dv, b, M, H, h, k0 + wr + g, t, dvc);
+  }
 }
 
 // ------------------------------------------------------------------ bf16 dQ
 
-template <int DH>
-__global__ void __launch_bounds__(WARPS * 32)
+template <int DH, int NG>
+__host__ __device__ constexpr int dq_smem_bytes(int key_tiles) {
+  return (2 + NG * STAGES * 2) * tile_elems<DH>() * 2 + key_tiles * T;
+}
+
+// Two passes over the keys: the first for delta = rowsum(P * dP) / rowsum(P)
+// over the valid keys, which it writes for the dK/dV kernel; the second, in
+// the reverse order, for dS and dQ. A group's last STAGES tiles are still in
+// its ring when the second pass starts, so at up to NG * STAGES * 64 keys
+// (512 at dh = 32) the second pass loads nothing.
+template <int DH, int NG>
+__global__ void __launch_bounds__(NG * GROUP)
 dq_mma(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
        const __nv_bfloat16* __restrict__ k, int64_t k_bs, int64_t k_rs,
        const __nv_bfloat16* __restrict__ v, int64_t v_bs, int64_t v_rs,
        const uint8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ dout,
-       const float* __restrict__ lse, float* __restrict__ delta,
-       __nv_bfloat16* __restrict__ dq, int N, int M, int H, float scale) {
-  constexpr int KS = DH / 16, DT = DH / 8;
-  __shared__ __align__(16) __nv_bfloat16 ks[T][DH + PAD];  // K: B of S = Q K^T
-  __shared__ __align__(16) __nv_bfloat16 vs[T][DH + PAD];  // V: B of dP = dO V^T
-  __shared__ __align__(16) __nv_bfloat16 kt[DH][T + PAD];  // K^T: B of dQ += dS K
-  __shared__ uint8_t valid[T];
+       const float* __restrict__ lse, float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+       int N, int M, int H, float scale) {
+  constexpr int LD = DH + PAD, KS = DH / 16, DT = DH / 8, TILE = tile_elems<DH>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float2 row_sums[NG][T];  // each group's (sum P dP, sum P) per own row
+  __nv_bfloat16* own_q = reinterpret_cast<__nv_bfloat16*>(smem);  // A of S = Q K^T
+  __nv_bfloat16* own_do = own_q + TILE;                           // A of dP = dO V^T
+  __nv_bfloat16* rings = own_do + TILE;                           // per group and stage: K, V tiles
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = blockIdx.x * T + warp * 16 + g;  // this thread's queries r0, r0 + 8
-
+  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, grp = warp / 4, gt = tid % GROUP;
+  const int wr = (warp % 4) * 16, g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * T;            // the block's queries q0 .. q0 + 63
+  const int ntiles = (M + T - 1) / T;       // key tiles; group grp takes grp, grp + NG, ...
+  const int cnt = grp < ntiles ? (ntiles - grp + NG - 1) / NG : 0;
   const int64_t do_rs = (int64_t)H * DH;
-  uint32_t qa[KS][4], da[KS][4];
-  load_a<DH>(qa, q + b * q_bs + h * DH, q_rs, r0, N, t);
-  load_a<DH>(da, dout + b * N * do_rs + h * DH, do_rs, r0, N, t);
-  float lse_r[2], delta_r[2] = {0.f, 0.f}, psum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    lse_r[r] = row < N ? lse[((int64_t)b * H + h) * N + row] : INFINITY;  // P = 0 past N
-  }
+  const __nv_bfloat16* k_b = k + b * k_bs + h * DH;
+  const __nv_bfloat16* v_b = v + b * v_bs + h * DH;
+  __nv_bfloat16* ring = rings + grp * STAGES * 2 * TILE;
+  uint8_t* valid = reinterpret_cast<uint8_t*>(rings + NG * STAGES * 2 * TILE);  // [ntiles * T]
 
-  // pass 1: delta = rowsum(P * dP) / rowsum(P) over the valid keys
-  for (int kt0 = 0; kt0 < M; kt0 += T) {
-    __syncthreads();  // the previous tile is consumed
-    stage<DH>(ks, nullptr, k + b * k_bs + h * DH, k_rs, kt0, M);
-    stage<DH>(vs, nullptr, v + b * v_bs + h * DH, v_rs, kt0, M);
-    for (int j = threadIdx.x; j < T; j += WARPS * 32)
-      valid[j] = key_state(mask, b, M, kt0 + j, false) == VALID;
-    __syncthreads();
-    float p[T / 8][4], dp[T / 8][4];
-    zero<T / 8>(p);
-    zero<T / 8>(dp);
-    mma_rows<T / 8, KS, DH + PAD>(p, qa, ks, g, t);
-    mma_rows<T / 8, KS, DH + PAD>(dp, da, vs, g, t);
+  // K and V of the group's `it`-th key tile into its stage
+  auto stage = [&](int it) {
+    __nv_bfloat16* dst = ring + (it % STAGES) * 2 * TILE;
+    const int j0 = (grp + it * NG) * T;
+    stage_tile<DH, GROUP>(dst, k_b, k_rs, j0, M, gt);
+    stage_tile<DH, GROUP>(dst + TILE, v_b, v_rs, j0, M, gt);
+  };
+
+  stage_tile<DH, NG * GROUP>(own_q, q + b * q_bs + h * DH, q_rs, q0, N, tid);
+  stage_tile<DH, NG * GROUP>(own_do, dout + b * N * do_rs + h * DH, do_rs, q0, N, tid);
+  cp_async_commit();
+  if (cnt > 0) stage(0);
+  cp_async_commit();
+
+  // the batch element's key states, once per block; only valid keys carry
+  // dS, so a dead element needs no flag here
+  for (int j = tid; j < ntiles * T; j += NG * GROUP)
+    valid[j] = j < M && (mask == nullptr || mask[(int64_t)b * M + j]);
+  const int64_t row_i = ((int64_t)b * H + h) * N + q0 + wr + g;  // of this thread's first row
+  float lse_r[2];
 #pragma unroll
-    for (int n = 0; n < T / 8; ++n)
+  for (int r = 0; r < 2; ++r) lse_r[r] = q0 + wr + g + 8 * r < N ? lse[row_i + 8 * r] : INFINITY;  // P = 0 past N
+
+  cp_async_wait<1>();  // the own tiles have landed
+  __syncthreads();
+  uint32_t qa[KS][4], da[KS][4];
+  load_a<DH>(qa, own_q, wr, lane);
+  load_a<DH>(da, own_do, wr, lane);
+
+  const uint32_t lane_nt = (((lane % 8) + (lane / 16) * 8) * LD + ((lane / 8) % 2) * 8) * 2;
+  const uint32_t lane_tn = (((lane % 8) + ((lane / 8) % 2) * 8) * LD + (lane / 16) * 8) * 2;
+
+  // P (valid keys only) and dP of 16 keys of the group's `it`-th tile:
+  // rows = queries g, g+8 of the warp; columns = keys 8n+2t+{0,1}
+  auto p_dp = [&](int it, int kk, float (*p)[4], float (*dp)[4]) {
+    const uint32_t ks = smem_addr(ring + (it % STAGES) * 2 * TILE) + kk * 16 * LD * 2 + lane_nt;
+    const uint8_t* valid_t = valid + (grp + it * NG) * T + kk * 16 + 2 * t;
+    zero<2>(p);
+    zero<2>(dp);
+    mma_nt<DH>(p, qa, ks);
+    mma_nt<DH>(dp, da, ks + TILE * 2);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (valid[n * 8 + 2 * t + (e & 1)]) {
-          const float pe = __expf(p[n][e] * scale - lse_r[e >> 1]);
-          delta_r[e >> 1] += pe * dp[n][e];
-          psum[e >> 1] += pe;
+    for (int n = 0; n < 2; ++n) {
+      const uchar2 ok = *reinterpret_cast<const uchar2*>(valid_t + n * 8);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // the exponential outside the choice: no branch
+        const float pe = __expf(fmaf(p[n][e], scale, -lse_r[e >> 1]));
+        p[n][e] = ((e & 1) ? ok.y : ok.x) ? pe : 0.f;
+      }
+    }
+  };
+
+  // pass 1: delta
+  float num[2] = {0.f, 0.f}, den[2] = {0.f, 0.f};
+  for (int it = 0; it < cnt; ++it) {
+    if (it + 1 < cnt) stage(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: tile `it` has landed
+    group_sync(grp);
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) {
+      float p[2][4], dp[2][4];
+      p_dp(it, kk, p, dp);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          num[e >> 1] += p[n][e] * dp[n][e];
+          den[e >> 1] += p[n][e];
         }
+    }
+    if (it + STAGES < cnt) group_sync(grp);  // the stage is free for tile it + 2
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {  // the 4 threads of a row group share a row
-    delta_r[r] += __shfl_xor_sync(0xffffffffu, delta_r[r], 1);
-    delta_r[r] += __shfl_xor_sync(0xffffffffu, delta_r[r], 2);
-    psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
-    psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
-    delta_r[r] = psum[r] > 0.f ? delta_r[r] / psum[r] : 0.f;
-    const int row = r0 + 8 * r;
-    if (t == 0 && row < N) delta[((int64_t)b * H + h) * N + row] = delta_r[r];
+    num[r] += __shfl_xor_sync(0xffffffffu, num[r], 1);
+    num[r] += __shfl_xor_sync(0xffffffffu, num[r], 2);
+    den[r] += __shfl_xor_sync(0xffffffffu, den[r], 1);
+    den[r] += __shfl_xor_sync(0xffffffffu, den[r], 2);
+    if (t == 0) row_sums[grp][wr + g + 8 * r] = make_float2(num[r], den[r]);
+  }
+  __syncthreads();
+  float delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float2 sum = row_sums[0][wr + g + 8 * r];
+#pragma unroll
+    for (int o = 1; o < NG; ++o) {  // in the groups' order
+      sum.x += row_sums[o][wr + g + 8 * r].x;
+      sum.y += row_sums[o][wr + g + 8 * r].y;
+    }
+    delta_r[r] = sum.y > 0.f ? sum.x / sum.y : 0.f;
+    if (grp == 0 && t == 0 && q0 + wr + g + 8 * r < N) delta[row_i + 8 * r] = delta_r[r];
   }
 
-  // pass 2: dS and dQ
+  // pass 2, last tile first: dS and dQ. Tile `it` was loaded by pass 1 or
+  // two iterations ago; tile it - 2 follows it into its stage.
   float dqc[DT][4];
   zero<DT>(dqc);
-  for (int kt0 = 0; kt0 < M; kt0 += T) {
-    __syncthreads();  // the previous tile is consumed
-    stage<DH>(ks, kt, k + b * k_bs + h * DH, k_rs, kt0, M);
-    stage<DH>(vs, nullptr, v + b * v_bs + h * DH, v_rs, kt0, M);
-    for (int j = threadIdx.x; j < T; j += WARPS * 32)
-      valid[j] = key_state(mask, b, M, kt0 + j, false) == VALID;
-    __syncthreads();
-
-    // S: rows = queries r0, r0+8; columns = the tile's 64 keys
-    float p[T / 8][4], ds[T / 8][4];
-    zero<T / 8>(p);
-    zero<T / 8>(ds);
-    mma_rows<T / 8, KS, DH + PAD>(p, qa, ks, g, t);
-    mma_rows<T / 8, KS, DH + PAD>(ds, da, vs, g, t);  // dP = dO V^T
+  for (int it = cnt - 1; it >= 0; --it) {
+    cp_async_wait<1>();
+    group_sync(grp);
 #pragma unroll
-    for (int n = 0; n < T / 8; ++n)
+    for (int kk = 0; kk < T / 16; ++kk) {
+      float p[2][4], ds[2][4];
+      p_dp(it, kk, p, ds);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - delta_r[e >> 1]) * scale;
+      mma_ds<DH>(dqc, ds, smem_addr(ring + (it % STAGES) * 2 * TILE) + kk * 16 * LD * 2 + lane_tn);  // dQ += dS K
+    }
+    group_sync(grp);  // the stage is free
+    if (it >= STAGES) stage(it - STAGES);
+    cp_async_commit();
+  }
+
+  // partial sums of groups 1.. through their own (now idle) rings, added in order
+  if (grp > 0) put_partial<DT>(reinterpret_cast<float*>(ring), dqc, gt);
+  __syncthreads();
+  if (grp == 0) {
+#pragma unroll
+    for (int o = 1; o < NG; ++o)
+      add_partial<DT>(dqc, reinterpret_cast<const float*>(rings + o * STAGES * 2 * TILE), gt);
+    store_rows<DH>(dq, b, N, H, h, q0 + wr + g, t, dqc);
+  }
+}
+
+// ------------------------------------------------------------------ bf16, dh = 64: wgmma
+
+// At dh = 64 a row of a tile is 128 bytes, the width of wgmma's 128-byte
+// swizzle: tiles are (64, 64) bf16, 1024-byte aligned, 16-byte chunk c of
+// row r at chunk c ^ (r % 8), and a warpgroup multiplies whole 64 x 64
+// tiles straight from shared memory (m64n64k16, f32 accumulators in
+// registers), with no ldmatrix and no fragment registers for B. The shape
+// of the kernels is that of the mma.sync ones above: own rows, groups that
+// split the looped side, cp.async rings, fixed-order sums.
+constexpr int WG_TILE_BYTES = T * 64 * 2;  // 8 KB
+
+// Shared-memory matrix descriptor of a swizzled tile (or of a 32-byte /
+// 2048-byte step into it): address / 16, 1024 bytes between 8-row groups,
+// 128-byte swizzle. `+ 2 * ks` moves 16 columns on (K-major operands),
+// `+ 128 * kk` 16 rows on (B read as (k, n) with n contiguous).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+#define WG_ACC(d)                                                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),       \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),          \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),        \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),        \
+      "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define WG_REGS                                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                      \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 64, this thread's 32 of it) = or += A . B^T, A (64 x 16) and B
+// (64 x 16) both row-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A . B, A (64 x 16) from registers (the warp's 16 rows as mma.sync
+// fragments), B (16 x 64) row-major in shared memory (read transposed)
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+// Wait until at most PENDING of the warpgroup's committed batches of
+// products are in flight; `d`, a finished batch's accumulators, is read
+// only after it.
+template <int PENDING>
+__device__ __forceinline__ void wg_wait(float* d) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// cp.async's writes, made visible to wgmma's reads (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + 64) of a row-strided (rows, 64) bf16 matrix into a
+// swizzled tile, zeros past `rows`.
+template <int NTHREADS>
+__device__ __forceinline__ void stage_swizzled(unsigned char* tile, const __nv_bfloat16* base, int64_t rs,
+                                               int r0, int rows, int tid) {
+  for (int c = tid; c < T * 8; c += NTHREADS) {
+    const int row = c / 8, ch = c % 8;
+    const bool ok = r0 + row < rows;
+    cp_async_16(tile + row * 128 + ((ch ^ (row % 8)) * 16), ok ? base + (r0 + row) * rs + ch * 8 : base, ok);
+  }
+}
+
+// The C layout of a 64 x 64 f32 tile (32 a thread) as the bf16 A fragments
+// of its 4 k-steps.
+__device__ __forceinline__ void wg_c_to_a(uint32_t (*a)[4], const float* c) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(c[8 * kk + 2 * i], c[8 * kk + 2 * i + 1]);
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+template <int NG>
+__host__ __device__ constexpr int wg_tiles_bytes() { return (2 + NG * STAGES * 2) * WG_TILE_BYTES; }
+
+template <int NG>
+__host__ __device__ constexpr int dkdv_wg_smem_bytes() { return 1024 + wg_tiles_bytes<NG>() + NG * STAGES * 2 * T * 4; }
+
+template <int NG>
+__global__ void __launch_bounds__(NG * GROUP)
+dkdv_wg(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
+        const __nv_bfloat16* __restrict__ k, int64_t k_bs, int64_t k_rs,
+        const __nv_bfloat16* __restrict__ v, int64_t v_bs, int64_t v_rs,
+        const uint8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+        int N, int M, int H, float scale) {
+  constexpr int DH = 64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* own_k = align_1024(smem);               // A of S^T = K Q^T
+  unsigned char* own_v = own_k + WG_TILE_BYTES;          // A of dP^T = V dO^T
+  unsigned char* rings = own_v + WG_TILE_BYTES;          // per group and stage: Q, dO tiles
+  float* row_stats = reinterpret_cast<float*>(own_k + wg_tiles_bytes<NG>());  // per group and stage: lse, delta
+
+  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, grp = warp / 4, gt = tid % GROUP;
+  const int wr = (warp % 4) * 16, g = lane / 4, t = lane % 4;
+  const int k0 = blockIdx.x * T;
+  const int ntiles = (N + T - 1) / T;
+  const int cnt = grp < ntiles ? (ntiles - grp + NG - 1) / NG : 0;
+  const int64_t do_rs = (int64_t)H * DH;
+  const __nv_bfloat16* q_b = q + b * q_bs + h * DH;
+  const __nv_bfloat16* do_b = dout + b * N * do_rs + h * DH;
+  const float* lse_b = lse + ((int64_t)b * H + h) * N;
+  const float* delta_b = delta + ((int64_t)b * H + h) * N;
+  unsigned char* ring = rings + grp * STAGES * 2 * WG_TILE_BYTES;
+  float* stats = row_stats + grp * STAGES * 2 * T;
+
+  auto stage = [&](int it) {
+    unsigned char* qs = ring + (it % STAGES) * 2 * WG_TILE_BYTES;
+    const int r0 = (grp + it * NG) * T;
+    stage_swizzled<GROUP>(qs, q_b, q_rs, r0, N, gt);
+    stage_swizzled<GROUP>(qs + WG_TILE_BYTES, do_b, do_rs, r0, N, gt);
+    const int j = gt % T;
+    const bool ok = r0 + j < N;
+    const float* src = gt < T ? lse_b : delta_b;
+    cp_async_4(stats + (it % STAGES) * 2 * T + gt, ok ? src + r0 + j : src, ok);
+  };
+
+  stage_swizzled<NG * GROUP>(own_k, k + b * k_bs + h * DH, k_rs, k0, M, tid);
+  stage_swizzled<NG * GROUP>(own_v, v + b * v_bs + h * DH, v_rs, k0, M, tid);
+  cp_async_commit();
+  if (cnt > 0) stage(0);
+  cp_async_commit();
+
+  KeyRow key[2];
+  own_key_rows(key, mask, b, M, k0 + wr + g, scale);
+
+  cp_async_wait<1>();
+  fence_async_smem();
+  __syncthreads();
+  const uint64_t ka = wg_desc(smem_addr(own_k)), va = wg_desc(smem_addr(own_v));
+  float dkc[32], dvc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dkc[i] = dvc[i] = 0.f;
+
+  for (int it = 0; it < cnt; ++it) {
+    if (it + 1 < cnt) stage(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();
+    group_sync(grp);
+    const uint64_t qs = wg_desc(smem_addr(ring + (it % STAGES) * 2 * WG_TILE_BYTES));
+    const uint64_t dos = qs + (WG_TILE_BYTES >> 4);
+    const float* lse_s = stats + (it % STAGES) * 2 * T;
+    const float* delta_s = lse_s + T;
+    // S^T and dP^T: rows = the group's 64 keys (g, g+8 of the warp's 16), columns =
+    // queries. Each batch of products runs while the registers of the one before
+    // are worked on.
+    float p[32], ds[32];
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) wgmma_ss(p, ka + 2 * ks, qs + 2 * ks, ks > 0);
+    wg_commit();
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) wgmma_ss(ds, va + 2 * ks, dos + 2 * ks, ks > 0);
+    wg_commit();
+    wg_wait<1>(p);  // S^T is in
+#pragma unroll
+    for (int n = 0; n < T / 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + n * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[4 * n + e] = p_of(p[4 * n + e], key[e >> 1], (e & 1) ? l2.y : l2.x);
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    wg_c_to_a(pa, p);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) wgmma_rs(dvc, pa[kk], dos + 128 * kk);  // dV += P^T dO
+    wg_commit();
+    wg_wait<1>(ds);  // dP^T is in
+#pragma unroll
+    for (int n = 0; n < T / 8; ++n) {
+      const float2 d2 = *reinterpret_cast<const float2*>(delta_s + n * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[4 * n + e] = p[4 * n + e] * (ds[4 * n + e] - ((e & 1) ? d2.y : d2.x)) * key[e >> 1].ds_scale;
+    }
+    wg_c_to_a(dsa, ds);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) wgmma_rs(dkc, dsa[kk], qs + 128 * kk);  // dK += dS^T Q
+    wg_commit();
+    wg_wait<0>(dvc);
+    wg_wait<0>(dkc);
+    group_sync(grp);  // the stage is free for tile it + 2
+  }
+
+  if (grp > 0) {
+    float* scratch = reinterpret_cast<float*>(ring);
+    put_partial<8>(scratch, reinterpret_cast<const float(*)[4]>(dkc), gt);
+    put_partial<8>(scratch + 32 * GROUP, reinterpret_cast<const float(*)[4]>(dvc), gt);
+  }
+  __syncthreads();
+  if (grp == 0) {
+#pragma unroll
+    for (int o = 1; o < NG; ++o) {
+      const float* scratch = reinterpret_cast<const float*>(rings + o * STAGES * 2 * WG_TILE_BYTES);
+      add_partial<8>(reinterpret_cast<float(*)[4]>(dkc), scratch, gt);
+      add_partial<8>(reinterpret_cast<float(*)[4]>(dvc), scratch + 32 * GROUP, gt);
+    }
+    store_rows<DH>(dk, b, M, H, h, k0 + wr + g, t, reinterpret_cast<const float(*)[4]>(dkc));
+    store_rows<DH>(dv, b, M, H, h, k0 + wr + g, t, reinterpret_cast<const float(*)[4]>(dvc));
+  }
+}
+
+template <int NG>
+__host__ __device__ constexpr int dq_wg_smem_bytes(int key_tiles) { return 1024 + wg_tiles_bytes<NG>() + key_tiles * T; }
+
+template <int NG>
+__global__ void __launch_bounds__(NG * GROUP)
+dq_wg(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
+      const __nv_bfloat16* __restrict__ k, int64_t k_bs, int64_t k_rs,
+      const __nv_bfloat16* __restrict__ v, int64_t v_bs, int64_t v_rs,
+      const uint8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ dout,
+      const float* __restrict__ lse, float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+      int N, int M, int H, float scale) {
+  constexpr int DH = 64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float2 row_sums[NG][T];
+  unsigned char* own_q = align_1024(smem);               // A of S = Q K^T
+  unsigned char* own_do = own_q + WG_TILE_BYTES;         // A of dP = dO V^T
+  unsigned char* rings = own_do + WG_TILE_BYTES;         // per group and stage: K, V tiles
+  uint8_t* valid = own_q + wg_tiles_bytes<NG>();         // [ntiles * T]
+
+  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, grp = warp / 4, gt = tid % GROUP;
+  const int wr = (warp % 4) * 16, g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * T;
+  const int ntiles = (M + T - 1) / T;
+  const int cnt = grp < ntiles ? (ntiles - grp + NG - 1) / NG : 0;
+  const int64_t do_rs = (int64_t)H * DH;
+  const __nv_bfloat16* k_b = k + b * k_bs + h * DH;
+  const __nv_bfloat16* v_b = v + b * v_bs + h * DH;
+  unsigned char* ring = rings + grp * STAGES * 2 * WG_TILE_BYTES;
+
+  auto stage = [&](int it) {
+    unsigned char* dst = ring + (it % STAGES) * 2 * WG_TILE_BYTES;
+    const int j0 = (grp + it * NG) * T;
+    stage_swizzled<GROUP>(dst, k_b, k_rs, j0, M, gt);
+    stage_swizzled<GROUP>(dst + WG_TILE_BYTES, v_b, v_rs, j0, M, gt);
+  };
+
+  stage_swizzled<NG * GROUP>(own_q, q + b * q_bs + h * DH, q_rs, q0, N, tid);
+  stage_swizzled<NG * GROUP>(own_do, dout + b * N * do_rs + h * DH, do_rs, q0, N, tid);
+  cp_async_commit();
+  if (cnt > 0) stage(0);
+  cp_async_commit();
+
+  for (int j = tid; j < ntiles * T; j += NG * GROUP)
+    valid[j] = j < M && (mask == nullptr || mask[(int64_t)b * M + j]);
+  const int64_t row_i = ((int64_t)b * H + h) * N + q0 + wr + g;
+  float lse_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) lse_r[r] = q0 + wr + g + 8 * r < N ? lse[row_i + 8 * r] : INFINITY;
+
+  cp_async_wait<1>();
+  fence_async_smem();
+  __syncthreads();
+  const uint64_t qa = wg_desc(smem_addr(own_q)), da = wg_desc(smem_addr(own_do));
+
+  // P (valid keys only) and dP of the group's `it`-th tile: rows = queries
+  // (g, g+8 of the warp's 16), columns = keys
+  auto p_dp = [&](int it, float* p, float* dp) {
+    const uint64_t ks = wg_desc(smem_addr(ring + (it % STAGES) * 2 * WG_TILE_BYTES));
+    const uint64_t vs = ks + (WG_TILE_BYTES >> 4);
+    const uint8_t* valid_t = valid + (grp + it * NG) * T + 2 * t;
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < DH / 16; ++s) wgmma_ss(p, qa + 2 * s, ks + 2 * s, s > 0);
+    wg_commit();
+#pragma unroll
+    for (int s = 0; s < DH / 16; ++s) wgmma_ss(dp, da + 2 * s, vs + 2 * s, s > 0);
+    wg_commit();
+    wg_wait<1>(p);  // S is in; dP runs while the exponentials are taken
+#pragma unroll
+    for (int n = 0; n < T / 8; ++n) {
+      const uchar2 ok = *reinterpret_cast<const uchar2*>(valid_t + n * 8);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        // only valid keys carry dS; the others' P does not matter here
-        ds[n][e] = valid[n * 8 + 2 * t + (e & 1)]
-                       ? __expf(p[n][e] * scale - lse_r[r]) * (ds[n][e] - delta_r[r]) * scale
-                       : 0.f;
+        const float pe = __expf(fmaf(p[4 * n + e], scale, -lse_r[e >> 1]));
+        p[4 * n + e] = ((e & 1) ? ok.y : ok.x) ? pe : 0.f;
       }
-    uint32_t dsa[T / 16][4];
-    c_to_a(dsa, ds);
-    mma_rows<DT, T / 16, T + PAD>(dqc, dsa, kt, g, t);  // dQ += dS K, dS's bf16 part
-    c_to_a_lo(dsa, ds);
-    mma_rows<DT, T / 16, T + PAD>(dqc, dsa, kt, g, t);  // and its residue
+    }
+    wg_wait<0>(dp);
+  };
+
+  // pass 1: delta
+  float num[2] = {0.f, 0.f}, den[2] = {0.f, 0.f};
+  for (int it = 0; it < cnt; ++it) {
+    if (it + 1 < cnt) stage(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();
+    group_sync(grp);
+    float p[32], dp[32];
+    p_dp(it, p, dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      num[(i >> 1) & 1] += p[i] * dp[i];
+      den[(i >> 1) & 1] += p[i];
+    }
+    if (it + STAGES < cnt) group_sync(grp);
   }
-  store_rows<DH>(dq, b, N, H, h, r0, t, dqc);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    num[r] += __shfl_xor_sync(0xffffffffu, num[r], 1);
+    num[r] += __shfl_xor_sync(0xffffffffu, num[r], 2);
+    den[r] += __shfl_xor_sync(0xffffffffu, den[r], 1);
+    den[r] += __shfl_xor_sync(0xffffffffu, den[r], 2);
+    if (t == 0) row_sums[grp][wr + g + 8 * r] = make_float2(num[r], den[r]);
+  }
+  __syncthreads();
+  float delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float2 sum = row_sums[0][wr + g + 8 * r];
+#pragma unroll
+    for (int o = 1; o < NG; ++o) {
+      sum.x += row_sums[o][wr + g + 8 * r].x;
+      sum.y += row_sums[o][wr + g + 8 * r].y;
+    }
+    delta_r[r] = sum.y > 0.f ? sum.x / sum.y : 0.f;
+    if (grp == 0 && t == 0 && q0 + wr + g + 8 * r < N) delta[row_i + 8 * r] = delta_r[r];
+  }
+
+  // pass 2, last tile first: dS and dQ
+  float dqc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dqc[i] = 0.f;
+  for (int it = cnt - 1; it >= 0; --it) {
+    cp_async_wait<1>();
+    fence_async_smem();
+    group_sync(grp);
+    float p[32], ds[32];
+    p_dp(it, p, ds);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) ds[i] = p[i] * (ds[i] - delta_r[(i >> 1) & 1]) * scale;
+    uint32_t dsa[4][4];
+    wg_c_to_a(dsa, ds);
+    const uint64_t ks = wg_desc(smem_addr(ring + (it % STAGES) * 2 * WG_TILE_BYTES));
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) wgmma_rs(dqc, dsa[kk], ks + 128 * kk);  // dQ += dS K
+    wg_commit();
+    wg_wait<0>(dqc);
+    group_sync(grp);
+    if (it >= STAGES) stage(it - STAGES);
+    cp_async_commit();
+  }
+
+  if (grp > 0) put_partial<8>(reinterpret_cast<float*>(ring), reinterpret_cast<const float(*)[4]>(dqc), gt);
+  __syncthreads();
+  if (grp == 0) {
+#pragma unroll
+    for (int o = 1; o < NG; ++o)
+      add_partial<8>(reinterpret_cast<float(*)[4]>(dqc),
+                     reinterpret_cast<const float*>(rings + o * STAGES * 2 * WG_TILE_BYTES), gt);
+    store_rows<DH>(dq, b, N, H, h, q0 + wr + g, t, reinterpret_cast<const float(*)[4]>(dqc));
+  }
 }
 
 // ------------------------------------------------------------------ f32, SIMT
@@ -569,6 +1190,7 @@ dq_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
 }
 
 
+
 // ------------------------------------------------------------------ launch
 
 #define BWD_IN(T_)                                                                   \
@@ -586,16 +1208,75 @@ dq_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
   }                                                                                   \
   return static_cast<int>(cudaGetLastError());
 
+// More than 48 KB of shared memory is dynamic and asked for by attribute; a
+// size the card does not have comes back as the launch's error.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int DH>
+int run_dkdv_bf16(BWD_IN(__nv_bfloat16), const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                  int B, int N, int M, int H, float scale, cudaStream_t stream) {
+  constexpr int NG = MMA_GROUPS, BYTES = dkdv_smem_bytes<DH, NG>();
+  const cudaError_t err = allow_smem(dkdv_mma<DH, NG>, BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv_mma<DH, NG><<<dim3((M + T - 1) / T, H, B), NG * GROUP, BYTES, stream>>>(
+      BWD_IN_PASS, delta, dk, dv, N, M, H, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int run_dq_bf16(BWD_IN(__nv_bfloat16), float* delta, __nv_bfloat16* dq, int B, int N, int M, int H,
+                float scale, cudaStream_t stream) {
+  constexpr int NG = MMA_GROUPS;
+  const int bytes = dq_smem_bytes<DH, NG>((M + T - 1) / T);
+  const cudaError_t err = allow_smem(dq_mma<DH, NG>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_mma<DH, NG><<<dim3((N + T - 1) / T, H, B), NG * GROUP, bytes, stream>>>(
+      BWD_IN_PASS, delta, dq, N, M, H, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int run_dkdv_wg(BWD_IN(__nv_bfloat16), const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                int B, int N, int M, int H, float scale, cudaStream_t stream) {
+  constexpr int NG = WG_GROUPS_DKDV, BYTES = dkdv_wg_smem_bytes<NG>();
+  const cudaError_t err = allow_smem(dkdv_wg<NG>, BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv_wg<NG><<<dim3((M + T - 1) / T, H, B), NG * GROUP, BYTES, stream>>>(
+      BWD_IN_PASS, delta, dk, dv, N, M, H, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int run_dq_wg(BWD_IN(__nv_bfloat16), float* delta, __nv_bfloat16* dq, int B, int N, int M, int H,
+              float scale, cudaStream_t stream) {
+  constexpr int NG = WG_GROUPS_DQ;
+  const int bytes = dq_wg_smem_bytes<NG>((M + T - 1) / T);
+  const cudaError_t err = allow_smem(dq_wg<NG>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_wg<NG><<<dim3((N + T - 1) / T, H, B), NG * GROUP, bytes, stream>>>(
+      BWD_IN_PASS, delta, dq, N, M, H, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_dkdv_bf16(BWD_IN(__nv_bfloat16), const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv,
                      int B, int N, int M, int H, int DH, float scale, cudaStream_t stream) {
-  const dim3 grid((M + T - 1) / T, H, B);
-  DISPATCH_DH(dkdv_mma, grid, WARPS * 32, BWD_IN_PASS, delta, dk, dv, N, M, H, scale)
+  switch (DH) {
+    case 16: return run_dkdv_bf16<16>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
+    case 32: return run_dkdv_bf16<32>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
+    case 64: return run_dkdv_wg(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int launch_dq_bf16(BWD_IN(__nv_bfloat16), float* delta, __nv_bfloat16* dq, int B, int N, int M, int H,
                    int DH, float scale, cudaStream_t stream) {
-  const dim3 grid((N + T - 1) / T, H, B);
-  DISPATCH_DH(dq_mma, grid, WARPS * 32, BWD_IN_PASS, delta, dq, N, M, H, scale)
+  switch (DH) {
+    case 16: return run_dq_bf16<16>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
+    case 32: return run_dq_bf16<32>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
+    case 64: return run_dq_wg(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int launch_dkdv_f32(BWD_IN(float), const float* delta, float* dk, float* dv, int B, int N, int M, int H,
@@ -624,8 +1305,9 @@ int launch_dq_f32(BWD_IN(float), float* delta, float* dq, int B, int N, int M, i
 #define C_TAIL_PASS B, N, M, H, DH, scale, static_cast<cudaStream_t>(stream)
 
 // dout (B, N, H*DH), dk / dv (B, M, H*DH) and dq (B, N, H*DH) are contiguous;
-// lse and delta are (B, H, N) f32. The dQ kernel writes delta and runs
-// first; the dK/dV kernel reads it.
+// lse and delta are (B, H, N) f32. bf16: q, k, v, dout rows are 16-byte
+// aligned. The dQ kernel writes delta and runs first; the dK/dV kernel
+// reads it.
 extern "C" int attention_dq_bf16(C_IN, void* dq, C_TAIL) {
   using T_ = __nv_bfloat16;
   return launch_dq_bf16(C_IN_PASS(T_), static_cast<T_*>(dq), C_TAIL_PASS);

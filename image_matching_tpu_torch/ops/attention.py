@@ -16,6 +16,7 @@ setting.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -64,8 +65,9 @@ def _logits(q, k, key_mask, num_heads, masked_fill):
     s = torch.einsum("bnhd,bmhd->bhnm", _heads(q, num_heads), _heads(k, num_heads)) / math.sqrt(dh)
     if key_mask is None:
         return s
-    fill = torch.as_tensor(masked_fill, dtype=s.dtype, device=s.device)
-    return torch.where(key_mask[:, None, None, :], s, fill.reshape(-1, 1, 1, 1))
+    if isinstance(masked_fill, torch.Tensor):
+        return torch.where(key_mask[:, None, None, :], s, masked_fill.to(s.dtype).reshape(-1, 1, 1, 1))
+    return s.masked_fill(~key_mask[:, None, None, :], masked_fill)  # no copy from the host
 
 
 def _dead(key_mask):
@@ -111,6 +113,18 @@ def attention_backward_plain(q, k, v, key_mask, lse, dout, num_heads: int = 4, d
     dv = torch.einsum("bhnm,bnhd->bmhd", p, do)
     return (dq.reshape(b, n, dt).to(q.dtype), dk.reshape(b, m, dt).to(k.dtype),
             dv.reshape(b, m, dt).to(v.dtype))
+
+
+def attention_delta_plain(q, k, v, key_mask, lse, dout, num_heads: int = 4):
+    """The plain version of the delta that the dQ kernel writes: (B, H, N)
+    f32, rowsum(P * dP) / rowsum(P) over the valid keys with
+    P = exp(S - lse) and dP = dO V^T, 0 for a row with no valid key. It
+    equals the delta `attention_backward_plain` takes wherever a key
+    carries dS."""
+    p = torch.exp(_logits(q, k, key_mask, num_heads, -math.inf) - lse[..., None])
+    dp = torch.einsum("bnhd,bmhd->bhnm", _heads(dout, num_heads), _heads(v, num_heads))
+    den = p.sum(-1)
+    return torch.where(den > 0, (p * dp).sum(-1) / den.clamp_min(1e-38), 0.0)
 
 
 def attention_lse(q, k, v, key_mask=None, num_heads: int = 4):
@@ -168,14 +182,13 @@ def attention(q, k, v, key_mask=None, num_heads: int = 4,
     return _attention_cuda(q, k, v, key_mask, num_heads)
 
 
-def _check_operand(name, t, ref, rows):
+def _check_operand(name, t, ref, rows, vec):
     if t.device != ref.device or t.dtype != ref.dtype:
         raise ValueError(f"attention: {name} is {t.dtype} on {t.device}, q is {ref.dtype} on {ref.device}")
     if t.dim() != 3 or t.shape[0] != ref.shape[0] or t.shape[2] != ref.shape[2]:
         raise ValueError(f"attention: {name} shape {tuple(t.shape)} does not fit q {tuple(ref.shape)}")
     if rows is not None and t.shape[1] != rows:
         raise ValueError(f"attention: {name} has {t.shape[1]} rows, expected {rows}")
-    vec = 4  # the kernel moves 4 elements at a time
     if (t.stride(2) != 1 or t.stride(1) % vec or t.stride(0) % vec
             or t.data_ptr() % (vec * t.element_size())):
         raise ValueError(
@@ -184,8 +197,10 @@ def _check_operand(name, t, ref, rows):
         )
 
 
-def _check_call(q, k, v, key_mask, num_heads):
-    """Validate what the kernels take; returns (b, n, m, dh)."""
+def _check_call(q, k, v, key_mask, num_heads, vec=4):
+    """Validate what the kernels take; returns (b, n, m, dh). `vec` is how
+    many elements a kernel moves at a time: every row of q, k and v starts
+    on a multiple of it."""
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -196,9 +211,9 @@ def _check_call(q, k, v, key_mask, num_heads):
         raise ValueError(f"attention: head dim {dt}/{num_heads} not in {HEAD_DIMS}")
     if n == 0 or m == 0:
         raise ValueError("attention: empty query or key set")
-    _check_operand("q", q, q, None)
-    _check_operand("k", k, q, None)
-    _check_operand("v", v, q, m)
+    _check_operand("q", q, q, None, vec)
+    _check_operand("k", k, q, None, vec)
+    _check_operand("v", v, q, m, vec)
     if key_mask is not None:
         if (key_mask.dtype != torch.bool or tuple(key_mask.shape) != (b, m)
                 or key_mask.device != q.device or not key_mask.is_contiguous()):
@@ -217,28 +232,38 @@ _QKV_TYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] * 3 + [ctypes.c_v
 _TAIL_TYPES = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
 
+@functools.cache
+def _launcher(library: str, symbol: str, pointers: int):
+    """A launcher function of a kernel library, its signature (q, k, v with
+    strides, the mask, `pointers` more tensors, the sizes, the scale, the
+    stream) set once."""
+    fn = getattr(_build.library(library), symbol)
+    fn.argtypes = _QKV_TYPES + [ctypes.c_void_p] * pointers + _TAIL_TYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _suffix(dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
 def _attention_cuda(q, k, v, key_mask, num_heads, with_lse=False):
     b, n, m, dh = _check_call(q, k, v, key_mask, num_heads)
     dt = num_heads * dh
     out = torch.empty((b, n, dt), dtype=q.dtype, device=q.device)
-    suffix = "bf16" if q.dtype == torch.bfloat16 else "f32"
-    lib = _build.library("attention")
     args = _qkv_args(q, k, v, key_mask) + [_build.ptr(out)]
+    name = "attention_lse" if with_lse else "attention"
     if with_lse:
         lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=q.device)
-        fn, name = getattr(lib, f"attention_lse_{suffix}"), "attention_lse"
         args.append(_build.ptr(lse))
-    else:
-        fn, name = getattr(lib, f"attention_{suffix}"), "attention"
-    fn.argtypes = _QKV_TYPES + [ctypes.c_void_p] * (2 if with_lse else 1) + _TAIL_TYPES
-    fn.restype = ctypes.c_int
+    fn = _launcher("attention", f"{name}_{_suffix(q.dtype)}", 2 if with_lse else 1)
     _build.check(fn(*args, b, n, m, num_heads, dh, 1.0 / math.sqrt(dh), _build.stream_ptr(q.device)), name)
     _build.LAUNCHES[name] += 1
     return (out, lse) if with_lse else out
 
 
 def _attention_backward_cuda(q, k, v, key_mask, lse, dout, num_heads):
-    b, n, m, dh = _check_call(q, k, v, key_mask, num_heads)
+    b, n, m, dh = _check_call(q, k, v, key_mask, num_heads, _backward_vec(q.dtype))
     dt = num_heads * dh
     if tuple(dout.shape) != (b, n, dt):
         raise ValueError("attention backward: dout must be (B, N, H*dh) like q")
@@ -254,13 +279,20 @@ def _attention_backward_cuda(q, k, v, key_mask, lse, dout, num_heads):
     return dq, dk, dv
 
 
+def _backward_vec(dtype) -> int:
+    """The backward kernels move 16 bytes at a time (`cp.async` in bf16,
+    float4 in f32): 8 bf16 or 4 f32. The model's q, k, v (views of a fused
+    projection, head dims of 16 and more) always qualify."""
+    return 8 if dtype == torch.bfloat16 else 4
+
+
 def attention_backward_kernel(name, q, k, v, key_mask, dout, lse, delta, outs, num_heads):
     """Launch one backward kernel of `csrc/attention_bwd.cu` on the card:
     "attention_dq" into outs = (dq,), which also writes delta, or
     "attention_dkdv" into (dk, dv), which reads the delta that the dQ
     kernel wrote. dout (B, N, H*dh) is contiguous in q's dtype; lse and
     delta are (B, H, N) f32; the outputs are contiguous in q's dtype."""
-    b, n, m, dh = _check_call(q, k, v, key_mask, num_heads)
+    b, n, m, dh = _check_call(q, k, v, key_mask, num_heads, _backward_vec(q.dtype))
     dt = num_heads * dh
     rows = {"attention_dkdv": (m, m), "attention_dq": (n,)}[name]
     if dout.dtype != q.dtype or tuple(dout.shape) != (b, n, dt) or not dout.is_contiguous():
@@ -271,10 +303,7 @@ def attention_backward_kernel(name, q, k, v, key_mask, dout, lse, delta, outs, n
     for t, r in zip(outs, rows, strict=True):
         if t.dtype != q.dtype or tuple(t.shape) != (b, r, dt) or not t.is_contiguous():
             raise ValueError(f"{name}: outputs must be contiguous {q.dtype} {(b, r, dt)}")
-    suffix = "bf16" if q.dtype == torch.bfloat16 else "f32"
-    fn = getattr(_build.library("attention_bwd"), f"{name}_{suffix}")
-    fn.argtypes = _QKV_TYPES + [ctypes.c_void_p] * (3 + len(outs)) + _TAIL_TYPES
-    fn.restype = ctypes.c_int
+    fn = _launcher("attention_bwd", f"{name}_{_suffix(q.dtype)}", 3 + len(outs))
     args = _qkv_args(q, k, v, key_mask) + [_build.ptr(t) for t in (dout, lse, delta, *outs)]
     _build.check(fn(*args, b, n, m, num_heads, dh, 1.0 / math.sqrt(dh), _build.stream_ptr(q.device)), name)
     _build.LAUNCHES[name] += 1

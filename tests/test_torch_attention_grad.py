@@ -29,6 +29,7 @@ from image_matching_tpu_torch.ops.attention import (
     AttentionFunction,
     attention,
     attention_backward_plain,
+    attention_delta_plain,
     attention_lse,
     attention_plain,
 )
@@ -129,6 +130,62 @@ def test_gradients_match_einsum_oracle_with_a_dead_element(dh, n, m):
     np.testing.assert_allclose(out[-1], np.broadcast_to(v[-1].mean(0), out[-1].shape), **TOL)
     np.testing.assert_allclose(dv[-1], np.broadcast_to(g[-1].sum(0) / m, dv[-1].shape), **TOL)
     assert not dq[-1].any() and not dk[-1].any()
+
+
+# (N, M) that the card's 64-row tiles, split over 4 warpgroups with 2 tiles
+# in flight each, leave ragged: both under one tile; exactly one tile;
+# neither a multiple of the tile nor of the 8 tiles in flight; more query
+# than key tiles
+RAGGED = [(5, 9), (64, 64), (130, 257), (300, 70)]
+
+
+@pytest.mark.parametrize("dead", [False, True])
+@pytest.mark.parametrize("n,m", RAGGED)
+def test_gradients_match_einsum_oracle_at_ragged_shapes(n, m, dead):
+    b, dh = 2, 16
+    q, k, v, mask, g = _inputs(b, n, m, dh, seed=n + m, dead=dead)
+    out, dq, dk, dv = _port_grads(q, k, v, mask, g)
+    ref_out, vjp = jax.vjp(
+        lambda a, c, d: attention_reference_heads(a, c, d, jnp.asarray(mask), num_heads=HEADS),
+        *map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(out, np.asarray(ref_out), **TOL)
+    for got, ref in zip((dq, dk, dv), vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("n,m", [(5, 9), (130, 257)])
+def test_gradients_match_pallas_flash_at_ragged_shapes(n, m):
+    b, dh = 2, 16
+    q, k, v, mask, g = _inputs(b, n, m, dh, seed=2 * n + m)
+    out, dq, dk, dv = _port_grads(q, k, v, mask, g)
+    km = jnp.repeat(jnp.asarray(mask), HEADS, 0)
+    ref_out, vjp = jax.vjp(lambda a, c, d: flash_attention(a, c, d, km),
+                           *(jnp.asarray(_fold(a, b, dh)) for a in (q, k, v)))
+    np.testing.assert_allclose(out, _unfold(np.asarray(ref_out), b, dh), **TOL)
+    for got, ref in zip((dq, dk, dv), vjp(jnp.asarray(_fold(g, b, dh)))):
+        np.testing.assert_allclose(got, _unfold(np.asarray(ref), b, dh), **TOL)
+
+
+@pytest.mark.parametrize("n,m", [(40, 50), (130, 257), (300, 70)])
+def test_delta_plain_matches_einsum_reference(n, m):
+    # delta = rowsum(P * dP) / rowsum(P), the dQ kernel's second output. With
+    # the oracle's exact softmax, rowsum(P) = 1 and rowsum(P * dP) =
+    # rowsum(dO * O) of its f32 output, per head.
+    b, dh = 3, 16
+    q, k, v, mask, g = _inputs(b, n, m, dh, seed=n * m, dead=True)
+    tq, tk, tv, tmask, tg = map(torch.from_numpy, (q, k, v, mask, g))
+    _, lse = attention_lse(tq, tk, tv, tmask, HEADS)
+    got = attention_delta_plain(tq, tk, tv, tmask, lse, tg, HEADS)
+    assert got.shape == (b, HEADS, n) and got.dtype == torch.float32
+    ref_out = attention_reference_heads(*map(jnp.asarray, (q, k, v, mask)), num_heads=HEADS)
+    ref = (np.asarray(ref_out) * g).reshape(b, n, HEADS, dh).sum(-1).transpose(0, 2, 1)
+    np.testing.assert_allclose(got.numpy()[:-1], ref[:-1], rtol=1e-5, atol=1e-5)
+    assert not got[-1].any()  # no valid key: no row of dS to centre
+    # and it is the delta that the plain backward takes by default
+    with_delta = attention_backward_plain(tq, tk, tv, tmask, lse, tg, HEADS, got)
+    default = attention_backward_plain(tq, tk, tv, tmask, lse, tg, HEADS)
+    for a, r in zip(with_delta, default):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), **TOL)
 
 
 @pytest.mark.parametrize("dead", [False, True])

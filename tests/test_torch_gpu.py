@@ -19,6 +19,7 @@ from image_matching_tpu_torch.ops.attention import (
     attention,
     attention_backward,
     attention_backward_plain,
+    attention_delta_plain,
     attention_lse,
     attention_lse_plain,
     attention_plain,
@@ -173,10 +174,17 @@ def _assert_backward_close(got, ref, dtype):
     return tol
 
 
+# (N, M): the trainer's ragged case; both under one 64-row tile; exactly one
+# tile; neither a multiple of the tile nor of a block's 2 x 4 tiles in
+# flight; more query than key tiles; 18 key tiles for one query tile
+BACKWARD_SHAPES = [(70, 133), (5, 9), (64, 64), (130, 257), (300, 70), (50, 1100)]
+
+
+@pytest.mark.parametrize("n,m", BACKWARD_SHAPES)
 @pytest.mark.parametrize("dh", [16, 32, 64])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_attention_backward_kernels(cuda, dh, dtype):
-    q, k, v, mask, dout = _attention_case(cuda, dh, dtype)
+def test_attention_backward_kernels(cuda, dh, dtype, n, m):
+    q, k, v, mask, dout = _attention_case(cuda, dh, dtype, n=n, m=m)
     _, lse = attention_lse_plain(q, k, v, mask, 4)
     before = dict(_build.LAUNCHES)
     got = attention_backward(q, k, v, mask, lse, dout, 4)
@@ -189,6 +197,42 @@ def test_attention_backward_kernels(cuda, dh, dtype):
     assert not dq[-1].float().any() and not dk[-1].float().any()
     torch.testing.assert_close(dv[-1].float(), (dout[-1].float().sum(0) / k.shape[1]).expand_as(dv[-1]),
                                rtol=tol, atol=tol)
+    # the sums have a fixed order: a second run gives the same bits
+    again = attention_backward(q, k, v, mask, lse, dout, 4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
+
+
+@pytest.mark.parametrize("n,m", [(70, 133), (130, 257)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_backward_kernels_without_a_mask(cuda, dtype, n, m):
+    q, k, v, _, dout = _attention_case(cuda, 32, dtype, n=n, m=m)
+    _, lse = attention_lse_plain(q, k, v, None, 4)
+    got = attention_backward(q, k, v, None, lse, dout, 4)
+    _assert_backward_close(got, attention_backward_plain(q, k, v, None, lse, dout, 4), dtype)
+
+
+@pytest.mark.parametrize("n,m", [(70, 133), (50, 1100)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_dq_kernel_writes_delta(cuda, dtype, n, m):
+    # delta is the dQ kernel's second output, which the dK/dV kernel reads
+    q, k, v, mask, dout = _attention_case(cuda, 32, dtype, n=n, m=m)
+    _, lse = attention_lse_plain(q, k, v, mask, 4)
+    delta = torch.full((q.shape[0], 4, n), float("nan"), device=cuda)
+    attention_ops.attention_backward_kernel("attention_dq", q, k, v, mask, dout, lse, delta,
+                                            (torch.empty_like(dout),), 4)
+    ref = attention_delta_plain(q, k, v, mask, lse, dout, 4)
+    # f32 sums of the same products in another order
+    assert ((delta - ref).abs().max() / ref.abs().max()) <= 1e-4
+    assert not delta[-1].any()  # no valid key: no row of dS to centre
+
+
+def test_attention_backward_rejects_rows_off_16_bytes(cuda):
+    # the bf16 kernels copy 16 bytes at a time: a view that starts 4 elements in is refused
+    q, k, v, mask, dout = _attention_case(cuda, 32, torch.bfloat16)
+    wide = torch.zeros(k.shape[0], k.shape[1], k.shape[2] + 8, dtype=k.dtype, device=cuda)
+    _, lse = attention_lse_plain(q, k, v, mask, 4)
+    with pytest.raises(ValueError, match="8-element-aligned"):
+        attention_backward(q, wide[..., 4:-4], v, mask, lse, dout, 4)
 
 
 def test_attention_function_under_grad_uses_the_kernels(cuda):
