@@ -11,7 +11,12 @@ In order, it:
   3. holds each kernel against its plain PyTorch version on the card at
      the main path's shapes, and times kernel, plain version and one
      PyTorch yardstick with CUDA events, kernel and yardstick also by
-     replaying a CUDA graph (no host launch gaps);
+     replaying a CUDA graph (no host launch gaps; the attention forward's
+     JSON row holds these, and it is timed at the banked model's shape
+     too); where `build/attention_before.cu` holds an earlier version of
+     `csrc/attention.cu` (put there by hand, not part of the repository),
+     it times that build against this one, interleaved, at the forward's
+     five timed shapes;
   4. runs the headline configuration through `Matching` (480x640, batch
      4, K=1024, D=256, 18 GNN layers, 30 Sinkhorn iterations, bf16,
      seeded random weights, seeded uniform images), checks that the path
@@ -165,11 +170,12 @@ def graph_ms(fn, reps: int, replays: int = 5) -> float:
 def print_replayed(label, ms, lib_ms, lib_name, fn, lib, reps: int = 20):
     """Print a kernel's and its library call's time by CUDA graph replay
     beside the CUDA-event figures `ms` and `lib_ms`, which hold the host's
-    launch rate too."""
+    launch rate too; returns the two graph-replay times."""
     g_ms, g_lib = graph_ms(fn, reps), graph_ms(lib, reps)
     print(f"{label}: ms per call, CUDA events over back-to-back calls: kernel {ms:.4f}, {lib_name} {lib_ms:.4f} "
           f"({ms / lib_ms:.3f} of it); CUDA graph replay of {reps} calls: kernel {g_ms:.4f}, {lib_name} {g_lib:.4f} "
           f"({g_ms / g_lib:.3f} of it)")
+    return g_ms, g_lib
 
 
 def _dev_us(e) -> float:
@@ -250,12 +256,26 @@ def _attention_inputs(torch, dev, rng, b, n, h, dh, dtype=None):
     return q, k, v, mask
 
 
-def check_attention(torch, dev, rng):
+def _sdpa(torch, q, k, v, mask, h):
+    """`scaled_dot_product_attention` on the heads of packed (B, N, H*dh)
+    inputs with the key mask: the attention forward's yardstick."""
     import torch.nn.functional as F
+
+    b, n, dt = q.shape
+    qh, kh, vh = (t.reshape(b, -1, h, dt // h).transpose(1, 2).contiguous() for t in (q, k, v))
+    m4 = mask[:, None, None, :]
+
+    def lib():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4)
+    return lib
+
+
+def check_attention(torch, dev, rng):
     from image_matching_tpu_torch.ops.attention import attention, attention_plain
 
     results = {}
-    for (b, n, h, dh) in ((4, 1024, 4, 64), (4, 1000, 4, 32), (2, 2048, 4, 64)):
+    for (b, n, h, dh) in ((4, 1024, 4, 64), (4, 1000, 4, 32), (2, 2048, 4, 64), (1, 1024, 4, 32)):
         q, k, v, mask = _attention_inputs(torch, dev, rng, b, n, h, dh)
         if n == 1000:
             mask[-1] = False  # one batch element with no valid key
@@ -270,21 +290,87 @@ def check_attention(torch, dev, rng):
         check(err <= 3e-2, f"attention ({b}, {n}, {h}x{dh}) disagrees with its plain version ({err})")
         results[(b, n, h, dh)] = (q, k, v, mask, err)
 
-    b, n, h, dh = 4, 1024, 4, 64  # 36 calls of this shape per forward
-    q, k, v, mask, err = results[(b, n, h, dh)]
-    qh, kh, vh = (t.reshape(b, n, h, dh).transpose(1, 2).contiguous() for t in (q, k, v))
-    m4 = mask[:, None, None, :]
-    lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4)
-    ms = cuda_ms(lambda: attention(q, k, v, mask, h), 20)
-    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, mask, h, "float32"), 10)
-    lib_ms = cuda_ms(lib, 20)
-    print_replayed(f"attention ({b}, {n}, {h}x{dh}) bf16", ms, lib_ms, "scaled_dot_product_attention",
-                   lambda: attention(q, k, v, mask, h), lib)
-    flops = 4.0 * b * h * n * n * dh
-    bms, by = bound(4 * b * n * h * dh * 2 + b * n, flops, BF16_TENSOR_FLOPS)
-    return dict(name="attention", route="cuda", source="image_matching_tpu_torch/csrc/attention.cu",
-                replaces="image_matching_tpu/ops/pallas/attention.py:371", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    # the headline's shape (36 calls per forward), then the banked model's (D = 128);
+    # the JSON row holds the headline's graph-replay times
+    row = None
+    for (b, n, h, dh) in ((4, 1024, 4, 64), (1, 1024, 4, 32)):
+        q, k, v, mask, err = results[(b, n, h, dh)]
+        kernel, lib = (lambda: attention(q, k, v, mask, h)), _sdpa(torch, q, k, v, mask, h)
+        ms, lib_ms = print_replayed(f"attention ({b}, {n}, {h}x{dh}) bf16", cuda_ms(kernel, 20), cuda_ms(lib, 20),
+                                    "scaled_dot_product_attention", kernel, lib)
+        plain_ms = graph_ms(lambda: attention_plain(q, k, v, mask, h, "float32"), 5)
+        bms, by = bound(4 * b * n * h * dh * 2 + b * n, 4.0 * b * h * n * n * dh, BF16_TENSOR_FLOPS)
+        print(f"  bound {bms:.5f} ms ({by}), plain version {plain_ms:.4f} ms (graph replay)")
+        row = row or dict(name="attention", route="cuda", source="image_matching_tpu_torch/csrc/attention.cu",
+                          replaces="image_matching_tpu/ops/pallas/attention.py:371", max_abs_err=err,
+                          ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    return row
+
+
+# (B, N, H, dh, with LSE): the forward's timed shapes: the headline (36 calls per
+# forward) and the banked model's inference; D = 256 training, the TPU's flash band
+# and the training path's (36 calls per step) with LSE
+ATTENTION_TIMED = ((4, 1024, 4, 64, False), (1, 1024, 4, 32, False), (4, 1024, 4, 64, True),
+                   (2, 2048, 4, 64, True), (4, 512, 4, 32, True))
+EARLIER_ATTENTION = ROOT / "build" / "attention_before.cu"
+
+
+def compare_attention_builds(torch, dev, rng, builds, shapes=ATTENTION_TIMED):
+    """Time other builds of `csrc/attention.cu` beside this checkout's, at
+    `shapes`, by CUDA graph replay, interleaved: every build in turn, then
+    every build again in the reverse order, so that a drift of the card's
+    clock falls on all alike. `builds` lists (label, source, extra nvcc
+    flags). Every build is held against the plain version first. The C
+    interface of each is the checkout's, so the wrapper drives them all."""
+    import ctypes
+    import hashlib
+
+    from image_matching_tpu_torch.ops import _build
+    from image_matching_tpu_torch.ops import attention as A
+
+    own = _build.library("attention")
+    started = []
+    for label, src, flags in builds:
+        digest = hashlib.sha256(Path(src).read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+        out = _build.BUILD_DIR / f"libattention_{digest}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I", str(_build.CSRC), "-o", str(out), str(src)]
+        started.append((label, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                        out))
+    libs = {"this checkout": own}
+    for label, proc, out in started:
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed for the {label} build of attention.cu:\n{log}")
+        for line in log.splitlines():
+            if any(word in line for word in ("Compiling entry", "registers", "spill", "wgmma", "Performance")):
+                print(f"  [{label}] {line.strip()[:160]}")
+        libs[label] = ctypes.CDLL(str(out))
+
+    def use(lib):
+        _build._libraries["attention"] = lib
+        A._launcher.cache_clear()
+
+    try:
+        for b, n, h, dh, with_lse in shapes:
+            qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * h * dh)).astype("float32")).to(dev, torch.bfloat16)
+            q, k, v = qkv[..., :h * dh], qkv[..., h * dh:2 * h * dh], qkv[..., 2 * h * dh:]  # as the model
+            mask = torch.from_numpy(rng.uniform(size=(b, n)) < 0.8).to(dev)
+            mask[:, 0] = True
+            fn = (lambda: A.attention_lse(q, k, v, mask, h)[0]) if with_lse else (lambda: A.attention(q, k, v, mask, h))
+            ref = A.attention_plain(q, k, v, mask, h, "float32").float()
+            times = {label: [] for label in libs}
+            for label in list(libs) + list(libs)[::-1]:
+                use(libs[label])
+                if not times[label]:
+                    err = (fn().float() - ref).abs().max().item()
+                    check(err <= 3e-2, f"attention, {label} build, ({b}, {n}, {h}x{dh}): error {err}")
+                times[label].append(graph_ms(fn, 20))
+            sdpa = graph_ms(_sdpa(torch, q, k, v, mask, h), 20)
+            print(f"attention{' with LSE' if with_lse else ''} ({b}, {n}, {h}x{dh}) bf16, ms per call by CUDA graph "
+                  f"replay, builds interleaved: " + "; ".join(
+                      f"{label} " + " / ".join(f"{t:.4f}" for t in ts) for label, ts in times.items())
+                  + f"; scaled_dot_product_attention {sdpa:.4f}")
+    finally:
+        use(own)
 
 
 def check_sinkhorn(torch, dev, rng):
@@ -1382,6 +1468,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     kernels = [check_entry_conv(torch, dev, rng), check_attention(torch, dev, rng),
                check_sinkhorn(torch, dev, rng)]
+    if EARLIER_ATTENTION.exists():  # an earlier attention.cu, left there by hand to compare with
+        compare_attention_builds(torch, dev, rng, [("before", EARLIER_ATTENTION, ())])
     launches = run_main_path(torch, dev)
     for kern in kernels:
         kern["launches"] = launches.get(kern["name"], 0)

@@ -12,9 +12,14 @@
 //
 // What bounds it on an H100: at the main path's (4, 1024, 4 x 64) bf16 the
 // work is 4.3 GFLOP against 8 MB of q/k/v/o, so it is bound by the tensor
-// cores' rate (~4 us at 989 TFLOP/s), not by memory.
+// cores' rate (~4 us at 989 TFLOP/s), not by memory; its 16.8 M
+// exponentials take as long again at the SFUs' 16 a clock per SM, so the
+// exponentials and the products have to run side by side. Measured
+// (PERF.md), neither bounds the kernel yet: a call takes ~5x the bound,
+// most of it latency along each group's chain of products, softmax and
+// products, and each block's fixed cost (first loads, key table, merge).
 //
-// Common to both kernels below:
+// Common to the kernels below:
 //   * keys are walked in 64-key tiles staged in shared memory, with
 //     flash-style online softmax (running max m, sum l, rescaled output),
 //     because one head's K and V at dh=64, K=1024 (256 KB in bf16) exceed a
@@ -23,18 +28,35 @@
 //     transposes), and q/k/v may be row-strided views (e.g. slices of one
 //     fused QKV projection) as long as their last dimension is contiguous;
 //   * masked keys get a logit of exactly -1e9 (a fully masked row averages
-//     V uniformly, as the plain version does); keys past the end get -inf
-//     and weigh nothing.
+//     V uniformly, as the plain version does); keys past the end weigh
+//     nothing.
 //
-// bf16 (the main path): `attention_mma`, tensor cores through warp-level
-// mma.sync.m16n8k16 (f32 accumulate), flash-attention-2 style. One block of
-// 4 warps per (b, head, 64-row query tile), 16 query rows per warp. Q stays
-// in registers as A fragments; S = Q K^T lands in registers in the C layout,
-// which is reused directly as the A fragments of P for O += P V (P rounded
-// to bf16 for that product, as the plain version rounds its probabilities).
-// K is staged row-major and V transposed, both with 8 bf16 of padding per
-// row, so every B-fragment read from shared memory is conflict-free. No
-// cp.async, TMA or wgmma yet: loads and math do not overlap.
+// bf16 (the main path): one block per (b, head, 64-row query tile), NG
+// warpgroups of 4 warps (16 query rows a warp). The groups split the key
+// tiles: group g takes tiles g, g + NG, ..., so a block holds 4 NG warps
+// although it owns only 64 rows, and one group's exponentials run beside
+// another's products. Each group brings its K and V tiles by 16-byte
+// `cp.async` (rows past M zero-filled) into its own ring of STAGES tiles,
+// behind a named barrier of its own, so loads overlap math. The key mask
+// row of batch b is read into shared memory once per block, as a state per
+// key. Per tile the scores become logits in log2 units by a per-key factor
+// and offset (scale * log2(e) and 0 for a valid key, 0 and -1e9 log2(e) for
+// a masked one, 0 and -inf past M: no branch), the running max and sum move
+// on (2 quad shuffles per row), P = 2^(logit - m) is rounded to bf16 (as the
+// plain version rounds its probabilities) and O += P V. At the end the
+// groups' (m, l, O) are merged through shared memory in the groups' order,
+// m* = max m_g, O = sum O_g 2^(m_g - m*), l likewise, so two runs give the
+// same bits, and one epilogue writes O (and the LSE). One launch per call.
+//   * dh = 64, `attention_wg`: wgmma m64n64k16 on tiles in the 128-byte
+//     swizzle. Q is staged once; S = Q K^T with both operands in shared
+//     memory (K-major), O += P V with P's C layout reused as the A
+//     fragments in registers and V (row-major by key) read transposed by
+//     its descriptor.
+//   * dh <= 32, `attention_mma`: mma.sync.m16n8k16 (f32 accumulate) on one
+//     padded row-major copy of each tile (8 bf16 of padding per row, so the
+//     8 rows of an ldmatrix fall on distinct banks): Q's A fragments and
+//     K's B fragments by `ldmatrix`, V's by `ldmatrix.trans` from the same
+//     copy.
 //
 // f32 (the f32 compute dtype): `attention_simt`, plain FMAs, no tensor
 // cores, so f32 keeps full f32 products. 4 threads per query row, each
@@ -42,198 +64,334 @@
 // joined by two warp shuffles; a thread's dims are interleaved in 4-float
 // chunks so the 4 threads of a row read 64 consecutive bytes of a staged key.
 //
-// Forward with LSE (training): the same two kernels with LSE = true also
+// Forward with LSE (training): the same kernels with LSE = true also
 // write the f32 log-sum-exp of every query row, (B, H, N), for the backward
 // kernels of csrc/attention_bwd.cu. This replaces _flash_forward_with_lse
 // (_flash_kernel_with_lse, attention.py:100/560). Inference instantiates
-// LSE = false, which is the kernel above unchanged. A batch element with no
-// valid key ("dead") has every logit at -1e9, where m + log(l) rounds back
-// to -1e9 in f32 and the backward could no longer tell p = 1/M from p = 1;
-// for it the kernel writes log(l) = log(M), the LSE of the row with the
-// masked logits shifted to 0, and the backward kernels recognise the dead
-// element from the mask the same way (no valid key in mask[b, :]).
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// LSE = false. A batch element with no valid key ("dead") has every logit
+// at -1e9, where m + log(l) rounds back to -1e9 in f32 and the backward
+// could no longer tell p = 1/M from p = 1; for it the kernel writes
+// log(l) = log(M), the LSE of the row with the masked logits shifted to 0,
+// and the backward kernels recognise the dead element from the mask the
+// same way (no valid key in mask[b, :]).
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int KT = 64;                 // keys per shared-memory tile
 constexpr float MASKED = -1e9f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-// Per-key additive state of one tile: 0 valid, -1e9 masked, -inf past M.
-__device__ __forceinline__ float key_bias(const uint8_t* mask, int b, int M, int key) {
-  if (key >= M) return -INFINITY;
-  return (mask != nullptr && !mask[(int64_t)b * M + key]) ? MASKED : 0.f;
+// Warpgroups that split a block's key tiles, and tiles in a group's ring,
+// each measured on the card against its neighbours (PERF.md): at dh = 64 two
+// blocks of 2 groups on an SM (128 registers), at dh <= 32 one block of 4.
+// A third stage moved nothing.
+constexpr int STAGES = 2, WG_GROUPS = 2, MMA_GROUPS = 4;
+
+// ------------------------------------------------------------------ bf16, both kernels
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// True when batch element b has no valid key. Every thread of the block
-// must call it.
-__device__ __forceinline__ bool dead_batch(const uint8_t* mask, int b, int M) {
-  if (mask == nullptr) return false;
+// Per key of batch element b, the factor and offset that turn its raw score
+// s = q . k into its logit in log2 units, s * f + o: (scale log2(e), 0) for
+// a valid key, (0, -1e9 log2(e)) for a masked one, (0, -inf) past M, padded
+// to whole tiles. True when the element has no valid key. Every thread of
+// the block calls it, and the table may be read once it returns.
+__device__ __forceinline__ bool stage_key_table(float2* keys, const uint8_t* mask, int b, int M, int ntiles,
+                                                float scale2) {
   int any = 0;
-  for (int j = threadIdx.x; j < M; j += blockDim.x) any |= mask[(int64_t)b * M + j];
+  for (int j = threadIdx.x; j < ntiles * T; j += blockDim.x) {
+    const bool valid = j < M && (mask == nullptr || mask[(int64_t)b * M + j]);
+    keys[j] = valid ? make_float2(scale2, 0.f) : make_float2(0.f, j < M ? MASKED * LOG2E : -INFINITY);
+    any |= valid;
+  }
   return !__syncthreads_or(any);
 }
 
-// ------------------------------------------------------------------ bf16, mma
-
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_ROWS = 16 * MMA_WARPS;  // query rows per block
-constexpr int PAD = 8;                    // bf16 of padding per staged row
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int DH, bool LSE>
-__global__ void __launch_bounds__(MMA_WARPS * 32)
-attention_mma(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
-              const __nv_bfloat16* __restrict__ k, int64_t k_bs, int64_t k_rs,
-              const __nv_bfloat16* __restrict__ v, int64_t v_bs, int64_t v_rs,
-              const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out,
-              float* __restrict__ lse, int N, int M, int H, float scale) {
-  constexpr int KSTEPS = DH / 16;  // k-steps of Q K^T
-  constexpr int DTILES = DH / 8;   // n-tiles of O
-  __shared__ __align__(16) __nv_bfloat16 ks[KT][DH + PAD];   // K, row-major
-  __shared__ __align__(16) __nv_bfloat16 vt[DH][KT + PAD];   // V, transposed
-  __shared__ float kbias[KT];
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // fragment row group, column pair
-  const int r0 = blockIdx.x * MMA_ROWS + warp * 16 + g;  // this thread's rows r0, r0 + 8
-  bool dead = false;
-  if constexpr (LSE) dead = dead_batch(mask, b, M);
-
-  // Q as A fragments: a0 (r0, 2t), a1 (r0+8, 2t), a2 (r0, 2t+8), a3 (r0+8, 2t+8)
-  uint32_t qa[KSTEPS][4];
-  const __nv_bfloat16* qb = q + b * q_bs + h * DH + 2 * t;
+// One tile's online softmax over this thread's 32 scores, in the C layout
+// of 16 query rows x 64 keys (mma.sync's 8 n-tiles, or a warp's quarter of
+// wgmma's 64 x 64): s[4n + e] is row g + 8 (e >> 1), key 8n + 2t + (e & 1),
+// and `kt` points at the table entries of keys 2t, 2t + 1 of the tile. The
+// raw scores become logits in log2 units, the rows' running max m and this
+// thread's partial sums l move on, and the scores become P = 2^(logit - m);
+// `corr` gets the factor by which the rows' earlier output is rescaled.
+// Maxima and sums run in two chains a row, to halve their latency.
+__device__ __forceinline__ void online_softmax(float* s, float* m, float* l, float* corr, const float2* kt) {
+  float tmax[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk)
+  for (int n = 0; n < 8; ++n) {
+    const float4 f = *reinterpret_cast<const float4*>(kt + 8 * n);  // keys 8n + 2t, + 1
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + (i & 1) * 8, col = kk * 16 + (i >> 1) * 8;
-      qa[kk][i] = row < N ? *reinterpret_cast<const uint32_t*>(qb + row * q_rs + col) : 0u;
-    }
-
-  float o[DTILES][4];
-#pragma unroll
-  for (int n = 0; n < DTILES; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows r0, r0 + 8
-
-  const __nv_bfloat16* kb = k + b * k_bs + h * DH;
-  const __nv_bfloat16* vb = v + b * v_bs + h * DH;
-  for (int kt = 0; kt < M; kt += KT) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < KT * DH / 4; idx += MMA_WARPS * 32) {
-      const int j = idx / (DH / 4), d = (idx % (DH / 4)) * 4;
-      const int key = kt + j;
-      uint2 kv = make_uint2(0u, 0u), vv = make_uint2(0u, 0u);
-      if (key < M) {
-        kv = *reinterpret_cast<const uint2*>(kb + key * k_rs + d);
-        vv = *reinterpret_cast<const uint2*>(vb + key * v_rs + d);
-      }
-      *reinterpret_cast<uint2*>(&ks[j][d]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) vt[d + e][j] = ve[e];
-    }
-    for (int j = threadIdx.x; j < KT; j += MMA_WARPS * 32) kbias[j] = key_bias(mask, b, M, kt + j);
-    __syncthreads();
-
-    // S = Q K^T: 8 n-tiles of 8 keys; B fragment b0 (k=2t, n=g), b1 (k=2t+8, n=g)
-    float s[KT / 8][4];
-#pragma unroll
-    for (int n = 0; n < KT / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&ks[n * 8 + g][kk * 16 + 2 * t]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&ks[n * 8 + g][kk * 16 + 8 + 2 * t]);
-        mma_bf16(s[n], qa[kk], b0, b1);
-      }
-    }
-
-    // scale and mask; C layout: s[n][0..1] row r0, s[n][2..3] row r0+8, cols 8n+2t+{0,1}
-    float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < KT / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float kb_ = kbias[n * 8 + 2 * t + (e & 1)];
-        s[n][e] = kb_ == 0.f ? s[n][e] * scale : kb_;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], s[n][e]);
-      }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {  // the 4 threads of a row group share a row
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-      const float m_new = fmaxf(m[r], tmax[r]);  // finite: key kt is in range
-      corr[r] = __expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= corr[r];  // per-thread partial sum, joined at the end
-    }
-#pragma unroll
-    for (int n = 0; n < DTILES; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
-
-    // P = exp(S - m), and O += P V with P's C layout reused as A fragments
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      uint32_t pa[4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float* sn = s[2 * kk + half];
-        const float p0 = __expf(sn[0] - m[0]), p1 = __expf(sn[1] - m[0]);
-        const float p2 = __expf(sn[2] - m[1]), p3 = __expf(sn[3] - m[1]);
-        l[0] += p0 + p1;
-        l[1] += p2 + p3;
-        pa[2 * half] = pack_bf16(p0, p1);      // a0 / a2: row r0
-        pa[2 * half + 1] = pack_bf16(p2, p3);  // a1 / a3: row r0 + 8
-      }
-#pragma unroll
-      for (int n = 0; n < DTILES; ++n) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&vt[n * 8 + g][kk * 16 + 2 * t]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(&vt[n * 8 + g][kk * 16 + 8 + 2 * t]);
-        mma_bf16(o[n], pa, b0, b1);
-      }
+    for (int r = 0; r < 2; ++r) {
+      float& x0 = s[4 * n + 2 * r];
+      float& x1 = s[4 * n + 2 * r + 1];
+      x0 = fmaf(x0, f.x, f.y);
+      x1 = fmaf(x1, f.z, f.w);
+      tmax[r][n & 1] = fmaxf(tmax[r][n & 1], fmaxf(x0, x1));
     }
   }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the 4 threads of a row group share a row
+    float mx = fmaxf(tmax[r][0], tmax[r][1]);  // finite: key 0 of a tile is in range
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    corr[r] = ex2(m[r] - m_new);  // 0 at the first tile (m = -inf)
+    m[r] = m_new;
+  }
+  float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+    sum[(i >> 1) & 1][(i >> 3) & 1] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + (sum[r][0] + sum[r][1]);
+}
 
+// The groups' results for the block's rows, merged by group 0 in the
+// groups' order: m* = max m_g, l = sum l_g 2^(m_g - m*), O likewise. On
+// entry every thread holds its group's running m, its own partial l and
+// its NF output partial sums `o` (element i of row (i >> 1) & 1); groups
+// 1.. leave theirs in their rings (read no more, `ring_floats` apart from
+// `rings`) and in `row_ml`. On return group 0 holds the merged m, l and o,
+// l summed over the row's 4 threads. Every thread of the block calls it.
+template <int NG, int NF>
+__device__ __forceinline__ void merge_groups(float* o, float* m, float* l, float* rings, int ring_floats,
+                                             float2 (*row_ml)[T], int grp, int gt, int row, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  if (grp > 0) {
+#pragma unroll
+    for (int i = 0; i < NF; ++i) rings[grp * ring_floats + i * GROUP + gt] = o[i];
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) row_ml[grp][row + 8 * r] = make_float2(m[r], l[r]);
+    }
+  }
+  __syncthreads();
+  if (grp > 0) return;
+  float f[NG][2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    if (row >= N) continue;
-    if constexpr (LSE) {
-      if (t == 0) lse[((int64_t)b * H + h) * N + row] = dead ? logf(l[r]) : m[r] + logf(l[r]);
-    }
-    const float inv = 1.f / l[r];
-    __nv_bfloat16* orow = out + ((int64_t)b * N + row) * (int64_t)(H * DH) + h * DH + 2 * t;
+    float mx = m[r];
 #pragma unroll
-    for (int n = 0; n < DTILES; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    for (int p = 1; p < NG; ++p) mx = fmaxf(mx, row_ml[p][row + 8 * r].x);  // finite: group 0 has a tile
+    f[0][r] = ex2(m[r] - mx);
+    float sum = l[r] * f[0][r];
+#pragma unroll
+    for (int p = 1; p < NG; ++p) {
+      const float2 peer = row_ml[p][row + 8 * r];
+      f[p][r] = ex2(peer.x - mx);  // 0 for a group with no tile (m = -inf)
+      sum += peer.y * f[p][r];
+    }
+    m[r] = mx;
+    l[r] = sum;
   }
+#pragma unroll
+  for (int i = 0; i < NF; ++i) {
+    float acc = o[i] * f[0][(i >> 1) & 1];
+#pragma unroll
+    for (int p = 1; p < NG; ++p) acc += rings[p * ring_floats + i * GROUP + gt] * f[p][(i >> 1) & 1];
+    o[i] = acc;
+  }
+}
+
+// Group 0's epilogue: O / l in bf16 (rows r0, r0 + 8 of the C layout)
+// and, with LSE, the rows' log-sum-exp in natural units.
+template <int DH, bool LSE>
+__device__ __forceinline__ void write_rows(__nv_bfloat16* out, float* lse, float* o, const float* m,
+                                           const float* l, bool dead, int b, int N, int H, int h, int r0, int t) {
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    inv[r] = 1.f / l[r];
+    if (LSE && t == 0 && r0 + 8 * r < N)
+      lse[((int64_t)b * H + h) * N + r0 + 8 * r] = dead ? logf(l[r]) : m[r] * LN2 + logf(l[r]);
+  }
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] *= inv[(i >> 1) & 1];
+  store_rows<DH>(out, b, N, H, h, r0, t, reinterpret_cast<const float(*)[4]>(o));
+}
+
+#define ATTENTION_KERNEL_ARGS                                                                             \
+  const __nv_bfloat16 *__restrict__ q, int64_t q_bs, int64_t q_rs, const __nv_bfloat16 *__restrict__ k, \
+      int64_t k_bs, int64_t k_rs, const __nv_bfloat16 *__restrict__ v, int64_t v_bs, int64_t v_rs,       \
+      const uint8_t *__restrict__ mask, __nv_bfloat16 *__restrict__ out, float *__restrict__ lse, int N,  \
+      int M, int H, float scale
+
+// ------------------------------------------------------------------ bf16, dh = 64: wgmma
+
+template <int NG>
+__host__ __device__ constexpr int wg_smem_bytes() { return 1024 + (1 + NG * STAGES * 2) * WG_TILE_BYTES; }
+
+template <int NG, bool LSE>
+__global__ void __launch_bounds__(NG * GROUP, 2)  // two blocks an SM
+attention_wg(ATTENTION_KERNEL_ARGS) {
+  constexpr int DH = 64, RING = STAGES * 2 * WG_TILE_BYTES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float2 row_ml[NG][T];
+  unsigned char* own_q = align_1024(smem);                      // A of S = Q K^T
+  unsigned char* rings = own_q + WG_TILE_BYTES;                 // per group and stage: K, V tiles
+  float2* keys = reinterpret_cast<float2*>(rings + NG * RING);  // [ntiles * T]
+
+  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, grp = warp / 4, gt = tid % GROUP;
+  const int wr = (warp % 4) * 16, g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * T;
+  const int ntiles = (M + T - 1) / T;       // key tiles; group grp takes grp, grp + NG, ...
+  const int cnt = grp < ntiles ? (ntiles - grp + NG - 1) / NG : 0;
+  const __nv_bfloat16* k_b = k + b * k_bs + h * DH;
+  const __nv_bfloat16* v_b = v + b * v_bs + h * DH;
+  unsigned char* ring = rings + grp * RING;
+
+  // K and V of the group's `it`-th key tile into its stage
+  auto stage = [&](int it) {
+    unsigned char* dst = ring + (it % STAGES) * 2 * WG_TILE_BYTES;
+    const int j0 = (grp + it * NG) * T;
+    stage_swizzled<GROUP>(dst, k_b, k_rs, j0, M, gt);
+    stage_swizzled<GROUP>(dst + WG_TILE_BYTES, v_b, v_rs, j0, M, gt);
+  };
+
+  stage_swizzled<NG * GROUP>(own_q, q + b * q_bs + h * DH, q_rs, q0, N, tid);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < cnt) stage(s);
+    cp_async_commit();
+  }
+  const bool dead = stage_key_table(keys, mask, b, M, ntiles, scale * LOG2E);
+  cp_async_wait<STAGES - 1>();  // Q has landed
+  fence_async_smem();
+  __syncthreads();
+  const uint64_t qa = wg_desc(smem_addr(own_q));
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows wr + g, wr + g + 8
+  for (int it = 0; it < cnt; ++it) {
+    cp_async_wait<STAGES - 2>();  // tile `it` has landed
+    fence_async_smem();
+    group_sync(grp);              // for the whole group; and tile it - 1's stage is free
+    if (it + STAGES - 1 < cnt) stage(it + STAGES - 1);
+    cp_async_commit();
+    const uint64_t ks = wg_desc(smem_addr(ring + (it % STAGES) * 2 * WG_TILE_BYTES));
+    const uint64_t vs = ks + (WG_TILE_BYTES >> 4);
+    float s[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) wgmma_ss(s, qa + 2 * kk, ks + 2 * kk, kk > 0);  // S = Q K^T
+    wg_commit();
+    wg_wait<0>(s);
+    float corr[2];
+    online_softmax(s, m, l, corr, keys + (grp + it * NG) * T + 2 * t);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+    uint32_t pa[4][4];
+    wg_c_to_a(pa, s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) wgmma_rs(o, pa[kk], vs + 128 * kk);  // O += P V
+    wg_commit();
+    wg_wait<0>(o);
+  }
+  cp_async_wait<0>();
+  group_sync(grp);  // the ring is read no more: it becomes scratch
+
+  merge_groups<NG, 32>(o, m, l, reinterpret_cast<float*>(rings), RING / 4, row_ml, grp, gt, wr + g, t);
+  if (grp == 0) write_rows<DH, LSE>(out, lse, o, m, l, dead, b, N, H, h, q0 + wr + g, t);
+}
+
+// ------------------------------------------------------------------ bf16, dh <= 32: mma.sync
+
+template <int DH, int NG>
+__host__ __device__ constexpr int mma_smem_bytes() { return (1 + NG * STAGES * 2) * tile_elems<DH>() * 2; }
+
+template <int DH, int NG, bool LSE>
+__global__ void __launch_bounds__(NG * GROUP)
+attention_mma(ATTENTION_KERNEL_ARGS) {
+  constexpr int LD = DH + PAD, KS = DH / 16, DT = DH / 8, TILE = tile_elems<DH>(), RING = STAGES * 2 * TILE;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float2 row_ml[NG][T];
+  __nv_bfloat16* own_q = reinterpret_cast<__nv_bfloat16*>(smem);  // A of S = Q K^T
+  __nv_bfloat16* rings = own_q + TILE;                            // per group and stage: K, V tiles
+  float2* keys = reinterpret_cast<float2*>(rings + NG * RING);    // [ntiles * T]
+
+  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, grp = warp / 4, gt = tid % GROUP;
+  const int wr = (warp % 4) * 16, g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * T;
+  const int ntiles = (M + T - 1) / T;
+  const int cnt = grp < ntiles ? (ntiles - grp + NG - 1) / NG : 0;
+  const __nv_bfloat16* k_b = k + b * k_bs + h * DH;
+  const __nv_bfloat16* v_b = v + b * v_bs + h * DH;
+  __nv_bfloat16* ring = rings + grp * RING;
+
+  auto stage = [&](int it) {
+    __nv_bfloat16* dst = ring + (it % STAGES) * 2 * TILE;
+    const int j0 = (grp + it * NG) * T;
+    stage_tile<DH, GROUP>(dst, k_b, k_rs, j0, M, gt);
+    stage_tile<DH, GROUP>(dst + TILE, v_b, v_rs, j0, M, gt);
+  };
+
+  stage_tile<DH, NG * GROUP>(own_q, q + b * q_bs + h * DH, q_rs, q0, N, tid);
+  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < cnt) stage(s);
+    cp_async_commit();
+  }
+  const bool dead = stage_key_table(keys, mask, b, M, ntiles, scale * LOG2E);
+  cp_async_wait<STAGES - 1>();
+  __syncthreads();
+  uint32_t qa[KS][4];
+  load_a<DH>(qa, own_q, wr, lane);
+  const uint32_t lane_nt = nt_lane_offset<DH>(lane), lane_tn = tn_lane_offset<DH>(lane);
+
+  float o[DT][4];
+  zero<DT>(o);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int it = 0; it < cnt; ++it) {
+    cp_async_wait<STAGES - 2>();
+    group_sync(grp);
+    if (it + STAGES - 1 < cnt) stage(it + STAGES - 1);
+    cp_async_commit();
+    const uint32_t ks = smem_addr(ring + (it % STAGES) * 2 * TILE), vs = ks + TILE * 2;
+    // S = Q K^T, 16 keys at a time; C layout: s[n][0..1] row g, s[n][2..3] row g + 8,
+    // keys 8n + 2t + {0, 1}
+    float s[8][4];
+    zero<8>(s);
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) mma_nt<DH>(s + 2 * kk, qa, ks + kk * 16 * LD * 2 + lane_nt);
+    float corr[2];
+    online_softmax(&s[0][0], m, l, corr, keys + (grp + it * NG) * T + 2 * t);
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) {  // O += P V, P's C layout reused as A fragments
+      uint32_t pa[4];
+      c_to_a(pa, s + 2 * kk);
+      mma_tn<DH>(o, pa, vs + kk * 16 * LD * 2 + lane_tn);
+    }
+  }
+  cp_async_wait<0>();
+  group_sync(grp);
+
+  merge_groups<NG, DT * 4>(&o[0][0], m, l, reinterpret_cast<float*>(rings), RING / 2, row_ml, grp, gt, wr + g,
+                           t);
+  if (grp == 0) write_rows<DH, LSE>(out, lse, &o[0][0], m, l, dead, b, N, H, h, q0 + wr + g, t);
 }
 
 // ------------------------------------------------------------------ f32, SIMT
@@ -241,6 +399,12 @@ attention_mma(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
 constexpr int SIMT_THREADS = 128;
 constexpr int TPR = 4;                       // threads per query row
 constexpr int SIMT_ROWS = SIMT_THREADS / TPR;
+
+// Per-key additive state of one tile: 0 valid, -1e9 masked, -inf past M.
+__device__ __forceinline__ float key_bias(const uint8_t* mask, int b, int M, int key) {
+  if (key >= M) return -INFINITY;
+  return (mask != nullptr && !mask[(int64_t)b * M + key]) ? MASKED : 0.f;
+}
 
 __device__ __forceinline__ void load4(const float* p, float* d) {
   const float4 t = *reinterpret_cast<const float4*>(p);
@@ -255,9 +419,9 @@ attention_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
                const uint8_t* __restrict__ mask, float* __restrict__ out,
                float* __restrict__ lse, int N, int M, int H, float scale) {
   constexpr int CHUNKS = DH / 16;  // 4-float chunks per thread
-  __shared__ __align__(16) float sk[KT][DH];
-  __shared__ __align__(16) float sv[KT][DH];
-  __shared__ float kbias[KT];
+  __shared__ __align__(16) float sk[T][DH];
+  __shared__ __align__(16) float sv[T][DH];
+  __shared__ float kbias[T];
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int row = blockIdx.x * SIMT_ROWS + threadIdx.x / TPR;
@@ -282,9 +446,9 @@ attention_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
 
   const float* kb = k + b * k_bs + h * DH;
   const float* vb = v + b * v_bs + h * DH;
-  for (int kt = 0; kt < M; kt += KT) {
+  for (int kt = 0; kt < M; kt += T) {
     __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < KT * DH / 4; idx += SIMT_THREADS) {
+    for (int idx = threadIdx.x; idx < T * DH / 4; idx += SIMT_THREADS) {
       const int j = idx / (DH / 4), d = (idx % (DH / 4)) * 4;
       const int key = kt + j;
       if (key < M) {
@@ -295,13 +459,13 @@ attention_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
         for (int e = 0; e < 4; ++e) { sk[j][d + e] = 0.f; sv[j][d + e] = 0.f; }
       }
     }
-    for (int j = threadIdx.x; j < KT; j += SIMT_THREADS) kbias[j] = key_bias(mask, b, M, kt + j);
+    for (int j = threadIdx.x; j < T; j += SIMT_THREADS) kbias[j] = key_bias(mask, b, M, kt + j);
     __syncthreads();
 
-    float s[KT];
+    float s[T];
     float tmax = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < KT; ++j) {
+    for (int j = 0; j < T; ++j) {
       float dot = 0.f;
 #pragma unroll
       for (int c = 0; c < CHUNKS; ++c) {
@@ -323,7 +487,7 @@ attention_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[c][e] *= corr;
 #pragma unroll
-    for (int j = 0; j < KT; ++j) {
+    for (int j = 0; j < T; ++j) {
       const float p = __expf(s[j] - m_new);
       l += p;
 #pragma unroll
@@ -352,24 +516,54 @@ attention_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
 
 // ------------------------------------------------------------------ launch
 
-#define ATTENTION_ARGS(T)                                                          \
-  const T *q, int64_t q_bs, int64_t q_rs, const T *k, int64_t k_bs, int64_t k_rs, \
-      const T *v, int64_t v_bs, int64_t v_rs, const uint8_t *mask, T *out,         \
+#define ATTENTION_ARGS(T_)                                                              \
+  const T_ *q, int64_t q_bs, int64_t q_rs, const T_ *k, int64_t k_bs, int64_t k_rs,    \
+      const T_ *v, int64_t v_bs, int64_t v_rs, const uint8_t *mask, T_ *out,            \
       float *lse, int B, int N, int M, int H, int DH, float scale, cudaStream_t stream
 
 #define ATTENTION_PASS q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, out, lse, N, M, H, scale
 
+// The most dynamic shared memory a block of `kernel` may ask for on this
+// card: the opt-in maximum less the kernel's static shared memory.
+template <typename Kernel>
+int smem_optin(Kernel kernel) {
+  int dev = 0, bytes = 0;
+  cudaFuncAttributes attr;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncGetAttributes(&attr, kernel);
+  return bytes - static_cast<int>(attr.sharedSizeBytes);
+}
+
+// Launch a bf16 kernel, a block per 64 query rows, with `fixed` bytes of
+// dynamic shared memory plus the padded key row's table. Its limit is raised
+// to the card's most once per kernel; a size beyond it comes back as the
+// launch's error.
+template <auto kernel>
+int launch_tiled(int fixed, int threads, ATTENTION_ARGS(__nv_bfloat16)) {
+  static const cudaError_t attr = allow_smem(kernel, smem_optin(kernel));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((N + T - 1) / T, H, B);
+  const int bytes = fixed + (M + T - 1) / T * T * static_cast<int>(sizeof(float2));
+  kernel<<<grid, threads, bytes, stream>>>(ATTENTION_PASS);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool LSE>
 int launch_bf16(ATTENTION_ARGS(__nv_bfloat16)) {
-  const dim3 grid((N + MMA_ROWS - 1) / MMA_ROWS, H, B);
-  const int threads = MMA_WARPS * 32;
+#define TILED_PASS q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, out, lse, B, N, M, H, DH, scale, stream
   switch (DH) {
-    case 16: attention_mma<16, LSE><<<grid, threads, 0, stream>>>(ATTENTION_PASS); break;
-    case 32: attention_mma<32, LSE><<<grid, threads, 0, stream>>>(ATTENTION_PASS); break;
-    case 64: attention_mma<64, LSE><<<grid, threads, 0, stream>>>(ATTENTION_PASS); break;
+    case 16:
+      return launch_tiled<attention_mma<16, MMA_GROUPS, LSE>>(mma_smem_bytes<16, MMA_GROUPS>(),
+                                                              MMA_GROUPS * GROUP, TILED_PASS);
+    case 32:
+      return launch_tiled<attention_mma<32, MMA_GROUPS, LSE>>(mma_smem_bytes<32, MMA_GROUPS>(),
+                                                              MMA_GROUPS * GROUP, TILED_PASS);
+    case 64:
+      return launch_tiled<attention_wg<WG_GROUPS, LSE>>(wg_smem_bytes<WG_GROUPS>(), WG_GROUPS * GROUP, TILED_PASS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+#undef TILED_PASS
 }
 
 template <bool LSE>
@@ -390,12 +584,15 @@ int launch_f32(ATTENTION_ARGS(float)) {
   const void *q, int64_t q_bs, int64_t q_rs, const void *k, int64_t k_bs, int64_t k_rs, \
       const void *v, int64_t v_bs, int64_t v_rs, const void *mask, void *out
 
-#define C_PASS(T)                                                                          \
-  static_cast<const T*>(q), q_bs, q_rs, static_cast<const T*>(k), k_bs, k_rs,              \
-      static_cast<const T*>(v), v_bs, v_rs, static_cast<const uint8_t*>(mask), static_cast<T*>(out)
+#define C_PASS(T_)                                                                         \
+  static_cast<const T_*>(q), q_bs, q_rs, static_cast<const T_*>(k), k_bs, k_rs,            \
+      static_cast<const T_*>(v), v_bs, v_rs, static_cast<const uint8_t*>(mask), static_cast<T_*>(out)
 
 #define C_TAIL int B, int N, int M, int H, int DH, float scale, void *stream
 #define C_TAIL_PASS B, N, M, H, DH, scale, static_cast<cudaStream_t>(stream)
+
+// bf16: q, k, v rows start on 16 bytes (8 elements); f32: on 16 bytes too
+// (4 elements). out is contiguous (B, N, H*DH).
 
 // Inference: softmax attention only.
 extern "C" int attention_bf16(C_ARGS, C_TAIL) {

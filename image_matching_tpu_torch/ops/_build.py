@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` into its own shared library, loaded with `ctypes` (no PyTorch
 headers, so a build takes seconds). Libraries land in `build/kernels/`
-at the repository root, named by a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is reused.
+at the repository root, named by a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.
 
 Nothing here runs at import: the first wrapper that launches a kernel
 calls `library(name)`, which builds on demand. `build_all()` compiles
@@ -52,8 +53,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of `name`, named by a hash of its source, every shared
+    header of `csrc/` (which a source may include) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

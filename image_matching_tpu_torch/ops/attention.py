@@ -197,14 +197,17 @@ def _check_operand(name, t, ref, rows, vec):
         )
 
 
-def _check_call(q, k, v, key_mask, num_heads, vec=4):
-    """Validate what the kernels take; returns (b, n, m, dh). `vec` is how
-    many elements a kernel moves at a time: every row of q, k and v starts
-    on a multiple of it."""
+def _check_call(q, k, v, key_mask, num_heads):
+    """Validate what the kernels take; returns (b, n, m, dh). The forward
+    and backward kernels move 16 bytes at a time (`cp.async` in bf16,
+    float4 in f32), so every row of q, k and v starts on 16 bytes: 8 bf16
+    or 4 f32. The model's q, k, v (views of a fused projection, head dims
+    of 16 and more) always qualify."""
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"attention: dtype {q.dtype} not in (bfloat16, float32)")
+    vec = 16 // q.element_size()
     b, n, dt = q.shape
     m = k.shape[1]
     if dt % num_heads or dt // num_heads not in HEAD_DIMS:
@@ -263,7 +266,7 @@ def _attention_cuda(q, k, v, key_mask, num_heads, with_lse=False):
 
 
 def _attention_backward_cuda(q, k, v, key_mask, lse, dout, num_heads):
-    b, n, m, dh = _check_call(q, k, v, key_mask, num_heads, _backward_vec(q.dtype))
+    b, n, m, dh = _check_call(q, k, v, key_mask, num_heads)
     dt = num_heads * dh
     if tuple(dout.shape) != (b, n, dt):
         raise ValueError("attention backward: dout must be (B, N, H*dh) like q")
@@ -279,20 +282,13 @@ def _attention_backward_cuda(q, k, v, key_mask, lse, dout, num_heads):
     return dq, dk, dv
 
 
-def _backward_vec(dtype) -> int:
-    """The backward kernels move 16 bytes at a time (`cp.async` in bf16,
-    float4 in f32): 8 bf16 or 4 f32. The model's q, k, v (views of a fused
-    projection, head dims of 16 and more) always qualify."""
-    return 8 if dtype == torch.bfloat16 else 4
-
-
 def attention_backward_kernel(name, q, k, v, key_mask, dout, lse, delta, outs, num_heads):
     """Launch one backward kernel of `csrc/attention_bwd.cu` on the card:
     "attention_dq" into outs = (dq,), which also writes delta, or
     "attention_dkdv" into (dk, dv), which reads the delta that the dQ
     kernel wrote. dout (B, N, H*dh) is contiguous in q's dtype; lse and
     delta are (B, H, N) f32; the outputs are contiguous in q's dtype."""
-    b, n, m, dh = _check_call(q, k, v, key_mask, num_heads, _backward_vec(q.dtype))
+    b, n, m, dh = _check_call(q, k, v, key_mask, num_heads)
     dt = num_heads * dh
     rows = {"attention_dkdv": (m, m), "attention_dq": (n,)}[name]
     if dout.dtype != q.dtype or tuple(dout.shape) != (b, n, dt) or not dout.is_contiguous():

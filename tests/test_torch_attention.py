@@ -33,8 +33,13 @@ def _port(q, k, v, mask, logits_dtype="float32"):
     return attention(t(q), t(k), t(v), t(mask), HEADS, logits_dtype).numpy()
 
 
-@pytest.mark.parametrize("dh", [16, 32])
-@pytest.mark.parametrize("n,m", [(40, 128), (100, 77)])
+# (N, M): beside the first two, shapes ragged across the card's 64-row tiles
+# and across a split of the key tiles over 4 warpgroups (5 and 8 key tiles)
+RAGGED = [(129, 257), (65, 450)]
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("n,m", [(40, 128), (100, 77)] + RAGGED)
 def test_plain_matches_pallas_onepass_and_reference(dh, n, m):
     q, k, v, mask = _inputs(2, n, m, dh, seed=dh + n)
     jq, jk, jv, jm = map(jnp.asarray, (q, k, v, mask))
@@ -51,6 +56,16 @@ def test_fully_masked_row_averages_values():
     # softmax is uniform and the output is the mean of V (the oracle's
     # semantics; the Pallas kernel pads keys to 128, so it is left out)
     q, k, v, mask = _inputs(2, 33, 50, 32, seed=3, fully_masked_row=True)
+    got = _port(q, k, v, mask)
+    ref = np.asarray(attention_reference_heads(*map(jnp.asarray, (q, k, v, mask)), num_heads=HEADS))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[-1], np.broadcast_to(v[-1].mean(0), got[-1].shape), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("n,m", RAGGED)
+def test_plain_with_a_dead_element_matches_reference(dh, n, m):
+    q, k, v, mask = _inputs(3, n, m, dh, seed=dh * n + m, fully_masked_row=True)
     got = _port(q, k, v, mask)
     ref = np.asarray(attention_reference_heads(*map(jnp.asarray, (q, k, v, mask)), num_heads=HEADS))
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)

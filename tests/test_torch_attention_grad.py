@@ -67,8 +67,13 @@ def _port_grads(q, k, v, mask, g):
     return out.detach().numpy(), tq.grad.numpy(), tk.grad.numpy(), tv.grad.numpy()
 
 
-@pytest.mark.parametrize("dh", [16, 32])
-@pytest.mark.parametrize("n,m", [(40, 50), (70, 33)])
+# (N, M) ragged across the card's 64-row tiles and across a split of the
+# key tiles over 4 warpgroups (5 and 8 key tiles)
+RAGGED_FORWARD = [(129, 257), (65, 450)]
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("n,m", [(40, 50), (70, 33)] + RAGGED_FORWARD)
 def test_forward_lse_matches_pallas(dh, n, m):
     b = 2
     q, k, v, mask, _ = _inputs(b, n, m, dh, seed=dh + n)
@@ -80,6 +85,27 @@ def test_forward_lse_matches_pallas(dh, n, m):
         None, bq, bk)
     np.testing.assert_allclose(out.numpy(), _unfold(np.asarray(ref_out), b, dh), **TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[:, 0, :n].reshape(b, HEADS, n), **TOL)
+
+
+@pytest.mark.parametrize("dead", [False, True])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("n,m", RAGGED_FORWARD)
+def test_forward_lse_matches_oracle_logsumexp(dh, n, m, dead):
+    # the output against the einsum oracle, the LSE against the logsumexp of
+    # the oracle's masked logits; a dead element's LSE is log(M), the
+    # logsumexp of its logits shifted to 0 (the oracle's own rounds to -1e9)
+    b = 3
+    q, k, v, mask, _ = _inputs(b, n, m, dh, seed=dh + 7 * n + m, dead=dead)
+    out, lse = attention_lse(*(torch.from_numpy(a) for a in (q, k, v, mask)), num_heads=HEADS)
+    jq, jk, jv, jm = map(jnp.asarray, (q, k, v, mask))
+    np.testing.assert_allclose(out.numpy(), np.asarray(attention_reference_heads(jq, jk, jv, jm, num_heads=HEADS)),
+                               **TOL)
+    logits = jnp.einsum("bnhd,bmhd->bhnm", jq.reshape(b, n, HEADS, dh), jk.reshape(b, m, HEADS, dh)) / np.sqrt(dh)
+    ref = np.asarray(jax.nn.logsumexp(jnp.where(jm[:, None, None, :], logits, -1e9), axis=-1))
+    live = slice(0, b - 1) if dead else slice(0, b)
+    np.testing.assert_allclose(lse.numpy()[live], ref[live], **TOL)
+    if dead:
+        np.testing.assert_allclose(lse.numpy()[-1], np.full((HEADS, n), np.log(m), np.float32), **TOL)
 
 
 @pytest.mark.parametrize("dh", [16, 32])

@@ -71,25 +71,33 @@ def test_entry_conv_kernel(cuda, dtype):
     assert ((got.float() - ref.float()).abs() / ref.float().abs().clamp_min(1)).max() <= tol
 
 
+# (N, M) of the forward: the trainer's ragged case; ragged across the 64-row
+# tiles and a split of the key tiles over 4 warpgroups (3 and 5 query
+# tiles; 5 and 8 key tiles, none a multiple of the groups); both under one
+# tile; exactly one tile; more query than key tiles; 18 key tiles for one
+# query tile
+FORWARD_SHAPES = [(70, 133), (129, 257), (65, 450), (5, 9), (64, 64), (300, 70), (50, 1100)]
+
+
+@pytest.mark.parametrize("n,m", FORWARD_SHAPES)
 @pytest.mark.parametrize("dh", [16, 32, 64])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_attention_kernel(cuda, dh, dtype):
-    g = _gen()
-    b, n, m, h = 3, 70, 133, 4
-    # q, k, v as row-strided views of fused projections, as the model makes them
-    q = torch.randn(b, n, 3 * h * dh, generator=g).to(cuda, dtype)[..., h * dh:2 * h * dh]
-    src = torch.randn(b, m, 2 * h * dh, generator=g).to(cuda, dtype)
-    k, v = src[..., :h * dh], src[..., h * dh:]
-    mask = torch.rand(b, m, generator=g) < 0.6
-    mask[-1] = False  # a batch element with no valid key
-    mask = mask.to(cuda)
-    got = attention(q, k, v, mask, h)
+def test_attention_kernel(cuda, dh, dtype, n, m):
+    # q, k, v as row-strided views of fused projections, as the model makes
+    # them; one batch element with no valid key
+    q, k, v, mask, _ = _attention_case(cuda, dh, dtype, n=n, m=m)
+    before = _build.LAUNCHES["attention"]
+    got = attention(q, k, v, mask, 4)
     torch.cuda.synchronize()
-    ref = attention_plain(q, k, v, mask, h, "float32")
+    assert _build.LAUNCHES["attention"] == before + 1
+    ref = attention_plain(q, k, v, mask, 4, "float32")
     # f32 logits on both sides; bf16 also rounds the probabilities on the
     # plain side, so the bf16 tolerance is a few bf16 steps
     tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got[-1].float(), v[-1].float().mean(0).expand_as(got[-1]), rtol=tol, atol=tol)
+    # the warpgroups' partial results are merged in a fixed order: the same bits again
+    assert torch.equal(got, attention(q, k, v, mask, 4))
 
 
 def test_sinkhorn_kernel(cuda):
@@ -144,10 +152,11 @@ def _attention_case(cuda, dh, dtype, b=3, n=70, m=133, h=4):
     return q, k, v, mask.to(cuda), dout
 
 
+@pytest.mark.parametrize("n,m", FORWARD_SHAPES)
 @pytest.mark.parametrize("dh", [16, 32, 64])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_attention_forward_with_lse_kernel(cuda, dh, dtype):
-    q, k, v, mask, _ = _attention_case(cuda, dh, dtype)
+def test_attention_forward_with_lse_kernel(cuda, dh, dtype, n, m):
+    q, k, v, mask, _ = _attention_case(cuda, dh, dtype, n=n, m=m)
     before = _build.LAUNCHES["attention_lse"]
     out, lse = attention_lse(q, k, v, mask, 4)
     torch.cuda.synchronize()
@@ -160,6 +169,8 @@ def test_attention_forward_with_lse_kernel(cuda, dh, dtype):
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=2e-4 if dtype == torch.bfloat16 else 1e-5)
     torch.testing.assert_close(lse[-1], torch.full_like(lse[-1], math.log(k.shape[1])))
+    again = attention_lse(q, k, v, mask, 4)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
 
 def _assert_backward_close(got, ref, dtype):
@@ -224,6 +235,16 @@ def test_attention_dq_kernel_writes_delta(cuda, dtype, n, m):
     # f32 sums of the same products in another order
     assert ((delta - ref).abs().max() / ref.abs().max()) <= 1e-4
     assert not delta[-1].any()  # no valid key: no row of dS to centre
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+def test_attention_forward_rejects_rows_off_16_bytes(cuda, dh):
+    # the bf16 kernels copy 16 bytes at a time: a view that starts 4 elements in is refused
+    q, k, v, mask, _ = _attention_case(cuda, dh, torch.bfloat16)
+    wide = torch.zeros(k.shape[0], k.shape[1], k.shape[2] + 8, dtype=k.dtype, device=cuda)
+    for fn in (attention, attention_lse):
+        with pytest.raises(ValueError, match="8-element-aligned"):
+            fn(q, k, wide[..., 4:-4], mask, 4)
 
 
 def test_attention_backward_rejects_rows_off_16_bytes(cuda):
