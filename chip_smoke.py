@@ -16,7 +16,10 @@ In order, it:
      too); where `build/attention_before.cu` holds an earlier version of
      `csrc/attention.cu` (put there by hand, not part of the repository),
      it times that build against this one, interleaved, at the forward's
-     five timed shapes;
+     five timed shapes; it runs the attention kernels at head dims they
+     are not built for (8, 24, 48: zero-padded to 16, 32, 64), forward,
+     forward with LSE and backward, against the plain versions, and
+     checks that a head dim of 128 raises;
   4. runs the headline configuration through `Matching` (480x640, batch
      4, K=1024, D=256, 18 GNN layers, 30 Sinkhorn iterations, bf16,
      seeded random weights, seeded uniform images), checks that the path
@@ -41,8 +44,13 @@ In order, it:
      one fixed batch;
   8. holds the two kernels of the 2x2 space-to-depth backbone (the s2d
      entry conv and the realigning max pool) against their plain versions
-     at the shapes one detect of 4 images at 480x640 gives them, and times
-     them beside a library convolution / max pool;
+     at the shapes one detect of 4 images at 480x640 gives them and at
+     ragged ones (every route of the entry conv, two runs bit-identical),
+     and times them beside a library convolution / max pool, the entry
+     conv per shape and interleaved with its first version where
+     `build/s2d_entry_conv_before.cu` holds it; then times the f32
+     kernels (SIMT attention forward and backward, the SIMT entry conv)
+     beside f32 SDPA and f32 cuDNN;
   9. registers image pairs (detect each side -> SuperGlue -> homography
      RANSAC with 512 hypotheses -> warp) at the headline's width through
      the 2x2 backbone, `SuperPointBN` and `SuperPointVGG`: launch counts
@@ -307,12 +315,159 @@ def check_attention(torch, dev, rng):
     return row
 
 
+def check_attention_head_dims(torch, dev, rng):
+    """Head dims the kernels are not built for (8, 24, 48: the CPU tests'
+    D = 32 model has 8) run zero-padded to the next width the kernels take
+    (16, 32, 64), at the scale of the real dh: the forward, the forward
+    with LSE and both backward kernels against their plain versions, one
+    launch each; a head dim above 64 raises."""
+    from image_matching_tpu_torch.ops import _build
+    from image_matching_tpu_torch.ops import attention as A
+
+    for dh in (8, 24, 48):
+        b, n, m, h = 3, 200, 333, 4
+        q = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev, torch.bfloat16)
+        kv = torch.from_numpy(rng.normal(size=(b, m, 2 * h * dh)).astype("float32")).to(dev, torch.bfloat16)
+        k, v = kv[..., :h * dh], kv[..., h * dh:]  # views of a fused projection, as in the model
+        mask = torch.from_numpy(rng.uniform(size=(b, m)) < 0.8).to(dev)
+        mask[:, 0] = True
+        mask[-1] = False  # a batch element with no valid key
+        dout = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev, torch.bfloat16)
+        _build.reset_launch_counts()
+        out = A.attention(q, k, v, mask, h)
+        out_lse, lse = A.attention_lse(q, k, v, mask, h)
+        grads = A.attention_backward(q, k, v, mask, lse, dout, h)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        ref_out, ref_lse = A.attention_lse_plain(q, k, v, mask, h)
+        plain = A.attention_backward_plain(q, k, v, mask, lse, dout, h)
+        e_out = max((out.float() - ref_out.float()).abs().max().item(),
+                    (out_lse.float() - ref_out.float()).abs().max().item())
+        e_lse = (lse - ref_lse).abs().max().item()
+        e_bwd = _grad_error(grads, plain)
+        shapes_ok = all(tuple(t.shape) == tuple(r.shape) for t, r in zip((out, *grads), (ref_out, *plain)))
+        # the tolerances of the built widths (check_attention_training): bf16 P for P V and dV
+        print(f"attention ({b}, {n}->{m}, {h}x{dh}) bf16, heads zero-padded to {A.padded_head_dim(dh)}: out "
+              f"{e_out:.3e} (tol 3e-2), lse {e_lse:.3e} (tol 2e-4), dq/dk/dv {e_bwd:.3e} of the largest entry "
+              f"(tol 2e-2); launches {launches}")
+        check(shapes_ok and e_out <= 3e-2 and e_lse <= 2e-4 and e_bwd <= 2e-2,
+              f"attention at head dim {dh} disagrees with its plain version")
+        check(launches == {"attention": 1, "attention_lse": 1, "attention_dq": 1, "attention_dkdv": 1},
+              f"attention at head dim {dh}: launches {launches}")
+    q = torch.zeros(1, 8, 4 * 128, device=dev, dtype=torch.bfloat16)
+    try:
+        A.attention(q, q, q, None, 4)
+    except ValueError as e:
+        print(f"attention at head dim 128 raises ValueError: {e}")
+        check("64" in str(e), "the head-dim error does not name the limit")
+    else:
+        fail("attention at head dim 128 did not raise")
+
+
+def time_f32_kernels(torch, dev, rng):
+    """The f32 kernels, which serve `compute_dtype="float32"`, timed by CUDA
+    graph replay beside their bounds (f32 operations at 67 TFLOP/s, no
+    tensor cores) and a PyTorch call in full f32 (TF32 off): the SIMT
+    attention forward at the headline's shape against f32 SDPA, the f32
+    backward kernels at the training path's shape against SDPA's f32
+    backward, and the SIMT s2d entry conv at the registration path's four
+    shapes against f32 cuDNN conv + `space_to_depth`."""
+    import torch.nn.functional as F
+    from image_matching_tpu_torch.ops import attention as A
+    from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_entry, space_to_depth
+    from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    b, n, h, dh = 4, 1024, 4, 64
+    q, k, v, mask = _attention_inputs(torch, dev, rng, b, n, h, dh, torch.float32)
+    err = (A.attention(q, k, v, mask, h) - A.attention_plain(q, k, v, mask, h)).abs().max().item()
+    ms, lib = graph_ms(lambda: A.attention(q, k, v, mask, h), 10), graph_ms(_sdpa(torch, q, k, v, mask, h), 10)
+    bms, by = bound(4 * b * n * h * dh * 4 + b * n, 4.0 * b * h * n * n * dh, F32_FLOPS)
+    print(f"f32 attention_simt ({b}, {n}, {h}x{dh}): max_abs_err {err:.2e} (tol 1e-5); {ms:.4f} ms, f32 SDPA "
+          f"{lib:.4f} ms ({ms / lib:.2f}x), bound {bms:.4f} ms ({by}); launches per forward at "
+          f"compute_dtype=float32: 36")
+    check(err <= 1e-5, "f32 attention disagrees with its plain version")
+
+    b, n, h, dh = 4, 512, 4, 32
+    q, k, v, mask = _attention_inputs(torch, dev, rng, b, n, h, dh, torch.float32)
+    dout = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev)
+    _, lse = A.attention_lse(q, k, v, mask, h)
+    err = _grad_error(A.attention_backward(q, k, v, mask, lse, dout, h),
+                      A.attention_backward_plain(q, k, v, mask, lse, dout, h))
+    qh, kh, vh = (t.reshape(b, n, h, dh).transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    m4, doh = mask[:, None, None, :], dout.reshape(b, n, h, dh).transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4)
+
+    ms = graph_ms(lambda: A.attention_backward(q, k, v, mask, lse, dout, h), 10)
+    lib = graph_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4),
+                                               (qh, kh, vh), doh), 10) - graph_ms(sdpa_fwd, 10)
+    one = b * n * h * dh * 4
+    bms, by = bound(6 * one + 2 * b * h * n * 4 + b * n, 7 * 2.0 * b * h * n * n * dh, F32_FLOPS)
+    print(f"f32 attention backward (dQ + dK/dV) ({b}, {n}, {h}x{dh}): error {err:.2e} of the largest entry (tol 1e-4); "
+          f"{ms:.4f} ms, f32 SDPA backward {lib:.4f} ms ({ms / lib:.2f}x), bound {bms:.4f} ms ({by}); launches per "
+          f"step at compute_dtype=float32: 36 of each")
+    check(err <= 1e-4, "f32 attention backward disagrees with its plain version")
+
+    total = {"ms": 0.0, "lib": 0.0, "bound": 0.0}
+    for ci, co, hh, ww in S2D_ENTRY_SHAPES:
+        x = torch.from_numpy(rng.normal(size=(S2D_BATCH, hh, ww, ci)).astype("float32")).to(dev)
+        kk = torch.from_numpy(rng.normal(0, 0.3, (3, 3, ci, co)).astype("float32")).to(dev)
+        rel, _ = _rel_err(s2d_entry_conv(x, kk), conv3x3_s2d_entry(x, kk))
+        x_nchw, k_oihw = x.permute(0, 3, 1, 2), kk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        ms = graph_ms(lambda: s2d_entry_conv(x, kk), 5)
+        lib = graph_ms(lambda: space_to_depth(F.conv2d(x_nchw, k_oihw, padding=1).permute(0, 2, 3, 1)), 5)
+        npix = S2D_BATCH * hh * ww
+        bms, by = bound(npix * ci * 4 + 9 * ci * co * 4 + npix * co * 4, 2.0 * npix * co * 9 * ci, F32_FLOPS)
+        # f32 sums of 9 ci products (up to 1152) in another order
+        print(f"f32 s2d_entry_simt ({S2D_BATCH}, {hh}, {ww}) {ci}->{co}: max err/max(|y|,1) {rel:.2e} (tol 1e-4); "
+              f"{ms:.4f} ms, f32 cuDNN conv + space_to_depth {lib:.4f} ms ({ms / lib:.2f}x), bound {bms:.4f} ms ({by})")
+        check(rel <= 1e-4, f"f32 s2d_entry_conv {ci}->{co} disagrees with its plain version")
+        total["ms"] += ms
+        total["lib"] += lib
+        total["bound"] += bms
+    print(f"f32 s2d_entry_simt, one detect of {S2D_BATCH} images (4 launches): {total['ms']:.4f} ms, f32 cuDNN conv + "
+          f"space_to_depth {total['lib']:.4f} ms, bound {total['bound']:.4f} ms")
+
+
 # (B, N, H, dh, with LSE): the forward's timed shapes: the headline (36 calls per
 # forward) and the banked model's inference; D = 256 training, the TPU's flash band
 # and the training path's (36 calls per step) with LSE
 ATTENTION_TIMED = ((4, 1024, 4, 64, False), (1, 1024, 4, 32, False), (4, 1024, 4, 64, True),
                    (2, 2048, 4, 64, True), (4, 512, 4, 32, True))
 EARLIER_ATTENTION = ROOT / "build" / "attention_before.cu"
+
+
+def build_variants(name, builds):
+    """Build other versions of the kernel source `name` (an earlier file, or
+    this checkout's with -D flags), one `nvcc` each, all in parallel, with
+    `-I csrc` for the shared header; prints each build's `-Xptxas -v`
+    lines and returns {label: ctypes library}. `builds` lists (label,
+    source, extra nvcc flags)."""
+    import ctypes
+    import hashlib
+
+    from image_matching_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started = []
+    for label, src, flags in builds:
+        digest = hashlib.sha256(Path(src).read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+        out = _build.BUILD_DIR / f"lib{name}_{digest}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I", str(_build.CSRC), "-o", str(out), str(src)]
+        started.append((label, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                        out))
+    libs = {}
+    for label, proc, out in started:
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed for the {label} build of {name}.cu:\n{log}")
+        for line in log.splitlines():
+            if any(word in line for word in ("Compiling entry", "registers", "spill", "wgmma", "Performance")):
+                print(f"  [{label}] {line.strip()[:160]}")
+        libs[label] = ctypes.CDLL(str(out))
+    return libs
 
 
 def compare_attention_builds(torch, dev, rng, builds, shapes=ATTENTION_TIMED):
@@ -322,28 +477,11 @@ def compare_attention_builds(torch, dev, rng, builds, shapes=ATTENTION_TIMED):
     clock falls on all alike. `builds` lists (label, source, extra nvcc
     flags). Every build is held against the plain version first. The C
     interface of each is the checkout's, so the wrapper drives them all."""
-    import ctypes
-    import hashlib
-
     from image_matching_tpu_torch.ops import _build
     from image_matching_tpu_torch.ops import attention as A
 
     own = _build.library("attention")
-    started = []
-    for label, src, flags in builds:
-        digest = hashlib.sha256(Path(src).read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-        out = _build.BUILD_DIR / f"libattention_{digest}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I", str(_build.CSRC), "-o", str(out), str(src)]
-        started.append((label, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                        out))
-    libs = {"this checkout": own}
-    for label, proc, out in started:
-        log, _ = proc.communicate()
-        check(proc.returncode == 0, f"nvcc failed for the {label} build of attention.cu:\n{log}")
-        for line in log.splitlines():
-            if any(word in line for word in ("Compiling entry", "registers", "spill", "wgmma", "Performance")):
-                print(f"  [{label}] {line.strip()[:160]}")
-        libs[label] = ctypes.CDLL(str(out))
+    libs = {"this checkout": own, **build_variants("attention", builds)}
 
     def use(lib):
         _build._libraries["attention"] = lib
@@ -1157,55 +1295,143 @@ def _rel_err(got, ref):
     return (d / ref.float().abs().clamp_min(1.0)).max().item(), d.max().item()
 
 
+EARLIER_S2D_ENTRY = ROOT / "build" / "s2d_entry_conv_before.cu"
+
+
+def _earlier_s2d_entry(torch, lib, x, k):
+    """A call of the s2d entry conv through the C interface of its first
+    version (the first `csrc/s2d_entry_conv.cu`: `s2d_entry_conv_bf16_mma`
+    with (co, 9 ci) weights where ci % 16 == 0 and co % 64 == 0, else
+    `s2d_entry_conv_bf16_simt` with ((ky, kx, ci), co) f32 weights). The
+    weights are re-laid out here, once, so that the returned function
+    launches the kernel alone."""
+    import ctypes
+
+    from image_matching_tpu_torch.ops import _build
+
+    b, h, w, ci = x.shape
+    co = k.shape[3]
+    if ci % 16 == 0 and co % 64 == 0:
+        fn, weights = lib.s2d_entry_conv_bf16_mma, k.permute(3, 0, 1, 2).reshape(co, 9 * ci).contiguous()
+    else:
+        fn, weights = lib.s2d_entry_conv_bf16_simt, k.float().reshape(9 * ci, co).contiguous()
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((b, h // 2, w // 2, 4 * co), dtype=x.dtype, device=x.device)
+
+    def call():
+        _build.check(fn(_build.ptr(x), _build.ptr(weights), _build.ptr(out), b, h, w, ci, co,
+                        _build.stream_ptr(x.device)), "s2d_entry_conv (earlier build)")
+        return out
+    return call
+
+
+def s2d_entry_callers(torch, libs, x, k):
+    """{label: function} of the s2d entry conv through each build in
+    `libs` (label -> library): the wrapper where the library exports this
+    checkout's C interface, `_earlier_s2d_entry` where it exports the first
+    version's."""
+    from image_matching_tpu_torch.ops import _build
+    from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
+
+    def through_wrapper(lib):
+        def call():
+            own = _build._libraries.get("s2d_entry_conv")
+            _build._libraries["s2d_entry_conv"] = lib
+            try:
+                return s2d_entry_conv(x, k)
+            finally:
+                _build._libraries["s2d_entry_conv"] = own
+        return call
+
+    return {label: (through_wrapper(lib) if hasattr(lib, "s2d_entry_conv_bf16_wg")
+                    else _earlier_s2d_entry(torch, lib, x, k)) for label, lib in libs.items()}
+
+
+def time_interleaved(fns, reps: int = 10):
+    """Graph-replay ms per call of each of `fns` (label -> function), every
+    one in turn and then again in the reverse order: {label: [ms, ms]}."""
+    times = {label: [] for label in fns}
+    for label in list(fns) + list(fns)[::-1]:
+        times[label].append(graph_ms(fns[label], reps))
+    return times
+
+
 def check_s2d_entry_conv(torch, dev, rng):
+    """The s2d entry conv against its plain version at the four shapes of
+    one detect of 4 images at 480x640 and at ragged ones; times per shape
+    by CUDA graph replay: this checkout's kernel, interleaved with the
+    first version's kernel from `build/s2d_entry_conv_before.cu` when that
+    file is there, cuDNN conv + `space_to_depth`, the plain version and
+    the bound."""
     import torch.nn.functional as F
+    from image_matching_tpu_torch.ops import _build
     from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_entry, space_to_depth
     from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
 
+    builds = []
+    if EARLIER_S2D_ENTRY.exists():  # an earlier s2d_entry_conv.cu, left there by hand to compare with
+        builds.append(("before", EARLIER_S2D_ENTRY, ()))
+    libs = {"this checkout": _build.library("s2d_entry_conv"), **build_variants("s2d_entry_conv", builds)}
+
     b = S2D_BATCH
     worst, totals, bound_ms, bytes_bound_ms = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}, 0.0, 0.0
+    per_build = {label: 0.0 for label in libs}
     for ci, co, h, w in S2D_ENTRY_SHAPES:
         x = torch.from_numpy(rng.normal(size=(b, h, w, ci)).astype("float32")).to(dev, torch.bfloat16)
         k = torch.from_numpy(rng.normal(0, 0.3, (3, 3, ci, co)).astype("float32")).to(dev, torch.bfloat16)
-        got, ref = s2d_entry_conv(x, k), conv3x3_s2d_entry(x, k)
-        torch.cuda.synchronize()
-        rel, err = _rel_err(got, ref)
-        worst = max(worst, err)
-        # the same bf16 products summed in f32 in another order, one rounding
-        # to bf16 each: at most one bf16 step (2^-7 relative)
-        check(rel <= 2 ** -7, f"s2d_entry_conv {ci}->{co} at {h}x{w} disagrees with its plain version ({rel})")
+        ref = conv3x3_s2d_entry(x, k)
+        fns = s2d_entry_callers(torch, libs, x, k)
+        for label, fn in fns.items():
+            rel, err = _rel_err(fn(), ref)
+            torch.cuda.synchronize()
+            if label == "this checkout":
+                worst = max(worst, err)
+            # the same bf16 products summed in f32 in another order, one rounding
+            # to bf16 each: at most one bf16 step (2^-7 relative)
+            print(f"s2d_entry_conv ({b}, {h}, {w}) {ci}->{co} bf16 [{label}]: max_abs_err {err:.3e}, "
+                  f"max err/max(|y|,1) {rel:.3e} (tolerance 2^-7)")
+            check(rel <= 2 ** -7, f"s2d_entry_conv {ci}->{co} at {h}x{w} [{label}] disagrees with its plain version")
         # the library's way: one cuDNN conv on the NCHW (channels_last) view, then the re-layout
         x_nchw, k_oihw = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         lib = lambda: space_to_depth(F.conv2d(x_nchw, k_oihw, padding=1).permute(0, 2, 3, 1))
-        t = {"ms": graph_ms(lambda: s2d_entry_conv(x, k), 10), "plain_ms": graph_ms(lambda: conv3x3_s2d_entry(x, k), 5),
+        times = time_interleaved(fns)
+        t = {"ms": statistics.mean(times["this checkout"]), "plain_ms": graph_ms(lambda: conv3x3_s2d_entry(x, k), 5),
              "library_ms": graph_ms(lib, 10)}
         npix = b * h * w
-        # the 1-channel image conv runs f32 FMAs; the others bf16 tensor-core products
-        bms, by = bound(npix * ci * 2 + 9 * ci * co * 2 + npix * co * 2, 2.0 * npix * co * 9 * ci,
-                        F32_FLOPS if ci == 1 else BF16_TENSOR_FLOPS)
-        print(f"s2d_entry_conv ({b}, {h}, {w}) {ci}->{co} bf16: max_abs_err {err:.3e}, max err/max(|y|,1) {rel:.3e} "
-              f"(tolerance 2^-7); device time (CUDA graph replay) kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN conv + "
-              f"space_to_depth {t['library_ms']:.4f} ms; bound {bms:.4f} ms ({by})")
+        # the 1-channel image conv pads its 9 taps to 16 for the tensor cores,
+        # but the function needs 9: its bound is its bytes either way
+        bms, by = bound(npix * ci * 2 + 9 * ci * co * 2 + npix * co * 2, 2.0 * npix * co * 9 * ci, BF16_TENSOR_FLOPS)
+        print(f"s2d_entry_conv ({b}, {h}, {w}) {ci}->{co} bf16: device time (CUDA graph replay, builds interleaved) "
+              + "; ".join(f"{label} " + " / ".join(f"{v:.4f}" for v in ts) + " ms" for label, ts in times.items())
+              + f"; plain {t['plain_ms']:.4f} ms, cuDNN conv + space_to_depth {t['library_ms']:.4f} ms "
+              f"({t['ms'] / t['library_ms']:.2f}x); bound {bms:.4f} ms ({by})")
         for name in totals:
             totals[name] += t[name]
+        for label, ts in times.items():
+            per_build[label] += statistics.mean(ts)
         bound_ms += bms
         bytes_bound_ms += bms if by == "bytes" else 0.0
-    # f32 through the SIMT kernel, at sizes no tile divides
-    x = torch.from_numpy(rng.normal(size=(3, 38, 50, 8)).astype("float32")).to(dev)
-    k = torch.from_numpy(rng.normal(0, 0.3, (3, 3, 8, 16)).astype("float32")).to(dev)
-    r32, _ = _rel_err(s2d_entry_conv(x, k), conv3x3_s2d_entry(x, k))
-    print(f"s2d_entry_conv (3, 38, 50) 8->16 f32: max err/max(|y|,1) {r32:.3e} (tolerance 1e-5)")
-    check(r32 <= 1e-5, "s2d_entry_conv f32 disagrees with its plain version")
-    # bf16 on tensor cores in 16-channel chunks, ragged tiles
-    x = torch.from_numpy(rng.normal(size=(2, 22, 36, 16)).astype("float32")).to(dev, torch.bfloat16)
-    k = torch.from_numpy(rng.normal(0, 0.3, (3, 3, 16, 64)).astype("float32")).to(dev, torch.bfloat16)
-    r16, _ = _rel_err(s2d_entry_conv(x, k), conv3x3_s2d_entry(x, k))
-    print(f"s2d_entry_conv (2, 22, 36) 16->64 bf16: max err/max(|y|,1) {r16:.3e} (tolerance 2^-7)")
-    check(r16 <= 2 ** -7, "s2d_entry_conv bf16 (16-channel chunks) disagrees with its plain version")
+
+    # ragged shapes (no tile divides them) through every route, and two runs
+    # giving the same bits: f32 SIMT; bf16 wgmma at 16, 64 and 128 channels;
+    # the bf16 image conv on tensor cores
+    for (rb, rh, rw, ci, co, dtype) in ((3, 38, 50, 8, 16, torch.float32), (2, 22, 36, 16, 64, torch.bfloat16),
+                                        (3, 38, 50, 64, 128, torch.bfloat16), (1, 60, 80, 128, 128, torch.bfloat16),
+                                        (3, 38, 50, 1, 64, torch.bfloat16), (2, 30, 26, 1, 128, torch.bfloat16)):
+        x = torch.from_numpy(rng.normal(size=(rb, rh, rw, ci)).astype("float32")).to(dev, dtype)
+        k = torch.from_numpy(rng.normal(0, 0.3, (3, 3, ci, co)).astype("float32")).to(dev, dtype)
+        got = s2d_entry_conv(x, k)
+        rel, _ = _rel_err(got, conv3x3_s2d_entry(x, k))
+        tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+        same = bool(torch.equal(got, s2d_entry_conv(x, k)))
+        print(f"s2d_entry_conv ({rb}, {rh}, {rw}) {ci}->{co} {str(dtype)[6:]}: max err/max(|y|,1) {rel:.3e} "
+              f"(tolerance {tol}), a second run bit-identical: {same}")
+        check(rel <= tol and same, f"s2d_entry_conv ({rb}, {rh}, {rw}) {ci}->{co} disagrees or is not reproducible")
     n = len(S2D_ENTRY_SHAPES)
-    print(f"s2d_entry_conv: one detect of {b} images (4 launches): kernel {totals['ms']:.4f} ms, plain "
-          f"{totals['plain_ms']:.4f} ms, library {totals['library_ms']:.4f} ms, bound {bound_ms:.4f} ms; the JSON "
-          f"line holds the mean per launch")
+    print(f"s2d_entry_conv: one detect of {b} images (4 launches): " + "; ".join(
+        f"{label} {v:.4f} ms" for label, v in per_build.items()) + f"; plain {totals['plain_ms']:.4f} ms, library "
+          f"{totals['library_ms']:.4f} ms, bound {bound_ms:.4f} ms; the JSON line holds the mean per launch")
     return dict(name="s2d_entry_conv", route="cuda", source="image_matching_tpu_torch/csrc/s2d_entry_conv.cu",
                 replaces="image_matching_tpu/ops/pallas/entry_conv.py:66", max_abs_err=worst,
                 ms=totals["ms"] / n, plain_ms=totals["plain_ms"] / n, bound_ms=bound_ms / n,
@@ -1468,6 +1694,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     kernels = [check_entry_conv(torch, dev, rng), check_attention(torch, dev, rng),
                check_sinkhorn(torch, dev, rng)]
+    check_attention_head_dims(torch, dev, rng)
     if EARLIER_ATTENTION.exists():  # an earlier attention.cu, left there by hand to compare with
         compare_attention_builds(torch, dev, rng, [("before", EARLIER_ATTENTION, ())])
     launches = run_main_path(torch, dev)
@@ -1482,6 +1709,7 @@ def main() -> int:
     kernels += train_kernels
 
     s2d_kernels = [check_s2d_entry_conv(torch, dev, rng), check_realign(torch, dev, rng)]
+    time_f32_kernels(torch, dev, rng)
     reg_launches = run_registration(torch, dev, "bn", timed=True)
     run_registration(torch, dev, "vgg", timed=False)
     for kern in s2d_kernels:

@@ -185,8 +185,11 @@ def max_pool_stride2(x):
 
 
 def conv2d(x, conv: nn.Conv2d, dtype):
-    """flax `nn.Conv` numerics: conv and bias add in the compute dtype."""
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), padding=conv.padding)
+    """flax `nn.Conv` numerics: conv and bias add in the compute dtype, the
+    conv's output rounded before the bias is added, as flax does. (Given
+    the bias, `F.conv2d` on the CPU adds it before that rounding.)"""
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), padding=conv.padding)
+    return y.add_(conv.bias.to(dtype)[:, None, None])
 
 
 def dense(x, linear: nn.Linear, dtype):

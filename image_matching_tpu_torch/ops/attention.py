@@ -7,9 +7,14 @@ The counterpart of the forward kernels of
 `models/superglue.MultiHeadedAttention`. On the card one hand-written
 kernel (`csrc/attention.cu`) serves every key count, K=1024 included;
 its logits and softmax are f32 on chip, which is the JAX semantics at
-`logits_dtype="float32"`. The JAX package's `logits_dtype="bfloat16"`
-only narrows how the einsum path stores logits in device memory, which
-the kernel never does, so the kernel ignores it. The plain version, used
+`logits_dtype="float32"`. The kernels take heads of 16, 32 and 64
+values; a narrower head (any dh up to 64) is zero-padded to the next of
+those widths on its way in and cut back on its way out, which is exact:
+zero columns add nothing to a score and give zero output columns, and
+the scale stays 1/sqrt(dh) of the real head. Wider heads raise. The JAX
+package's `logits_dtype="bfloat16"` only narrows how the einsum path
+stores logits in device memory, which the kernel never does, so the
+kernel ignores it. The plain version, used
 for CPU tensors, honours it both ways so that CPU parity holds at either
 setting.
 """
@@ -24,7 +29,30 @@ import torch
 from image_matching_tpu_torch.ops import _build
 
 NEG_INF = -1e9
-HEAD_DIMS = (16, 32, 64)
+HEAD_DIMS = (16, 32, 64)  # the head widths the kernels are built for
+
+
+def padded_head_dim(dh: int) -> int:
+    """The kernels' head width for heads of `dh` values: the narrowest of
+    `HEAD_DIMS` that holds them; raises above the widest."""
+    for width in HEAD_DIMS:
+        if dh <= width:
+            return width
+    raise ValueError(f"attention: head dim {dh} is above {HEAD_DIMS[-1]}, the widest head the kernels take")
+
+
+def pad_heads(t, num_heads: int, width: int):
+    """(B, N, H*dh) -> a new contiguous (B, N, H*width), every head
+    zero-padded from dh to `width` values."""
+    b, n, dt = t.shape
+    return torch.nn.functional.pad(t.reshape(b, n, num_heads, dt // num_heads),
+                                   (0, width - dt // num_heads)).reshape(b, n, num_heads * width)
+
+
+def unpad_heads(t, num_heads: int, dh: int):
+    """(B, N, H*width) -> (B, N, H*dh): the first dh values of every head."""
+    b, n, dt = t.shape
+    return t.reshape(b, n, num_heads, dt // num_heads)[..., :dh].reshape(b, n, num_heads * dh)
 
 
 def attention_plain(q, k, v, key_mask=None, num_heads: int = 4,
@@ -58,11 +86,12 @@ def _heads(t, num_heads):
     return t.float().reshape(b, n, num_heads, dt // num_heads)
 
 
-def _logits(q, k, key_mask, num_heads, masked_fill):
-    """f32 (B, H, N, M) logits of the compute-dtype inputs, masked keys
-    set to `masked_fill` (a float or a (B,) tensor)."""
-    dh = q.shape[-1] // num_heads
-    s = torch.einsum("bnhd,bmhd->bhnm", _heads(q, num_heads), _heads(k, num_heads)) / math.sqrt(dh)
+def _logits(q, k, key_mask, num_heads, masked_fill, scale=None):
+    """f32 (B, H, N, M) logits of the compute-dtype inputs, scaled by
+    `scale` (1/sqrt(dh) unless given), masked keys set to `masked_fill`
+    (a float or a (B,) tensor)."""
+    s = torch.einsum("bnhd,bmhd->bhnm", _heads(q, num_heads), _heads(k, num_heads))
+    s = s / math.sqrt(q.shape[-1] // num_heads) if scale is None else s * scale
     if key_mask is None:
         return s
     if isinstance(masked_fill, torch.Tensor):
@@ -75,30 +104,32 @@ def _dead(key_mask):
     return ~key_mask.any(-1)
 
 
-def attention_lse_plain(q, k, v, key_mask=None, num_heads: int = 4):
+def attention_lse_plain(q, k, v, key_mask=None, num_heads: int = 4, scale=None):
     """The plain version of the forward with LSE: `attention_plain` at f32
     logits, and the f32 log-sum-exp of every row, (B, H, N), log(M) for a
-    dead batch element."""
-    s = _logits(q, k, key_mask, num_heads, NEG_INF)
+    dead batch element. `scale` is the kernel's argument: 1/sqrt(dh)
+    unless given."""
+    s = _logits(q, k, key_mask, num_heads, NEG_INF, scale)
     lse = torch.logsumexp(s, dim=-1)
     if key_mask is not None:
         lse = torch.where(_dead(key_mask)[:, None, None], math.log(k.shape[1]), lse)
     return _softmax_v(s, v, num_heads), lse
 
 
-def attention_backward_plain(q, k, v, key_mask, lse, dout, num_heads: int = 4, delta=None):
+def attention_backward_plain(q, k, v, key_mask, lse, dout, num_heads: int = 4, delta=None, scale=None):
     """FA2's backward in f32, the plain version of the dK/dV and dQ
     kernels: P = exp(S - lse) with masked logits at 0 in a dead element
     and -inf elsewhere, dP = dO V^T, delta = rowsum(P * dP) / rowsum(P),
     dS = P (dP - delta) * scale, 0 at masked keys; dQ = dS K, dK = dS^T Q,
     dV = P^T dO. Returns (dq, dk, dv) in the inputs' dtype and (B, ., H*dh)
     layout. A given `delta` (B, H, N) f32 replaces rowsum(P * dP), as when
-    FA2 takes rowsum(dO * O) from the stored output."""
+    FA2 takes rowsum(dO * O) from the stored output. `scale` is the
+    kernels' argument: 1/sqrt(dh) unless given."""
     b, n, dt = q.shape
     m = k.shape[1]
-    scale = 1.0 / math.sqrt(dt // num_heads)
+    scale = 1.0 / math.sqrt(dt // num_heads) if scale is None else scale
     fill = -math.inf if key_mask is None else torch.where(_dead(key_mask), 0.0, -math.inf)
-    p = torch.exp(_logits(q, k, key_mask, num_heads, fill) - lse[..., None])
+    p = torch.exp(_logits(q, k, key_mask, num_heads, fill, scale) - lse[..., None])
     do = _heads(dout, num_heads)
     dp = torch.einsum("bnhd,bmhd->bhnm", do, _heads(v, num_heads))
     if delta is None:
@@ -197,6 +228,13 @@ def _check_operand(name, t, ref, rows, vec):
         )
 
 
+def _head_dim(q, num_heads):
+    """The real head dim of packed (B, N, H*dh) heads."""
+    if q.dim() != 3 or q.shape[2] % num_heads:
+        raise ValueError(f"attention: q shape {tuple(q.shape)} is not (B, N, {num_heads}*dh)")
+    return q.shape[2] // num_heads
+
+
 def _check_call(q, k, v, key_mask, num_heads):
     """Validate what the kernels take; returns (b, n, m, dh). The forward
     and backward kernels move 16 bytes at a time (`cp.async` in bf16,
@@ -251,6 +289,10 @@ def _suffix(dtype) -> str:
 
 
 def _attention_cuda(q, k, v, key_mask, num_heads, with_lse=False):
+    real_dh = _head_dim(q, num_heads)
+    width = padded_head_dim(real_dh)
+    if width != real_dh:  # a copy only for heads the kernels are not built for
+        q, k, v = (pad_heads(t, num_heads, width) for t in (q, k, v))
     b, n, m, dh = _check_call(q, k, v, key_mask, num_heads)
     dt = num_heads * dh
     out = torch.empty((b, n, dt), dtype=q.dtype, device=q.device)
@@ -260,34 +302,45 @@ def _attention_cuda(q, k, v, key_mask, num_heads, with_lse=False):
         lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=q.device)
         args.append(_build.ptr(lse))
     fn = _launcher("attention", f"{name}_{_suffix(q.dtype)}", 2 if with_lse else 1)
-    _build.check(fn(*args, b, n, m, num_heads, dh, 1.0 / math.sqrt(dh), _build.stream_ptr(q.device)), name)
+    _build.check(fn(*args, b, n, m, num_heads, dh, 1.0 / math.sqrt(real_dh), _build.stream_ptr(q.device)), name)
     _build.LAUNCHES[name] += 1
+    if width != real_dh:
+        out = unpad_heads(out, num_heads, real_dh)
     return (out, lse) if with_lse else out
 
 
 def _attention_backward_cuda(q, k, v, key_mask, lse, dout, num_heads):
-    b, n, m, dh = _check_call(q, k, v, key_mask, num_heads)
-    dt = num_heads * dh
-    if tuple(dout.shape) != (b, n, dt):
+    real_dh = _head_dim(q, num_heads)
+    if tuple(dout.shape) != tuple(q.shape):
         raise ValueError("attention backward: dout must be (B, N, H*dh) like q")
     dout = dout.to(q.dtype).contiguous()
+    width = padded_head_dim(real_dh)
+    if width != real_dh:  # a copy only for heads the kernels are not built for
+        q, k, v, dout = (pad_heads(t, num_heads, width) for t in (q, k, v, dout))
+    b, n, m, dh = _check_call(q, k, v, key_mask, num_heads)
+    dt = num_heads * dh
     lse = lse.contiguous()
     delta = torch.empty((b, num_heads, n), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, n, dt), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, m, dt), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, m, dt), dtype=q.dtype, device=q.device)
     # the dQ kernel writes delta, which the dK/dV kernel reads
-    attention_backward_kernel("attention_dq", q, k, v, key_mask, dout, lse, delta, (dq,), num_heads)
-    attention_backward_kernel("attention_dkdv", q, k, v, key_mask, dout, lse, delta, (dk, dv), num_heads)
+    scale = 1.0 / math.sqrt(real_dh)
+    attention_backward_kernel("attention_dq", q, k, v, key_mask, dout, lse, delta, (dq,), num_heads, scale)
+    attention_backward_kernel("attention_dkdv", q, k, v, key_mask, dout, lse, delta, (dk, dv), num_heads, scale)
+    if width != real_dh:
+        return tuple(unpad_heads(t, num_heads, real_dh) for t in (dq, dk, dv))
     return dq, dk, dv
 
 
-def attention_backward_kernel(name, q, k, v, key_mask, dout, lse, delta, outs, num_heads):
+def attention_backward_kernel(name, q, k, v, key_mask, dout, lse, delta, outs, num_heads, scale=None):
     """Launch one backward kernel of `csrc/attention_bwd.cu` on the card:
     "attention_dq" into outs = (dq,), which also writes delta, or
     "attention_dkdv" into (dk, dv), which reads the delta that the dQ
     kernel wrote. dout (B, N, H*dh) is contiguous in q's dtype; lse and
-    delta are (B, H, N) f32; the outputs are contiguous in q's dtype."""
+    delta are (B, H, N) f32; the outputs are contiguous in q's dtype.
+    `scale` is the logits' scale, 1/sqrt(dh) unless given (heads
+    zero-padded to a kernel's width keep the scale of their real dh)."""
     b, n, m, dh = _check_call(q, k, v, key_mask, num_heads)
     dt = num_heads * dh
     rows = {"attention_dkdv": (m, m), "attention_dq": (n,)}[name]
@@ -301,5 +354,6 @@ def attention_backward_kernel(name, q, k, v, key_mask, dout, lse, delta, outs, n
             raise ValueError(f"{name}: outputs must be contiguous {q.dtype} {(b, r, dt)}")
     fn = _launcher("attention_bwd", f"{name}_{_suffix(q.dtype)}", 3 + len(outs))
     args = _qkv_args(q, k, v, key_mask) + [_build.ptr(t) for t in (dout, lse, delta, *outs)]
-    _build.check(fn(*args, b, n, m, num_heads, dh, 1.0 / math.sqrt(dh), _build.stream_ptr(q.device)), name)
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
+    _build.check(fn(*args, b, n, m, num_heads, dh, scale, _build.stream_ptr(q.device)), name)
     _build.LAUNCHES[name] += 1

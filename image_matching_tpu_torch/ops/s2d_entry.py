@@ -9,6 +9,9 @@ affine, which the plain backbone starts with.)
 
 On a CUDA tensor `s2d_entry_conv` launches `csrc/s2d_entry_conv.cu`; on
 a CPU tensor it runs the plain version, `ops/s2d_conv.conv3x3_s2d_entry`.
+In bf16 with co a multiple of 64 the kernel runs on tensor cores: wgmma
+for ci in `WG_CHANNELS`, mma.sync with the 9 taps padded to 16 for the
+1-channel image; f32 and every other width run its SIMT kernel.
 Both multiply the inputs as they are in their type, sum in f32 and round
 once to the input type, so they differ in summation order and by that in
 at most one step of the type. There is no bias and no epilogue: the
@@ -26,6 +29,9 @@ import torch
 
 from image_matching_tpu_torch.ops import _build
 from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_entry
+
+# input widths the wgmma kernel is built for (one instantiation each)
+WG_CHANNELS = (16, 32, 64, 128)
 
 
 def s2d_entry_conv(x, w):
@@ -82,19 +88,37 @@ def _s2d_entry_conv_cuda(x, w):
     x, w = x.detach(), w.detach()
     out = torch.empty((b, h // 2, wd // 2, 4 * co), dtype=x.dtype, device=x.device)
     lib = _build.library("s2d_entry_conv")
-    # tensor cores where the implicit GEMM's depth and width fill their
-    # tiles; everything else (f32, the 1-channel image, odd widths) is SIMT
-    if x.dtype == torch.bfloat16 and ci % 16 == 0 and co % 64 == 0:
-        fn = lib.s2d_entry_conv_bf16_mma
-        weights = w.permute(3, 0, 1, 2).reshape(co, 9 * ci).contiguous()  # (co, (ky, kx, ci)) bf16
+    args = [_build.ptr(x), None, _build.ptr(out), b, h, wd]
+    if x.dtype == torch.bfloat16 and co % 64 == 0 and ci in WG_CHANNELS:
+        # implicit GEMM on wgmma; w as it is: ((ky, kx, ci), co) bf16
+        fn, weights = _entry(lib, "s2d_entry_conv_bf16_wg", 5), _aligned(w.reshape(9 * ci, co))
+        args += [ci, co]
+    elif x.dtype == torch.bfloat16 and co % 64 == 0 and ci == 1:
+        # the image conv on tensor cores, K = 9 taps padded to 16: (9, co) bf16
+        fn, weights = _entry(lib, "s2d_entry_conv_bf16_image", 4), _aligned(w.reshape(9, co))
+        args += [co]
     else:
-        fn = lib.s2d_entry_conv_bf16_simt if x.dtype == torch.bfloat16 else lib.s2d_entry_conv_f32_simt
-        weights = w.float().reshape(9 * ci, co).contiguous()  # ((ky, kx, ci), co) f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _build.check(
-        fn(_build.ptr(x), _build.ptr(weights), _build.ptr(out), b, h, wd, ci, co, _build.stream_ptr(x.device)),
-        "s2d_entry_conv",
-    )
+        # f32 and other widths: SIMT, ((ky, kx, ci), co) f32
+        name = "s2d_entry_conv_bf16_simt" if x.dtype == torch.bfloat16 else "s2d_entry_conv_f32_simt"
+        fn, weights = _entry(lib, name, 5), w.float().reshape(9 * ci, co).contiguous()
+        args += [ci, co]
+    args[1] = _build.ptr(weights)
+    _build.check(fn(*args, _build.stream_ptr(x.device)), "s2d_entry_conv")
     _build.LAUNCHES["s2d_entry_conv"] += 1
     return out
+
+
+def _entry(lib, symbol, ints):
+    """A launcher of the library, its signature (x, w, out, `ints` ints,
+    stream) set."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _aligned(t):
+    """t contiguous and starting on 16 bytes, copied only where it is not:
+    the kernels copy weights 16 bytes at a time."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

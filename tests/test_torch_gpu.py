@@ -27,6 +27,7 @@ from image_matching_tpu_torch.ops.attention import (
 from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_plain
 from image_matching_tpu_torch.ops.realign import maxpool_realign
 from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_entry, maxpool2x2_s2d_from_raw
+from image_matching_tpu_torch.ops import s2d_entry as s2d_entry_ops
 from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
 from image_matching_tpu_torch.registration import build_registration_fn
 from image_matching_tpu_torch.ops.sinkhorn import log_sinkhorn, log_sinkhorn_plain
@@ -116,8 +117,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     w = torch.zeros(3, 3, 1, 64, device=cuda)
     with pytest.raises(TypeError):
         entry_conv(img, w, torch.ones(64, device=cuda), torch.zeros(64, device=cuda))
-    q = torch.zeros(1, 4, 4 * 48, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
+    q = torch.zeros(1, 4, 4 * 128, device=cuda)  # heads up to 64 are zero-padded; 128 is above them
+    with pytest.raises(ValueError, match="head dim 128 is above 64"):
         attention(q, q, q, None, 4)
     with pytest.raises(ValueError):
         log_sinkhorn(torch.zeros(1, 3, 3, device=cuda, dtype=torch.float64),
@@ -237,6 +238,29 @@ def test_attention_dq_kernel_writes_delta(cuda, dtype, n, m):
     assert not delta[-1].any()  # no valid key: no row of dS to centre
 
 
+@pytest.mark.parametrize("dh", [8, 24, 48])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_kernels_at_head_dims_they_are_not_built_for(cuda, dh, dtype):
+    """Heads of 8, 24 and 48 values run zero-padded to 16, 32 and 64 at the
+    scale of the real dh: forward, forward with LSE and both backward
+    kernels against the plain versions at the built widths' tolerances."""
+    q, k, v, mask, dout = _attention_case(cuda, dh, dtype)
+    before = dict(_build.LAUNCHES)
+    out = attention(q, k, v, mask, 4)
+    out_lse, lse = attention_lse(q, k, v, mask, 4)
+    grads = attention_backward(q, k, v, mask, lse, dout, 4)
+    torch.cuda.synchronize()
+    for name in ("attention", "attention_lse", "attention_dq", "attention_dkdv"):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+    ref_out, ref_lse = attention_lse_plain(q, k, v, mask, 4)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
+    for got in (out, out_lse):
+        assert got.shape == q.shape and got.is_contiguous()
+        torch.testing.assert_close(got.float(), ref_out.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=2e-4 if dtype == torch.bfloat16 else 1e-5)
+    _assert_backward_close(grads, attention_backward_plain(q, k, v, mask, lse, dout, 4), dtype)
+
+
 @pytest.mark.parametrize("dh", [32, 64])
 def test_attention_forward_rejects_rows_off_16_bytes(cuda, dh):
     # the bf16 kernels copy 16 bytes at a time: a view that starts 4 elements in is refused
@@ -330,13 +354,19 @@ def test_train_step_backward_calls_match_plain(cuda):
 
 
 # (ci, co, B, H, W, dtype): the 2x2 backbone's four entry convs at 480x640 (one
-# image each), then the paths the table does not reach: 16-channel chunks on
-# tensor cores, widths and tiles that do not divide, SIMT in bf16 and f32
+# image each), then the paths the table does not reach: 16-channel inputs on
+# tensor cores, maps that no tile divides (the wgmma kernel's 4 x 16 pixels,
+# the image kernel's 16 x 64) at every input width of the tensor-core
+# routes and both output widths, SIMT in bf16 and f32
 S2D_ENTRY_CASES = [
     (1, 64, 1, 480, 640, torch.bfloat16), (64, 64, 1, 240, 320, torch.bfloat16),
     (64, 128, 1, 120, 160, torch.bfloat16), (128, 128, 2, 60, 80, torch.bfloat16),
     (16, 64, 2, 22, 36, torch.bfloat16), (8, 8, 2, 14, 10, torch.bfloat16),
     (8, 16, 3, 38, 50, torch.float32), (1, 64, 2, 30, 26, torch.float32),
+    (128, 128, 1, 60, 80, torch.bfloat16), (1, 64, 2, 22, 36, torch.bfloat16),
+    (1, 128, 3, 38, 50, torch.bfloat16), (16, 128, 1, 60, 80, torch.bfloat16),
+    (64, 64, 3, 38, 50, torch.bfloat16), (64, 128, 2, 22, 36, torch.bfloat16),
+    (128, 64, 3, 38, 50, torch.bfloat16), (32, 64, 1, 14, 18, torch.bfloat16),
 ]
 
 
@@ -355,6 +385,26 @@ def test_s2d_entry_conv_kernel(cuda, ci, co, b, h, w, dtype):
     # most one step of the type apart
     tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
     assert ((got.float() - ref.float()).abs() / ref.float().abs().clamp_min(1)).max() <= tol
+    # every sum has a fixed order: a second run gives the same bits
+    assert torch.equal(got, s2d_entry_conv(x, k))
+
+
+@pytest.mark.parametrize("ci,co,symbol", [(1, 64, "s2d_entry_conv_bf16_image"), (1, 128, "s2d_entry_conv_bf16_image"),
+                                          (16, 64, "s2d_entry_conv_bf16_wg"), (128, 128, "s2d_entry_conv_bf16_wg"),
+                                          (8, 64, "s2d_entry_conv_bf16_simt"), (1, 8, "s2d_entry_conv_bf16_simt")])
+def test_s2d_entry_conv_routes(cuda, ci, co, symbol):
+    """bf16 goes to the tensor cores where co is a multiple of 64: the image
+    conv (ci = 1, its 9 taps padded to 16) and wgmma at 16-128 channels;
+    other widths go to the SIMT kernel."""
+    g = _gen()
+    x = torch.randn(2, 30, 26, ci, generator=g).to(cuda, torch.bfloat16)
+    k = (torch.randn(3, 3, ci, co, generator=g) * 0.3).to(cuda, torch.bfloat16)
+    with mock.patch.object(s2d_entry_ops, "_entry", wraps=s2d_entry_ops._entry) as entry:
+        got = s2d_entry_conv(x, k)
+    torch.cuda.synchronize()
+    assert [c.args[1] for c in entry.call_args_list] == [symbol]
+    ref = conv3x3_s2d_entry(x, k)
+    assert ((got.float() - ref.float()).abs() / ref.float().abs().clamp_min(1)).max() <= 2 ** -7
 
 
 # (B, H, W, C, extra columns, dtype): the 2x2 backbone's three pools at 480x640,
