@@ -11,9 +11,14 @@ In order, it:
   3. holds each kernel against its plain PyTorch version on the card at
      the main path's shapes, and times kernel, plain version and one
      PyTorch yardstick with CUDA events, kernel and yardstick also by
-     replaying a CUDA graph (no host launch gaps; the attention forward's
-     JSON row holds these, and it is timed at the banked model's shape
-     too); where `build/attention_before.cu` holds an earlier version of
+     replaying a CUDA graph (no host launch gaps; the JSON rows hold
+     these, and the attention forward is timed at the banked model's shape
+     too); the image entry conv also at ragged shapes and in f32, the
+     Sinkhorn at the headline's, the banked model's and a streamed shape,
+     each with its route and device launches per call, and both beside an
+     earlier build interleaved where `build/entry_conv_before.cu` and
+     `build/sinkhorn_before.cu` hold one (the first versions' sources,
+     put there by hand); where `build/attention_before.cu` holds an earlier version of
      `csrc/attention.cu` (put there by hand, not part of the repository),
      it times that build against this one, interleaved, at the forward's
      five timed shapes; it runs the attention kernels at head dims they
@@ -49,8 +54,8 @@ In order, it:
      and times them beside a library convolution / max pool, the entry
      conv per shape and interleaved with its first version where
      `build/s2d_entry_conv_before.cu` holds it; then times the f32
-     kernels (SIMT attention forward and backward, the SIMT entry conv)
-     beside f32 SDPA and f32 cuDNN;
+     kernels (SIMT attention forward and backward, the SIMT s2d entry conv
+     and the SIMT image entry conv) beside f32 SDPA and f32 cuDNN;
   9. registers image pairs (detect each side -> SuperGlue -> homography
      RANSAC with 512 hypotheses -> warp) at the headline's width through
      the 2x2 backbone, `SuperPointBN` and `SuperPointVGG`: launch counts
@@ -214,15 +219,44 @@ def nvidia_smi() -> str:
 
 # ---------------------------------------------------------------- kernels
 
-def check_entry_conv(torch, dev, rng):
-    import torch.nn.functional as F
-    from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_plain
+EARLIER_ENTRY_CONV = ROOT / "build" / "entry_conv_before.cu"
 
-    b, h, w = 8, 480, 640  # the 2B-batched backbone input of the main path
+
+def with_library(name, lib, call):
+    """`call` run with the kernel library `name` swapped for `lib`, a build
+    of another version of the same source with the same C interface."""
+    from image_matching_tpu_torch.ops import _build
+
+    def run():
+        own = _build._libraries.get(name)
+        _build._libraries[name] = lib
+        try:
+            return call()
+        finally:
+            _build._libraries[name] = own
+    return run
+
+
+def _entry_inputs(torch, dev, rng, b, h, w):
     img = torch.from_numpy(rng.uniform(0, 1, (b, h, w)).astype("float32")).to(dev, torch.bfloat16)
     k = torch.from_numpy(rng.normal(0, 0.3, (3, 3, 1, 64)).astype("float32")).to(dev)
     scale = torch.from_numpy(rng.normal(1, 0.2, 64).astype("float32")).to(dev)
     shift = torch.from_numpy(rng.normal(0, 0.2, 64).astype("float32")).to(dev)
+    return img, k, scale, shift
+
+
+def check_entry_conv(torch, dev, rng):
+    """The image entry conv against its plain version at the main path's
+    shape, at ragged ones (tiles the image does not fill, B = 1) and in
+    f32; times by CUDA graph replay, this checkout's kernel interleaved with
+    `build/entry_conv_before.cu`'s when that file is there, beside cuDNN
+    conv + affine + ReLU."""
+    import torch.nn.functional as F
+    from image_matching_tpu_torch.ops import _build
+    from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_plain
+
+    b, h, w = 8, 480, 640  # the 2B-batched backbone input of the main path
+    img, k, scale, shift = _entry_inputs(torch, dev, rng, b, h, w)
     got = entry_conv(img, k, scale, shift).float()
     ref = entry_conv_plain(img, k, scale, shift).float()
     torch.cuda.synchronize()
@@ -238,18 +272,41 @@ def check_entry_conv(torch, dev, rng):
     r32 = ((entry_conv(img32, k, scale, shift) - entry_conv_plain(img32, k, scale, shift)).abs().max().item())
     print(f"entry_conv (2, 480, 640) f32: max_abs_err {r32:.3e} (tolerance 1e-5)")
     check(r32 <= 1e-5, "entry_conv f32 disagrees with its plain version")
+    # tiles of 8 x 64 pixels that the image does not fill, borders, B = 1;
+    # two runs giving the same bits
+    for rb, rh, rw in ((3, 37, 53), (1, 17, 5)):
+        xb, kk, sc, sh = _entry_inputs(torch, dev, rng, rb, rh, rw)
+        for x, tol in ((xb, 2 ** -7), (xb.float(), 1e-5)):
+            y = entry_conv(x, kk, sc, sh)
+            r = entry_conv_plain(x, kk, sc, sh).float()
+            rel_r = ((y.float() - r).abs() / r.abs().clamp_min(1.0)).max().item()
+            same = bool(torch.equal(y, entry_conv(x, kk, sc, sh)))
+            print(f"entry_conv ({rb}, {rh}, {rw}) {str(x.dtype)[6:]}: max err/max(|y|,1) {rel_r:.3e} "
+                  f"(tolerance {tol}), a second run bit-identical: {same}")
+            check(rel_r <= tol and same, f"entry_conv ({rb}, {rh}, {rw}) {x.dtype} disagrees or is not reproducible")
 
+    builds = [("before", EARLIER_ENTRY_CONV, ())] if EARLIER_ENTRY_CONV.exists() else []
+    libs = {"this checkout": _build.library("entry_conv"), **build_variants("entry_conv", builds)}
+    fns = {label: with_library("entry_conv", lib, lambda: entry_conv(img, k, scale, shift))
+           for label, lib in libs.items()}
+    for label, fn in fns.items():
+        e = ((fn().float() - ref).abs() / ref.abs().clamp_min(1.0)).max().item()
+        check(e <= 2 ** -7, f"entry_conv [{label}] disagrees with its plain version ({e})")
+    times = time_interleaved(fns, reps=20)
     w_lib = k.permute(3, 2, 0, 1).to(torch.bfloat16)
     sc, sh = scale.to(torch.bfloat16)[:, None, None], shift.to(torch.bfloat16)[:, None, None]
     x4 = img[:, None]
     lib = lambda: torch.relu(F.conv2d(x4, w_lib, padding=1) * sc + sh)
-    ms = cuda_ms(lambda: entry_conv(img, k, scale, shift), 20)
-    plain_ms = cuda_ms(lambda: entry_conv_plain(img, k, scale, shift), 5)
-    lib_ms = cuda_ms(lib, 20)
-    print_replayed("entry_conv (8, 480, 640) -> 64 bf16", ms, lib_ms, "cuDNN conv + affine + ReLU",
-                   lambda: entry_conv(img, k, scale, shift), lib)
+    ms = statistics.mean(times["this checkout"])
+    events_ms = cuda_ms(lambda: entry_conv(img, k, scale, shift), 20)
+    plain_ms = graph_ms(lambda: entry_conv_plain(img, k, scale, shift), 5)
+    lib_ms = graph_ms(lib, 20)
     npix = b * h * w
     bms, by = bound(npix * 2 + npix * 64 * 2 + (9 + 2) * 64 * 4, npix * 64 * (2 * 9 + 2), F32_FLOPS)
+    print(f"entry_conv (8, 480, 640) -> 64 bf16: ms per call by CUDA graph replay, builds interleaved: "
+          + "; ".join(f"{label} " + " / ".join(f"{t:.4f}" for t in ts) for label, ts in times.items())
+          + f"; CUDA events over back-to-back calls {events_ms:.4f}; plain {plain_ms:.4f}; cuDNN conv + affine + "
+          f"ReLU {lib_ms:.4f} ({ms / lib_ms:.3f} of it); bound {bms:.4f} ({by}; {bms / ms:.2f} of it reached)")
     return dict(name="entry_conv", route="cuda", source="image_matching_tpu_torch/csrc/entry_conv.cu",
                 replaces="image_matching_tpu/ops/pallas/entry_h.py:119", max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
@@ -431,6 +488,23 @@ def time_f32_kernels(torch, dev, rng):
     print(f"f32 s2d_entry_simt, one detect of {S2D_BATCH} images (4 launches): {total['ms']:.4f} ms, f32 cuDNN conv + "
           f"space_to_depth {total['lib']:.4f} ms, bound {total['bound']:.4f} ms")
 
+    from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_plain
+
+    b, hh, ww = 8, 480, 640  # the plain backbone's image conv at compute_dtype="float32"
+    img, k, scale, shift = _entry_inputs(torch, dev, rng, b, hh, ww)
+    img = img.float()
+    err = (entry_conv(img, k, scale, shift) - entry_conv_plain(img, k, scale, shift)).abs().max().item()
+    x4, w_lib = img[:, None], k.permute(3, 2, 0, 1).contiguous()
+    sc, sh = scale[:, None, None], shift[:, None, None]
+    ms = graph_ms(lambda: entry_conv(img, k, scale, shift), 10)
+    lib = graph_ms(lambda: torch.relu(F.conv2d(x4, w_lib, padding=1) * sc + sh), 10)
+    npix = b * hh * ww
+    bms, by = bound(npix * 4 + npix * 64 * 4 + (9 + 2) * 64 * 4, npix * 64 * (2 * 9 + 2), F32_FLOPS)
+    print(f"f32 entry_simt ({b}, {hh}, {ww}) -> 64: max_abs_err {err:.2e} (tol 1e-5); {ms:.4f} ms, f32 cuDNN conv + "
+          f"affine + ReLU {lib:.4f} ms ({ms / lib:.2f}x), bound {bms:.4f} ms ({by}); launches per forward at "
+          f"compute_dtype=float32: 1")
+    check(err <= 1e-5, "f32 entry conv disagrees with its plain version")
+
 
 # (B, N, H, dh, with LSE): the forward's timed shapes: the headline (36 calls per
 # forward) and the banked model's inference; D = 256 training, the TPU's flash band
@@ -511,51 +585,142 @@ def compare_attention_builds(torch, dev, rng, builds, shapes=ATTENTION_TIMED):
         use(own)
 
 
-def check_sinkhorn(torch, dev, rng):
-    from image_matching_tpu_torch.ops.sinkhorn import BIG_NEG, log_sinkhorn, log_sinkhorn_plain
+EARLIER_SINKHORN = ROOT / "build" / "sinkhorn_before.cu"
+# (B, M+1, N+1) timed: the headline's, the banked model's and one beyond the
+# blocks' shared memory (the streamed route)
+SINKHORN_SHAPES = ((4, 1025, 1025), (1, 1025, 1025), (2, 2049, 2049))
+SINKHORN_ITERS = 30
+# SFU exponentials: 16 a clock an SM (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0) x 132 SMs x 1.98 GHz
+EXPS_PER_S = 16 * 132 * 1.98e9
 
-    b, m, iters = 4, 1025, 30
-    z = torch.from_numpy(rng.normal(0, 3, (b, m, m)).astype("float32")).to(dev)
-    mu = torch.full((b, m), -math.log(2 * (m - 1)), device=dev)
-    nu = mu.clone()
-    mu[:, -1] = nu[:, -1] = math.log(m - 1) - math.log(2 * (m - 1))
-    # masked rows and columns, as log_optimal_transport builds them
+
+def sinkhorn_problem(torch, dev, rng, b, m, n):
+    """A log-coupling with dustbins and masked rows and columns as
+    `log_optimal_transport` builds them (BIG_NEG scores and marginals),
+    one row and one column of every element masked."""
+    from image_matching_tpu_torch.ops.sinkhorn import BIG_NEG
+
+    z = torch.from_numpy(rng.normal(0, 3, (b, m, n)).astype("float32")).to(dev)
+    norm = -math.log(m + n - 2)
+    mu = torch.full((b, m), norm, device=dev)
+    nu = torch.full((b, n), norm, device=dev)
+    mu[:, -1] = math.log(n - 1) + norm
+    nu[:, -1] = math.log(m - 1) + norm
     rows = torch.from_numpy(rng.uniform(size=(b, m - 1)) < 0.1).to(dev)
-    cols = torch.from_numpy(rng.uniform(size=(b, m - 1)) < 0.1).to(dev)
+    cols = torch.from_numpy(rng.uniform(size=(b, n - 1)) < 0.1).to(dev)
+    rows[:, 0] = cols[:, 1] = True
     z[:, :-1][rows] = BIG_NEG
     z[:, :, :-1].masked_fill_(cols[:, None, :], BIG_NEG)
     mu[:, :-1][rows] = BIG_NEG
     nu[:, :-1][cols] = BIG_NEG
-    got = log_sinkhorn(z, mu, nu, iters)
-    ref = log_sinkhorn_plain(z, mu, nu, iters)
+    return z, mu, nu
+
+
+def _earlier_sinkhorn(torch, lib, z, mu, nu, iters):
+    """A call of the Sinkhorn through the C interface of its first version
+    (the first `csrc/sinkhorn.cu`: 2 * iters + 1 launches, v zero on entry)."""
+    import ctypes
+
+    from image_matching_tpu_torch.ops import _build
+
+    fn = lib.sinkhorn_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    b, m, n = z.shape
+    u, v, out = torch.zeros((b, m), device=z.device), torch.zeros((b, n), device=z.device), torch.empty_like(z)
+
+    def call():
+        v.zero_()
+        _build.check(fn(_build.ptr(z), _build.ptr(mu), _build.ptr(nu), _build.ptr(u), _build.ptr(v), _build.ptr(out),
+                        b, m, n, iters, _build.stream_ptr(z.device)), "sinkhorn (earlier build)")
+        return out
+    return call
+
+
+def kernel_launches(torch, fn, reps: int = 3) -> float:
+    """Device kernels per call of `fn`, counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    real = (ref > -1e8) & (got > -1e8)
-    check(bool(((ref > -1e8) == (got > -1e8)).all()), "sinkhorn: masked entries differ")
-    err = (got - ref)[real].abs().max().item()
-    # f32 on both sides, the same max-shifted logsumexp; sums in another
-    # order over 30 iterations (masked entries, near -1e9, are compared
-    # only for being masked: their f32 step is 64)
-    print(f"sinkhorn (4, 1025, 1025) x 30 f32: max_abs_err {err:.3e} on unmasked entries (tolerance 1e-4)")
-    check(err <= 1e-4, f"sinkhorn disagrees with its plain version ({err})")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in _kernel_events(prof)) / reps
 
-    def lib():
-        u, v = torch.zeros_like(mu), torch.zeros_like(nu)
-        for _ in range(iters):
-            u = mu - torch.logsumexp(z + v[:, None, :], dim=2)
-            v = nu - torch.logsumexp(z + u[:, :, None], dim=1)
-        return z + u[:, :, None] + v[:, None, :]
 
-    ms = cuda_ms(lambda: log_sinkhorn(z, mu, nu, iters), 10)
-    plain_ms = cuda_ms(lambda: log_sinkhorn_plain(z, mu, nu, iters), 5)
-    lib_ms = cuda_ms(lib, 5)
-    print_replayed("sinkhorn (4, 1025, 1025) x 30 f32", ms, lib_ms, "torch.logsumexp loop",
-                   lambda: log_sinkhorn(z, mu, nu, iters), lib, reps=5)
-    elems = b * m * m
-    # per element and pass: add, max, subtract, exp, add
-    bms, by = bound(2 * elems * 4 + 2 * b * m * 4, iters * 2 * elems * 5, F32_FLOPS)
-    return dict(name="sinkhorn", route="cuda", source="image_matching_tpu_torch/csrc/sinkhorn.cu",
-                replaces="image_matching_tpu/ops/pallas/sinkhorn.py:59", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+def check_sinkhorn(torch, dev, rng):
+    """The Sinkhorn kernel against its plain version at the headline's, the
+    banked model's and a streamed shape (each route asserted, masked
+    pattern equal, a second run bit-identical); per shape its route and
+    device launches per call, and times by CUDA graph replay: this
+    checkout's kernel, interleaved with `build/sinkhorn_before.cu`'s when
+    that file is there, beside the `torch.logsumexp` loop and the bound.
+    Returns the headline's JSON row."""
+    from image_matching_tpu_torch.ops.sinkhorn import log_sinkhorn, log_sinkhorn_plain, route_on
+
+    iters = SINKHORN_ITERS
+    earlier = (build_variants("sinkhorn", [("before", EARLIER_SINKHORN, ())])["before"]
+               if EARLIER_SINKHORN.exists() else None)
+    routes, row = set(), None
+    for b, m, n in SINKHORN_SHAPES:
+        z, mu, nu = sinkhorn_problem(torch, dev, rng, b, m, n)
+        route = route_on(dev, b, m, n)
+        routes.add(route.name)
+        got = log_sinkhorn(z, mu, nu, iters)
+        ref = log_sinkhorn_plain(z, mu, nu, iters)
+        torch.cuda.synchronize()
+        check(bool(((ref > -1e8) == (got > -1e8)).all()), f"sinkhorn ({b}, {m}, {n}): masked entries differ")
+        real = (ref > -1e8) & (got > -1e8)
+        err = (got - ref)[real].abs().max().item()
+        same = bool(torch.equal(got, log_sinkhorn(z, mu, nu, iters)))
+        # f32 on both sides, the same max-shifted logsumexp; sums in another
+        # order over 30 iterations (masked entries, near -1e9, are compared
+        # only for being masked: their f32 step is 64)
+        print(f"sinkhorn ({b}, {m}, {n}) x {iters} f32, {route.name} route ({route.rows} rows a block, "
+              f"{b * route.bands} blocks, {route.smem} bytes of shared memory): max_abs_err {err:.3e} on unmasked "
+              f"entries (tolerance 1e-4), masked pattern equal, a second run bit-identical: {same}")
+        check(err <= 1e-4 and same, f"sinkhorn ({b}, {m}, {n}) disagrees with its plain version ({err}) "
+                                    "or is not reproducible")
+
+        fns = {"this checkout": lambda: log_sinkhorn(z, mu, nu, iters)}
+        if earlier is not None:
+            fns["before"] = _earlier_sinkhorn(torch, earlier, z, mu, nu, iters)
+        launches = {label: kernel_launches(torch, fn) for label, fn in fns.items()}
+
+        def lib():
+            u, v = torch.zeros_like(mu), torch.zeros_like(nu)
+            for _ in range(iters):
+                u = mu - torch.logsumexp(z + v[:, None, :], dim=2)
+                v = nu - torch.logsumexp(z + u[:, :, None], dim=1)
+            return z + u[:, :, None] + v[:, None, :]
+
+        times = time_interleaved(fns, reps=5)
+        ms = statistics.mean(times["this checkout"])
+        lib_ms = graph_ms(lib, 2)
+        plain_ms = graph_ms(lambda: log_sinkhorn_plain(z, mu, nu, iters), 2)
+        elems = b * m * n
+        t_bytes = (2 * elems * 4 + 2 * b * (m + n) * 4) / HBM_BYTES_PER_S
+        # per element and half-iteration: add, max, subtract, add on the FMA
+        # pipe, one exponential on the SFU
+        t_fma = iters * 2 * elems * 5 / F32_FLOPS
+        t_exp = iters * 2 * elems / EXPS_PER_S
+        bms = max(t_bytes, t_fma, t_exp) * 1e3
+        by = "bytes" if t_bytes >= max(t_fma, t_exp) else "operations"
+        print(f"sinkhorn ({b}, {m}, {n}) x {iters}: ms per call by CUDA graph replay, builds interleaved: "
+              + "; ".join(f"{label} " + " / ".join(f"{t:.4f}" for t in ts) + f" ({launches[label]:.0f} device "
+                          f"launches a call)" for label, ts in times.items())
+              + f" [the route launches {route.launches(iters)}]"
+              + f"; torch.logsumexp loop {lib_ms:.4f}; plain {plain_ms:.4f}; bound {bms:.4f} ({by}: exps "
+              f"{t_exp * 1e3:.4f}, FMA-pipe operations {t_fma * 1e3:.4f}, bytes {t_bytes * 1e3:.4f})")
+        if row is None:
+            row = dict(name="sinkhorn", route="cuda", source="image_matching_tpu_torch/csrc/sinkhorn.cu",
+                       replaces="image_matching_tpu/ops/pallas/sinkhorn.py:59", max_abs_err=err,
+                       ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    check(routes == {"resident", "streamed"}, f"sinkhorn: routes driven {routes}, not both")
+    return row
 
 
 # ---------------------------------------------------------------- main path
@@ -637,8 +802,9 @@ def profile_forward(torch, model, image0, image1, sec):
     # device-side events only: a host op's device time repeats its kernels'
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     total = sum(dev_us(e) for e in events) / 3 / 1e3
-    print(f"profile: device time {total:.3f} ms per forward, busy {total / (sec * 1e3):.3f} of the "
-          f"median forward ({sec * 1e3:.2f} ms)")
+    launches = sum(e.count for e in _kernel_events(prof)) / 3
+    print(f"profile: device time {total:.3f} ms per forward in {launches:.0f} device launches, busy "
+          f"{total / (sec * 1e3):.3f} of the median forward ({sec * 1e3:.2f} ms)")
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         print(f"  {dev_us(e) / 3 / 1e3:8.3f} ms  {e.count / 3:6.0f} calls  {e.key[:100]}")
 
@@ -1331,21 +1497,11 @@ def s2d_entry_callers(torch, libs, x, k):
     `libs` (label -> library): the wrapper where the library exports this
     checkout's C interface, `_earlier_s2d_entry` where it exports the first
     version's."""
-    from image_matching_tpu_torch.ops import _build
     from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
 
-    def through_wrapper(lib):
-        def call():
-            own = _build._libraries.get("s2d_entry_conv")
-            _build._libraries["s2d_entry_conv"] = lib
-            try:
-                return s2d_entry_conv(x, k)
-            finally:
-                _build._libraries["s2d_entry_conv"] = own
-        return call
-
-    return {label: (through_wrapper(lib) if hasattr(lib, "s2d_entry_conv_bf16_wg")
-                    else _earlier_s2d_entry(torch, lib, x, k)) for label, lib in libs.items()}
+    return {label: (with_library("s2d_entry_conv", lib, lambda: s2d_entry_conv(x, k))
+                    if hasattr(lib, "s2d_entry_conv_bf16_wg") else _earlier_s2d_entry(torch, lib, x, k))
+            for label, lib in libs.items()}
 
 
 def time_interleaved(fns, reps: int = 10):

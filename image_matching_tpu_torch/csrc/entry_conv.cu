@@ -10,122 +10,148 @@
 //
 // What bounds it on an H100: writing the output. At (8, 480, 640) x 64 bf16
 // the store is 315 MB (~94 us at 3.35 TB/s) against a 4.9 MB image read and
-// 9 FMAs per output value. The design therefore spends nothing on the input
-// side and makes every store a full 16-byte, fully coalesced write:
-//   * one thread owns 8 consecutive channels of one pixel; 8 neighbouring
-//     threads cover the pixel's 64 channels, so a warp writes 4 whole pixels
-//     (512 contiguous bytes in bf16);
-//   * a thread's channel group never changes in its grid-stride loop, so its
-//     72 taps and 16 affine values are loaded into registers once;
-//   * the 9 image taps come through the read-only cache (neighbouring pixels
-//     share them, and the 8 threads of one pixel read the same address);
-//   * the accumulator and the epilogue stay in f32; one rounding to T.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// 9 multiply-adds per output value (1.4 G, ~42 us of the f32 FMA pipe).
+//
+// Design (`entry_tile<T>`, bf16 and f32): persistent blocks walk tiles of
+// 8 x 64 pixels. A block stages its tile's image with the 1-pixel halo in
+// shared memory once (zeros outside the image, so no tap is bounds-checked).
+// A thread owns 16 bytes of a pixel's output (8 channels in bf16, 4 in f32),
+// so its taps and affine values stay in registers for the whole launch, and
+// neighbouring threads cover a pixel's 64 channels: each store instruction of
+// a warp writes 512 contiguous bytes, straight from registers, as 16-byte
+// streaming stores. A thread walks pairs of pixels 32 columns apart (two
+// independent sums); a pixel's 9 taps are shared-memory broadcasts. The products are f32 FMAs in (ky, kx) order from zero, then
+// fmaf(acc, scale, shift), ReLU, one rounding to T: the same arithmetic, in
+// the same order, as the plain version's convolution on the card (tensor
+// cores, tried, sum the 9 products in another order: 129 of 157 M outputs of
+// the main path's first layer one bf16 step apart, and the detector's top
+// 1024 keypoints then differ from the plain path's).
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int CO = 64;
-constexpr int GROUP = 8;             // channels per thread
-constexpr int GROUPS = CO / GROUP;   // threads per pixel
 constexpr int THREADS = 256;
+constexpr int TILE_H = 8, TILE_W = 64;       // pixels of a tile
+constexpr int PITCH = TILE_W + 2 + 2;        // staged values per image row (68)
 
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
+// A thread owns 16 bytes of a pixel's output: 8 channels in bf16, 4 in f32.
+template <typename T>
+struct Split {
+  static constexpr int CH = 16 / sizeof(T);  // output channels per thread
+  static constexpr int GROUPS = CO / CH;     // threads per pixel
+  static constexpr int SLOTS = THREADS / GROUPS;  // pixel pairs in flight per block
+};
 
-__device__ __forceinline__ void store8(float* dst, const float* y) {
-  float4* d = reinterpret_cast<float4*>(dst);
-  d[0] = make_float4(y[0], y[1], y[2], y[3]);
-  d[1] = make_float4(y[4], y[5], y[6], y[7]);
-}
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* y) {
+__device__ __forceinline__ void store16(__nv_bfloat16* dst, const float* y) {
   uint4 v;
-  __nv_bfloat162 h0 = __floats2bfloat162_rn(y[0], y[1]);
-  __nv_bfloat162 h1 = __floats2bfloat162_rn(y[2], y[3]);
-  __nv_bfloat162 h2 = __floats2bfloat162_rn(y[4], y[5]);
-  __nv_bfloat162 h3 = __floats2bfloat162_rn(y[6], y[7]);
-  v.x = *reinterpret_cast<uint32_t*>(&h0);
-  v.y = *reinterpret_cast<uint32_t*>(&h1);
-  v.z = *reinterpret_cast<uint32_t*>(&h2);
-  v.w = *reinterpret_cast<uint32_t*>(&h3);
-  *reinterpret_cast<uint4*>(dst) = v;
+  v.x = pack_bf16(y[0], y[1]);
+  v.y = pack_bf16(y[2], y[3]);
+  v.z = pack_bf16(y[4], y[5]);
+  v.w = pack_bf16(y[6], y[7]);
+  __stcs(reinterpret_cast<uint4*>(dst), v);
+}
+__device__ __forceinline__ void store16(float* dst, const float* y) {
+  __stcs(reinterpret_cast<float4*>(dst), make_float4(y[0], y[1], y[2], y[3]));
 }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-entry_conv_kernel(const T* __restrict__ img, const float* __restrict__ w,
-                  const float* __restrict__ scale, const float* __restrict__ shift,
-                  T* __restrict__ out, int B, int H, int W) {
-  const int g = threadIdx.x % GROUPS;
-  float wr[9][GROUP], sc[GROUP], sh[GROUP];
+entry_tile(const T* __restrict__ img, const float* __restrict__ w, const float* __restrict__ scale,
+           const float* __restrict__ shift, T* __restrict__ out, int H, int W, int tiles_x, int tiles_y,
+           int tiles) {
+  using S = Split<T>;
+  constexpr int CH = S::CH;
+  __shared__ float im[TILE_H + 2][PITCH];
+  const int g = threadIdx.x % S::GROUPS, slot = threadIdx.x / S::GROUPS;
+  float wr[9][CH], sc[CH], sh[CH];
 #pragma unroll
   for (int t = 0; t < 9; ++t)
 #pragma unroll
-    for (int c = 0; c < GROUP; ++c) wr[t][c] = __ldg(w + t * CO + g * GROUP + c);
+    for (int c = 0; c < CH; ++c) wr[t][c] = __ldg(w + t * CO + g * CH + c);
 #pragma unroll
-  for (int c = 0; c < GROUP; ++c) {
-    sc[c] = __ldg(scale + g * GROUP + c);
-    sh[c] = __ldg(shift + g * GROUP + c);
+  for (int c = 0; c < CH; ++c) {
+    sc[c] = __ldg(scale + g * CH + c);
+    sh[c] = __ldg(shift + g * CH + c);
   }
 
-  const int npix = B * H * W;
-  const int per_block = THREADS / GROUPS;
-  for (int p = blockIdx.x * per_block + threadIdx.x / GROUPS; p < npix;
-       p += gridDim.x * per_block) {
-    const int x = p % W;
-    const int y = (p / W) % H;
-    const T* im = img + (p - y * W - x);  // start of this pixel's image
-    float acc[GROUP];
-#pragma unroll
-    for (int c = 0; c < GROUP; ++c) acc[c] = 0.f;
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky) {
-      const int yy = y + ky - 1;
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        const int xx = x + kx - 1;
-        const float v = (yy >= 0 && yy < H && xx >= 0 && xx < W)
-                            ? load_f(im + yy * W + xx) : 0.f;
-#pragma unroll
-        for (int c = 0; c < GROUP; ++c) acc[c] = fmaf(v, wr[ky * 3 + kx][c], acc[c]);
-      }
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int x0 = (tile % tiles_x) * TILE_W;
+    const int y0 = ((tile / tiles_x) % tiles_y) * TILE_H;
+    const int b = tile / (tiles_x * tiles_y);
+    const T* src = img + (int64_t)b * H * W;
+    __syncthreads();  // the previous tile's reads of `im` are done
+    for (int i = threadIdx.x; i < (TILE_H + 2) * (TILE_W + 2); i += THREADS) {
+      const int r = i / (TILE_W + 2), c = i % (TILE_W + 2);
+      const int yy = y0 + r - 1, xx = x0 + c - 1;
+      im[r][c] = (yy >= 0 && yy < H && xx >= 0 && xx < W) ? to_f(src[(int64_t)yy * W + xx]) : 0.f;
     }
+    __syncthreads();
+
+    // pixel pairs (col, col + 32) of a row: the warp's slots cover
+    // neighbouring columns, so its stores are contiguous
+    for (int p = slot; p < TILE_H * TILE_W / 2; p += S::SLOTS) {
+      const int row = p / (TILE_W / 2), col = p % (TILE_W / 2);
+      const int y = y0 + row;
+      if (y >= H || x0 + col >= W) continue;
+      const bool two = x0 + col + TILE_W / 2 < W;
+      float acc[2][CH];
 #pragma unroll
-    for (int c = 0; c < GROUP; ++c) acc[c] = fmaxf(fmaf(acc[c], sc[c], sh[c]), 0.f);
-    store8(out + (int64_t)p * CO + g * GROUP, acc);
+      for (int c = 0; c < CH; ++c) acc[0][c] = acc[1][c] = 0.f;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const float v0 = im[row + ky][col + kx], v1 = im[row + ky][col + TILE_W / 2 + kx];
+#pragma unroll
+          for (int c = 0; c < CH; ++c) {
+            acc[0][c] = fmaf(v0, wr[ky * 3 + kx][c], acc[0][c]);
+            acc[1][c] = fmaf(v1, wr[ky * 3 + kx][c], acc[1][c]);
+          }
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < CH; ++c) acc[h][c] = fmaxf(fmaf(acc[h][c], sc[c], sh[c]), 0.f);
+      T* dst = out + (((int64_t)b * H + y) * W + x0 + col) * CO + g * CH;
+      store16(dst, acc[0]);
+      if (two) store16(dst + (TILE_W / 2) * CO, acc[1]);
+    }
   }
 }
 
 template <typename T>
-int launch(const void* img, const void* w, const void* scale, const void* shift,
-           void* out, int B, int H, int W, void* stream) {
-  const int npix = B * H * W;
-  const int per_block = THREADS / GROUPS;
-  int blocks = (npix + per_block - 1) / per_block;
-  const int cap = 132 * 16;  // enough resident blocks to fill every SM
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
-  entry_conv_kernel<T><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(img), static_cast<const float*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(shift),
-      static_cast<T*>(out), B, H, W);
+int launch(const void* img, const void* w, const void* scale, const void* shift, void* out, int B, int H,
+           int W, void* stream) {
+  static int resident = 0;  // blocks that fit on the card at once
+  if (resident == 0) {
+    int per_sm = 0, sms = 0, dev = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, entry_tile<T>, THREADS, 0);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident = per_sm * sms > 0 ? per_sm * sms : 1;
+  }
+  const int tiles_x = (W + TILE_W - 1) / TILE_W, tiles_y = (H + TILE_H - 1) / TILE_H;
+  const int tiles = B * tiles_x * tiles_y, blocks = tiles < resident ? tiles : resident;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  entry_tile<T><<<blocks, THREADS, 0, s>>>(static_cast<const T*>(img), static_cast<const float*>(w),
+                                           static_cast<const float*>(scale), static_cast<const float*>(shift),
+                                           static_cast<T*>(out), H, W, tiles_x, tiles_y, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int entry_conv_bf16(const void* img, const void* w, const void* scale,
-                               const void* shift, void* out, int B, int H, int W,
-                               void* stream) {
+extern "C" int entry_conv_bf16(const void* img, const void* w, const void* scale, const void* shift,
+                               void* out, int B, int H, int W, void* stream) {
   return launch<__nv_bfloat16>(img, w, scale, shift, out, B, H, W, stream);
 }
 
-extern "C" int entry_conv_f32(const void* img, const void* w, const void* scale,
-                              const void* shift, void* out, int B, int H, int W,
-                              void* stream) {
+extern "C" int entry_conv_f32(const void* img, const void* w, const void* scale, const void* shift,
+                              void* out, int B, int H, int W, void* stream) {
   return launch<float>(img, w, scale, shift, out, B, H, W, stream);
 }

@@ -7,6 +7,12 @@ the masked marginals, `- norm` and the match extraction are plain torch;
 the iteration loop is `log_sinkhorn`, which launches `csrc/sinkhorn.cu`
 on a CUDA tensor and runs `log_sinkhorn_plain` on a CPU tensor.
 
+The kernel has two routes, chosen from the shape by `sinkhorn_route`: where
+the coupling fits in the shared memory of blocks that are all resident at
+once, one cooperative launch keeps it on chip for the whole loop
+("resident"); beyond that, each iteration streams it once through row bands
+and merges the column sums in a second launch ("streamed").
+
 Training (`log_optimal_transport(..., train=True)`) runs
 `log_sinkhorn_scan` instead on every device: the counterpart of the JAX
 package's `lax.scan` loop (`ops/sinkhorn.log_sinkhorn`), which is what
@@ -19,12 +25,20 @@ that autograd cannot differentiate.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from image_matching_tpu_torch.ops import _build
 
 BIG_NEG = -1e9
+
+# the CUDA kernel's shapes (csrc/sinkhorn.cu)
+STREAMED_ROWS = 16  # rows of a band in the streamed route, where they fit
+ROW_MULTIPLE = 8    # the kernel takes a band's rows 8 at a time (CHUNK)
+MERGE_SCRATCH = 16 * 32 * 8  # bytes of a block's merge scratch: 16 warps x 32 columns x (shift, sum)
+_NOT_CO_RESIDENT = -1  # sinkhorn_f32's code for a resident grid that does not fit
 
 
 def log_sinkhorn_plain(z, log_mu, log_nu, iters: int):
@@ -56,9 +70,65 @@ def log_sinkhorn_scan(z, log_mu, log_nu, iters: int):
     return z + u[:, :, None] + v[:, None, :]
 
 
+class SinkhornRoute(NamedTuple):
+    name: str   # "resident" or "streamed"
+    rows: int   # rows of one batch element that a block holds in shared memory
+    bands: int  # blocks per batch element: ceil(rows of z / rows)
+    smem: int   # bytes of shared memory a block takes
+
+    def launches(self, iters: int) -> int:
+        """Launches of `csrc/sinkhorn.cu` kernels in one call (the streamed
+        route's wrapper also zero-fills u and v)."""
+        return 1 if self.name == "resident" else 2 * iters + 1
+
+
+def _smem_bytes(rows: int, nc: int) -> int:
+    return MERGE_SCRATCH + 4 * (rows * nc + 2 * rows + nc)  # the scratch, the rows of z, their u and log-sums, v
+
+
+def sinkhorn_route(b: int, mr: int, nc: int, sms: int, smem_per_block: int) -> SinkhornRoute:
+    """The kernel's route for a (b, mr, nc) coupling on a card with `sms`
+    SMs and `smem_per_block` bytes of shared memory a block may opt in to.
+    Resident: each batch element's rows are split over at most sms // b
+    blocks, one an SM, so every block is resident at once, in bands of a
+    multiple of ROW_MULTIPLE rows; it is taken when such a band fits.
+    Streamed otherwise, with bands of up to STREAMED_ROWS rows."""
+    per_element = sms // b
+    if per_element >= 1:
+        rows = -(-mr // per_element)
+        rows = -(-rows // ROW_MULTIPLE) * ROW_MULTIPLE
+        if _smem_bytes(rows, nc) <= smem_per_block:
+            return SinkhornRoute("resident", rows, -(-mr // rows), _smem_bytes(rows, nc))
+    rows = STREAMED_ROWS
+    while rows > 1 and _smem_bytes(rows, nc) > smem_per_block:
+        rows //= 2
+    if _smem_bytes(rows, nc) > smem_per_block:
+        raise ValueError(f"log_sinkhorn: a row of {nc} columns does not fit in {smem_per_block} bytes "
+                         "of shared memory")
+    return SinkhornRoute("streamed", rows, -(-mr // rows), _smem_bytes(rows, nc))
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> tuple[int, int]:
+    """(SM count, shared memory a block may opt in to) of CUDA device `index`."""
+    fn = _build.library("sinkhorn").sinkhorn_device_limits
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(index):
+        _build.check(fn(ctypes.byref(sms), ctypes.byref(smem)), "sinkhorn_device_limits")
+    return sms.value, smem.value
+
+
+def route_on(device, b: int, mr: int, nc: int) -> SinkhornRoute:
+    """The route the kernel takes for a (b, mr, nc) coupling on `device`."""
+    return sinkhorn_route(b, mr, nc, *device_limits(torch.device(device).index or 0))
+
+
 def log_sinkhorn(z, log_mu, log_nu, iters: int):
-    """Dispatch on the tensor's device: the CUDA kernels on the card (one
-    call = 2 * iters + 1 launches), the plain loop on the CPU."""
+    """Dispatch on the tensor's device: the CUDA kernel on the card (one
+    launch a call on the resident route, 2 * iters + 1 on the streamed
+    one), the plain loop on the CPU."""
     if z.device.type == "cpu":
         return log_sinkhorn_plain(z, log_mu, log_nu, iters)
     return _log_sinkhorn_cuda(z, log_mu, log_nu, iters)
@@ -81,17 +151,25 @@ def _log_sinkhorn_cuda(z, log_mu, log_nu, iters):
             raise ValueError(f"log_sinkhorn: {name} must be contiguous on {z.device}")
     if iters < 0:
         raise ValueError("log_sinkhorn: iters must be >= 0")
-    u = torch.zeros((b, m), dtype=torch.float32, device=z.device)
-    v = torch.zeros((b, n), dtype=torch.float32, device=z.device)
+    route = route_on(z.device, b, m, n)
+    # the resident route keeps u and v in shared memory from zeros; the
+    # streamed one reads them from these buffers
+    fresh = torch.empty if route.name == "resident" else torch.zeros
+    u = fresh((b, m), dtype=torch.float32, device=z.device)
+    v = fresh((b, n), dtype=torch.float32, device=z.device)
+    # (shift, sum) partials of the bands, by tiles of 32 columns
+    part = torch.empty((b, -(-n // 32), route.bands, 32, 2), dtype=torch.float32, device=z.device)
     out = torch.empty_like(z)
     fn = _build.library("sinkhorn").sinkhorn_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _build.check(
-        fn(_build.ptr(z), _build.ptr(log_mu), _build.ptr(log_nu), _build.ptr(u),
-           _build.ptr(v), _build.ptr(out), b, m, n, iters, _build.stream_ptr(z.device)),
-        "sinkhorn",
-    )
+    err = fn(_build.ptr(z), _build.ptr(log_mu), _build.ptr(log_nu), _build.ptr(u), _build.ptr(v),
+             _build.ptr(part), _build.ptr(out), b, m, n, iters, route.rows, int(route.name == "resident"),
+             _build.stream_ptr(z.device))
+    if err == _NOT_CO_RESIDENT:
+        raise RuntimeError(f"log_sinkhorn: the resident route's {b * route.bands} blocks of "
+                           f"{route.smem} bytes cannot all be resident on {z.device} at once")
+    _build.check(err, "sinkhorn")
     _build.LAUNCHES["sinkhorn"] += 1
     return out
 

@@ -45,6 +45,22 @@ def test_plain_matches_pallas_interpret_bf16():
     assert np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)) <= 2 ** -7
 
 
+def test_plain_matches_pallas_interpret_bf16_second_shape():
+    """B = 3, a larger image (48 x 256) and other weights: the same one-bf16-step hold."""
+    img, k, scale, shift = _inputs(b=3, h=48, w=256, seed=5)
+    ref = entry_h_fused_pallas(
+        jnp.asarray(img, jnp.bfloat16), jnp.asarray(k),
+        jnp.asarray(np.tile(scale, 2)), jnp.asarray(np.tile(shift, 2)),
+        block_rows=8, interpret=True,
+    )
+    ref = np.asarray(depth_to_space_h(ref), np.float32)
+    got = entry_conv(torch.from_numpy(img).to(torch.bfloat16), torch.from_numpy(k),
+                     torch.from_numpy(scale), torch.from_numpy(shift))
+    assert got.shape == (3, CO, 48, 256)
+    got = got.float().permute(0, 2, 3, 1).numpy()
+    assert np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)) <= 2 ** -7
+
+
 def test_plain_f32_matches_numpy_oracle():
     # f32 end to end: only the order of the nine products differs
     img, k, scale, shift = _inputs(b=1, h=9, w=13, seed=1)

@@ -30,7 +30,8 @@ from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_entry, maxpool2x2_
 from image_matching_tpu_torch.ops import s2d_entry as s2d_entry_ops
 from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
 from image_matching_tpu_torch.registration import build_registration_fn
-from image_matching_tpu_torch.ops.sinkhorn import log_sinkhorn, log_sinkhorn_plain
+from image_matching_tpu_torch.ops import sinkhorn as sinkhorn_ops
+from image_matching_tpu_torch.ops.sinkhorn import log_optimal_transport, log_sinkhorn, log_sinkhorn_plain, route_on
 from image_matching_tpu_torch.train.state import TrainState
 from image_matching_tpu_torch.train.superglue_trainer import (
     SuperGluePairConfig,
@@ -110,6 +111,65 @@ def test_sinkhorn_kernel(cuda):
     got = log_sinkhorn(z, mu, nu, 20)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, log_sinkhorn_plain(z, mu, nu, 20), rtol=1e-5, atol=1e-4)
+
+
+# (B, M, N) of the scores and the route their (B, M+1, N+1) coupling takes on an
+# H100 SXM (132 SMs, 227 KB of shared memory a block): the headline, the
+# banked model (B = 1), the CLI's default 1200 keypoints, a ragged case, and
+# 2048 keypoints (beyond the blocks' shared memory)
+SINKHORN_CASES = [((4, 1024, 1024), "resident"), ((1, 1024, 1024), "resident"), ((4, 1200, 1200), "resident"),
+                  ((2, 36, 52), "resident"), ((2, 2048, 2048), "streamed")]
+
+
+@pytest.mark.parametrize("shape,route", SINKHORN_CASES)
+def test_sinkhorn_kernel_routes(cuda, shape, route):
+    """`log_optimal_transport` through the kernel against the same through
+    the plain loop, with masks as the model makes them and row 0 and column
+    1 wholly masked: equal masked pattern, 1e-4 elsewhere (f32 sums in
+    another order over 30 iterations), one launch, the same bits again."""
+    b, m, n = shape
+    g = _gen()
+    scores = (3 * torch.randn(b, m, n, generator=g)).to(cuda)
+    mask0 = (torch.rand(b, m, generator=g) < 0.9).to(cuda)
+    mask1 = (torch.rand(b, n, generator=g) < 0.9).to(cuda)
+    mask0[:, 0] = False
+    mask1[:, 1] = False
+    bin_score = torch.tensor(1.3, device=cuda)
+    assert route_on(cuda, b, m + 1, n + 1).name == route
+    before = _build.LAUNCHES["sinkhorn"]
+    got = log_optimal_transport(scores, bin_score, 30, mask0, mask1)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sinkhorn"] == before + 1
+    with mock.patch.object(sinkhorn_ops, "log_sinkhorn", sinkhorn_ops.log_sinkhorn_plain):
+        ref = log_optimal_transport(scores, bin_score, 30, mask0, mask1)
+    assert torch.equal(got > -1e8, ref > -1e8)
+    assert bool((got[:, 0] < -1e8).all()) and bool((got[:, :, 1] < -1e8).all())
+    real = (got > -1e8) & (ref > -1e8)
+    assert (got - ref)[real].abs().max().item() <= 1e-4
+    assert torch.equal(got, log_optimal_transport(scores, bin_score, 30, mask0, mask1))
+
+
+@pytest.mark.parametrize("b,h,w", [(3, 37, 53), (1, 17, 5), (2, 9, 70), (1, 480, 640)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_entry_conv_kernel_ragged_tiles_and_borders(cuda, b, h, w, dtype):
+    """Images that do not fill the kernel's 8 x 64 tiles, B = 1, and the
+    border pixels (the conv's zero padding) on their own; the same bits
+    again."""
+    g = _gen()
+    img = torch.rand(b, h, w, generator=g).to(cuda, dtype)
+    k = (torch.randn(3, 3, 1, 64, generator=g) * 0.3).to(cuda)
+    scale = (1 + 0.2 * torch.randn(64, generator=g)).to(cuda)
+    shift = (0.2 * torch.randn(64, generator=g)).to(cuda)
+    got = entry_conv(img, k, scale, shift)
+    torch.cuda.synchronize()
+    assert got.shape == (b, 64, h, w) and got.dtype == dtype
+    ref = entry_conv_plain(img, k, scale, shift).float()
+    rel = (got.float() - ref).abs() / ref.abs().clamp_min(1)
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert rel.max() <= tol
+    for border in (rel[:, :, 0], rel[:, :, -1], rel[:, :, :, 0], rel[:, :, :, -1]):
+        assert border.max() <= tol
+    assert torch.equal(got, entry_conv(img, k, scale, shift))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
