@@ -54,13 +54,20 @@ In order, it:
      and times them beside a library convolution / max pool, the entry
      conv per shape and interleaved with its first version where
      `build/s2d_entry_conv_before.cu` holds it; then times the f32
-     kernels (SIMT attention forward and backward, the SIMT s2d entry conv
-     and the SIMT image entry conv) beside f32 SDPA and f32 cuDNN;
+     kernels (SIMT attention forward and backward, the SIMT image entry
+     conv) beside f32 SDPA and f32 cuDNN, and holds the f32 s2d entry conv
+     (`s2d_entry_ffma`, the image conv `s2d_entry_simt_image`) against its
+     plain version at the four shapes of one detect, two runs bit-identical,
+     timed per shape beside f32 cuDNN conv + `space_to_depth` and
+     interleaved with the earlier build;
   9. registers image pairs (detect each side -> SuperGlue -> homography
      RANSAC with 512 hypotheses -> warp) at the headline's width through
      the 2x2 backbone, `SuperPointBN` and `SuperPointVGG`: launch counts
      per call, pairs/s, peak memory, busy share, the 2x2 backbone's detect
-     time beside the plain backbone's and their agreement;
+     time beside the plain backbone's and their agreement; then one f32
+     detect of 4 images through the 2x2 backbone: launch counts, agreement
+     with the plain f32 backbone, both backbones' device time (and the 2x2
+     one's on the earlier build);
  10. registers seeded textured pairs with known homographies with the
      banked weights, subpixel refinement on, through both backbones and
      both matchers: corner error against the truth, every pair held to
@@ -70,7 +77,8 @@ Every check that fails raises; nothing is caught. TF32 is off for every
 phase, timed ones included, so f32 convolutions and matmuls are full f32.
 The last two lines are the kernels' numbers as JSON (each kernel's
 launches counted on its own path: inference per forward, training per
-step, the 2x2 backbone's per registration call) and the run's result as JSON. Without a CUDA device, or without the package beside it, the
+step, the 2x2 backbone's per registration call, its f32 route per f32
+detect) and the run's result as JSON. Without a CUDA device, or without the package beside it, the
 script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -421,18 +429,23 @@ def check_attention_head_dims(torch, dev, rng):
         fail("attention at head dim 128 did not raise")
 
 
-def time_f32_kernels(torch, dev, rng):
+def time_f32_kernels(torch, dev, rng, libs):
     """The f32 kernels, which serve `compute_dtype="float32"`, timed by CUDA
     graph replay beside their bounds (f32 operations at 67 TFLOP/s, no
     tensor cores) and a PyTorch call in full f32 (TF32 off): the SIMT
     attention forward at the headline's shape against f32 SDPA, the f32
     backward kernels at the training path's shape against SDPA's f32
-    backward, and the SIMT s2d entry conv at the registration path's four
-    shapes against f32 cuDNN conv + `space_to_depth`."""
+    backward, the f32 image entry conv, and the f32 s2d entry conv at the
+    four shapes of one detect of 4 images at 480x640 (`s2d_entry_ffma`; the
+    image conv `s2d_entry_simt_image`), each against its plain version
+    (two runs bit-identical) and timed beside its own f32 cuDNN conv +
+    `space_to_depth`, interleaved with the build of
+    `build/s2d_entry_conv_before.cu` where that file is there (`libs` is
+    `s2d_entry_libs()`). Returns the f32 s2d entry conv's JSON row (per
+    launch, means over the four shapes)."""
     import torch.nn.functional as F
     from image_matching_tpu_torch.ops import attention as A
     from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_entry, space_to_depth
-    from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
 
     check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
     b, n, h, dh = 4, 1024, 4, 64
@@ -468,26 +481,6 @@ def time_f32_kernels(torch, dev, rng):
           f"step at compute_dtype=float32: 36 of each")
     check(err <= 1e-4, "f32 attention backward disagrees with its plain version")
 
-    total = {"ms": 0.0, "lib": 0.0, "bound": 0.0}
-    for ci, co, hh, ww in S2D_ENTRY_SHAPES:
-        x = torch.from_numpy(rng.normal(size=(S2D_BATCH, hh, ww, ci)).astype("float32")).to(dev)
-        kk = torch.from_numpy(rng.normal(0, 0.3, (3, 3, ci, co)).astype("float32")).to(dev)
-        rel, _ = _rel_err(s2d_entry_conv(x, kk), conv3x3_s2d_entry(x, kk))
-        x_nchw, k_oihw = x.permute(0, 3, 1, 2), kk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        ms = graph_ms(lambda: s2d_entry_conv(x, kk), 5)
-        lib = graph_ms(lambda: space_to_depth(F.conv2d(x_nchw, k_oihw, padding=1).permute(0, 2, 3, 1)), 5)
-        npix = S2D_BATCH * hh * ww
-        bms, by = bound(npix * ci * 4 + 9 * ci * co * 4 + npix * co * 4, 2.0 * npix * co * 9 * ci, F32_FLOPS)
-        # f32 sums of 9 ci products (up to 1152) in another order
-        print(f"f32 s2d_entry_simt ({S2D_BATCH}, {hh}, {ww}) {ci}->{co}: max err/max(|y|,1) {rel:.2e} (tol 1e-4); "
-              f"{ms:.4f} ms, f32 cuDNN conv + space_to_depth {lib:.4f} ms ({ms / lib:.2f}x), bound {bms:.4f} ms ({by})")
-        check(rel <= 1e-4, f"f32 s2d_entry_conv {ci}->{co} disagrees with its plain version")
-        total["ms"] += ms
-        total["lib"] += lib
-        total["bound"] += bms
-    print(f"f32 s2d_entry_simt, one detect of {S2D_BATCH} images (4 launches): {total['ms']:.4f} ms, f32 cuDNN conv + "
-          f"space_to_depth {total['lib']:.4f} ms, bound {total['bound']:.4f} ms")
-
     from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_plain
 
     b, hh, ww = 8, 480, 640  # the plain backbone's image conv at compute_dtype="float32"
@@ -504,6 +497,60 @@ def time_f32_kernels(torch, dev, rng):
           f"affine + ReLU {lib:.4f} ms ({ms / lib:.2f}x), bound {bms:.4f} ms ({by}); launches per forward at "
           f"compute_dtype=float32: 1")
     check(err <= 1e-5, "f32 entry conv disagrees with its plain version")
+
+    totals, per_build, bound_ms, worst = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}, dict.fromkeys(libs, 0.0), 0.0, 0.0
+    for ci, co, hh, ww in S2D_ENTRY_SHAPES:
+        x = torch.from_numpy(rng.normal(size=(S2D_BATCH, hh, ww, ci)).astype("float32")).to(dev)
+        kk = torch.from_numpy(rng.normal(0, 0.3, (3, 3, ci, co)).astype("float32")).to(dev)
+        ref = conv3x3_s2d_entry(x, kk)
+        fns = s2d_entry_callers(torch, libs, x, kk)
+        kernel = "s2d_entry_simt_image" if ci == 1 else "s2d_entry_ffma"
+        # how far any f32 order of these sums lies from the answer: the float64 conv
+        exact = space_to_depth(F.conv2d(x.double().permute(0, 3, 1, 2), kk.double().permute(3, 2, 0, 1),
+                                        padding=1).permute(0, 2, 3, 1))
+        to_exact = {name: _rel_err(y.double(), exact)[0] for name, y in (("kernel", fns["this checkout"]()),
+                                                                         ("plain", ref))}
+        del exact
+        print(f"f32 s2d_entry_conv ({S2D_BATCH}, {hh}, {ww}) {ci}->{co}: max err/max(|y|,1) against the float64 conv: "
+              f"kernel {to_exact['kernel']:.2e}, plain version (cuDNN f32) {to_exact['plain']:.2e}")
+        for label, fn in fns.items():
+            got = fn().clone()
+            same = bool(torch.equal(got, fn()))
+            rel, err = _rel_err(got, ref)
+            if label == "this checkout":
+                worst = max(worst, err)
+            # f32 sums of 9 ci products (up to 1152) in another order: two f32
+            # orders of such sums lie up to ~3e-5 of max(|y|, 1) apart
+            print(f"f32 s2d_entry_conv ({S2D_BATCH}, {hh}, {ww}) {ci}->{co} [{label}]: max_abs_err {err:.3e}, max "
+                  f"err/max(|y|,1) {rel:.2e} (tolerance 1e-4), a second run bit-identical: {same}")
+            check(rel <= 1e-4 and same, f"f32 s2d_entry_conv {ci}->{co} [{label}] disagrees or is not reproducible")
+        x_nchw, k_oihw = x.permute(0, 3, 1, 2), kk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        lib = lambda: space_to_depth(F.conv2d(x_nchw, k_oihw, padding=1).permute(0, 2, 3, 1))
+        times = time_interleaved(fns, reps=5)
+        t = {"ms": statistics.mean(times["this checkout"]), "plain_ms": graph_ms(lambda: conv3x3_s2d_entry(x, kk), 5),
+             "library_ms": graph_ms(lib, 5)}
+        npix = S2D_BATCH * hh * ww
+        bms, by = bound(npix * ci * 4 + 9 * ci * co * 4 + npix * co * 4, 2.0 * npix * co * 9 * ci, F32_FLOPS)
+        print(f"f32 s2d_entry_conv ({S2D_BATCH}, {hh}, {ww}) {ci}->{co} ({kernel}): device time (CUDA graph replay, "
+              "builds interleaved) " + "; ".join(f"{label} " + " / ".join(f"{v:.4f}" for v in ts) + " ms"
+                                                for label, ts in times.items())
+              + f"; plain {t['plain_ms']:.4f} ms, f32 cuDNN conv + space_to_depth {t['library_ms']:.4f} ms "
+              f"({t['ms'] / t['library_ms']:.2f}x); bound {bms:.4f} ms ({by})")
+        for name in totals:
+            totals[name] += t[name]
+        for label, ts in times.items():
+            per_build[label] += statistics.mean(ts)
+        bound_ms += bms
+    n = len(S2D_ENTRY_SHAPES)
+    print(f"f32 s2d_entry_conv, one detect of {S2D_BATCH} images (4 launches): " + "; ".join(
+        f"{label} {v:.4f} ms" for label, v in per_build.items()) + f"; plain {totals['plain_ms']:.4f} ms, f32 cuDNN "
+          f"conv + space_to_depth {totals['library_ms']:.4f} ms, bound {bound_ms:.4f} ms; the JSON line holds the mean "
+          "per launch")
+    # three of the four shapes are bound by f32 operations, and they hold most of the summed bound
+    return dict(name="s2d_entry_conv_f32", route="cuda", source="image_matching_tpu_torch/csrc/s2d_entry_conv.cu",
+                replaces="image_matching_tpu/ops/pallas/entry_conv.py:66", max_abs_err=worst,
+                ms=totals["ms"] / n, plain_ms=totals["plain_ms"] / n, bound_ms=bound_ms / n, bound_by="operations",
+                library_ms=totals["library_ms"] / n)
 
 
 # (B, N, H, dh, with LSE): the forward's timed shapes: the headline (36 calls per
@@ -1504,6 +1551,16 @@ def s2d_entry_callers(torch, libs, x, k):
             for label, lib in libs.items()}
 
 
+def s2d_entry_libs():
+    """{label: library} of the s2d entry conv: this checkout's build and,
+    where `build/s2d_entry_conv_before.cu` holds an earlier source (left
+    there by hand to compare with), that one's."""
+    from image_matching_tpu_torch.ops import _build
+
+    builds = [("before", EARLIER_S2D_ENTRY, ())] if EARLIER_S2D_ENTRY.exists() else []
+    return {"this checkout": _build.library("s2d_entry_conv"), **build_variants("s2d_entry_conv", builds)}
+
+
 def time_interleaved(fns, reps: int = 10):
     """Graph-replay ms per call of each of `fns` (label -> function), every
     one in turn and then again in the reverse order: {label: [ms, ms]}."""
@@ -1513,22 +1570,17 @@ def time_interleaved(fns, reps: int = 10):
     return times
 
 
-def check_s2d_entry_conv(torch, dev, rng):
+def check_s2d_entry_conv(torch, dev, rng, libs):
     """The s2d entry conv against its plain version at the four shapes of
     one detect of 4 images at 480x640 and at ragged ones; times per shape
     by CUDA graph replay: this checkout's kernel, interleaved with the
     first version's kernel from `build/s2d_entry_conv_before.cu` when that
     file is there, cuDNN conv + `space_to_depth`, the plain version and
-    the bound."""
+    the bound. `libs` is `s2d_entry_libs()`."""
     import torch.nn.functional as F
-    from image_matching_tpu_torch.ops import _build
     from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_entry, space_to_depth
     from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
 
-    builds = []
-    if EARLIER_S2D_ENTRY.exists():  # an earlier s2d_entry_conv.cu, left there by hand to compare with
-        builds.append(("before", EARLIER_S2D_ENTRY, ()))
-    libs = {"this checkout": _build.library("s2d_entry_conv"), **build_variants("s2d_entry_conv", builds)}
 
     b = S2D_BATCH
     worst, totals, bound_ms, bytes_bound_ms = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}, 0.0, 0.0
@@ -1570,9 +1622,11 @@ def check_s2d_entry_conv(torch, dev, rng):
         bytes_bound_ms += bms if by == "bytes" else 0.0
 
     # ragged shapes (no tile divides them) through every route, and two runs
-    # giving the same bits: f32 SIMT; bf16 wgmma at 16, 64 and 128 channels;
-    # the bf16 image conv on tensor cores
-    for (rb, rh, rw, ci, co, dtype) in ((3, 38, 50, 8, 16, torch.float32), (2, 22, 36, 16, 64, torch.bfloat16),
+    # giving the same bits: the register-tiled SIMT kernel in f32 and in bf16
+    # (48 channels in); bf16 wgmma at 16, 64 and 128 channels; the bf16 image
+    # conv on tensor cores
+    for (rb, rh, rw, ci, co, dtype) in ((3, 38, 50, 8, 16, torch.float32), (2, 30, 26, 48, 64, torch.bfloat16),
+                                        (2, 22, 36, 16, 64, torch.bfloat16),
                                         (3, 38, 50, 64, 128, torch.bfloat16), (1, 60, 80, 128, 128, torch.bfloat16),
                                         (3, 38, 50, 1, 64, torch.bfloat16), (2, 30, 26, 1, 128, torch.bfloat16)):
         x = torch.from_numpy(rng.normal(size=(rb, rh, rw, ci)).astype("float32")).to(dev, dtype)
@@ -1750,6 +1804,54 @@ def run_registration(torch, dev, backbone: str, timed: bool):
     return launches
 
 
+F32_BACKBONE_LAUNCHES = {"s2d_entry_conv": 4, "realign": 3}
+
+
+def run_f32_backbone(torch, dev, libs):
+    """One f32 detect of 4 images at 480x640 through the 2x2 s2d backbone
+    (`Matching` at compute_dtype="float32", `SuperPointBN`: its three deep
+    entry convs take `s2d_entry_ffma`): launch counts, agreement with the
+    2x2 path on the plain versions and with the plain f32 backbone on the
+    same weights, and both backbones' device time, the 2x2 one on each
+    build in `libs` (`s2d_entry_libs()`). Returns the launch counts of the
+    detect."""
+    import dataclasses
+
+    import numpy as np
+    from image_matching_tpu_torch.models import Matching, MatchingConfig
+    from image_matching_tpu_torch.ops import _build
+
+    batch, h, w, k = 4, 480, 640, 1024
+    cfg = MatchingConfig(backbone="bn", s2d_backbone=True, s2d_layout="2x2", descriptor_dim=256, max_keypoints=k,
+                         keypoint_threshold=0.005, compute_dtype="float32")
+    model = Matching(cfg, device=dev, seed=0)
+    plain_model = Matching(dataclasses.replace(cfg, s2d_backbone=False), device=dev, seed=0)
+    plain_model.load_state_dict(model.state_dict(), strict=True)
+    images = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (batch, h, w, 1)).astype("float32")).to(dev)
+    label = "f32 detect (bn, 2x2)"
+    with torch.inference_mode():
+        model.detect(images)  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        kp = model.detect(images)
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"{label} launches per detect of {batch} images: {launches}")
+    check(launches == F32_BACKBONE_LAUNCHES, f"{label} launch counts {launches} != {F32_BACKBONE_LAUNCHES}")
+    check(tuple(kp.desc.shape) == (batch, k, 256) and kp.desc.dtype == torch.float32
+          and bool(torch.isfinite(kp.desc).all()), f"{label}: descriptors")
+    print(f"{label}: keypoints per image {kp.num_valid().tolist()} (random weights)")
+    # f32 on both backbones: sums in other orders through a dozen layers
+    compare_backbones(torch, model, plain_model, images, label, tol=1e-4)
+    if len(libs) > 1:  # the same backbone on each build of the s2d entry conv
+        with torch.inference_mode():
+            t = {name: graph_ms(with_library("s2d_entry_conv", lib, lambda: model.superpoint(images)), 3)
+                 for name, lib in libs.items()}
+        print(f"{label}: {batch} images: 2x2 backbone alone, device time (CUDA graph replay) by build of the s2d entry "
+              "conv: " + "; ".join(f"{name} {ms:.3f} ms" for name, ms in t.items()))
+    return launches
+
+
 def random_pair(torch, dev, rng, h=480, w=640):
     """A seeded textured image and its warp by a seeded mild homography
     (rotation up to 10 degrees, scale 0.9-1.1, shift up to 20 px, a little
@@ -1844,7 +1946,7 @@ def main() -> int:
     print(f"built {len(reports)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, log in reports.items():
         for line in log.splitlines():
-            if "ptxas" in line and ("registers" in line or "spill" in line or "Compiling" in line):
+            if "spill" in line or ("ptxas" in line and ("registers" in line or "Compiling" in line)):
                 print(f"  [{name}] {line.strip()}")
 
     rng = np.random.default_rng(0)
@@ -1864,13 +1966,15 @@ def main() -> int:
         kern["launches"] = train_launches.get(kern["name"], 0)
     kernels += train_kernels
 
-    s2d_kernels = [check_s2d_entry_conv(torch, dev, rng), check_realign(torch, dev, rng)]
-    time_f32_kernels(torch, dev, rng)
+    s2d_libs = s2d_entry_libs()
+    s2d_kernels = [check_s2d_entry_conv(torch, dev, rng, s2d_libs), check_realign(torch, dev, rng)]
+    s2d_f32 = time_f32_kernels(torch, dev, rng, s2d_libs)
     reg_launches = run_registration(torch, dev, "bn", timed=True)
     run_registration(torch, dev, "vgg", timed=False)
     for kern in s2d_kernels:
         kern["launches"] = reg_launches.get(kern["name"], 0)
-    kernels += s2d_kernels
+    s2d_f32["launches"] = run_f32_backbone(torch, dev, s2d_libs).get("s2d_entry_conv", 0)
+    kernels += s2d_kernels + [s2d_f32]
     run_banked_registration(torch, dev)
 
     print(smi)

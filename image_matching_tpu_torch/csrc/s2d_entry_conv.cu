@@ -50,10 +50,29 @@
 // s2d cells (4 KB contiguous at co = 64), staged in shared memory and stored
 // as 16-byte vectors. It is bound by its store.
 //
-// Everything else (f32; other widths): `s2d_entry_simt`, plain FMAs. A
-// thread owns 8 output channels of one pixel, and pixels are walked in s2d
-// order (cell, py, px), so a warp writes whole contiguous cells. In f32 the
-// tensor cores would round the products to TF32.
+// f32 and every other width: `s2d_entry_ffma`, a register-tiled SIMT
+// implicit GEMM on f32 FMAs (tensor cores would round f32 products to TF32).
+// M = output pixels, N = output channels, K = 9 ci. A block takes TH x 32
+// pixels (TH = 8, or 4 where 8-row tiles would leave the card short of
+// blocks) x 64 channels, a thread 8 neighbouring pixels of one row x 8
+// channels: 64 accumulators. K goes in stages of 8 input channels: the
+// stage's halo ((TH + 2) x 34 pixels, a plane per channel) and its 9 x 8 x
+// 64 weights go to shared memory (f32 pixels by 16-byte loads split over 4
+// planes, or 4-byte `cp.async` where ci % 4 != 0; bf16 pixels converted; the
+// weights by 16-byte `cp.async`), two stages deep, so the next chunk's
+// copies are issued before this one is multiplied; zeros fill borders and
+// ragged channels. For each (ky, channel) a thread reads its 10 halo values
+// (its 8 pixels and their neighbours) once and uses them for all three kx
+// taps against two float4 of weights: 192 FMAs for 9 shared-memory loads. Every output sums stage by stage, then ky, channel,
+// kx: a fixed order, no atomics, reruns give the same bits. It is bound by
+// f32 operations (2 x 9 ci co a pixel at 67 TFLOP/s: 0.338 ms at 64 -> 64,
+// 240x320, batch 4), and reaches 62% of that bound there (0.543 ms; the
+// same loop without the halo's copies 0.503).
+//
+// f32 or bf16, ci == 1, 256 a multiple of co / 8: `s2d_entry_simt_image`, a
+// thread per pixel and 8 channels, its 72 weights in registers.
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
@@ -332,7 +351,210 @@ s2d_entry_image(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
   }
 }
 
-// ------------------------------------------------------------------ SIMT
+// ------------------------------------------------------------------ SIMT, register-tiled (f32; other widths)
+
+constexpr int FT_TW = 32;            // output columns of a tile: 4 segments of 8 pixels
+constexpr int FT_NB = 64;            // output channels of a block
+constexpr int FT_KC = 8;             // input channels a stage
+constexpr int FT_PITCH = FT_TW + 4;  // floats per staged halo row (34 used), 16-byte aligned
+
+// TH output rows a tile, a warp each. A stage holds KC channel planes of the
+// (TH + 2) x (TW + 2) halo and the 9 x KC x 64 weight slab, in f32. A plane
+// is 4 floats past a multiple of 32, so the 8 planes x 4 pixels that a warp
+// writes while staging fall in 32 different banks.
+template <int TH>
+struct FtShape {
+  static constexpr int THREADS = TH * 32;
+  static_assert(THREADS % (FT_KC * FT_NB / 4) == 0, "the staging gives each thread fixed channels");
+  static constexpr int HALO = (TH + 2) * (FT_TW + 2);
+  static constexpr int PLANE = round_up((TH + 2) * FT_PITCH - 4, 32) + 4;
+  static constexpr int HALO_FLOATS = FT_KC * PLANE;
+  static constexpr int STAGE = HALO_FLOATS + 9 * FT_KC * FT_NB;
+  static constexpr int SMEM = 2 * STAGE * 4;
+};
+
+// Input channels k0 .. k0 + KC - 1 of the tile's halo and of the weights of
+// its 64 output channels into stage `st`, zeros outside the image and past
+// ci and co. f32 pixels with ci % 4 == 0 go by 16-byte loads through
+// registers, split over 4 planes (cheaper than 4-byte `cp.async`: 0.5430
+// against 0.5735 ms at 64 -> 64); other f32 pixels by 4-byte `cp.async` and
+// bf16 ones through registers, converted, a channel a copy; the weight rows
+// (f32 for both) by 16-byte `cp.async`. The block's threads are a multiple
+// of 128 = 16 x KC, so the channels a thread copies are the same in every
+// pixel and every tap.
+template <typename E, int TH>
+__device__ __forceinline__ void ft_stage(float* st, const E* x, const float* w, int H, int W, int ci, int co,
+                                         int b, int y0, int x0, int n0, int k0) {
+  using S = FtShape<TH>;
+  constexpr int HW = FT_TW + 2;  // pixels a halo row
+  bool quads = false;
+  if constexpr (std::is_same<E, float>::value) quads = ci % 4 == 0;
+  if (quads) {
+    // a pair of threads a pixel (channels 4q .. 4q + 3); two pixels' loads in
+    // flight before their stores (more would spill)
+    const int q = threadIdx.x % 2;
+#pragma unroll 1
+    for (int p0 = threadIdx.x / 2; p0 < S::HALO; p0 += S::THREADS) {
+      float4 v[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int pix = p0 + m * (S::THREADS / 2);
+        const int yy = y0 - 1 + pix / HW, xx = x0 - 1 + pix % HW;
+        const bool ok = pix < S::HALO && k0 + 4 * q < ci && yy >= 0 && yy < H && xx >= 0 && xx < W;
+        v[m] = ok ? __ldg(reinterpret_cast<const float4*>(x + (((int64_t)b * H + yy) * W + xx) * ci + k0 + 4 * q))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int pix = p0 + m * (S::THREADS / 2);
+        if (pix >= S::HALO) break;
+        float* d = st + 4 * q * S::PLANE + pix / HW * FT_PITCH + pix % HW;
+        d[0] = v[m].x, d[S::PLANE] = v[m].y, d[2 * S::PLANE] = v[m].z, d[3 * S::PLANE] = v[m].w;
+      }
+    }
+  } else {
+    // a thread a channel (8 neighbouring threads: 8 channels of a pixel),
+    // STEP pixels apart: 16 or 32, under a halo row
+    constexpr int STEP = S::THREADS / FT_KC;
+    const int k = threadIdx.x % FT_KC;
+    const bool k_ok = k0 + k < ci;
+    const E* xb = x + (int64_t)b * H * W * ci + k0 + k;
+    float* dst = st + k * S::PLANE;
+    int hr = (threadIdx.x / FT_KC) / HW, hc = (threadIdx.x / FT_KC) % HW;
+#pragma unroll 1
+    for (int pix = threadIdx.x / FT_KC; pix < S::HALO; pix += STEP) {
+      const int yy = y0 - 1 + hr, xx = x0 - 1 + hc;
+      const bool ok = k_ok && yy >= 0 && yy < H && xx >= 0 && xx < W;
+      const E* src = ok ? xb + ((int64_t)yy * W + xx) * ci : x;
+      if constexpr (std::is_same<E, float>::value) cp_async_4(dst + hr * FT_PITCH + hc, src, ok);
+      else dst[hr * FT_PITCH + hc] = ok ? __bfloat162float(*src) : 0.f;
+      hc += STEP;
+      if (hc >= HW) hc -= HW, ++hr;
+    }
+  }
+  const int c4 = threadIdx.x % (FT_NB / 4), kw = (threadIdx.x / (FT_NB / 4)) % FT_KC;
+  const bool w_ok = k0 + kw < ci && n0 + 4 * c4 < co;
+  const float* wsrc = w + (int64_t)(k0 + kw) * co + n0 + 4 * c4;
+  float* wdst = st + S::HALO_FLOATS + kw * FT_NB + 4 * c4;
+#pragma unroll 1
+  for (int tap = threadIdx.x / (FT_KC * FT_NB / 4); tap < 9; tap += S::THREADS / (FT_KC * FT_NB / 4))
+    cp_async_16(wdst + tap * FT_KC * FT_NB, w_ok ? wsrc + (int64_t)tap * ci * co : w, w_ok);
+}
+
+__device__ __forceinline__ void store4(float* dst, const float* y) {
+  *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float* y) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]));
+}
+
+// w: (9 * ci, co) f32, row (ky * 3 + kx) * ci + channel, already rounded to E.
+// Block: TH x 32 output pixels x 64 channels. Thread (row r = warp, segment
+// s = lane / 8, channel group g = lane % 8): pixels x0 + 8s .. + 7 of row r,
+// channels 4g .. 4g + 3 and 32 + 4g .. 32 + 4g + 3 (so a warp's weight loads
+// are 8 different float4 in a row: one conflict-free wavefront).
+template <typename E, int TH>
+__global__ void __launch_bounds__(TH * 32, 512 / (TH * 32))
+s2d_entry_ffma(const E* __restrict__ x, const float* __restrict__ w, E* __restrict__ out, int H, int W, int ci,
+               int co, int tiles_x, int tiles_y) {
+  using S = FtShape<TH>;
+  extern __shared__ __align__(16) float fsm[];
+  const int tile = blockIdx.x;
+  const int x0 = (tile % tiles_x) * FT_TW, y0 = ((tile / tiles_x) % tiles_y) * TH;
+  const int b = tile / (tiles_x * tiles_y);
+  const int n0 = blockIdx.y * FT_NB;
+  const int r = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane % 8, s = lane / 8;
+
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[p][j] = 0.f;
+
+  const int chunks = (ci + FT_KC - 1) / FT_KC;
+  ft_stage<E, TH>(fsm, x, w, H, W, ci, co, b, y0, x0, n0, 0);
+  cp_async_commit();
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks)
+      ft_stage<E, TH>(fsm + ((c + 1) & 1) * S::STAGE, x, w, H, W, ci, co, b, y0, x0, n0, (c + 1) * FT_KC);
+    cp_async_commit();
+    cp_async_wait<1>();  // this chunk's stage landed
+    __syncthreads();
+    const float* hs = fsm + (c & 1) * S::STAGE + r * FT_PITCH + 8 * s;
+    const float* ws = fsm + (c & 1) * S::STAGE + S::HALO_FLOATS + 4 * g;
+    // each output sums chunk by chunk, then ky, channel, kx: a fixed order
+#pragma unroll 1
+    for (int ky = 0; ky < 3; ++ky) {
+#pragma unroll
+      for (int k = 0; k < FT_KC; ++k) {
+        // the 10 halo values of this row's 8 pixels and their neighbours,
+        // used by all three kx taps
+        const float* h = hs + k * S::PLANE + ky * FT_PITCH;
+        const float4 h0 = *reinterpret_cast<const float4*>(h);
+        const float4 h1 = *reinterpret_cast<const float4*>(h + 4);
+        const float2 h2 = *reinterpret_cast<const float2*>(h + 8);
+        const float v[10] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w, h2.x, h2.y};
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const float* wp = ws + ((ky * 3 + kx) * FT_KC + k) * FT_NB;
+          const float4 wa = *reinterpret_cast<const float4*>(wp);
+          const float4 wb = *reinterpret_cast<const float4*>(wp + 32);
+          const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+          for (int p = 0; p < 8; ++p)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[p][j] = fmaf(v[p + kx], wv[j], acc[p][j]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage: it takes the chunk after next
+  }
+
+  // a thread's 8 pixels are 4 cells of one parity row; each 4-channel run is
+  // one store (16 bytes in f32), the 8 runs of a segment's threads contiguous
+  const int y = y0 + r, Ho = H / 2, Wo = W / 2;
+  if (y >= H) return;
+  E* row = out + (((int64_t)b * Ho + y / 2) * Wo) * 4 * co + (2 * (y & 1)) * co + n0 + 4 * g;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int xp = x0 + 8 * s + p;
+    if (xp >= W) break;
+    E* o = row + ((int64_t)(xp / 2) * 4 + (p & 1)) * co;
+    if (n0 + 4 * g < co) store4(o, acc[p]);
+    if (n0 + 32 + 4 * g < co) store4(o + 32, acc[p] + 4);
+  }
+}
+
+template <typename E, int TH>
+int launch_ffma(const E* x, const float* w, E* out, int B, int H, int W, int ci, int co, cudaStream_t stream) {
+  using S = FtShape<TH>;
+  static const cudaError_t attr = allow_smem(s2d_entry_ffma<E, TH>, S::SMEM);  // once per instantiation
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int tiles_x = (W + FT_TW - 1) / FT_TW, tiles_y = (H + TH - 1) / TH;
+  const dim3 grid(tiles_x * tiles_y * B, (co + FT_NB - 1) / FT_NB);
+  s2d_entry_ffma<E, TH><<<grid, S::THREADS, S::SMEM, stream>>>(x, w, out, H, W, ci, co, tiles_x, tiles_y);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Tiles of 8 rows where that gives the card at least 4 blocks an SM, else of
+// 4 rows (twice the blocks, so fewer SMs idle in the last wave). On this
+// kernel's first build: 128 -> 128 at 60x80, batch 4, 0.205 ms in 4-row
+// tiles against 0.246 in 8-row ones; 64 -> 64 at 240x320 0.612 against
+// 0.621 the other way round.
+int ffma_rows(int B, int H, int W, int co) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  const int64_t blocks8 = (int64_t)((W + FT_TW - 1) / FT_TW) * ((H + 7) / 8) * B * ((co + FT_NB - 1) / FT_NB);
+  return blocks8 >= 4LL * sms ? 8 : 4;
+}
+
+// ------------------------------------------------------------------ SIMT, ci == 1
 
 constexpr int CH_GROUP = 8;    // output channels per thread
 constexpr int THREADS = 256;
@@ -370,41 +592,6 @@ __device__ __forceinline__ Item decode(uint32_t item, uint32_t groups, uint32_t 
   it.y = 2 * (int)((cell / Wo) % Ho) + (int)((it.p >> 1) & 1);
   it.b = (int)(cell / (Wo * Ho));
   return it;
-}
-
-// w: (9 * ci, co) f32, k = (ky * 3 + kx) * ci + channel, already rounded to E.
-template <typename E>
-__global__ void __launch_bounds__(THREADS)
-s2d_entry_simt(const E* __restrict__ x, const float* __restrict__ w, E* __restrict__ out,
-               int B, int H, int W, int ci, int co) {
-  const uint32_t groups = co / CH_GROUP, Ho = H / 2, Wo = W / 2;
-  const uint32_t total = (uint32_t)B * H * W * groups, stride = gridDim.x * THREADS;
-  for (uint32_t item = blockIdx.x * THREADS + threadIdx.x; item < total; item += stride) {
-    const Item it = decode(item, groups, Ho, Wo);
-    float acc[CH_GROUP];
-#pragma unroll
-    for (int c = 0; c < CH_GROUP; ++c) acc[c] = 0.f;
-    for (int ky = 0; ky < 3; ++ky) {
-      const int yy = it.y + ky - 1;
-      if (yy < 0 || yy >= H) continue;
-      for (int kx = 0; kx < 3; ++kx) {
-        const int xx = it.x + kx - 1;
-        if (xx < 0 || xx >= W) continue;
-        const E* xp = x + (((int64_t)it.b * H + yy) * W + xx) * ci;
-        const float* wp = w + (int64_t)(ky * 3 + kx) * ci * co + it.gch * CH_GROUP;
-        for (int k = 0; k < ci; ++k) {
-          const float v = load_f(xp + k);
-          const float4 w0 = __ldg(reinterpret_cast<const float4*>(wp + (int64_t)k * co));
-          const float4 w1 = __ldg(reinterpret_cast<const float4*>(wp + (int64_t)k * co) + 1);
-          acc[0] = fmaf(v, w0.x, acc[0]); acc[1] = fmaf(v, w0.y, acc[1]);
-          acc[2] = fmaf(v, w0.z, acc[2]); acc[3] = fmaf(v, w0.w, acc[3]);
-          acc[4] = fmaf(v, w1.x, acc[4]); acc[5] = fmaf(v, w1.y, acc[5]);
-          acc[6] = fmaf(v, w1.z, acc[6]); acc[7] = fmaf(v, w1.w, acc[7]);
-        }
-      }
-    }
-    store8(out + (int64_t)it.p * co + it.gch * CH_GROUP, acc);
-  }
 }
 
 // ci == 1, THREADS % (co / 8) == 0: a thread's channel group never changes in
@@ -456,18 +643,18 @@ int launch_simt(const void* x, const void* w, void* out, int B, int H, int W, in
                 void* stream) {
   if (co % CH_GROUP != 0 || H % 2 != 0 || W % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int groups = co / CH_GROUP;
-  // items are counted in 32 bits, with room for one grid stride past the end
-  if ((int64_t)B * H * W * groups >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = grid_for((int64_t)B * H * W * groups);
+  const E* xp = static_cast<const E*>(x);
+  const float* wp = static_cast<const float*>(w);
+  E* op = static_cast<E*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ci == 1 && THREADS % groups == 0) {
-    s2d_entry_simt_image<E><<<blocks, THREADS, 0, s>>>(
-        static_cast<const E*>(x), static_cast<const float*>(w), static_cast<E*>(out), B, H, W, co);
-  } else {
-    s2d_entry_simt<E><<<blocks, THREADS, 0, s>>>(
-        static_cast<const E*>(x), static_cast<const float*>(w), static_cast<E*>(out), B, H, W, ci, co);
+    // items are counted in 32 bits, with room for one grid stride past the end
+    if ((int64_t)B * H * W * groups >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+    s2d_entry_simt_image<E><<<grid_for((int64_t)B * H * W * groups), THREADS, 0, s>>>(xp, wp, op, B, H, W, co);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  return ffma_rows(B, H, W, co) == 8 ? launch_ffma<E, 8>(xp, wp, op, B, H, W, ci, co, s)
+                                     : launch_ffma<E, 4>(xp, wp, op, B, H, W, ci, co, s);
 }
 
 }  // namespace

@@ -11,7 +11,9 @@ On a CUDA tensor `s2d_entry_conv` launches `csrc/s2d_entry_conv.cu`; on
 a CPU tensor it runs the plain version, `ops/s2d_conv.conv3x3_s2d_entry`.
 In bf16 with co a multiple of 64 the kernel runs on tensor cores: wgmma
 for ci in `WG_CHANNELS`, mma.sync with the 9 taps padded to 16 for the
-1-channel image; f32 and every other width run its SIMT kernel.
+1-channel image; f32 and every other width run its SIMT kernels (plain
+f32 FMAs: a register-tiled implicit GEMM, and for the 1-channel image a
+thread per pixel). `s2d_entry_route` names the C entry a call takes.
 Both multiply the inputs as they are in their type, sum in f32 and round
 once to the input type, so they differ in summation order and by that in
 at most one step of the type. There is no bias and no epilogue: the
@@ -88,24 +90,37 @@ def _s2d_entry_conv_cuda(x, w):
     x, w = x.detach(), w.detach()
     out = torch.empty((b, h // 2, wd // 2, 4 * co), dtype=x.dtype, device=x.device)
     lib = _build.library("s2d_entry_conv")
+    symbol = s2d_entry_route(x.dtype, ci, co)
     args = [_build.ptr(x), None, _build.ptr(out), b, h, wd]
-    if x.dtype == torch.bfloat16 and co % 64 == 0 and ci in WG_CHANNELS:
+    if symbol == "s2d_entry_conv_bf16_wg":
         # implicit GEMM on wgmma; w as it is: ((ky, kx, ci), co) bf16
-        fn, weights = _entry(lib, "s2d_entry_conv_bf16_wg", 5), _aligned(w.reshape(9 * ci, co))
+        fn, weights = _entry(lib, symbol, 5), _aligned(w.reshape(9 * ci, co))
         args += [ci, co]
-    elif x.dtype == torch.bfloat16 and co % 64 == 0 and ci == 1:
+    elif symbol == "s2d_entry_conv_bf16_image":
         # the image conv on tensor cores, K = 9 taps padded to 16: (9, co) bf16
-        fn, weights = _entry(lib, "s2d_entry_conv_bf16_image", 4), _aligned(w.reshape(9, co))
+        fn, weights = _entry(lib, symbol, 4), _aligned(w.reshape(9, co))
         args += [co]
     else:
-        # f32 and other widths: SIMT, ((ky, kx, ci), co) f32
-        name = "s2d_entry_conv_bf16_simt" if x.dtype == torch.bfloat16 else "s2d_entry_conv_f32_simt"
-        fn, weights = _entry(lib, name, 5), w.float().reshape(9 * ci, co).contiguous()
+        # SIMT: ((ky, kx, ci), co) f32, staged 16 bytes at a time
+        fn, weights = _entry(lib, symbol, 5), _aligned(w.float().reshape(9 * ci, co))
         args += [ci, co]
     args[1] = _build.ptr(weights)
     _build.check(fn(*args, _build.stream_ptr(x.device)), "s2d_entry_conv")
     _build.LAUNCHES["s2d_entry_conv"] += 1
     return out
+
+
+def s2d_entry_route(dtype, ci: int, co: int) -> str:
+    """The C entry of `csrc/s2d_entry_conv.cu` that takes an input of
+    `dtype` with ci channels to co: bf16 with co a multiple of 64 on tensor
+    cores (wgmma at ci in `WG_CHANNELS`, the image kernel at ci = 1), all
+    else SIMT (`s2d_entry_ffma`; at ci = 1 with 256 threads a multiple of
+    co / 8, `s2d_entry_simt_image`)."""
+    if dtype == torch.bfloat16 and co % 64 == 0 and ci in WG_CHANNELS:
+        return "s2d_entry_conv_bf16_wg"
+    if dtype == torch.bfloat16 and co % 64 == 0 and ci == 1:
+        return "s2d_entry_conv_bf16_image"
+    return "s2d_entry_conv_bf16_simt" if dtype == torch.bfloat16 else "s2d_entry_conv_f32_simt"
 
 
 def _entry(lib, symbol, ints):

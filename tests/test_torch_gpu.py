@@ -427,6 +427,16 @@ S2D_ENTRY_CASES = [
     (1, 128, 3, 38, 50, torch.bfloat16), (16, 128, 1, 60, 80, torch.bfloat16),
     (64, 64, 3, 38, 50, torch.bfloat16), (64, 128, 2, 22, 36, torch.bfloat16),
     (128, 64, 3, 38, 50, torch.bfloat16), (32, 64, 1, 14, 18, torch.bfloat16),
+    # the register-tiled SIMT kernel (s2d_entry_ffma): f32 at every input width
+    # up to 16 and every output width on ragged maps (its tiles are 4 or 8 rows
+    # by 32 columns by 64 channels; ci = 3 and 5 stage no whole 16 bytes), and
+    # bf16 at widths the tensor-core routes do not take
+    (3, 8, 3, 38, 50, torch.float32), (3, 64, 2, 22, 36, torch.float32),
+    (8, 24, 2, 30, 26, torch.float32), (8, 128, 1, 14, 18, torch.float32),
+    (16, 24, 3, 38, 50, torch.float32), (16, 128, 2, 22, 36, torch.float32),
+    (5, 16, 2, 10, 12, torch.float32), (1, 24, 1, 14, 18, torch.float32),
+    (48, 64, 2, 22, 36, torch.bfloat16), (64, 24, 3, 38, 50, torch.bfloat16),
+    (3, 128, 2, 30, 26, torch.bfloat16),
 ]
 
 
@@ -449,22 +459,57 @@ def test_s2d_entry_conv_kernel(cuda, ci, co, b, h, w, dtype):
     assert torch.equal(got, s2d_entry_conv(x, k))
 
 
+# (ci, co, B, H, W): f32 sums of 9 ci >= 288 products. The 2x2 backbone's three
+# deep entry convs at 480x640 (one or two images), then ragged maps at every
+# output width
+S2D_ENTRY_F32_DEEP_CASES = [
+    (64, 64, 1, 240, 320), (64, 128, 1, 120, 160), (128, 128, 2, 60, 80),
+    (32, 8, 3, 38, 50), (32, 64, 2, 30, 26), (64, 24, 3, 38, 50), (64, 128, 2, 22, 36),
+    (128, 8, 1, 14, 18), (128, 24, 2, 22, 36), (128, 64, 3, 38, 50),
+]
+
+
+@pytest.mark.parametrize("ci,co,b,h,w", S2D_ENTRY_F32_DEEP_CASES)
+def test_s2d_entry_conv_f32_deep_sums(cuda, ci, co, b, h, w):
+    """f32 through `s2d_entry_ffma` where sums are long. Two f32 orders of
+    sums of 576-1152 products lie up to ~3e-5 of max(|y|, 1) apart (cuDNN's
+    own f32 result lies that far from the float64 answer), so these are held
+    to 1e-4, as chip_smoke.py holds the backbone's f32 shapes; products of
+    inputs rounded to TF32's 10-bit mantissas would not meet it."""
+    g = _gen()
+    x = torch.randn(b, h, w, ci, generator=g).to(cuda)
+    k = (torch.randn(3, 3, ci, co, generator=g) * 0.3).to(cuda)
+    before = _build.LAUNCHES["s2d_entry_conv"]
+    got = s2d_entry_conv(x, k)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["s2d_entry_conv"] == before + 1
+    assert got.shape == (b, h // 2, w // 2, 4 * co) and got.is_contiguous()
+    ref = conv3x3_s2d_entry(x, k)
+    assert ((got - ref).abs() / ref.abs().clamp_min(1)).max() <= 1e-4
+    assert torch.equal(got, s2d_entry_conv(x, k))  # a fixed order of sums
+
+
 @pytest.mark.parametrize("ci,co,symbol", [(1, 64, "s2d_entry_conv_bf16_image"), (1, 128, "s2d_entry_conv_bf16_image"),
                                           (16, 64, "s2d_entry_conv_bf16_wg"), (128, 128, "s2d_entry_conv_bf16_wg"),
-                                          (8, 64, "s2d_entry_conv_bf16_simt"), (1, 8, "s2d_entry_conv_bf16_simt")])
+                                          (8, 64, "s2d_entry_conv_bf16_simt"), (1, 8, "s2d_entry_conv_bf16_simt"),
+                                          (48, 64, "s2d_entry_conv_bf16_simt"), (64, 24, "s2d_entry_conv_bf16_simt"),
+                                          (1, 64, "s2d_entry_conv_f32_simt"), (1, 24, "s2d_entry_conv_f32_simt"),
+                                          (16, 64, "s2d_entry_conv_f32_simt"), (8, 128, "s2d_entry_conv_f32_simt")])
 def test_s2d_entry_conv_routes(cuda, ci, co, symbol):
     """bf16 goes to the tensor cores where co is a multiple of 64: the image
     conv (ci = 1, its 9 taps padded to 16) and wgmma at 16-128 channels;
-    other widths go to the SIMT kernel."""
+    other widths, and f32 at every width, go to the SIMT entry."""
+    dtype = torch.float32 if "_f32_" in symbol else torch.bfloat16
     g = _gen()
-    x = torch.randn(2, 30, 26, ci, generator=g).to(cuda, torch.bfloat16)
-    k = (torch.randn(3, 3, ci, co, generator=g) * 0.3).to(cuda, torch.bfloat16)
+    x = torch.randn(2, 30, 26, ci, generator=g).to(cuda, dtype)
+    k = (torch.randn(3, 3, ci, co, generator=g) * 0.3).to(cuda, dtype)
     with mock.patch.object(s2d_entry_ops, "_entry", wraps=s2d_entry_ops._entry) as entry:
         got = s2d_entry_conv(x, k)
     torch.cuda.synchronize()
     assert [c.args[1] for c in entry.call_args_list] == [symbol]
     ref = conv3x3_s2d_entry(x, k)
-    assert ((got.float() - ref.float()).abs() / ref.float().abs().clamp_min(1)).max() <= 2 ** -7
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert ((got.float() - ref.float()).abs() / ref.float().abs().clamp_min(1)).max() <= tol
 
 
 # (B, H, W, C, extra columns, dtype): the 2x2 backbone's three pools at 480x640,

@@ -6,9 +6,11 @@ against `maxpool_realign_pallas` in interpret mode, and the two
 formulations.
 
 Tolerances. f32: both sides sum the same products in another order, 1e-5
-relative to max(|y|, 1). bf16: both round the f32 sum once, so where the
-sums differ in their last bit they may round to neighbouring bf16
-numbers: one bf16 step, 2^-7 relative to max(|y|, 1). Pools and
+relative to max(|y|, 1) for the short sums of the narrow cases, 1e-4 for
+sums of 576 or more products (the backbone's widths, the backward). bf16:
+both round the f32 sum once, so where the sums differ in their last bit
+they may round to neighbouring bf16 numbers: one bf16 step, 2^-7 relative
+to max(|y|, 1). Pools and
 re-layouts move values and take maxima: exact.
 """
 import jax
@@ -22,7 +24,7 @@ from image_matching_tpu.ops.pallas.entry_conv import entry_conv_pallas
 from image_matching_tpu.ops.pallas.realign import maxpool_realign_pallas
 from image_matching_tpu_torch.ops import s2d_conv
 from image_matching_tpu_torch.ops.realign import MaxpoolRealignFunction, maxpool_realign, pool_from_raw
-from image_matching_tpu_torch.ops.s2d_entry import S2DEntryConvFunction, s2d_entry_conv
+from image_matching_tpu_torch.ops.s2d_entry import S2DEntryConvFunction, s2d_entry_conv, s2d_entry_route
 
 SHAPES = [(1, 8), (8, 8), (8, 16)]
 
@@ -71,6 +73,44 @@ def test_entry_conv_matches_pallas_interpret_and_xla(ci, co, dtype, tol):
     assert got.shape == (2, 8, 12, 4 * co) and got.dtype == td
     assert _rel_err(got.float().numpy(), entry_conv_pallas(xj, wj, block_rows=4, interpret=True)) <= tol
     assert _rel_err(got.float().numpy(), jax_s2d.conv3x3_s2d_entry(xj, wj)) <= tol
+
+
+# the 2x2 backbone's three deep entry convs (ci -> co): K = 9 ci = 576 to 1152
+BACKBONE_WIDTHS = [(64, 64), (64, 128), (128, 128)]
+
+
+@pytest.mark.parametrize("ci,co", BACKBONE_WIDTHS)
+def test_entry_conv_f32_at_backbone_widths_matches_pallas_interpret_and_xla(ci, co):
+    """f32 at the widths the card's `s2d_entry_ffma` takes. Sums of 576-1152
+    products in different f32 orders lie a few 1e-5 of max(|y|, 1) apart
+    here, each as far from the float64 answer (the plain version, XLA and
+    the Pallas interpreter alike), so these deep sums are held to 1e-4, the
+    bound of the f32 backward's sums of ~1700 products below; the 1e-5
+    above is for sums of at most 72."""
+    x, w = _conv_inputs(ci, co, seed=9)
+    got = s2d_entry_conv(torch.from_numpy(x), torch.from_numpy(w))  # the plain version: CPU tensors
+    assert got.shape == (2, 8, 12, 4 * co) and got.dtype == torch.float32
+    exact = torch.nn.functional.conv2d(torch.from_numpy(x).double().permute(0, 3, 1, 2),
+                                       torch.from_numpy(w).double().permute(3, 2, 0, 1), padding=1)
+    exact = s2d_conv.space_to_depth(exact.permute(0, 2, 3, 1)).numpy()
+    xj, wj = jnp.asarray(x), jnp.asarray(w)
+    for ref in (entry_conv_pallas(xj, wj, block_rows=4, interpret=True), jax_s2d.conv3x3_s2d_entry(xj, wj), exact):
+        assert _rel_err(got.numpy(), ref) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,ci,co,symbol", [
+    (torch.bfloat16, 16, 64, "s2d_entry_conv_bf16_wg"), (torch.bfloat16, 128, 128, "s2d_entry_conv_bf16_wg"),
+    (torch.bfloat16, 32, 192, "s2d_entry_conv_bf16_wg"), (torch.bfloat16, 1, 64, "s2d_entry_conv_bf16_image"),
+    (torch.bfloat16, 1, 128, "s2d_entry_conv_bf16_image"), (torch.bfloat16, 48, 64, "s2d_entry_conv_bf16_simt"),
+    (torch.bfloat16, 64, 24, "s2d_entry_conv_bf16_simt"), (torch.bfloat16, 8, 64, "s2d_entry_conv_bf16_simt"),
+    (torch.bfloat16, 1, 8, "s2d_entry_conv_bf16_simt"), (torch.float32, 64, 64, "s2d_entry_conv_f32_simt"),
+    (torch.float32, 1, 64, "s2d_entry_conv_f32_simt"), (torch.float32, 3, 24, "s2d_entry_conv_f32_simt"),
+])
+def test_s2d_entry_route_table(dtype, ci, co, symbol):
+    """bf16 goes to tensor cores where co is a multiple of 64 and ci is 1 or
+    in `WG_CHANNELS`; f32 (whose products tensor cores would round to TF32)
+    and every other width go to the SIMT entry."""
+    assert s2d_entry_route(dtype, ci, co) == symbol
 
 
 def test_entry_conv_is_conv_then_space_to_depth():
