@@ -42,11 +42,13 @@ In order, it:
   7. trains SuperGlue at the training CLI's default configuration (240x320,
      batch 4, K=512, D=128, 18 GNN layers, 100 Sinkhorn iterations, lr
      1e-4, bf16; frozen SuperPoint and warm start from the banked weights):
-     launch counts per step, steps/s, peak memory, per-step metrics, the
-     kernel path's gradients against the all-plain path's on one step,
-     every attention backward call of a bf16 step against the plain
-     version on its own inputs, and a falling loss from a random init on
-     one fixed batch;
+     launch counts per step, steps/s, peak memory, per-step metrics; the
+     same at compute_dtype="float32" (the f32 kernels' path), with every
+     attention backward call of one f32 step against the plain version and
+     its float64 exact gradient; the kernel path's gradients against the
+     all-plain path's on one step, every attention backward call of a bf16
+     step against the plain version on its own inputs, and a falling loss
+     from a random init on one fixed batch;
   8. holds the two kernels of the 2x2 space-to-depth backbone (the s2d
      entry conv and the realigning max pool) against their plain versions
      at the shapes one detect of 4 images at 480x640 gives them and at
@@ -54,8 +56,13 @@ In order, it:
      and times them beside a library convolution / max pool, the entry
      conv per shape and interleaved with its first version where
      `build/s2d_entry_conv_before.cu` holds it; then times the f32
-     kernels (SIMT attention forward and backward, the SIMT image entry
-     conv) beside f32 SDPA and f32 cuDNN, and holds the f32 s2d entry conv
+     kernels (SIMT attention forward, the image entry conv) beside f32
+     SDPA and f32 cuDNN; holds the f32 dQ and dK/dV kernels (`dq_ffma`,
+     `dkdv_ffma`) against their plain version and a float64 run at the f32
+     training step's shape and D = 256's, two runs bit-identical, and
+     times each beside f32 SDPA's backward and two bounds, interleaved
+     with `build/attention_bwd_before.cu`'s build where that file is
+     there; and holds the f32 s2d entry conv
      (`s2d_entry_ffma`, the image conv `s2d_entry_simt_image`) against its
      plain version at the four shapes of one detect, two runs bit-identical,
      timed per shape beside f32 cuDNN conv + `space_to_depth` and
@@ -433,16 +440,16 @@ def time_f32_kernels(torch, dev, rng, libs):
     """The f32 kernels, which serve `compute_dtype="float32"`, timed by CUDA
     graph replay beside their bounds (f32 operations at 67 TFLOP/s, no
     tensor cores) and a PyTorch call in full f32 (TF32 off): the SIMT
-    attention forward at the headline's shape against f32 SDPA, the f32
-    backward kernels at the training path's shape against SDPA's f32
-    backward, the f32 image entry conv, and the f32 s2d entry conv at the
+    attention forward at the headline's shape against f32 SDPA, the f32 dQ
+    and dK/dV kernels each on its own (`time_f32_attention_backward`), the
+    f32 image entry conv, and the f32 s2d entry conv at the
     four shapes of one detect of 4 images at 480x640 (`s2d_entry_ffma`; the
     image conv `s2d_entry_simt_image`), each against its plain version
     (two runs bit-identical) and timed beside its own f32 cuDNN conv +
     `space_to_depth`, interleaved with the build of
     `build/s2d_entry_conv_before.cu` where that file is there (`libs` is
     `s2d_entry_libs()`). Returns the f32 s2d entry conv's JSON row (per
-    launch, means over the four shapes)."""
+    launch, means over the four shapes) and the f32 dQ and dK/dV rows."""
     import torch.nn.functional as F
     from image_matching_tpu_torch.ops import attention as A
     from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_entry, space_to_depth
@@ -458,28 +465,7 @@ def time_f32_kernels(torch, dev, rng, libs):
           f"compute_dtype=float32: 36")
     check(err <= 1e-5, "f32 attention disagrees with its plain version")
 
-    b, n, h, dh = 4, 512, 4, 32
-    q, k, v, mask = _attention_inputs(torch, dev, rng, b, n, h, dh, torch.float32)
-    dout = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev)
-    _, lse = A.attention_lse(q, k, v, mask, h)
-    err = _grad_error(A.attention_backward(q, k, v, mask, lse, dout, h),
-                      A.attention_backward_plain(q, k, v, mask, lse, dout, h))
-    qh, kh, vh = (t.reshape(b, n, h, dh).transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-    m4, doh = mask[:, None, None, :], dout.reshape(b, n, h, dh).transpose(1, 2).contiguous()
-
-    def sdpa_fwd():
-        with torch.no_grad():
-            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4)
-
-    ms = graph_ms(lambda: A.attention_backward(q, k, v, mask, lse, dout, h), 10)
-    lib = graph_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4),
-                                               (qh, kh, vh), doh), 10) - graph_ms(sdpa_fwd, 10)
-    one = b * n * h * dh * 4
-    bms, by = bound(6 * one + 2 * b * h * n * 4 + b * n, 7 * 2.0 * b * h * n * n * dh, F32_FLOPS)
-    print(f"f32 attention backward (dQ + dK/dV) ({b}, {n}, {h}x{dh}): error {err:.2e} of the largest entry (tol 1e-4); "
-          f"{ms:.4f} ms, f32 SDPA backward {lib:.4f} ms ({ms / lib:.2f}x), bound {bms:.4f} ms ({by}); launches per "
-          f"step at compute_dtype=float32: 36 of each")
-    check(err <= 1e-4, "f32 attention backward disagrees with its plain version")
+    bwd_rows = time_f32_attention_backward(torch, dev, rng)
 
     from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_plain
 
@@ -550,7 +536,139 @@ def time_f32_kernels(torch, dev, rng, libs):
     return dict(name="s2d_entry_conv_f32", route="cuda", source="image_matching_tpu_torch/csrc/s2d_entry_conv.cu",
                 replaces="image_matching_tpu/ops/pallas/entry_conv.py:66", max_abs_err=worst,
                 ms=totals["ms"] / n, plain_ms=totals["plain_ms"] / n, bound_ms=bound_ms / n, bound_by="operations",
-                library_ms=totals["library_ms"] / n)
+                library_ms=totals["library_ms"] / n), bwd_rows
+
+
+EARLIER_ATTENTION_BWD = ROOT / "build" / "attention_bwd_before.cu"
+# (B, N, H, dh) of the f32 backward's timed shapes: the f32 training step's (D = 128,
+# 36 calls a step), whose numbers go into the JSON line, and a D = 256 training run's
+F32_BACKWARD_SHAPES = ((4, 512, 4, 32), (4, 1024, 4, 64))
+# PyTorch's f32 SDPA backward (the memory-efficient route, TF32 off) runs its products
+# on the tensor cores as three TF32 products each (CUTLASS `OpMultiplyAddFastF32`):
+# 495 / 3 TFLOP/s of f32-accurate products
+F32_3XTF32_FLOPS = 495e12 / 3
+# what `plain_ms` and `library_ms` of a dQ or dK/dV row time: no single call computes
+# one kernel's share, so both rows carry the whole backward's call
+WHOLE_BACKWARD = "the whole backward (dq, dk and dv), in plain_ms and library_ms alike"
+
+
+def with_attention_bwd(lib, call):
+    """`call` run with the attention backward library swapped for `lib`, a
+    build of another version of `csrc/attention_bwd.cu` with the same C
+    interface (the wrapper's cached launchers are dropped on the way in
+    and out)."""
+    from image_matching_tpu_torch.ops import attention as A
+
+    swapped = with_library("attention_bwd", lib, call)
+
+    def run():
+        A._launcher.cache_clear()
+        try:
+            return swapped()
+        finally:
+            A._launcher.cache_clear()
+    return run
+
+
+def time_f32_attention_backward(torch, dev, rng):
+    """The f32 dQ (with its delta) and dK/dV kernels, each on its own, at
+    `F32_BACKWARD_SHAPES` (q, k, v views of one fused projection, as the
+    model gives them): each build's error against the plain version (1e-4
+    of the largest entry) and its distance to a float64 run of the same
+    function beside the plain f32 version's own, two runs bit-identical;
+    times by CUDA graph replay, this checkout's build interleaved with
+    `build/attention_bwd_before.cu` where that file is there, beside f32
+    SDPA's backward (forward + backward less forward), the plain version
+    and two bounds on the 7 products the function needs: the FMA pipe's
+    67 TFLOP/s and the 3xTF32 tensor-core rate SDPA's own products run at.
+    Returns the JSON rows of the two kernels at the training step's shape."""
+    import torch.nn.functional as F
+    from image_matching_tpu_torch.ops import _build
+    from image_matching_tpu_torch.ops import attention as A
+
+    builds = [("before", EARLIER_ATTENTION_BWD, ())] if EARLIER_ATTENTION_BWD.exists() else []
+    libs = {"this checkout": _build.library("attention_bwd"), **build_variants("attention_bwd", builds)}
+    rows = None
+    for b, n, h, dh in F32_BACKWARD_SHAPES:
+        qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * h * dh)).astype("float32")).to(dev)
+        q, k, v = qkv[..., :h * dh], qkv[..., h * dh:2 * h * dh], qkv[..., 2 * h * dh:]
+        mask = torch.from_numpy(rng.uniform(size=(b, n)) < 0.8).to(dev)
+        mask[:, 0] = True
+        dout = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev)
+        _, lse = A.attention_lse(q, k, v, mask, h)
+        delta = torch.empty((b, h, n), dtype=torch.float32, device=dev)  # written by dQ, read by dK/dV
+        dq, dk, dv = (torch.empty((b, n, h * dh), dtype=torch.float32, device=dev) for _ in range(3))
+        calls = {"dQ": lambda: A.attention_backward_kernel("attention_dq", q, k, v, mask, dout, lse, delta, (dq,), h),
+                 "dK/dV": lambda: A.attention_backward_kernel("attention_dkdv", q, k, v, mask, dout, lse, delta,
+                                                             (dk, dv), h)}
+        plain = A.attention_backward_plain(q, k, v, mask, lse, dout, h)
+        # how far any f32 order of these sums lies from the answer: the same function in
+        # float64, on the float64 upcasts and their own float64 LSE
+        q64, k64, v64, do64 = (t.double() for t in (q, k, v, dout))
+        exact = A.attention_backward_plain(q64, k64, v64, mask, A.attention_lse_plain(q64, k64, v64, mask, h)[1],
+                                           do64, h)
+        plain_to_exact = [_grad_error((p,), (e,)) for p, e in zip(plain, exact)]
+        shape = f"({b}, {n}, {h}x{dh})"
+        print(f"f32 attention backward {shape}: plain f32 version's distance to float64, relative to the largest "
+              f"entry: dq {plain_to_exact[0]:.2e}, dk {plain_to_exact[1]:.2e}, dv {plain_to_exact[2]:.2e}")
+        worst = {"dQ": 0.0, "dK/dV": 0.0}
+        for label, lib in libs.items():
+            runs = []
+            for _ in range(2):
+                for call in calls.values():  # dQ first: it writes the delta dK/dV reads
+                    with_attention_bwd(lib, call)()
+                runs.append((dq.clone(), dk.clone(), dv.clone()))
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in zip(*runs))
+            err = [_grad_error((g,), (p,)) for g, p in zip(runs[0], plain)]
+            to_exact = [_grad_error((g,), (e,)) for g, e in zip(runs[0], exact)]
+            if label == "this checkout":
+                worst = {"dQ": (runs[0][0] - plain[0]).abs().max().item(),
+                         "dK/dV": max((runs[0][i] - plain[i]).abs().max().item() for i in (1, 2))}
+            print(f"f32 attention backward {shape} [{label}]: error against the plain version, relative to the "
+                  f"largest entry (tol 1e-4): dq {err[0]:.2e}, dk {err[1]:.2e}, dv {err[2]:.2e}; distance to float64: "
+                  f"dq {to_exact[0]:.2e}, dk {to_exact[1]:.2e}, dv {to_exact[2]:.2e}; a second run bit-identical: "
+                  f"{same}")
+            check(max(err) <= 1e-4 and same, f"f32 attention backward {shape} [{label}] disagrees or is not "
+                                             "reproducible")
+        del exact, q64, k64, v64, do64
+        times = time_interleaved({f"{name} [{label}]": with_attention_bwd(lib, call)
+                                  for label, lib in libs.items() for name, call in calls.items()}, reps=10)
+        qh, kh, vh = (t.reshape(b, n, h, dh).transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        m4, doh = mask[:, None, None, :], dout.reshape(b, n, h, dh).transpose(1, 2).contiguous()
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4)
+
+        lib_ms = graph_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4),
+                                                      (qh, kh, vh), doh), 10) - graph_ms(sdpa_fwd, 10)
+        plain_ms = graph_ms(lambda: A.attention_backward_plain(q, k, v, mask, lse, dout, h), 3)
+        pair = 2.0 * b * h * n * n * dh  # operations of one (N x M x dh) product
+        one, row_bytes = b * n * h * dh * 4, b * h * n * 4  # one f32 operand; lse or delta
+        # every input read and output written once: the function's 7 products; dQ needs
+        # S, dP, dS K and writes delta, dK/dV needs S^T, dP^T, P^T dO, dS^T Q and reads it
+        fma7, tc7 = (bound(6 * one + 2 * row_bytes + b * n, 7 * pair, rate) for rate in (F32_FLOPS, F32_3XTF32_FLOPS))
+        bounds = {"dQ": bound(5 * one + 2 * row_bytes + b * n, 3 * pair, F32_FLOPS),
+                  "dK/dV": bound(6 * one + 2 * row_bytes + b * n, 4 * pair, F32_FLOPS)}
+        mean = {key: statistics.mean(ts) for key, ts in times.items()}
+        print(f"f32 attention backward {shape}: ms per call by CUDA graph replay, builds interleaved: " + "; ".join(
+            f"{key} " + " / ".join(f"{t:.4f}" for t in ts) for key, ts in times.items()))
+        for label in libs:
+            both = mean[f"dQ [{label}]"] + mean[f"dK/dV [{label}]"]
+            print(f"  [{label}] dQ + dK/dV {both:.4f} ms: {both / lib_ms:.3f} of f32 SDPA's backward ({lib_ms:.4f}); "
+                  f"{fma7[0] / both:.3f} of the FMA pipe's bound reached, {tc7[0] / both:.3f} of the 3xTF32 one")
+        print(f"  plain backward (dq, dk, dv together) {plain_ms:.4f} ms; bounds on the 7 products: FMA pipe at 67 "
+              f"TFLOP/s {fma7[0]:.4f} ms, 3xTF32 tensor cores at 165 TFLOP/s {tc7[0]:.4f} ms; per kernel at 67 "
+              f"TFLOP/s: dQ {bounds['dQ'][0]:.4f} (3 products), dK/dV {bounds['dK/dV'][0]:.4f} (4); launches per f32 "
+              f"training step at D = 128: 36 of each")
+        if rows is None:
+            rows = [dict(name=f"attention_{key}_f32", route="cuda", source="image_matching_tpu_torch/csrc/attention_bwd.cu",
+                         replaces=f"image_matching_tpu/ops/pallas/attention.py:{line}", max_abs_err=worst[name],
+                         ms=mean[f"{name} [this checkout]"], plain_ms=plain_ms, bound_ms=bounds[name][0],
+                         bound_by=bounds[name][1], library_ms=lib_ms, library_covers=WHOLE_BACKWARD)
+                    for key, name, line in (("dq", "dQ", 168), ("dkdv", "dK/dV", 121))]
+    return rows
 
 
 # (B, N, H, dh, with LSE): the forward's timed shapes: the headline (36 calls per
@@ -1216,7 +1334,8 @@ def time_attention_training(torch, dev, rng, b, n, h, dh, profiled):
         source = "attention.cu" if name == "attention_lse" else "attention_bwd.cu"
         rows.append(dict(name=name, route="cuda", source=f"image_matching_tpu_torch/csrc/{source}",
                          replaces=line, ms=replayed[key], plain_ms=replayed[plain], bound_ms=bounds[key][0],
-                         bound_by=bounds[key][1], library_ms=replayed[lib]))
+                         bound_by=bounds[key][1], library_ms=replayed[lib],
+                         **({"library_covers": WHOLE_BACKWARD} if lib == "lib_bwd" else {})))
     return rows
 
 
@@ -1263,12 +1382,12 @@ def recorded_backward_calls(torch, calls):
         yield
 
 
-def check_backward_calls(torch, calls, label, n_attn):
+def check_backward_calls(torch, calls, label, n_attn, dtype):
     """The dK/dV and dQ kernels against their plain versions on the inputs
-    of every attention backward of one bf16 training step, and all three
-    against each call's exact gradient: what the kernels compute on the
-    model's own q, k, v, mask, LSE and upstream gradient, apart from how
-    the model carries it on."""
+    of every attention backward of one training step in `dtype`, and all
+    three against each call's exact gradient: what the kernels compute on
+    the model's own q, k, v, mask, LSE and upstream gradient, apart from
+    how the model carries it on."""
     from image_matching_tpu_torch.ops import attention as A
 
     check(len(calls) == n_attn, f"{label}: {len(calls)} attention backward calls recorded, not {n_attn}")
@@ -1279,43 +1398,49 @@ def check_backward_calls(torch, calls, label, n_attn):
         for name, a, r in zip(errs, got, ref):
             errs[name].append(_grad_error((a,), (r,)))
     torch.cuda.synchronize()
-    # as the kernel checks: the kernels round P to bf16 for dV, the plain
-    # version keeps f32; relative to each tensor's largest entry
-    tol = 2e-2
-    print(f"training ({label}): the {len(calls)} attention backward calls of one bf16 step, kernels vs plain "
+    # as the kernel checks: in bf16 the kernels round P to bf16 for dV, the
+    # plain version keeps f32; f32 is full f32 on both sides, sums in other
+    # orders; relative to each tensor's largest entry
+    kind = str(dtype)[6:]
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    print(f"training ({label}): the {len(calls)} attention backward calls of one {kind} step, kernels vs plain "
           f"FA2 on the same inputs, error relative to the largest entry (tol {tol}): " + ", ".join(
               f"{n} worst {max(e):.3e} median {statistics.median(e):.3e}" for n, e in errs.items()))
     worst = max(max(e) for e in errs.values())
     check(worst <= tol, f"{label}: attention backward kernels disagree with plain FA2 in training ({worst})")
 
     # each call's exact gradient: autograd of the plain attention on the
-    # f32 upcast of its inputs. How far from it are the kernels (delta =
-    # rowsum(P * dP)), FA2's delta = rowsum(dO * O) from the bf16 output
+    # float64 upcast of its inputs. How far from it are the kernels (delta =
+    # rowsum(P * dP)), FA2's delta = rowsum(dO * O) from the stored output
     # (the TPU kernel's choice, in the plain version) and what the
-    # all-plain path computes (autograd of the plain attention in bf16)?
+    # all-plain path computes (autograd of the plain attention in `dtype`)?
     # "sum dq" is dq summed over batch and rows, which is what the query
     # projection's bias receives (the key projection's gets 0 in exact
     # arithmetic: a shift shared by all keys leaves the softmax as it is).
-    cands = ("kernels", "FA2 delta from bf16 O", "plain bf16 autograd")
+    cands = ("kernels", f"FA2 delta from {kind} O", f"plain {kind} autograd")
     cos = {c: {n: [] for n in ("dq", "dk", "dv", "sum dq")} for c in cands}
+    dist = {c: [] for c in cands}  # the largest of dq, dk, dv's distances, relative to the largest entry
     for q, k, v, mask, lse, dout, h in calls:
-        qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
-        truth = torch.autograd.grad(A.attention_plain(qf, kf, vf, mask, h, "float32"), (qf, kf, vf), dout.float())
-        out = A.attention_lse(q, k, v, mask, h)[0]  # the forward's bf16 output
+        qf, kf, vf = (t.double().requires_grad_() for t in (q, k, v))
+        truth = torch.autograd.grad(A.attention_plain(qf, kf, vf, mask, h, "float32"), (qf, kf, vf), dout.double())
+        out = A.attention_lse(q, k, v, mask, h)[0]  # the forward's output, in `dtype`
         b, n, dt = out.shape
         delta = (out.float() * dout.float()).reshape(b, n, h, dt // h).sum(-1).transpose(1, 2)
         qb, kb, vb = (t.clone().requires_grad_() for t in (q, k, v))
-        got = {"kernels": A.attention_backward(q, k, v, mask, lse, dout, h),
-               "FA2 delta from bf16 O": A.attention_backward_plain(q, k, v, mask, lse, dout, h, delta),
-               "plain bf16 autograd": torch.autograd.grad(A.attention_plain(qb, kb, vb, mask, h, "float32"),
-                                                          (qb, kb, vb), dout)}
+        got = dict(zip(cands, (A.attention_backward(q, k, v, mask, lse, dout, h),
+                               A.attention_backward_plain(q, k, v, mask, lse, dout, h, delta),
+                               torch.autograd.grad(A.attention_plain(qb, kb, vb, mask, h, "float32"),
+                                                   (qb, kb, vb), dout))))
         for c, g in got.items():
             for i, name in enumerate(("dq", "dk", "dv")):
                 cos[c][name].append(_cosine(g[i], truth[i]))
-            cos[c]["sum dq"].append(_cosine(g[0].float().sum((0, 1)), truth[0].sum((0, 1))))
+            dist[c].append(_grad_error(g, truth))
+            cos[c]["sum dq"].append(_cosine(g[0].double().sum((0, 1)), truth[0].sum((0, 1))))
     for c in cands:
         print(f"  gradient cosine to each call's exact gradient, {c}: " + ", ".join(
-            f"{n} median {statistics.median(v):.5f} worst {min(v):.5f}" for n, v in cos[c].items()))
+            f"{n} median {statistics.median(v):.5f} worst {min(v):.5f}" for n, v in cos[c].items())
+              + f"; distance to it, relative to the largest entry: median {statistics.median(dist[c]):.2e}, worst "
+              f"{max(dist[c]):.2e}")
     # every call's gradients point where the exact ones do: bf16 inputs,
     # f32 inside (the plain bf16 path's attention read 0.9994 at worst on
     # the H100)
@@ -1357,7 +1482,7 @@ def compare_paths(torch, sg, label, kp0, kp1, gt0, gt1, shape, n_attn):
                 check(_build.LAUNCHES["attention_dq"] == n_attn, f"{path} path missed the kernels")
         losses[path] = loss.item()
         grads[path] = {n: p.grad for n, p in model.named_parameters()}
-    check_backward_calls(torch, calls, label, n_attn)
+    check_backward_calls(torch, calls, label, n_attn, torch.bfloat16)
     # some biases have a gradient of 0 in exact arithmetic, because the
     # per-channel shift they add reaches a batch norm, which removes it:
     # a Dense bias ahead of a norm; the merge projection's and the value
@@ -1407,37 +1532,30 @@ def compare_paths(torch, sg, label, kp0, kp1, gt0, gt1, shape, n_attn):
           "bf16 kernel and plain losses disagree")
 
 
-def run_training(torch, dev):
-    """SuperGlue training at the training CLI's defaults, through the
-    kernels. Returns the launch counts of one step."""
-    import copy
+# the training CLI's SuperGlue (D = 128, 18 GNN layers, 100 Sinkhorn iterations)
+SG_TRAIN_KW = dict(descriptor_dim=128, keypoint_encoder=(32, 64, 128), gnn_layers=18, sinkhorn_iterations=100)
 
-    import numpy as np
+
+def train_at_cli_defaults(torch, dev, images, dtype: str):
+    """SuperGlue training at the training CLI's defaults in `dtype` on
+    `images` (batch 4 at 240x320; K=512, lr 1e-4, frozen SuperPoint in the
+    same dtype, warm start from the banked weights), through the kernels:
+    launch counts of one step, steps/s, peak memory, per-step metrics and
+    the profile of a step. Returns (sg, sp, state, step, gen, launches, sec)."""
     from image_matching_tpu_torch.models import SuperGlue, SuperPointBN
     from image_matching_tpu_torch.ops import _build
     from image_matching_tpu_torch.train.state import TrainState
-    from image_matching_tpu_torch.train.superglue_trainer import (
-        SuperGluePairConfig,
-        generate_pair_from_homographies,
-        make_superglue_train_step,
-        train_on_pair,
-    )
-    from image_matching_tpu_torch.geometry.homography import sample_homography_batch
-    from image_matching_tpu_torch.losses.superglue_loss import superglue_nll_loss
+    from image_matching_tpu_torch.train.superglue_trainer import SuperGluePairConfig, make_superglue_train_step
     from image_matching_tpu_torch.weights import load_npz
 
-    batch, h, w, layers = 4, 240, 320, 18
-    sg_kw = dict(descriptor_dim=128, keypoint_encoder=(32, 64, 128), gnn_layers=layers,
-                 sinkhorn_iterations=100, compute_dtype="bfloat16")
-    cfg = SuperGluePairConfig()  # K=512, threshold 0.005, NMS 4, 3 px, patch 0.85 with artifacts
-    sp = SuperPointBN(128, compute_dtype="bfloat16", device=dev)
+    label = "training" if dtype == "bfloat16" else "f32 training"
+    sp = SuperPointBN(128, compute_dtype=dtype, device=dev)
     load_npz(sp, str(ROOT / "weights" / "sp_photo.npz"))
-    sg = SuperGlue(**sg_kw, device=dev)
+    sg = SuperGlue(**SG_TRAIN_KW, compute_dtype=dtype, device=dev)
     load_npz(sg, str(ROOT / "weights" / "sg_photo.npz"))
     state = TrainState.create(sg, 1e-4)
-    step = make_superglue_train_step(sg, sp, cfg)
-    rng = np.random.default_rng(2)
-    images = torch.from_numpy(np.stack([texture(torch, rng, h, w) for _ in range(batch)])[..., None]).to(dev)
+    # K=512, threshold 0.005, NMS 4, 3 px, patch 0.85 with artifacts
+    step = make_superglue_train_step(sg, sp, SuperGluePairConfig())
     gen = torch.Generator(device=dev).manual_seed(0)
 
     for _ in range(2):  # warm-up: cuDNN algorithm choice, allocator
@@ -1449,12 +1567,12 @@ def run_training(torch, dev):
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    n_attn = 2 * layers
-    print(f"training launches per step: {launches} (entry_conv 1: both views in one 2B-batched "
+    n_attn = 2 * SG_TRAIN_KW["gnn_layers"]
+    print(f"{label} launches per step: {launches} (entry_conv 1: both views in one 2B-batched "
           f"SuperPoint call, where the JAX trainer makes two; no Sinkhorn kernel: training runs the "
           f"differentiable loop)")
     check(launches == {"entry_conv": 1, "attention_lse": n_attn, "attention_dkdv": n_attn, "attention_dq": n_attn},
-          f"training launch counts {launches}")
+          f"{label} launch counts {launches}")
 
     history, times = [m], []
     for _ in range(10):
@@ -1463,26 +1581,50 @@ def run_training(torch, dev):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     sec = statistics.median(times)
-    print(f"training: {1 / sec:.3f} steps/s ({sec * 1e3:.2f} ms per step of batch {batch}, median of 10 after "
-          f"2 warm-up steps; min {min(times) * 1e3:.2f} ms, max {max(times) * 1e3:.2f} ms); peak memory "
+    print(f"{label}: {1 / sec:.3f} steps/s ({sec * 1e3:.2f} ms per step of batch {images.shape[0]}, median of 10 "
+          f"after 2 warm-up steps; min {min(times) * 1e3:.2f} ms, max {max(times) * 1e3:.2f} ms); peak memory "
           f"{peak_gib:.3f} GiB; TF32 off")
     for i, mm in enumerate(history):
         vals = {k: float(v) for k, v in mm.items()}
         print(f"  step {i}: loss {vals['loss']:.4f}, gt_matches {int(vals['gt_matches'])}, "
               f"pred_matches {int(vals['pred_matches'])}, match precision {vals['match_precision']:.4f}, "
               f"recall {vals['match_recall']:.4f}, skipped {int(vals['skipped_nonfinite'])}")
-        check(all(math.isfinite(x) for x in vals.values()), f"training step {i}: non-finite metrics {vals}")
-        check(vals["skipped_nonfinite"] == 0, f"training step {i} was skipped")
+        check(all(math.isfinite(x) for x in vals.values()), f"{label} step {i}: non-finite metrics {vals}")
+        check(vals["skipped_nonfinite"] == 0, f"{label} step {i} was skipped")
     check(state.step == 13, f"train state step {state.step} != 13")
-    profile_calls(torch, lambda: step(state, images, gen), sec, "training", "step", reps=2)
-    check(all(torch.isfinite(p).all() for p in sg.parameters()), "non-finite parameters after training")
+    profile_calls(torch, lambda: step(state, images, gen), sec, label, "step", reps=2)
+    check(all(torch.isfinite(p).all() for p in sg.parameters()), f"non-finite parameters after {label}")
+    return sg, sp, state, step, gen, launches, sec
+
+
+def run_training(torch, dev):
+    """SuperGlue training at the training CLI's defaults, through the
+    kernels, in bf16 and then f32 (`run_f32_training`). Returns the launch
+    counts of one step of each."""
+    import numpy as np
+    from image_matching_tpu_torch.models import SuperGlue
+    from image_matching_tpu_torch.train.state import TrainState
+    from image_matching_tpu_torch.train.superglue_trainer import (
+        SuperGluePairConfig,
+        generate_pair_from_homographies,
+        train_on_pair,
+    )
+    from image_matching_tpu_torch.geometry.homography import sample_homography_batch
+
+    batch, h, w = 4, 240, 320
+    rng = np.random.default_rng(2)
+    images = torch.from_numpy(np.stack([texture(torch, rng, h, w) for _ in range(batch)])[..., None]).to(dev)
+    sg, sp, _, _, gen, launches, _ = train_at_cli_defaults(torch, dev, images, "bfloat16")
+    f32_launches = run_f32_training(torch, dev, images)
 
     # kernel path vs all-plain path, one step: same parameters, same pair
+    cfg = SuperGluePairConfig()
+    n_attn = 2 * SG_TRAIN_KW["gnn_layers"]
     hs = sample_homography_batch(gen, batch, h, w, cfg.homography)
     pair = generate_pair_from_homographies(hs, sp, images, cfg)
     kp0, kp1, gt0, gt1 = pair[:4]
     compare_paths(torch, sg, "warm start", kp0, kp1, gt0, gt1, (h, w), n_attn)
-    fresh = SuperGlue(**sg_kw, device=dev, seed=1)
+    fresh = SuperGlue(**SG_TRAIN_KW, compute_dtype="bfloat16", device=dev, seed=1)
     compare_paths(torch, fresh, "random init", kp0, kp1, gt0, gt1, (h, w), n_attn)
 
     # learning: random init, lr 1e-3, 10 steps on one fixed batch and pair
@@ -1490,6 +1632,26 @@ def run_training(torch, dev):
     curve = [float(train_on_pair(fstate, kp0, kp1, gt0, gt1, (h, w))["loss"]) for _ in range(10)]
     print("training: random init, lr 1e-3, one fixed batch: loss " + ", ".join(f"{x:.4f}" for x in curve))
     check(all(math.isfinite(x) for x in curve) and curve[-1] < curve[0], "loss did not fall on one batch")
+    return launches, f32_launches
+
+
+def run_f32_training(torch, dev, images):
+    """The same training at compute_dtype="float32" (SuperPoint and SuperGlue
+    in f32, TF32 off), the path of the f32 kernels, on the same images
+    (`train_at_cli_defaults`); the step also profiled on the build of
+    `build/attention_bwd_before.cu` where that file is there; then every
+    attention backward call of one f32 step against the plain version and
+    its float64 exact gradient. Returns the launch counts of one step."""
+    _, _, state, step, gen, launches, sec = train_at_cli_defaults(torch, dev, images, "float32")
+    if EARLIER_ATTENTION_BWD.exists():  # the same step on the earlier build of the backward kernels
+        earlier = build_variants("attention_bwd", [("before", EARLIER_ATTENTION_BWD, ())])["before"]
+        profile_calls(torch, with_attention_bwd(earlier, lambda: step(state, images, gen)), sec,
+                      "f32 training on build/attention_bwd_before.cu (busy share against this build's median "
+                      "step)", "step", reps=2)
+    calls = []
+    with recorded_backward_calls(torch, calls):
+        step(state, images, gen)
+    check_backward_calls(torch, calls, "f32 training", 2 * SG_TRAIN_KW["gnn_layers"], torch.float32)
     return launches
 
 
@@ -1961,20 +2123,22 @@ def main() -> int:
     run_banked_weights(torch, dev)
 
     train_kernels = check_attention_training(torch, dev, rng)
-    train_launches = run_training(torch, dev)
+    train_launches, f32_train_launches = run_training(torch, dev)
     for kern in train_kernels:
         kern["launches"] = train_launches.get(kern["name"], 0)
     kernels += train_kernels
 
     s2d_libs = s2d_entry_libs()
     s2d_kernels = [check_s2d_entry_conv(torch, dev, rng, s2d_libs), check_realign(torch, dev, rng)]
-    s2d_f32 = time_f32_kernels(torch, dev, rng, s2d_libs)
+    s2d_f32, f32_bwd = time_f32_kernels(torch, dev, rng, s2d_libs)
+    for kern in f32_bwd:  # attention_dq_f32 -> the f32 step's attention_dq launches
+        kern["launches"] = f32_train_launches.get(kern["name"][:-4], 0)
     reg_launches = run_registration(torch, dev, "bn", timed=True)
     run_registration(torch, dev, "vgg", timed=False)
     for kern in s2d_kernels:
         kern["launches"] = reg_launches.get(kern["name"], 0)
     s2d_f32["launches"] = run_f32_backbone(torch, dev, s2d_libs).get("s2d_entry_conv", 0)
-    kernels += s2d_kernels + [s2d_f32]
+    kernels += s2d_kernels + [s2d_f32] + f32_bwd
     run_banked_registration(torch, dev)
 
     print(smi)

@@ -87,8 +87,38 @@
 // 5 times smaller errors, the same cosines, and cost a tenth of the time
 // (PERF.md).
 //
-// f32: plain FMAs, no tensor cores, 4 threads per row as the forward's SIMT
-// kernel; products and exponentials in full f32.
+// f32 (compute_dtype="float32"): `dq_ffma` and `dkdv_ffma`, register-tiled
+// SIMT kernels on plain f32 FMAs; products and exponentials in full f32
+// (the tensor cores would round the products to TF32). Bound: the FMA pipe,
+// 67 TFLOP/s. The function's 7 products are 1.88 GFLOP at (4, 512, 4 x 32),
+// 0.028 ms (its 7.3 MB of q/k/v/dO/dq/dk/dv: 0.0022 ms); the kernels do 9
+// (the delta pass computes S and dP too), 0.036 ms. PyTorch's f32 SDPA
+// backward runs its products on the tensor cores as three TF32 products
+// each, a ceiling of 165 TFLOP/s. What the design does about the FMA pipe:
+//  - A group of 8 warps takes a 64 x 64 tile of S and of dP, 4 x 4 of each
+//    a thread (own rows 8 apart, looped rows 4 apart): per 4 dims, 8
+//    LDS.128 (a warp's 8 own rows on distinct banks, its 4 looped rows
+//    broadcast) for 64 FMAs, no shuffles, chains as deep as dh.
+//  - P and dS go through shared memory (a pitch of 72 floats: conflict-free
+//    stores). The products over the tile's rows read a float4 of them and
+//    DW dims of the looped tile a row, 4 x DW accumulators a thread: in
+//    dK/dV warps 0-3 take dV = P^T dO and warps 4-7 dK = dS^T Q (DW = dh /
+//    8), in dQ all 8 warps dQ = dS K (DW = dh / 16).
+//  - Two groups of a block split the looped side (16 warps on an SM at the
+//    training path's 128 blocks), each with its own 2-stage `cp.async`
+//    ring and named barrier; their partial sums are added through shared
+//    memory in the groups' order. dK/dV at dh = 64 keeps one group (two
+//    would need 244 KB of shared memory), and so does dQ at dh = 16 (two
+//    spill at 128 registers a thread).
+//  - dQ's first pass keeps each thread's partial rowsum(P dP) and
+//    rowsum(P), reduced once after it (the row's 4 lanes by shuffles, then
+//    its 4 warps and the groups through shared memory, in a fixed order);
+//    the second pass walks the keys last tile first, so the two tiles the
+//    first pass left in the ring need no second load.
+//  - P = exp2(S scale log2 e - lse log2 e), key states as factors: no branch.
+// The kernels reach 39-52% of the FMA pipe (PERF.md). What holds them there
+// is not measured yet; the suspect is the shared-memory loads, 2 FMAs a
+// loaded float at a 4 x 4 tile (PERF.md section 7).
 #include <math.h>
 
 #include "hopper.cuh"
@@ -749,187 +779,466 @@ dq_wg(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
   }
 }
 
-// ------------------------------------------------------------------ f32, SIMT
+// ------------------------------------------------------------------ f32: register-tiled FFMA
 
-constexpr int SIMT_THREADS = 128;
-constexpr int TPR = 4;                       // threads per row
-constexpr int SIMT_ROWS = SIMT_THREADS / TPR;
+// A group of FG threads (8 warps) works on whole 64 x 64 tiles: the block's
+// own 64 rows (keys for dK/dV, queries for dQ) against one 64-row tile of
+// the looped side, both row-major in shared memory with rows of DH + 4
+// floats (16-byte aligned, and 8 consecutive rows fall on distinct banks).
+constexpr int FG = 256;
+constexpr int XLD = T + 8;  // row pitch of a P / dS tile, in floats: conflict-free stores
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void load4(const float* p, float* d) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  d[0] = x.x; d[1] = x.y; d[2] = x.z; d[3] = x.w;
+template <int DH>
+__host__ __device__ constexpr int f32_ld() { return DH + 4; }
+
+// Groups of a block, each count measured on the card against one group
+// (PERF.md): two where their shared memory fits and their registers (128 a
+// thread at 512 threads) do not spill; one for dK/dV at dh = 64 (two would
+// need 244 KB) and for dQ at dh = 16 (two spill).
+template <int DH>
+__host__ __device__ constexpr int dkdv_ffma_groups() { return DH == 64 ? 1 : 2; }
+template <int DH>
+__host__ __device__ constexpr int dq_ffma_groups() { return DH == 16 ? 1 : 2; }
+
+__device__ __forceinline__ void ffma_group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(grp + 1), "n"(FG) : "memory");
 }
 
-// This thread's dims of a DH-vector: CHUNKS chunks of 4, interleaved by part.
+// Rows [r0, r0 + T) of a row-strided (rows, DH) f32 matrix into a tile of
+// pitch DH + 4 by `NT` threads, 16 bytes a `cp.async`, zeros past `rows`.
+template <int DH, int NT>
+__device__ __forceinline__ void stage_f32(float* tile, const float* base, int64_t rs, int r0, int rows, int tid) {
+  constexpr int CH = DH / 4;
+  for (int c = tid; c < T * CH; c += NT) {
+    const int row = c / CH, col = (c % CH) * 4;
+    const bool ok = r0 + row < rows;
+    cp_async_16(tile + row * f32_ld<DH>() + col, ok ? base + (r0 + row) * rs + col : base, ok);
+  }
+}
+
+// The first product, C = Own . Loop^T over dh: thread (warp w, lane) holds
+// own rows `own` + 8i and loop rows `loop` + 4j, i, j < 4: 16 accumulators
+// a product, one float4 of a row per operand and step of 4 dims. A warp
+// reads 8 consecutive own rows (conflict-free) and 4 loop rows (broadcast
+// to 8 lanes each): 8 LDS.128 for 64 FMAs.
+struct NtLane {
+  int own, loop;
+};
+
+__device__ __forceinline__ NtLane nt_lane(int gt) {
+  const int w = gt / 32, lane = gt % 32;
+  return {32 * (w % 2) + lane % 8, 16 * (w / 2) + lane / 8};
+}
+
+// c[i][j] += sum_d own[8i][d] loop[4j][d], d in order (`own`, `loop`: the
+// thread's first rows)
 template <int DH>
-__device__ __forceinline__ void load_row(float (*x)[4], const float* row, int part, bool ok) {
+__device__ __forceinline__ void nt_product(float (*c)[4], const float* own, const float* loop) {
+  constexpr int LD = f32_ld<DH>();
 #pragma unroll
-  for (int c = 0; c < DH / 16; ++c) {
-    if (ok) {
-      load4(row + c * 16 + part * 4, x[c]);
-    } else {
+  for (int d = 0; d < DH; d += 4) {
+    float4 a[4], b[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) x[c][e] = 0.f;
+    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(own + 8 * i * LD + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(loop + 4 * j * LD + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        c[i][j] = fmaf(a[i].x, b[j].x, c[i][j]);
+        c[i][j] = fmaf(a[i].y, b[j].y, c[i][j]);
+        c[i][j] = fmaf(a[i].z, b[j].z, c[i][j]);
+        c[i][j] = fmaf(a[i].w, b[j].w, c[i][j]);
+      }
+  }
+}
+
+// C (own x loop) into a tile X[loop row][own row] of pitch XLD: a warp's
+// 4 x 8 entries of each (i, j) land on 32 distinct banks.
+__device__ __forceinline__ void store_x(float* x, const float (*c)[4], const NtLane& L) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[(L.loop + 4 * j) * XLD + L.own + 8 * i] = c[i][j];
+}
+
+// The products that contract over the loop tile's rows, Out (own x DH) +=
+// X^T . Loop: thread t of the NT that share Out holds own rows `own` ..
+// `own` + 3 and dims `dim` .. `dim` + DW - 1 (NT = 16 DH / DW). A warp reads
+// 8 float4 of one X row (128 contiguous bytes) and 4 x DW floats of one
+// loop row: 2 loads for 4 DW FMAs.
+struct TnLane {
+  int own, dim;
+};
+
+template <int DH, int DW>
+__device__ __forceinline__ TnLane tn_lane(int t) {
+  constexpr int YS = DH / DW;  // dim groups
+  const int rest = t / 8;
+  return {4 * (t % 8 + 8 * (rest / YS)), DW * (rest % YS)};
+}
+
+template <int DW>
+__device__ __forceinline__ void load_dims(float* y, const float* p) {
+  if constexpr (DW == 1) {
+    y[0] = p[0];
+  } else if constexpr (DW == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    y[0] = v.x;
+    y[1] = v.y;
+  } else {
+#pragma unroll
+    for (int e = 0; e < DW; e += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + e);
+      y[e] = v.x;
+      y[e + 1] = v.y;
+      y[e + 2] = v.z;
+      y[e + 3] = v.w;
     }
   }
 }
 
-// Dot product of this thread's dims with a staged row, summed over the 4
-// threads of the row.
-template <int DH>
-__device__ __forceinline__ float row_dot(const float (*x)[4], const float* srow, int part) {
-  float dot = 0.f;
+// c[i][e] += sum_r x[r][i] loop[r][e], r = 0 .. 63 in order (`x`, `loop`:
+// the thread's first column of row 0)
+template <int DH, int DW>
+__device__ __forceinline__ void tn_product(float (*c)[DW], const float* x, const float* loop) {
+  constexpr int LD = f32_ld<DH>();
+#pragma unroll 16
+  for (int r = 0; r < T; ++r) {
+    const float4 a4 = *reinterpret_cast<const float4*>(x + r * XLD);
+    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+    float y[DW];
+    load_dims<DW>(y, loop + r * LD);
 #pragma unroll
-  for (int c = 0; c < DH / 16; ++c) {
-    float y[4];
-    load4(srow + c * 16 + part * 4, y);
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dot = fmaf(x[c][e], y[e], dot);
-  }
-  dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-  return dot + __shfl_xor_sync(0xffffffffu, dot, 2);
-}
-
-// acc += w * staged row (this thread's dims)
-template <int DH>
-__device__ __forceinline__ void row_axpy(float (*acc)[4], float w, const float* srow, int part) {
-#pragma unroll
-  for (int c = 0; c < DH / 16; ++c) {
-    float y[4];
-    load4(srow + c * 16 + part * 4, y);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = fmaf(w, y[e], acc[c][e]);
+      for (int e = 0; e < DW; ++e) c[i][e] = fmaf(a[i], y[e], c[i][e]);
   }
 }
 
-template <int DH>
-__device__ __forceinline__ void store_row(float* out, const float (*x)[4], int part) {
+// Rows own .. own + 3 (those below `rows`, counted from `row0`) of Out to a
+// contiguous (., H * DH) f32 matrix at `out` (batch and head applied).
+template <int DW>
+__device__ __forceinline__ void store_out(float* out, int row0, int rows, int64_t rs, const float (*c)[DW],
+                                          const TnLane& R) {
 #pragma unroll
-  for (int c = 0; c < DH / 16; ++c)
-    *reinterpret_cast<float4*>(out + c * 16 + part * 4) = make_float4(x[c][0], x[c][1], x[c][2], x[c][3]);
-}
-
-// Stage rows [r0, r0 + T) of a row-strided (rows, DH) f32 matrix, zero past `rows`.
-template <int DH>
-__device__ __forceinline__ void stage_f32(float (*s)[DH], const float* base, int64_t rs, int r0, int rows) {
-  for (int idx = threadIdx.x; idx < T * DH / 4; idx += SIMT_THREADS) {
-    const int j = idx / (DH / 4), d = (idx % (DH / 4)) * 4;
-    if (r0 + j < rows) {
-      load4(base + (r0 + j) * rs + d, &s[j][d]);
+  for (int i = 0; i < 4; ++i) {
+    if (row0 + R.own + i >= rows) continue;
+    float* o = out + (int64_t)(row0 + R.own + i) * rs + R.dim;
+    if constexpr (DW == 1) {
+      o[0] = c[i][0];
+    } else if constexpr (DW == 2) {
+      *reinterpret_cast<float2*>(o) = make_float2(c[i][0], c[i][1]);
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][d + e] = 0.f;
+      for (int e = 0; e < DW; e += 4)
+        *reinterpret_cast<float4*>(o + e) = make_float4(c[i][e], c[i][e + 1], c[i][e + 2], c[i][e + 3]);
     }
   }
 }
 
+// The partial sums of groups 1.. through their own (idle) rings, added by
+// group 0 in the groups' order; thread gt of every group owns the same
+// entries. Every thread of the block calls it.
+template <int NG, int N>
+__device__ __forceinline__ void add_groups(float* c, float* ring0, int ring_floats, int grp, int gt) {
+  if constexpr (NG > 1) {
+    __syncthreads();  // every group is done with its ring
+    if (grp > 0)
+#pragma unroll
+      for (int k = 0; k < N; ++k) ring0[grp * ring_floats + k * FG + gt] = c[k];
+    __syncthreads();
+    if (grp == 0)
+#pragma unroll
+      for (int o = 1; o < NG; ++o)
+#pragma unroll
+        for (int k = 0; k < N; ++k) c[k] += ring0[o * ring_floats + k * FG + gt];
+  }
+}
+
+// One dK/dV group's ring stage: Q and dO tiles, then the lse and delta rows.
 template <int DH>
-__global__ void __launch_bounds__(SIMT_THREADS)
-dkdv_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
+__host__ __device__ constexpr int dkdv_ffma_stage() { return 2 * T * f32_ld<DH>() + 2 * T; }
+
+// A group's floats: its ring, then the P and dS tiles.
+template <int DH>
+__host__ __device__ constexpr int dkdv_ffma_group() { return STAGES * dkdv_ffma_stage<DH>() + 2 * T * XLD; }
+
+template <int DH, int NG>
+__host__ __device__ constexpr int dkdv_ffma_smem_bytes() { return (2 * T * f32_ld<DH>() + NG * dkdv_ffma_group<DH>()) * 4; }
+
+// dK and dV of the block's 64 keys. Per query tile: S^T and dP^T (64 keys x
+// 64 queries) as register tiles, P and dS in registers, through shared
+// memory as P[query][key] and dS[query][key]; then warps 0-3 take
+// dV += P^T dO and warps 4-7 dK += dS^T Q, 4 keys x dh / 8 dims a thread.
+template <int DH, int NG>
+__global__ void __launch_bounds__(NG * FG, 1)
+dkdv_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
           const float* __restrict__ k, int64_t k_bs, int64_t k_rs,
           const float* __restrict__ v, int64_t v_bs, int64_t v_rs,
           const uint8_t* __restrict__ mask, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           float* __restrict__ dk, float* __restrict__ dv, int N, int M, int H, float scale) {
-  constexpr int C = DH / 16;
-  __shared__ __align__(16) float qs[T][DH];
-  __shared__ __align__(16) float dos[T][DH];
-  __shared__ float lse_s[T], delta_s[T];
+  constexpr int LD = f32_ld<DH>(), DW = DH / 8, STAGE = dkdv_ffma_stage<DH>(), GROUP_F = dkdv_ffma_group<DH>();
+  extern __shared__ __align__(16) float fsm[];
+  float* own_k = fsm;
+  float* own_v = own_k + T * LD;
+  float* rings = own_v + T * LD;
+  const int tid = threadIdx.x, grp = tid / FG, gt = tid % FG;
+  float* ring = rings + grp * GROUP_F;
+  float* xp = ring + STAGES * STAGE;  // P[query][key]
+  float* xs = xp + T * XLD;           // dS[query][key]
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int key = blockIdx.x * SIMT_ROWS + threadIdx.x / TPR, part = threadIdx.x % TPR;
-  const bool dead = dead_batch(mask, b, M);
-  const uint8_t st = key_state(mask, b, M, key, dead);
-  float kr[C][4], vr[C][4], dkc[C][4], dvc[C][4];
-  load_row<DH>(kr, k + b * k_bs + key * k_rs + h * DH, part, key < M);
-  load_row<DH>(vr, v + b * v_bs + key * v_rs + h * DH, part, key < M);
-  load_row<DH>(dkc, nullptr, part, false);
-  load_row<DH>(dvc, nullptr, part, false);
-
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * T;
+  const int ntiles = (N + T - 1) / T;  // query tiles; group grp takes grp, grp + NG, ...
+  const int cnt = grp < ntiles ? (ntiles - grp + NG - 1) / NG : 0;
   const int64_t do_rs = (int64_t)H * DH;
+  const float* q_b = q + b * q_bs + h * DH;
+  const float* do_b = dout + b * N * do_rs + h * DH;
   const float* lse_b = lse + ((int64_t)b * H + h) * N;
   const float* delta_b = delta + ((int64_t)b * H + h) * N;
-  for (int qt0 = 0; qt0 < N; qt0 += T) {
-    __syncthreads();
-    stage_f32<DH>(qs, q + b * q_bs + h * DH, q_rs, qt0, N);
-    stage_f32<DH>(dos, dout + b * N * do_rs + h * DH, do_rs, qt0, N);
-    for (int j = threadIdx.x; j < T; j += SIMT_THREADS) {
-      const bool in = qt0 + j < N;
-      lse_s[j] = in ? lse_b[qt0 + j] : INFINITY;
-      delta_s[j] = in ? delta_b[qt0 + j] : 0.f;
+
+  // the group's `it`-th query tile into its stage; rows past N are zeros
+  // (lse = delta = 0 beside dO = 0: P finite, dS = 0, no dV)
+  auto stage = [&](int it) {
+    float* s = ring + (it % STAGES) * STAGE;
+    const int r0 = (grp + it * NG) * T;
+    stage_f32<DH, FG>(s, q_b, q_rs, r0, N, gt);
+    stage_f32<DH, FG>(s + T * LD, do_b, do_rs, r0, N, gt);
+    if (gt < 2 * T) {
+      const int j = gt % T;
+      const bool ok = r0 + j < N;
+      const float* src = gt < T ? lse_b : delta_b;
+      cp_async_4(s + 2 * T * LD + gt, ok ? src + r0 + j : src, ok);
     }
-    __syncthreads();
-    for (int i = 0; i < T; ++i) {
-      const float s = row_dot<DH>(kr, qs[i], part);
-      const float dp = row_dot<DH>(vr, dos[i], part);
-      const float p = st == VALID ? expf(s * scale - lse_s[i]) : (st == DEAD_KEY ? expf(-lse_s[i]) : 0.f);
-      const float ds = st == VALID ? p * (dp - delta_s[i]) * scale : 0.f;
-      row_axpy<DH>(dvc, p, dos[i], part);
-      row_axpy<DH>(dkc, ds, qs[i], part);
+  };
+
+  stage_f32<DH, NG * FG>(own_k, k + b * k_bs + h * DH, k_rs, k0, M, tid);
+  stage_f32<DH, NG * FG>(own_v, v + b * v_bs + h * DH, v_rs, k0, M, tid);
+  cp_async_commit();
+  if (cnt > 0) stage(0);
+  cp_async_commit();
+
+  // the thread's 4 keys of S^T as factors (key_row): P = exp2(S s2 - lse
+  // log2 e) where the key counts, dS = P (dP - delta) ds
+  const NtLane L = nt_lane(gt);
+  const bool dead = dead_batch(mask, b, M);
+  float s2[4], ds_scale[4];
+  bool counts[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const KeyRow key = key_row(key_state(mask, b, M, k0 + L.own + 8 * i, dead), scale);
+    s2[i] = key.s_scale * LOG2E;
+    ds_scale[i] = key.ds_scale;
+    counts[i] = key.counts;
+  }
+  const int role = gt / (FG / 2);  // 0: dV = P^T dO, 1: dK = dS^T Q
+  const TnLane R = tn_lane<DH, DW>(gt % (FG / 2));
+  float acc[4][DW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DW; ++e) acc[i][e] = 0.f;
+
+  cp_async_wait<0>();  // the own tiles (and the first query tile) have landed
+  __syncthreads();
+  for (int it = 0; it < cnt; ++it) {
+    cp_async_wait<0>();  // tile it has landed; the group is done with tile it - 1
+    ffma_group_sync(grp);
+    if (it + 1 < cnt) stage(it + 1);
+    cp_async_commit();
+    const float* cur = ring + (it % STAGES) * STAGE;
+    const float* qs = cur;
+    const float* dos = cur + T * LD;
+    const float* rows = cur + 2 * T * LD;  // lse, then delta
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    nt_product<DH>(s, own_k + L.own * LD, qs + L.loop * LD);
+    nt_product<DH>(dp, own_v + L.own * LD, dos + L.loop * LD);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float l2 = rows[L.loop + 4 * j] * LOG2E, d = rows[T + L.loop + 4 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // the exponential outside the choice: no branch
+        const float e = exp2f(fmaf(s[i][j], s2[i], -l2));
+        s[i][j] = counts[i] ? e : 0.f;
+        dp[i][j] = s[i][j] * (dp[i][j] - d) * ds_scale[i];
+      }
     }
+    store_x(xp, s, L);
+    store_x(xs, dp, L);
+    ffma_group_sync(grp);
+    tn_product<DH, DW>(acc, (role ? xs : xp) + R.own, (role ? qs : dos) + R.dim);
   }
-  if (key < M) {
-    store_row<DH>(dk + ((int64_t)b * M + key) * do_rs + h * DH, dkc, part);
-    store_row<DH>(dv + ((int64_t)b * M + key) * do_rs + h * DH, dvc, part);
-  }
+
+  add_groups<NG, 4 * DW>(&acc[0][0], rings, GROUP_F, grp, gt);
+  if (grp == 0) store_out<DW>((role ? dk : dv) + (int64_t)b * M * do_rs + h * DH, k0, M, do_rs, acc, R);
 }
 
+// A dQ group's ring stage: K and V tiles.
 template <int DH>
-__global__ void __launch_bounds__(SIMT_THREADS)
-dq_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
+__host__ __device__ constexpr int dq_ffma_stage() { return 2 * T * f32_ld<DH>(); }
+
+// A group's floats: its ring, then the dS tile.
+template <int DH>
+__host__ __device__ constexpr int dq_ffma_group() { return STAGES * dq_ffma_stage<DH>() + T * XLD; }
+
+template <int DH, int NG>
+__host__ __device__ constexpr int dq_ffma_smem_bytes() { return (2 * T * f32_ld<DH>() + NG * dq_ffma_group<DH>()) * 4; }
+
+// dQ of the block's 64 queries, and their delta. Two passes over the key
+// tiles: the first for delta = rowsum(P dP) / rowsum(P) over the valid keys
+// (each thread's partial sums over its keys, added across the 16 threads of
+// a row and the groups once, in a fixed order), the second, last tile
+// first, for dS, through shared memory as dS[key][query], and dQ += dS K,
+// 4 queries x dh / 16 dims a thread. A group's last two tiles are still in
+// its ring when the second pass starts.
+template <int DH, int NG>
+__global__ void __launch_bounds__(NG * FG, 1)
+dq_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
         const float* __restrict__ k, int64_t k_bs, int64_t k_rs,
         const float* __restrict__ v, int64_t v_bs, int64_t v_rs,
         const uint8_t* __restrict__ mask, const float* __restrict__ dout,
         const float* __restrict__ lse, float* __restrict__ delta,
         float* __restrict__ dq, int N, int M, int H, float scale) {
-  constexpr int C = DH / 16;
-  __shared__ __align__(16) float ks[T][DH];
-  __shared__ __align__(16) float vs[T][DH];
-  __shared__ uint8_t valid[T];
+  constexpr int LD = f32_ld<DH>(), DW = DH / 16, STAGE = dq_ffma_stage<DH>(), GROUP_F = dq_ffma_group<DH>();
+  __shared__ float2 row_sums[NG][4][T];  // (sum P dP, sum P) per group, warp row and own row
+  extern __shared__ __align__(16) float fsm[];
+  float* own_q = fsm;
+  float* own_do = own_q + T * LD;
+  float* rings = own_do + T * LD;
+  const int tid = threadIdx.x, grp = tid / FG, gt = tid % FG;
+  float* ring = rings + grp * GROUP_F;
+  float* xs = ring + STAGES * STAGE;  // dS[key][query]
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int row = blockIdx.x * SIMT_ROWS + threadIdx.x / TPR, part = threadIdx.x % TPR;
-  const bool ok = row < N;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * T;
+  const int ntiles = (M + T - 1) / T;  // key tiles; group grp takes grp, grp + NG, ...
+  const int cnt = grp < ntiles ? (ntiles - grp + NG - 1) / NG : 0;
   const int64_t do_rs = (int64_t)H * DH;
-  float qr[C][4], dr[C][4], dqc[C][4];
-  load_row<DH>(qr, q + b * q_bs + row * q_rs + h * DH, part, ok);
-  load_row<DH>(dr, dout + ((int64_t)b * N + row) * do_rs + h * DH, part, ok);
-  load_row<DH>(dqc, nullptr, part, false);
-  const int64_t i = ((int64_t)b * H + h) * N + row;
-  const float lse_r = ok ? lse[i] : INFINITY;
+  const float* k_b = k + b * k_bs + h * DH;
+  const float* v_b = v + b * v_bs + h * DH;
 
-  // pass 1: delta = rowsum(P * dP) / rowsum(P) over the valid keys (the 4
-  // threads of a row hold the same full dot products, so the same sums)
-  float delta_r = 0.f, psum = 0.f;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int kt0 = 0; kt0 < M; kt0 += T) {
-      __syncthreads();
-      stage_f32<DH>(ks, k + b * k_bs + h * DH, k_rs, kt0, M);
-      stage_f32<DH>(vs, v + b * v_bs + h * DH, v_rs, kt0, M);
-      for (int j = threadIdx.x; j < T; j += SIMT_THREADS)
-        valid[j] = key_state(mask, b, M, kt0 + j, false) == VALID;
-      __syncthreads();
-      for (int j = 0; j < T; ++j) {
-        const float s = row_dot<DH>(qr, ks[j], part);
-        const float dp = row_dot<DH>(dr, vs[j], part);
-        const float p = valid[j] ? expf(s * scale - lse_r) : 0.f;
-        if (pass == 0) {
-          delta_r = fmaf(p, dp, delta_r);
-          psum += p;
-        } else {
-          row_axpy<DH>(dqc, p * (dp - delta_r) * scale, ks[j], part);  // pass 2: dQ
-        }
+  auto stage = [&](int it) {
+    float* s = ring + (it % STAGES) * STAGE;
+    const int j0 = (grp + it * NG) * T;
+    stage_f32<DH, FG>(s, k_b, k_rs, j0, M, gt);
+    stage_f32<DH, FG>(s + T * LD, v_b, v_rs, j0, M, gt);
+  };
+
+  stage_f32<DH, NG * FG>(own_q, q + b * q_bs + h * DH, q_rs, q0, N, tid);
+  stage_f32<DH, NG * FG>(own_do, dout + b * N * do_rs + h * DH, do_rs, q0, N, tid);
+  cp_async_commit();
+  if (cnt > 0) stage(0);
+  cp_async_commit();
+
+  const NtLane L = nt_lane(gt);
+  const int64_t row_i = ((int64_t)b * H + h) * N + q0 + L.own;  // of this thread's first own row
+  float l2[4];  // lse * log2 e of the thread's 4 rows; P = 0 past N
+#pragma unroll
+  for (int i = 0; i < 4; ++i) l2[i] = q0 + L.own + 8 * i < N ? lse[row_i + 8 * i] * LOG2E : INFINITY;
+  const float s2 = scale * LOG2E;
+
+  // P (valid keys only) and dP of the group's `it`-th key tile: own rows
+  // (queries) L.own + 8i, keys L.loop + 4j
+  auto p_dp = [&](int it, float (*p)[4], float (*dp)[4]) {
+    const float* cur = ring + (it % STAGES) * STAGE;
+    const int key0 = (grp + it * NG) * T + L.loop;
+    bool ok[4];  // asked for ahead of the products, which hide the trip
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      ok[j] = key0 + 4 * j < M && (mask == nullptr || mask[(int64_t)b * M + key0 + 4 * j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[i][j] = dp[i][j] = 0.f;
+    nt_product<DH>(p, own_q + L.own * LD, cur + L.loop * LD);
+    nt_product<DH>(dp, own_do + L.own * LD, cur + T * LD + L.loop * LD);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float e = exp2f(fmaf(p[i][j], s2, -l2[i]));
+        p[i][j] = ok[j] ? e : 0.f;
       }
-    }
-    if (pass == 0) {
-      delta_r = psum > 0.f ? delta_r / psum : 0.f;
-      if (ok && part == 0) delta[i] = delta_r;
-    }
+  };
+
+  cp_async_wait<0>();  // the own tiles (and the first key tile) have landed
+  __syncthreads();
+
+  // pass 1: delta
+  float num[4] = {0.f, 0.f, 0.f, 0.f}, den[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int it = 0; it < cnt; ++it) {
+    cp_async_wait<0>();
+    ffma_group_sync(grp);
+    if (it + 1 < cnt) stage(it + 1);
+    cp_async_commit();
+    float p[4][4], dp[4][4];
+    p_dp(it, p, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        num[i] = fmaf(p[i][j], dp[i][j], num[i]);
+        den[i] += p[i][j];
+      }
   }
-  if (ok) store_row<DH>(dq + ((int64_t)b * N + row) * do_rs + h * DH, dqc, part);
+  const int lane = gt % 32, wq = gt / 64;  // a row's threads: lanes 8 apart, warps 2 apart
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    num[i] += __shfl_xor_sync(0xffffffffu, num[i], 8);
+    num[i] += __shfl_xor_sync(0xffffffffu, num[i], 16);
+    den[i] += __shfl_xor_sync(0xffffffffu, den[i], 8);
+    den[i] += __shfl_xor_sync(0xffffffffu, den[i], 16);
+    if (lane < 8) row_sums[grp][wq][L.own + 8 * i] = make_float2(num[i], den[i]);
+  }
+  __syncthreads();
+  float delta_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 sum = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int o = 0; o < NG; ++o)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {  // in the groups' and warps' order
+        sum.x += row_sums[o][w][L.own + 8 * i].x;
+        sum.y += row_sums[o][w][L.own + 8 * i].y;
+      }
+    delta_r[i] = sum.y > 0.f ? sum.x / sum.y : 0.f;
+    if (grp == 0 && wq == 0 && lane < 8 && q0 + L.own + 8 * i < N) delta[row_i + 8 * i] = delta_r[i];
+  }
+
+  // pass 2, last tile first: dS and dQ. Tiles cnt - 1 and cnt - 2 are in
+  // the ring; tile it - 1 follows tile it + 1 into its stage.
+  const TnLane R = tn_lane<DH, DW>(gt);
+  float acc[4][DW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DW; ++e) acc[i][e] = 0.f;
+  for (int it = cnt - 1; it >= 0; --it) {
+    cp_async_wait<0>();
+    ffma_group_sync(grp);
+    if (it >= 1 && it - 1 < cnt - STAGES) stage(it - 1);
+    cp_async_commit();
+    float p[4][4], ds[4][4];
+    p_dp(it, p, ds);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ds[i][j] = p[i][j] * (ds[i][j] - delta_r[i]) * scale;
+    store_x(xs, ds, L);
+    ffma_group_sync(grp);
+    tn_product<DH, DW>(acc, xs + R.own, ring + (it % STAGES) * STAGE + R.dim);  // dQ += dS K
+  }
+
+  add_groups<NG, 4 * DW>(&acc[0][0], rings, GROUP_F, grp, gt);
+  if (grp == 0) store_out<DW>(dq + (int64_t)b * N * do_rs + h * DH, q0, N, do_rs, acc, R);
 }
-
-
 
 // ------------------------------------------------------------------ launch
 
@@ -938,15 +1247,6 @@ dq_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
       const T_ *v, int64_t v_bs, int64_t v_rs, const uint8_t *mask, const T_ *dout, \
       const float *lse
 #define BWD_IN_PASS q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, dout, lse
-
-#define DISPATCH_DH(KERNEL, GRID, THREADS, ...)                                       \
-  switch (DH) {                                                                       \
-    case 16: KERNEL<16><<<GRID, THREADS, 0, stream>>>(__VA_ARGS__); break;            \
-    case 32: KERNEL<32><<<GRID, THREADS, 0, stream>>>(__VA_ARGS__); break;            \
-    case 64: KERNEL<64><<<GRID, THREADS, 0, stream>>>(__VA_ARGS__); break;            \
-    default: return static_cast<int>(cudaErrorInvalidValue);                         \
-  }                                                                                   \
-  return static_cast<int>(cudaGetLastError());
 
 template <int DH>
 int run_dkdv_bf16(BWD_IN(__nv_bfloat16), const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv,
@@ -1012,16 +1312,46 @@ int launch_dq_bf16(BWD_IN(__nv_bfloat16), float* delta, __nv_bfloat16* dq, int B
   }
 }
 
+template <int DH>
+int run_dkdv_f32(BWD_IN(float), const float* delta, float* dk, float* dv, int B, int N, int M, int H, float scale,
+                 cudaStream_t stream) {
+  constexpr int NG = dkdv_ffma_groups<DH>(), BYTES = dkdv_ffma_smem_bytes<DH, NG>();
+  const cudaError_t err = allow_smem(dkdv_ffma<DH, NG>, BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv_ffma<DH, NG><<<dim3((M + T - 1) / T, H, B), NG * FG, BYTES, stream>>>(
+      BWD_IN_PASS, delta, dk, dv, N, M, H, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int run_dq_f32(BWD_IN(float), float* delta, float* dq, int B, int N, int M, int H, float scale,
+               cudaStream_t stream) {
+  constexpr int NG = dq_ffma_groups<DH>(), BYTES = dq_ffma_smem_bytes<DH, NG>();
+  const cudaError_t err = allow_smem(dq_ffma<DH, NG>, BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_ffma<DH, NG><<<dim3((N + T - 1) / T, H, B), NG * FG, BYTES, stream>>>(
+      BWD_IN_PASS, delta, dq, N, M, H, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_dkdv_f32(BWD_IN(float), const float* delta, float* dk, float* dv, int B, int N, int M, int H,
                     int DH, float scale, cudaStream_t stream) {
-  const dim3 grid((M + SIMT_ROWS - 1) / SIMT_ROWS, H, B);
-  DISPATCH_DH(dkdv_simt, grid, SIMT_THREADS, BWD_IN_PASS, delta, dk, dv, N, M, H, scale)
+  switch (DH) {
+    case 16: return run_dkdv_f32<16>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
+    case 32: return run_dkdv_f32<32>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
+    case 64: return run_dkdv_f32<64>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int launch_dq_f32(BWD_IN(float), float* delta, float* dq, int B, int N, int M, int H, int DH, float scale,
                   cudaStream_t stream) {
-  const dim3 grid((N + SIMT_ROWS - 1) / SIMT_ROWS, H, B);
-  DISPATCH_DH(dq_simt, grid, SIMT_THREADS, BWD_IN_PASS, delta, dq, N, M, H, scale)
+  switch (DH) {
+    case 16: return run_dq_f32<16>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
+    case 32: return run_dq_f32<32>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
+    case 64: return run_dq_f32<64>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace

@@ -73,21 +73,28 @@ def attention_plain(q, k, v, key_mask=None, num_heads: int = 4,
 
 
 def _softmax_v(logits, v, num_heads):
-    """Softmax of (B, H, N, M) logits in f32, probabilities rounded to the
-    compute dtype, times V: (B, N, H*dh)."""
-    probs = torch.softmax(logits.float(), dim=-1).to(v.dtype)
+    """Softmax of (B, H, N, M) logits in f32 (float64 for float64 logits),
+    probabilities rounded to the compute dtype, times V: (B, N, H*dh)."""
+    probs = torch.softmax(_widened(logits), dim=-1).to(v.dtype)
     b, m, dt = v.shape
     out = torch.einsum("bhnm,bmhd->bnhd", probs, v.reshape(b, m, num_heads, dt // num_heads))
     return out.reshape(b, -1, dt)
 
 
+def _widened(t):
+    """f32 of a compute-dtype tensor; float64 stays float64, so that the
+    plain versions also give the exact references the checks hold f32 to."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _heads(t, num_heads):
     b, n, dt = t.shape
-    return t.float().reshape(b, n, num_heads, dt // num_heads)
+    return _widened(t).reshape(b, n, num_heads, dt // num_heads)
 
 
 def _logits(q, k, key_mask, num_heads, masked_fill, scale=None):
-    """f32 (B, H, N, M) logits of the compute-dtype inputs, scaled by
+    """f32 (B, H, N, M) logits of the compute-dtype inputs (float64 of
+    float64 ones), scaled by
     `scale` (1/sqrt(dh) unless given), masked keys set to `masked_fill`
     (a float or a (B,) tensor)."""
     s = torch.einsum("bnhd,bmhd->bhnm", _heads(q, num_heads), _heads(k, num_heads))
@@ -169,8 +176,10 @@ def attention_lse(q, k, v, key_mask=None, num_heads: int = 4):
 
 def attention_backward(q, k, v, key_mask, lse, dout, num_heads: int = 4):
     """(dq, dk, dv) of attention, dispatched on the device: the dQ and
-    dK/dV kernels of `csrc/attention_bwd.cu` on the card,
-    `attention_backward_plain` on the CPU. Both take delta as
+    dK/dV kernels of `csrc/attention_bwd.cu` on the card (bf16: tensor
+    cores; f32: `dq_ffma` and `dkdv_ffma`, register-tiled on plain f32
+    FMAs, full f32 throughout), `attention_backward_plain` on the CPU.
+    Both take delta as
     rowsum(P * dP) / rowsum(P) from the backward's own P and dP, so that
     every row of dS sums to 0 whatever the LSE's rounding, not as FA2's
     rowsum(dO * O), so they need no output: in bf16 the rounded O leaves
@@ -237,9 +246,9 @@ def _head_dim(q, num_heads):
 
 def _check_call(q, k, v, key_mask, num_heads):
     """Validate what the kernels take; returns (b, n, m, dh). The forward
-    and backward kernels move 16 bytes at a time (`cp.async` in bf16,
-    float4 in f32), so every row of q, k and v starts on 16 bytes: 8 bf16
-    or 4 f32. The model's q, k, v (views of a fused projection, head dims
+    and backward kernels move 16 bytes at a time (`cp.async`, or float4 in
+    the f32 forward), so every row of q, k and v starts on 16 bytes: 8
+    bf16 or 4 f32. The model's q, k, v (views of a fused projection, head dims
     of 16 and more) always qualify."""
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")

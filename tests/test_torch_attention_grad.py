@@ -227,6 +227,29 @@ def test_gradients_match_torch_autograd_of_plain(dead):
         np.testing.assert_allclose(got, want.numpy(), **TOL)
 
 
+def test_plain_backward_f32_stays_near_its_float64_run_at_depth():
+    # The f32 plain backward is what the card's f32 dQ and dK/dV kernels are
+    # held to (1e-4 of the largest entry) and what their own distance to
+    # float64 is measured against (tests/test_torch_gpu.py). Here, at 2048
+    # keys and queries, dq, dk and dv lie 8.8e-7, 6.8e-7 and 6.8e-7 of their
+    # largest entry from the same function run in float64 on the CPU (0.6 to
+    # 1.4e-6 over other seeds and shapes of 1024-2048 keys), so two f32
+    # orders of these sums differ by a few 1e-6: 1e-5 here, and 1e-4 for a
+    # kernel against the plain version, leave room for the order of the
+    # sums, not for a wrong term.
+    b, n, dh = 1, 2048, 32
+    q, k, v, mask, g = _inputs(b, n, n, dh, seed=17)
+    tq, tk, tv, tmask, tg = map(torch.from_numpy, (q, k, v, mask, g))
+    _, lse = attention_lse(tq, tk, tv, tmask, HEADS)
+    got = attention_backward_plain(tq, tk, tv, tmask, lse, tg, HEADS)
+    q64, k64, v64, g64 = (t.double() for t in (tq, tk, tv, tg))
+    _, lse64 = attention_lse(q64, k64, v64, tmask, HEADS)
+    exact = attention_backward_plain(q64, k64, v64, tmask, lse64, g64, HEADS)
+    for a, e in zip(got, exact, strict=True):
+        assert a.dtype == torch.float32 and e.dtype == torch.float64
+        assert (a.double() - e).abs().max() / e.abs().max() <= 1e-5
+
+
 def test_no_mask_and_strided_views():
     # q/k/v as views of one fused projection, no mask
     b, n, dh = 2, 30, 16

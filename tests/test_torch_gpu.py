@@ -274,6 +274,38 @@ def test_attention_backward_kernels(cuda, dh, dtype, n, m):
     assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
 
 
+# (B, N, H, dh): deep f32 cases, a D = 256 training run's heads over 1024 keys
+# (one dead batch element) and D = 128's over 2048
+F32_DEEP_BACKWARD = [(2, 1024, 4, 64), (1, 2048, 4, 32)]
+
+
+@pytest.mark.parametrize("b,n,h,dh", F32_DEEP_BACKWARD)
+def test_attention_backward_kernels_f32_deep_sums(cuda, b, n, h, dh):
+    """The f32 dQ and dK/dV kernels over 1024-2048 keys and queries, against
+    float64 autograd of the plain attention: no further from it than twice
+    the plain f32 version's own distance (sums of that many products in f32
+    lie ~1e-6 of the largest entry from float64, in any order:
+    tests/test_torch_attention_grad.py); two runs bit-identical; the dead
+    element's dQ = dK = 0 and dV = sum(dO) / M."""
+    q, k, v, mask, dout = _attention_case(cuda, dh, torch.float32, b=b, n=n, m=n, h=h)
+    if b == 1:  # the one batch element is live
+        mask = (torch.rand(1, n, generator=torch.Generator().manual_seed(1)) < 0.6).to(cuda)
+    _, lse = attention_lse(q, k, v, mask, h)
+    got = attention_backward(q, k, v, mask, lse, dout, h)
+    plain = attention_backward_plain(q, k, v, mask, lse, dout, h)
+    qkv = [t.double().requires_grad_() for t in (q, k, v)]
+    exact = torch.autograd.grad(attention_plain(*qkv, mask, h, "float32"), qkv, dout.double())
+    for a, p, e in zip(got, plain, exact, strict=True):
+        scale = e.abs().max()
+        assert (a.double() - e).abs().max() / scale <= 2 * (p.double() - e).abs().max() / scale
+    again = attention_backward(q, k, v, mask, lse, dout, h)
+    assert all(torch.equal(a, c) for a, c in zip(got, again, strict=True))
+    if b > 1:
+        dq, dk, dv = got
+        assert not dq[-1].any() and not dk[-1].any()
+        torch.testing.assert_close(dv[-1], (dout[-1].sum(0) / n).expand_as(dv[-1]), rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("n,m", [(70, 133), (130, 257)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_backward_kernels_without_a_mask(cuda, dtype, n, m):
