@@ -7,7 +7,9 @@ In order, it:
   1. prints the card (torch's name and count, and `nvidia-smi`'s name and
      power limit);
   2. builds the CUDA kernels from `image_matching_tpu_torch/csrc/` (one
-     `nvcc` for each source, all in parallel) and prints `-Xptxas -v`;
+     `nvcc` for each source, all in parallel) and prints `-Xptxas -v`,
+     then the shared-memory probe `csrc/lds_probe.cu` (SM cycles of a
+     warp-wide LDS.128 by lane pattern);
   3. holds each kernel against its plain PyTorch version on the card at
      the main path's shapes, and times kernel, plain version and one
      PyTorch yardstick with CUDA events, kernel and yardstick also by
@@ -20,8 +22,9 @@ In order, it:
      `build/sinkhorn_before.cu` hold one (the first versions' sources,
      put there by hand); where `build/attention_before.cu` holds an earlier version of
      `csrc/attention.cu` (put there by hand, not part of the repository),
-     it times that build against this one, interleaved, at the forward's
-     five timed shapes; it runs the attention kernels at head dims they
+     it times that build against this one, interleaved, at the bf16
+     forward's five timed shapes, and prints whether it gives this
+     build's bits; it runs the attention kernels at head dims they
      are not built for (8, 24, 48: zero-padded to 16, 32, 64), forward,
      forward with LSE and backward, against the plain versions, and
      checks that a head dim of 128 raises;
@@ -45,7 +48,9 @@ In order, it:
      launch counts per step, steps/s, peak memory, per-step metrics; the
      same at compute_dtype="float32" (the f32 kernels' path), with every
      attention backward call of one f32 step against the plain version and
-     its float64 exact gradient; the kernel path's gradients against the
+     its float64 exact gradient, and the f32 step profiled on the earlier
+     builds of `build/attention_before.cu` and `build/attention_bwd_before.cu`
+     where those are there; the kernel path's gradients against the
      all-plain path's on one step, every attention backward call of a bf16
      step against the plain version on its own inputs, and a falling loss
      from a random init on one fixed batch;
@@ -55,9 +60,14 @@ In order, it:
      ragged ones (every route of the entry conv, two runs bit-identical),
      and times them beside a library convolution / max pool, the entry
      conv per shape and interleaved with its first version where
-     `build/s2d_entry_conv_before.cu` holds it; then times the f32
-     kernels (SIMT attention forward, the image entry conv) beside f32
-     SDPA and f32 cuDNN; holds the f32 dQ and dK/dV kernels (`dq_ffma`,
+     `build/s2d_entry_conv_before.cu` holds it; then holds the f32
+     attention forward (`attention_ffma`, with and without LSE) against
+     its plain version and a float64 run at deep ragged shapes with a
+     dead element, two runs bit-identical, and times it at the f32
+     inference forward's and the f32 training step's shapes beside f32
+     SDPA's forward, interleaved with `build/attention_before.cu`'s build
+     where that file is there; times the f32 image entry conv beside f32
+     cuDNN; holds the f32 dQ and dK/dV kernels (`dq_ffma`,
      `dkdv_ffma`) against their plain version and a float64 run at the f32
      training step's shape and D = 256's, two runs bit-identical, and
      times each beside f32 SDPA's backward and two bounds, interleaved
@@ -66,7 +76,10 @@ In order, it:
      (`s2d_entry_ffma`, the image conv `s2d_entry_simt_image`) against its
      plain version at the four shapes of one detect, two runs bit-identical,
      timed per shape beside f32 cuDNN conv + `space_to_depth` and
-     interleaved with the earlier build;
+     interleaved with the earlier build; then runs the headline's
+     `Matching` at compute_dtype="float32" (the f32 forward's path, 36
+     launches a forward) against the all-plain f32 path, profiled on this
+     build and on `build/attention_before.cu`'s where that file is there;
   9. registers image pairs (detect each side -> SuperGlue -> homography
      RANSAC with 512 hypotheses -> warp) at the headline's width through
      the 2x2 backbone, `SuperPointBN` and `SuperPointVGG`: launch counts
@@ -85,7 +98,8 @@ phase, timed ones included, so f32 convolutions and matmuls are full f32.
 The last two lines are the kernels' numbers as JSON (each kernel's
 launches counted on its own path: inference per forward, training per
 step, the 2x2 backbone's per registration call, its f32 route per f32
-detect) and the run's result as JSON. Without a CUDA device, or without the package beside it, the
+detect, the f32 attention forward per f32 forward and, with LSE, per f32
+step) and the run's result as JSON. Without a CUDA device, or without the package beside it, the
 script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -327,9 +341,46 @@ def check_entry_conv(torch, dev, rng):
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
-def _attention_inputs(torch, dev, rng, b, n, h, dh, dtype=None):
-    dtype = dtype or torch.bfloat16
-    q, k, v = (torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev, dtype)
+# lane patterns of `csrc/lds_probe.cu`, in its order
+LDS_PATTERNS = ("8 rows on distinct banks, each to 4 lanes (nt_product's own operand)",
+                "4 rows, each broadcast to 8 lanes (nt_product's looped operand)",
+                "32 distinct rows", "one row broadcast to all 32 lanes")
+
+
+def probe_lds(torch, dev):
+    """The shared-memory probe `csrc/lds_probe.cu`: what one warp-wide
+    16-byte-a-lane load (LDS.128) costs an SM, by lane pattern. One block of
+    32 warps an SM, each warp 2048 x 16 independent loads; the patterns in
+    turn and again in reverse, each timed by CUDA graph replay (3 launches a
+    graph) and by the blocks' own clock (median block of the last replay).
+    Prints the SM cycles and nanoseconds a warp-wide load."""
+    import ctypes
+
+    from image_matching_tpu_torch.ops import _build
+
+    fn = _build.library("lds_probe").lds_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    iters, warps, smem = 2048, 32, 160 * 1024  # 160 KB of shared memory: one block an SM
+    loads = warps * 16 * iters  # warp-wide loads an SM runs in a launch
+    out = torch.empty(sms * 1024, device=dev)
+    cycles = torch.zeros(sms, dtype=torch.int64, device=dev)
+    res = {p: {"ms": [], "cycles": []} for p in range(len(LDS_PATTERNS))}
+    for p in list(res) + list(res)[::-1]:
+        res[p]["ms"].append(graph_ms(lambda: _build.check(fn(p, iters, _build.ptr(out), _build.ptr(cycles), sms, smem,
+                                                             _build.stream_ptr(dev)), "lds_probe"), 3))
+        res[p]["cycles"].append(cycles.median().item() / loads)
+    for p, r in res.items():
+        ghz = statistics.mean(r["cycles"]) * loads / (statistics.mean(r["ms"]) * 1e6)
+        print(f"lds probe, {LDS_PATTERNS[p]}: SM cycles per warp LDS.128 " + " / ".join(f"{c:.3f}" for c in r["cycles"])
+              + " (clock64, median block); ns per warp LDS.128 an SM " + " / ".join(
+                  f"{t * 1e6 / loads:.4f}" for t in r["ms"]) + f" (CUDA graph replay); implied SM clock {ghz:.3f} GHz")
+
+
+def _attention_inputs(torch, dev, rng, b, n, h, dh):
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev, torch.bfloat16)
                for _ in range(3))
     mask = torch.from_numpy(rng.uniform(size=(b, n)) < 0.8).to(dev)
     mask[:, 0] = True
@@ -439,32 +490,23 @@ def check_attention_head_dims(torch, dev, rng):
 def time_f32_kernels(torch, dev, rng, libs):
     """The f32 kernels, which serve `compute_dtype="float32"`, timed by CUDA
     graph replay beside their bounds (f32 operations at 67 TFLOP/s, no
-    tensor cores) and a PyTorch call in full f32 (TF32 off): the SIMT
-    attention forward at the headline's shape against f32 SDPA, the f32 dQ
-    and dK/dV kernels each on its own (`time_f32_attention_backward`), the
-    f32 image entry conv, and the f32 s2d entry conv at the
-    four shapes of one detect of 4 images at 480x640 (`s2d_entry_ffma`; the
-    image conv `s2d_entry_simt_image`), each against its plain version
-    (two runs bit-identical) and timed beside its own f32 cuDNN conv +
-    `space_to_depth`, interleaved with the build of
+    tensor cores) and a PyTorch call in full f32 (TF32 off): the f32
+    attention forward, with and without LSE (`time_f32_attention_forward`),
+    the f32 dQ and dK/dV kernels each on its own
+    (`time_f32_attention_backward`), the f32 image entry conv, and the f32
+    s2d entry conv at the four shapes of one detect of 4 images at 480x640
+    (`s2d_entry_ffma`; the image conv `s2d_entry_simt_image`), each against
+    its plain version (two runs bit-identical) and timed beside its own f32
+    cuDNN conv + `space_to_depth`, interleaved with the build of
     `build/s2d_entry_conv_before.cu` where that file is there (`libs` is
     `s2d_entry_libs()`). Returns the f32 s2d entry conv's JSON row (per
-    launch, means over the four shapes) and the f32 dQ and dK/dV rows."""
+    launch, means over the four shapes), the f32 forward rows and the f32 dQ
+    and dK/dV rows."""
     import torch.nn.functional as F
-    from image_matching_tpu_torch.ops import attention as A
     from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_entry, space_to_depth
 
     check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
-    b, n, h, dh = 4, 1024, 4, 64
-    q, k, v, mask = _attention_inputs(torch, dev, rng, b, n, h, dh, torch.float32)
-    err = (A.attention(q, k, v, mask, h) - A.attention_plain(q, k, v, mask, h)).abs().max().item()
-    ms, lib = graph_ms(lambda: A.attention(q, k, v, mask, h), 10), graph_ms(_sdpa(torch, q, k, v, mask, h), 10)
-    bms, by = bound(4 * b * n * h * dh * 4 + b * n, 4.0 * b * h * n * n * dh, F32_FLOPS)
-    print(f"f32 attention_simt ({b}, {n}, {h}x{dh}): max_abs_err {err:.2e} (tol 1e-5); {ms:.4f} ms, f32 SDPA "
-          f"{lib:.4f} ms ({ms / lib:.2f}x), bound {bms:.4f} ms ({by}); launches per forward at "
-          f"compute_dtype=float32: 36")
-    check(err <= 1e-5, "f32 attention disagrees with its plain version")
-
+    fwd_rows = time_f32_attention_forward(torch, dev, rng)
     bwd_rows = time_f32_attention_backward(torch, dev, rng)
 
     from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_plain
@@ -477,11 +519,12 @@ def time_f32_kernels(torch, dev, rng, libs):
     sc, sh = scale[:, None, None], shift[:, None, None]
     ms = graph_ms(lambda: entry_conv(img, k, scale, shift), 10)
     lib = graph_ms(lambda: torch.relu(F.conv2d(x4, w_lib, padding=1) * sc + sh), 10)
+    plain_ms = graph_ms(lambda: entry_conv_plain(img, k, scale, shift), 5)
     npix = b * hh * ww
     bms, by = bound(npix * 4 + npix * 64 * 4 + (9 + 2) * 64 * 4, npix * 64 * (2 * 9 + 2), F32_FLOPS)
     print(f"f32 entry_simt ({b}, {hh}, {ww}) -> 64: max_abs_err {err:.2e} (tol 1e-5); {ms:.4f} ms, f32 cuDNN conv + "
-          f"affine + ReLU {lib:.4f} ms ({ms / lib:.2f}x), bound {bms:.4f} ms ({by}); launches per forward at "
-          f"compute_dtype=float32: 1")
+          f"affine + ReLU {lib:.4f} ms ({ms / lib:.2f}x), plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}); launches "
+          f"per forward at compute_dtype=float32: 1")
     check(err <= 1e-5, "f32 entry conv disagrees with its plain version")
 
     totals, per_build, bound_ms, worst = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}, dict.fromkeys(libs, 0.0), 0.0, 0.0
@@ -536,7 +579,87 @@ def time_f32_kernels(torch, dev, rng, libs):
     return dict(name="s2d_entry_conv_f32", route="cuda", source="image_matching_tpu_torch/csrc/s2d_entry_conv.cu",
                 replaces="image_matching_tpu/ops/pallas/entry_conv.py:66", max_abs_err=worst,
                 ms=totals["ms"] / n, plain_ms=totals["plain_ms"] / n, bound_ms=bound_ms / n, bound_by="operations",
-                library_ms=totals["library_ms"] / n), bwd_rows
+                library_ms=totals["library_ms"] / n), fwd_rows, bwd_rows
+
+
+# (B, N, H, dh, with LSE) of the f32 forward's timed shapes: the f32 inference forward at
+# the headline's width (36 calls a forward) and the f32 training step's (D = 128, 36 a step)
+F32_FORWARD_SHAPES = ((4, 1024, 4, 64, False), (4, 512, 4, 32, True))
+# (B, N, M, H, dh) of its deep checks: ragged key counts, the last batch element dead
+F32_FORWARD_DEEP = ((4, 1024, 1000, 4, 64), (2, 2048, 2000, 4, 64))
+
+
+def time_f32_attention_forward(torch, dev, rng):
+    """The f32 attention forward (`attention_ffma`), with and without LSE:
+    at `F32_FORWARD_DEEP` against the plain f32 version (1e-5, the LSE too)
+    and against the same function in float64, the kernel's distance to it
+    beside the plain f32 version's own (held to twice that), the dead
+    element's mean of V and log(M), two runs bit-identical; then at
+    `F32_FORWARD_SHAPES`, timed by CUDA graph replay interleaved with
+    `build/attention_before.cu`'s build where that file is there
+    (`compare_attention_builds`), beside f32 SDPA's forward, the plain
+    version and the bound (f32 operations at 67 TFLOP/s). Returns the JSON
+    rows `attention_f32` and `attention_lse_f32`."""
+    from image_matching_tpu_torch.ops import attention as A
+
+    worst = {False: 0.0, True: 0.0}
+    for b, n, m, h, dh in F32_FORWARD_DEEP:
+        q = torch.from_numpy(rng.normal(size=(b, n, 3 * h * dh)).astype("float32")).to(dev)[..., :h * dh]
+        kv = torch.from_numpy(rng.normal(size=(b, m, 2 * h * dh)).astype("float32")).to(dev)
+        k, v = kv[..., :h * dh], kv[..., h * dh:]  # views of fused projections, as in the model
+        mask = torch.from_numpy(rng.uniform(size=(b, m)) < 0.8).to(dev)
+        mask[:, 0] = True
+        mask[-1] = False  # a batch element with no valid key
+        out, lse = A.attention_lse(q, k, v, mask, h)
+        out_inf = A.attention(q, k, v, mask, h)
+        again, again_lse = A.attention_lse(q, k, v, mask, h)
+        same = torch.equal(out, again) and torch.equal(lse, again_lse) and torch.equal(out_inf, A.attention(q, k, v, mask, h))
+        ref, ref_lse = A.attention_lse_plain(q, k, v, mask, h)
+        # how far any f32 order of these sums lies from the answer: the same function in float64
+        ex, ex_lse = A.attention_lse_plain(q.double(), k.double(), v.double(), mask, h)
+        torch.cuda.synchronize()
+        err = {False: (out_inf - ref).abs().max().item(), True: (out - ref).abs().max().item()}
+        e_lse = (lse - ref_lse).abs().max().item()
+        to_ex = lambda a, e: (a.double() - e).abs().max().item() / e.abs().max().item()
+        d_out = {"kernel": to_ex(out, ex), "kernel without LSE": to_ex(out_inf, ex), "plain": to_ex(ref, ex)}
+        d_lse = {"kernel": to_ex(lse, ex_lse), "plain": to_ex(ref_lse, ex_lse)}
+        dead_out = (out[-1] - v[-1].mean(0)).abs().max().item()
+        dead_lse = (lse[-1] - math.log(m)).abs().max().item()
+        shape = f"({b}, {n}->{m}, {h}x{dh})"
+        # f32 on both sides, sums in other orders: within 1e-5 of O(1) outputs
+        print(f"f32 attention {shape}, last element dead: error against the plain f32 version {err[False]:.2e}, with "
+              f"LSE {err[True]:.2e}, LSE {e_lse:.2e} (tol 1e-5); distance to float64 relative to the largest entry: out "
+              + ", ".join(f"{key} {d:.2e}" for key, d in d_out.items()) + "; lse " + ", ".join(
+                  f"{key} {d:.2e}" for key, d in d_lse.items())
+              + f"; dead element: out - mean(V) {dead_out:.1e}, lse - log(M) {dead_lse:.1e}; a second run "
+              f"bit-identical: {same}")
+        check(max(err.values()) <= 1e-5 and e_lse <= 1e-5 and same, f"f32 attention {shape} disagrees or is not "
+                                                                     "reproducible")
+        check(max(d_out["kernel"], d_out["kernel without LSE"]) <= 2 * d_out["plain"] and d_lse["kernel"] <= 2 * d_lse[
+            "plain"], f"f32 attention {shape}: further from float64 than twice the plain f32 version")
+        check(dead_out <= 1e-5 and dead_lse <= 1e-5, f"f32 attention {shape}: the dead element")
+        for key in worst:
+            worst[key] = max(worst[key], err[key])
+        del ex, ex_lse
+
+    earlier = [("before", EARLIER_ATTENTION, ())] if EARLIER_ATTENTION.exists() else []
+    timed = compare_attention_builds(torch, dev, rng, earlier, F32_FORWARD_SHAPES, torch.float32)
+    rows = []
+    for (b, n, h, dh, with_lse), t in timed.items():
+        ms = statistics.mean(t["times"]["this checkout"])
+        # q, k, v and out read or written once, the mask, the LSE
+        bms, by = bound(4 * b * n * h * dh * 4 + b * n + (b * h * n * 4 if with_lse else 0), 4.0 * b * h * n * n * dh,
+                        F32_FLOPS)
+        print(f"f32 attention_ffma{' with LSE' if with_lse else ''} ({b}, {n}, {h}x{dh}): {ms:.4f} ms, f32 SDPA "
+              f"forward {t['sdpa']:.4f} ms ({ms / t['sdpa']:.3f} of it), plain {t['plain']:.4f} ms, bound {bms:.4f} ms "
+              f"({by}; {bms / ms:.3f} of it reached); launches: 36 per f32 "
+              + ("training step" if with_lse else "forward at the headline's width"))
+        rows.append(dict(name="attention_lse_f32" if with_lse else "attention_f32", route="cuda",
+                         source="image_matching_tpu_torch/csrc/attention.cu",
+                         replaces=f"image_matching_tpu/ops/pallas/attention.py:{560 if with_lse else 371}",
+                         max_abs_err=max(worst[with_lse], t["err"]), ms=ms, plain_ms=t["plain"], bound_ms=bms,
+                         bound_by=by, library_ms=t["sdpa"]))
+    return rows
 
 
 EARLIER_ATTENTION_BWD = ROOT / "build" / "attention_bwd_before.cu"
@@ -552,14 +675,14 @@ F32_3XTF32_FLOPS = 495e12 / 3
 WHOLE_BACKWARD = "the whole backward (dq, dk and dv), in plain_ms and library_ms alike"
 
 
-def with_attention_bwd(lib, call):
-    """`call` run with the attention backward library swapped for `lib`, a
-    build of another version of `csrc/attention_bwd.cu` with the same C
-    interface (the wrapper's cached launchers are dropped on the way in
-    and out)."""
+def with_attention_library(name, lib, call):
+    """`call` run with the attention library `name` ("attention" or
+    "attention_bwd") swapped for `lib`, a build of another version of its
+    source with the same C interface (the wrapper's cached launchers are
+    dropped on the way in and out)."""
     from image_matching_tpu_torch.ops import attention as A
 
-    swapped = with_library("attention_bwd", lib, call)
+    swapped = with_library(name, lib, call)
 
     def run():
         A._launcher.cache_clear()
@@ -577,8 +700,9 @@ def time_f32_attention_backward(torch, dev, rng):
     of the largest entry) and its distance to a float64 run of the same
     function beside the plain f32 version's own, two runs bit-identical;
     times by CUDA graph replay, this checkout's build interleaved with
-    `build/attention_bwd_before.cu` where that file is there, beside f32
-    SDPA's backward (forward + backward less forward), the plain version
+    `build/attention_bwd_before.cu` where that file is there (whose f32
+    and bf16 outputs are printed as bit-identical to this build's or
+    not), beside f32 SDPA's backward (forward + backward less forward), the plain version
     and two bounds on the 7 products the function needs: the FMA pipe's
     67 TFLOP/s and the 3xTF32 tensor-core rate SDPA's own products run at.
     Returns the JSON rows of the two kernels at the training step's shape."""
@@ -611,15 +735,16 @@ def time_f32_attention_backward(torch, dev, rng):
         shape = f"({b}, {n}, {h}x{dh})"
         print(f"f32 attention backward {shape}: plain f32 version's distance to float64, relative to the largest "
               f"entry: dq {plain_to_exact[0]:.2e}, dk {plain_to_exact[1]:.2e}, dv {plain_to_exact[2]:.2e}")
-        worst = {"dQ": 0.0, "dK/dV": 0.0}
+        worst, first = {"dQ": 0.0, "dK/dV": 0.0}, {}
         for label, lib in libs.items():
             runs = []
             for _ in range(2):
                 for call in calls.values():  # dQ first: it writes the delta dK/dV reads
-                    with_attention_bwd(lib, call)()
+                    with_attention_library("attention_bwd", lib, call)()
                 runs.append((dq.clone(), dk.clone(), dv.clone()))
             torch.cuda.synchronize()
             same = all(torch.equal(a, c) for a, c in zip(*runs))
+            first[label] = runs[0]
             err = [_grad_error((g,), (p,)) for g, p in zip(runs[0], plain)]
             to_exact = [_grad_error((g,), (e,)) for g, e in zip(runs[0], exact)]
             if label == "this checkout":
@@ -631,8 +756,19 @@ def time_f32_attention_backward(torch, dev, rng):
                   f"{same}")
             check(max(err) <= 1e-4 and same, f"f32 attention backward {shape} [{label}] disagrees or is not "
                                              "reproducible")
-        del exact, q64, k64, v64, do64
-        times = time_interleaved({f"{name} [{label}]": with_attention_bwd(lib, call)
+        if len(libs) > 1:  # the bf16 kernels of each build too, on the same inputs rounded to bf16
+            qb, kb, vb, db = (t.to(torch.bfloat16) for t in (q, k, v, dout))
+            lse_b = A.attention_lse(qb, kb, vb, mask, h)[1]
+            bf16 = {label: with_attention_library("attention_bwd", lib,
+                                                  lambda: A.attention_backward(qb, kb, vb, mask, lse_b, db, h))()
+                    for label, lib in libs.items()}
+            for label in list(libs)[1:]:
+                print(f"attention backward {shape} [{label}]: bit-identical to this checkout's build: f32 dq, dk, dv "
+                      f"{all(torch.equal(a, c) for a, c in zip(first[label], first['this checkout']))}; bf16 dq, dk, "
+                      f"dv {all(torch.equal(a, c) for a, c in zip(bf16[label], bf16['this checkout']))}")
+            del qb, kb, vb, db, bf16
+        del exact, q64, k64, v64, do64, first
+        times = time_interleaved({f"{name} [{label}]": with_attention_library("attention_bwd", lib, call)
                                   for label, lib in libs.items() for name, call in calls.items()}, reps=10)
         qh, kh, vh = (t.reshape(b, n, h, dh).transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
         m4, doh = mask[:, None, None, :], dout.reshape(b, n, h, dh).transpose(1, 2).contiguous()
@@ -709,18 +845,27 @@ def build_variants(name, builds):
     return libs
 
 
-def compare_attention_builds(torch, dev, rng, builds, shapes=ATTENTION_TIMED):
+def compare_attention_builds(torch, dev, rng, builds, shapes=ATTENTION_TIMED, dtype=None):
     """Time other builds of `csrc/attention.cu` beside this checkout's, at
-    `shapes`, by CUDA graph replay, interleaved: every build in turn, then
-    every build again in the reverse order, so that a drift of the card's
-    clock falls on all alike. `builds` lists (label, source, extra nvcc
-    flags). Every build is held against the plain version first. The C
-    interface of each is the checkout's, so the wrapper drives them all."""
+    `shapes` in `dtype` (bf16 unless given), by CUDA graph replay,
+    interleaved: every build in turn, then every build again in the reverse
+    order, so that a drift of the card's clock falls on all alike. `builds`
+    lists (label, source, extra nvcc flags). Every build is held against the
+    plain version first (bf16 3e-2, f32 1e-5, the LSE too), and this
+    checkout's against itself on a second run (the same bits); in bf16,
+    whose kernels this checkout shares with the earlier builds, whether each
+    build gives this checkout's bits is printed. The C interface of each is
+    the checkout's, so the wrapper drives them all. Returns {shape: {"times":
+    {label: [ms, ms]}, "sdpa": ms, "plain": ms, "err": this checkout's error}}."""
     from image_matching_tpu_torch.ops import _build
     from image_matching_tpu_torch.ops import attention as A
 
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    tol = 1e-5 if f32 else 3e-2
     own = _build.library("attention")
     libs = {"this checkout": own, **build_variants("attention", builds)}
+    results = {}
 
     def use(lib):
         _build._libraries["attention"] = lib
@@ -728,26 +873,48 @@ def compare_attention_builds(torch, dev, rng, builds, shapes=ATTENTION_TIMED):
 
     try:
         for b, n, h, dh, with_lse in shapes:
-            qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * h * dh)).astype("float32")).to(dev, torch.bfloat16)
+            qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * h * dh)).astype("float32")).to(dev, dtype)
             q, k, v = qkv[..., :h * dh], qkv[..., h * dh:2 * h * dh], qkv[..., 2 * h * dh:]  # as the model
             mask = torch.from_numpy(rng.uniform(size=(b, n)) < 0.8).to(dev)
             mask[:, 0] = True
-            fn = (lambda: A.attention_lse(q, k, v, mask, h)[0]) if with_lse else (lambda: A.attention(q, k, v, mask, h))
-            ref = A.attention_plain(q, k, v, mask, h, "float32").float()
-            times = {label: [] for label in libs}
+            fn = (lambda: A.attention_lse(q, k, v, mask, h)) if with_lse else (lambda: A.attention(q, k, v, mask, h))
+            plain = (lambda: A.attention_lse_plain(q, k, v, mask, h)) if with_lse else (
+                lambda: A.attention_plain(q, k, v, mask, h, "float32"))
+            ref = plain()
+            ref, ref_lse = ref if with_lse else (ref, None)
+            times, outs = {label: [] for label in libs}, {}
             for label in list(libs) + list(libs)[::-1]:
                 use(libs[label])
                 if not times[label]:
-                    err = (fn().float() - ref).abs().max().item()
-                    check(err <= 3e-2, f"attention, {label} build, ({b}, {n}, {h}x{dh}): error {err}")
+                    got = fn()
+                    out, lse = got if with_lse else (got, None)
+                    err = (out.float() - ref.float()).abs().max().item()
+                    if with_lse:  # bf16: the fast exponentials
+                        err_lse = (lse - ref_lse).abs().max().item()
+                        check(err_lse <= (1e-5 if f32 else 2e-4), f"attention LSE, {label} build, ({b}, {n}, {h}x{dh}) "
+                                                                   f"{str(dtype)[6:]}: error {err_lse}")
+                    check(err <= tol, f"attention, {label} build, ({b}, {n}, {h}x{dh}) {str(dtype)[6:]}: error {err}")
+                    outs[label] = (out.clone(), None if lse is None else lse.clone())
+                    if label == "this checkout":
+                        again = fn()
+                        again = again if with_lse else (again, None)
+                        check(all(a is None or torch.equal(a, c) for a, c in zip(outs[label], again)),
+                              f"attention ({b}, {n}, {h}x{dh}) {str(dtype)[6:]}: a second run gives other bits")
+                        results[(b, n, h, dh, with_lse)] = {"err": err}
                 times[label].append(graph_ms(fn, 20))
             sdpa = graph_ms(_sdpa(torch, q, k, v, mask, h), 20)
-            print(f"attention{' with LSE' if with_lse else ''} ({b}, {n}, {h}x{dh}) bf16, ms per call by CUDA graph "
-                  f"replay, builds interleaved: " + "; ".join(
+            plain_ms = graph_ms(plain, 5)
+            results[(b, n, h, dh, with_lse)].update(times=times, sdpa=sdpa, plain=plain_ms)
+            same = "" if f32 else "; bit-identical to this checkout's build: " + ", ".join(
+                f"{label} {all(a is None or torch.equal(a, c) for a, c in zip(outs[label], outs['this checkout']))}"
+                for label in list(libs)[1:])
+            print(f"attention{' with LSE' if with_lse else ''} ({b}, {n}, {h}x{dh}) {str(dtype)[6:]}, ms per call by "
+                  f"CUDA graph replay, builds interleaved: " + "; ".join(
                       f"{label} " + " / ".join(f"{t:.4f}" for t in ts) for label, ts in times.items())
-                  + f"; scaled_dot_product_attention {sdpa:.4f}")
+                  + f"; scaled_dot_product_attention {sdpa:.4f}; plain {plain_ms:.4f}{same}")
     finally:
         use(own)
+    return results
 
 
 EARLIER_SINKHORN = ROOT / "build" / "sinkhorn_before.cu"
@@ -951,7 +1118,7 @@ def compare_with_plain(torch, model, image0, image1, out, label, min_kp_iou):
     check(share_matched >= 0.9, f"{label}: matches differ between kernel and plain path ({share_matched})")
 
 
-def profile_forward(torch, model, image0, image1, sec):
+def profile_forward(torch, model, image0, image1, sec, label: str = "profile"):
     """Device time per forward by kernel (torch.profiler, 3 forwards), the
     device's busy share of the median forward, and the detect / match split
     on the host clock."""
@@ -968,7 +1135,7 @@ def profile_forward(torch, model, image0, image1, sec):
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     total = sum(dev_us(e) for e in events) / 3 / 1e3
     launches = sum(e.count for e in _kernel_events(prof)) / 3
-    print(f"profile: device time {total:.3f} ms per forward in {launches:.0f} device launches, busy "
+    print(f"{label}: device time {total:.3f} ms per forward in {launches:.0f} device launches, busy "
           f"{total / (sec * 1e3):.3f} of the median forward ({sec * 1e3:.2f} ms)")
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         print(f"  {dev_us(e) / 3 / 1e3:8.3f} ms  {e.count / 3:6.0f} calls  {e.key[:100]}")
@@ -988,7 +1155,7 @@ def profile_forward(torch, model, image0, image1, sec):
             torch.cuda.synchronize()
         split["detect"].append(t1 - t0)
         split["match"].append(time.perf_counter() - t1)
-    print("profile: host clock per forward, median of 5: "
+    print(f"{label}: host clock per forward, median of 5: "
           + ", ".join(f"{k} {statistics.median(v) * 1e3:.2f} ms" for k, v in split.items()))
 
 
@@ -1045,6 +1212,73 @@ def run_main_path(torch, dev):
     # threshold: the sets must be identical
     compare_with_plain(torch, model, image0, image1, out, "main path", min_kp_iou=1.0)
     profile_forward(torch, model, image0, image1, sec)
+    return launches
+
+
+F32_MAIN_LAUNCHES = {"entry_conv": 1, "attention": 36, "sinkhorn": 1}
+
+
+def run_f32_main_path(torch, dev):
+    """The headline's `Matching` (480x640, batch 4, K=1024, D=256, 18 GNN
+    layers, 30 Sinkhorn iterations, plain backbone, seeded random weights)
+    at compute_dtype="float32", the path of the f32 attention forward:
+    launch counts of one forward, pairs/s, its agreement with the all-plain
+    f32 path and its device time, profiled on this build and, where
+    `build/attention_before.cu` is there, on that build's attention
+    kernels. Returns the launch counts of one forward."""
+    import numpy as np
+    from image_matching_tpu_torch.models import Matching, MatchingConfig
+    from image_matching_tpu_torch.ops import _build
+
+    batch, h, w, k = 4, 480, 640, 1024
+    cfg = MatchingConfig(descriptor_dim=256, max_keypoints=k, keypoint_threshold=0.005,
+                         gnn_layers=18, sinkhorn_iterations=30, match_threshold=0.1,
+                         compute_dtype="float32")
+    model = Matching(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(6)
+    image0 = torch.from_numpy(rng.uniform(0, 1, (batch, h, w, 1)).astype("float32")).to(dev)
+    image1 = torch.from_numpy(rng.uniform(0, 1, (batch, h, w, 1)).astype("float32")).to(dev)
+    label = "f32 main path"
+    for _ in range(2):  # warm-up: cuDNN algorithm choice, allocator
+        model(image0, image1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    out = model(image0, image1)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label} launches per forward: {launches}")
+    check(launches == F32_MAIN_LAUNCHES, f"{label} launch counts {launches} != {F32_MAIN_LAUNCHES}")
+    def median_forward():
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            model(image0, image1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    sec = median_forward()
+    print(f"{label}: {batch / sec:.2f} pairs/s (median of 10 forwards, {sec * 1e3:.2f} ms per batch of {batch}); "
+          f"peak memory {peak_gib:.3f} GiB; TF32 off")
+    z, kp0 = out["log_coupling"], out["keypoints0"]
+    check(tuple(z.shape) == (batch, k + 1, k + 1) and z.dtype == torch.float32, f"{label}: log_coupling")
+    valid = kp0.mask[:, :, None] & out["keypoints1"].mask[:, None, :]
+    check(bool(torch.isfinite(z[:, :k, :k][valid]).all()), f"{label}: non-finite log-coupling")
+    print(f"{label}: keypoints per image {kp0.num_valid().tolist()}, matches {(out['matches0'] >= 0).sum(-1).tolist()}")
+    # f32 on both paths; the entry conv and the attention sum in other orders than
+    # cuDNN and the einsums, a few f32 steps, which can swap keypoints whose scores
+    # tie that closely at the K-th cut
+    compare_with_plain(torch, model, image0, image1, out, label, min_kp_iou=0.99)
+    profile_forward(torch, model, image0, image1, sec, f"{label} profile")
+    if EARLIER_ATTENTION.exists():  # the same forward on the earlier build of the attention kernels
+        earlier = build_variants("attention", [("before", EARLIER_ATTENTION, ())])["before"]
+        before = with_attention_library("attention", earlier, median_forward)()
+        print(f"{label} on build/attention_before.cu: {batch / before:.2f} pairs/s (median of 10 forwards, "
+              f"{before * 1e3:.2f} ms); this build again: {batch / median_forward():.2f} pairs/s")
+        with_attention_library("attention", earlier, lambda: profile_forward(
+            torch, model, image0, image1, before, f"{label} profile on build/attention_before.cu"))()
     return launches
 
 
@@ -1638,20 +1872,24 @@ def run_training(torch, dev):
 def run_f32_training(torch, dev, images):
     """The same training at compute_dtype="float32" (SuperPoint and SuperGlue
     in f32, TF32 off), the path of the f32 kernels, on the same images
-    (`train_at_cli_defaults`); the step also profiled on the build of
-    `build/attention_bwd_before.cu` where that file is there; then every
-    attention backward call of one f32 step against the plain version and
-    its float64 exact gradient. Returns the launch counts of one step."""
+    (`train_at_cli_defaults`); every attention backward call of the next
+    f32 step against the plain version and its float64 exact gradient; then
+    the step profiled on the builds of `build/attention_before.cu` and
+    `build/attention_bwd_before.cu` where those files are there (one
+    swapped at a time). Returns the launch counts of one step."""
     _, _, state, step, gen, launches, sec = train_at_cli_defaults(torch, dev, images, "float32")
-    if EARLIER_ATTENTION_BWD.exists():  # the same step on the earlier build of the backward kernels
-        earlier = build_variants("attention_bwd", [("before", EARLIER_ATTENTION_BWD, ())])["before"]
-        profile_calls(torch, with_attention_bwd(earlier, lambda: step(state, images, gen)), sec,
-                      "f32 training on build/attention_bwd_before.cu (busy share against this build's median "
-                      "step)", "step", reps=2)
+    # the checked step comes first, so that it is the same step whether or not earlier builds
+    # are there to profile (each profiled step trains on)
     calls = []
     with recorded_backward_calls(torch, calls):
         step(state, images, gen)
     check_backward_calls(torch, calls, "f32 training", 2 * SG_TRAIN_KW["gnn_layers"], torch.float32)
+    for name, source in (("attention", EARLIER_ATTENTION), ("attention_bwd", EARLIER_ATTENTION_BWD)):
+        if source.exists():  # the same step on an earlier build of the attention kernels
+            earlier = build_variants(name, [("before", source, ())])["before"]
+            profile_calls(torch, with_attention_library(name, earlier, lambda: step(state, images, gen)), sec,
+                          f"f32 training on build/{source.name} (busy share against this build's median step)",
+                          "step", reps=2)
     return launches
 
 
@@ -2111,6 +2349,7 @@ def main() -> int:
             if "spill" in line or ("ptxas" in line and ("registers" in line or "Compiling" in line)):
                 print(f"  [{name}] {line.strip()}")
 
+    probe_lds(torch, dev)
     rng = np.random.default_rng(0)
     kernels = [check_entry_conv(torch, dev, rng), check_attention(torch, dev, rng),
                check_sinkhorn(torch, dev, rng)]
@@ -2130,15 +2369,17 @@ def main() -> int:
 
     s2d_libs = s2d_entry_libs()
     s2d_kernels = [check_s2d_entry_conv(torch, dev, rng, s2d_libs), check_realign(torch, dev, rng)]
-    s2d_f32, f32_bwd = time_f32_kernels(torch, dev, rng, s2d_libs)
-    for kern in f32_bwd:  # attention_dq_f32 -> the f32 step's attention_dq launches
-        kern["launches"] = f32_train_launches.get(kern["name"][:-4], 0)
+    s2d_f32, f32_fwd, f32_bwd = time_f32_kernels(torch, dev, rng, s2d_libs)
+    f32_main_launches = run_f32_main_path(torch, dev)
+    for kern in f32_fwd + f32_bwd:  # attention_dq_f32 -> the f32 step's attention_dq launches
+        on_path = f32_main_launches if kern["name"] == "attention_f32" else f32_train_launches
+        kern["launches"] = on_path.get(kern["name"][:-4], 0)
     reg_launches = run_registration(torch, dev, "bn", timed=True)
     run_registration(torch, dev, "vgg", timed=False)
     for kern in s2d_kernels:
         kern["launches"] = reg_launches.get(kern["name"], 0)
     s2d_f32["launches"] = run_f32_backbone(torch, dev, s2d_libs).get("s2d_entry_conv", 0)
-    kernels += s2d_kernels + [s2d_f32] + f32_bwd
+    kernels += s2d_kernels + [s2d_f32] + f32_fwd + f32_bwd
     run_banked_registration(torch, dev)
 
     print(smi)

@@ -58,11 +58,29 @@
 //     K's B fragments by `ldmatrix`, V's by `ldmatrix.trans` from the same
 //     copy.
 //
-// f32 (the f32 compute dtype): `attention_simt`, plain FMAs, no tensor
-// cores, so f32 keeps full f32 products. 4 threads per query row, each
-// holding dh/4 of the row's q and output in registers, partial dot products
-// joined by two warp shuffles; a thread's dims are interleaved in 4-float
-// chunks so the 4 threads of a row read 64 consecutive bytes of a staged key.
+// f32 (the f32 compute dtype): `attention_ffma<dh, NG, LSE>`, register-
+// tiled on plain f32 FMAs with the tiles of csrc/ffma.cuh that the f32
+// backward kernels use; no tensor cores, which would round the products to
+// TF32. Bound: the FMA pipe, 67 TFLOP/s: the function's two products are
+// 4.3 GFLOP at the headline's (4, 1024, 4 x 64), 0.064 ms, against 8 MB of
+// q/k/v/o (0.0025 ms at HBM's rate). A block owns 64 queries of one (b,
+// head); NG groups of 8 warps split its key tiles, each group with its own
+// 2-stage `cp.async` ring of K and V tiles (rows of dh + 4 floats) and its
+// own named barrier. Per tile: S = Q K^T as 4 x 4 register tiles a thread
+// (8 LDS.128 for 64 FMAs a step of 4 dims); each key's state (valid, masked,
+// past M) from its mask byte, read per tile into registers (shared memory
+// does not grow with M); a row's 64 logits lie on 16 threads in 4 warps, so
+// its tile max takes 2 shuffles and a table of the 4 warps' maxima in shared
+// memory; each row's running shift is an integer in log2 units, so every
+// rescale is an exact power of two; P = 2^(x log2 e - shift) goes through
+// shared memory as P[key][query], O is rescaled by its rows' corrections,
+// and O += P V with 4 queries x 4 dims a thread (at dh < 64 the group's
+// threads split the tile's keys into 64 / dh runs, added at the end). Three
+// group barriers a tile. Each thread keeps partial row sums, added once at
+// the end in a fixed order; the groups merge as the bf16 kernels' do; the
+// LSE, shift ln 2 + log l, is taken in double and rounded once. Measured
+// (PERF.md): 41% of the FMA pipe at the headline's shape, 0.89x f32 SDPA's
+// time; the tiles' shared-memory loads (csrc/lds_probe.cu) allow two thirds.
 //
 // Forward with LSE (training): the same kernels with LSE = true also
 // write the f32 log-sum-exp of every query row, (B, H, N), for the backward
@@ -77,12 +95,14 @@
 #include <math.h>
 
 #include "hopper.cuh"
+#include "ffma.cuh"
 
 namespace {
 
 constexpr float MASKED = -1e9f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+constexpr double LN2_D = 0.6931471805599453;
 
 // Warpgroups that split a block's key tiles, and tiles in a group's ring,
 // each measured on the card against its neighbours (PERF.md): at dh = 64 two
@@ -394,124 +414,227 @@ attention_mma(ATTENTION_KERNEL_ARGS) {
   if (grp == 0) write_rows<DH, LSE>(out, lse, &o[0][0], m, l, dead, b, N, H, h, q0 + wr + g, t);
 }
 
-// ------------------------------------------------------------------ f32, SIMT
+// ------------------------------------------------------------------ f32: register-tiled FFMA
 
-constexpr int SIMT_THREADS = 128;
-constexpr int TPR = 4;                       // threads per query row
-constexpr int SIMT_ROWS = SIMT_THREADS / TPR;
+// Groups of 8 warps that split a block's key tiles: two (16 warps, one
+// block an SM at 128 registers a thread), 6-12% faster than one at every
+// timed shape on the card (PERF.md).
+constexpr int FFMA_GROUPS = 2;
 
-// Per-key additive state of one tile: 0 valid, -1e9 masked, -inf past M.
-__device__ __forceinline__ float key_bias(const uint8_t* mask, int b, int M, int key) {
-  if (key >= M) return -INFINITY;
-  return (mask != nullptr && !mask[(int64_t)b * M + key]) ? MASKED : 0.f;
+// A group's floats: its ring of K and V tiles, then its P tile.
+template <int DH>
+__host__ __device__ constexpr int ffma_group_floats() { return STAGES * 2 * T * f32_ld<DH>() + T * XLD; }
+
+template <int DH, int NG>
+__host__ __device__ constexpr int ffma_smem_bytes() { return (T * f32_ld<DH>() + NG * ffma_group_floats<DH>()) * 4; }
+
+// 2^d, exactly, for d <= 0 an integer-valued float (a difference of two
+// row shifts), built from its exponent bits; 0 below 2^-126 and for
+// d = -inf (a row with no tile yet, or a group with none): what it would
+// rescale lies below the f32 resolution of the sums it joins.
+__device__ __forceinline__ float pow2(float d) {
+  return d < -126.f ? 0.f : __int_as_float((static_cast<int>(d) + 127) << 23);
 }
 
-__device__ __forceinline__ void load4(const float* p, float* d) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
-}
-
-template <int DH, bool LSE>
-__global__ void __launch_bounds__(SIMT_THREADS)
-attention_simt(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
+// softmax(Q K^T scale) V of the block's 64 queries, in f32 on plain FMAs.
+// Per key tile of a group: S (64 queries x 64 keys) as 4 x 4 register tiles
+// (`nt_product`: queries L.own + 8i, keys L.loop + 4j), turned into logits
+// x by each key's state (selects, no branch); the rows' tile max from the
+// 16 threads that share a row (2 shuffles, then the 4 warps of a row
+// through `part`); each row's shift m, an integer at or above its max in
+// log2 units, so that every rescale below is an exact power of two (the
+// running sums and O pick up no rounding from it, and the LSE, m ln 2 +
+// log l, is taken in double); P = 2^(x log2 e - m) through shared memory
+// as P[key][query] (`store_x`); the tile's P^T-layout . V (`tn_product`:
+// queries R.own .. + 3, dims R.dim .. + 3) summed in registers of its own,
+// then O = O corr + that: chains over one tile's keys, then over the
+// tiles, not one over all keys, which lands closer to a float64 run
+// (PERF.md). Each thread keeps its own partial row sums, rescaled with the
+// row, and adds them up once at the end. O += P V gives every thread 4 x 4
+// outputs: at dh < 64 the group's threads split the tile's keys into
+// T / dh runs, whose partial sums are added at the end.
+template <int DH, int NG, bool LSE>
+__global__ void __launch_bounds__(NG * FG, 1)
+attention_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
                const float* __restrict__ k, int64_t k_bs, int64_t k_rs,
                const float* __restrict__ v, int64_t v_bs, int64_t v_rs,
                const uint8_t* __restrict__ mask, float* __restrict__ out,
                float* __restrict__ lse, int N, int M, int H, float scale) {
-  constexpr int CHUNKS = DH / 16;  // 4-float chunks per thread
-  __shared__ __align__(16) float sk[T][DH];
-  __shared__ __align__(16) float sv[T][DH];
-  __shared__ float kbias[T];
+  constexpr int LD = f32_ld<DH>(), TILE = T * LD, GROUP_F = ffma_group_floats<DH>();
+  constexpr int KS = T / DH, TPS = FG / KS, KR = T / KS;  // O's key splits, their threads and keys
+  __shared__ float part[NG][4][T];  // a group's rows' partial max (per tile), then sums, per key quarter
+  __shared__ __align__(16) float row_corr[NG][T];  // the rows' rescale factor of a tile
+  __shared__ float row_m[NG][T];                   // the rows' final shifts
+  extern __shared__ __align__(16) float fsm[];
+  float* own_q = fsm;
+  float* rings = own_q + TILE;
+  const int tid = threadIdx.x, grp = tid / FG, gt = tid % FG;
+  float* ring = rings + grp * GROUP_F;
+  float* xp = ring + STAGES * 2 * TILE;  // P[key][query]
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int row = blockIdx.x * SIMT_ROWS + threadIdx.x / TPR;
-  const int part = threadIdx.x % TPR;
-  const bool row_ok = row < N;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * T;
+  const int ntiles = (M + T - 1) / T;  // key tiles; group grp takes grp, grp + NG, ...
+  const int cnt = grp < ntiles ? (ntiles - grp + NG - 1) / NG : 0;
+  const float* k_b = k + b * k_bs + h * DH;
+  const float* v_b = v + b * v_bs + h * DH;
+
+  // K and V of the group's `it`-th key tile into its stage; rows past M are zeros
+  auto stage = [&](int it) {
+    float* s = ring + (it % STAGES) * 2 * TILE;
+    const int j0 = (grp + it * NG) * T;
+    stage_f32<DH, FG>(s, k_b, k_rs, j0, M, gt);
+    stage_f32<DH, FG>(s + TILE, v_b, v_rs, j0, M, gt);
+  };
+
+  stage_f32<DH, NG * FG>(own_q, q + b * q_bs + h * DH, q_rs, q0, N, tid);
+  cp_async_commit();
+  if (cnt > 0) stage(0);
+  cp_async_commit();
   bool dead = false;
   if constexpr (LSE) dead = dead_batch(mask, b, M);
 
-  float qr[CHUNKS][4], acc[CHUNKS][4];
+  const NtLane L = nt_lane(gt);
+  const int split = gt / TPS;
+  const TnLane R = tn_lane<DH, 4>(gt % TPS);
+  const int lane = gt % 32, wq = gt / 64;  // a row's threads: lanes 8 apart, warps 2 apart (key quarter wq)
+  float m[4], l[4];  // rows L.own + 8i: shift (integer, log2 units); this thread's partial sums
 #pragma unroll
-  for (int c = 0; c < CHUNKS; ++c) {
-    if (row_ok) {
-      load4(q + b * q_bs + row * q_rs + h * DH + c * 16 + part * 4, qr[c]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) qr[c][e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
   }
-  float m = -INFINITY, l = 0.f;
+  float acc[4][4];  // O of rows R.own + i, dims R.dim + e, over the split's keys
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
-  const float* kb = k + b * k_bs + h * DH;
-  const float* vb = v + b * v_bs + h * DH;
-  for (int kt = 0; kt < M; kt += T) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < T * DH / 4; idx += SIMT_THREADS) {
-      const int j = idx / (DH / 4), d = (idx % (DH / 4)) * 4;
-      const int key = kt + j;
-      if (key < M) {
-        load4(kb + key * k_rs + d, &sk[j][d]);
-        load4(vb + key * v_rs + d, &sv[j][d]);
-      } else {
+  cp_async_wait<0>();  // Q (and the first key tile) have landed
+  __syncthreads();
+  for (int it = 0; it < cnt; ++it) {
+    cp_async_wait<0>();  // tile it has landed; the group is done with tile it - 1
+    ffma_group_sync(grp);
+    if (it + 1 < cnt) stage(it + 1);
+    cp_async_commit();
+    const float* ks = ring + (it % STAGES) * 2 * TILE;
+    // the keys' states, two bits each (valid; in range), the mask bytes asked
+    // for ahead of the product
+    const int key0 = (grp + it * NG) * T + L.loop;
+    uint32_t state = 0;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) { sk[j][d + e] = 0.f; sv[j][d + e] = 0.f; }
-      }
+    for (int j = 0; j < 4; ++j) {
+      const int key = key0 + 4 * j;
+      const bool valid = key < M && (mask == nullptr || mask[(int64_t)b * M + key]);
+      state |= (valid ? 1u << j : 0u) | (key < M ? 16u << j : 0u);
     }
-    for (int j = threadIdx.x; j < T; j += SIMT_THREADS) kbias[j] = key_bias(mask, b, M, kt + j);
-    __syncthreads();
-
-    float s[T];
-    float tmax = -INFINITY;
+    float s[4][4];
 #pragma unroll
-    for (int j = 0; j < T; ++j) {
-      float dot = 0.f;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < CHUNKS; ++c) {
-        float kk[4];
-        load4(&sk[j][c * 16 + part * 4], kk);
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    nt_product<DH>(s, own_q + L.own * LD, ks + L.loop * LD);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dot = fmaf(qr[c][e], kk[e], dot);
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // the logit: s scale, -1e9 masked, -inf past M
+        s[i][j] = state & (1u << j) ? s[i][j] * scale : (state & (16u << j) ? MASKED : -INFINITY);
+        mx = fmaxf(mx, s[i][j]);
       }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      s[j] = kbias[j] == 0.f ? dot * scale : kbias[j];
-      tmax = fmaxf(tmax, s[j]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      if (lane < 8) part[grp][wq][L.own + 8 * i] = mx;
     }
-    const float m_new = fmaxf(m, tmax);  // finite: key kt is always in range
-    const float corr = __expf(m - m_new);
-    l *= corr;
+    ffma_group_sync(grp);
 #pragma unroll
-    for (int c = 0; c < CHUNKS; ++c)
+    for (int i = 0; i < 4; ++i) {
+      const int row = L.own + 8 * i;
+      // finite: key 0 of a tile is in range
+      const float mx = fmaxf(fmaxf(part[grp][0][row], part[grp][1][row]), fmaxf(part[grp][2][row], part[grp][3][row]));
+      const float m_new = fmaxf(m[i], ceilf(mx * LOG2E));
+      const float corr = pow2(m[i] - m_new);  // 0 at the first tile (m = -inf)
+      m[i] = m_new;
+      float sum = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][e] *= corr;
-#pragma unroll
-    for (int j = 0; j < T; ++j) {
-      const float p = __expf(s[j] - m_new);
-      l += p;
-#pragma unroll
-      for (int c = 0; c < CHUNKS; ++c) {
-        float vv[4];
-        load4(&sv[j][c * 16 + part * 4], vv);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[c][e] = fmaf(p, vv[e], acc[c][e]);
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = ex2(fmaf(s[i][j], LOG2E, -m_new));
+        sum += s[i][j];
       }
+      l[i] = l[i] * corr + sum;
+      if (wq == 0 && lane < 8) row_corr[grp][row] = corr;
     }
-    m = m_new;
+    store_x(xp, s, L);
+    ffma_group_sync(grp);
+    const float4 c4 = *reinterpret_cast<const float4*>(&row_corr[grp][R.own]);
+    const float corr[4] = {c4.x, c4.y, c4.z, c4.w};
+    float tile[4][4];  // the tile's own sums, then added to O's: two short chains for one long one
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tile[i][e] = 0.f;
+    tn_product<DH, 4, KR>(tile, xp + split * KR * XLD + R.own, ks + TILE + split * KR * LD + R.dim);  // P V
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(acc[i][e], corr[i], tile[i][e]);
   }
+  cp_async_wait<0>();
 
-  if (row_ok) {
-    if constexpr (LSE) {
-      if (part == 0) lse[((int64_t)b * H + h) * N + row] = dead ? logf(l) : m + logf(l);
-    }
-    const float inv = 1.f / l;
-    float* o = out + ((int64_t)b * N + row) * (int64_t)(H * DH) + h * DH;
+  // each row's sum over its 16 threads (lanes, then key quarters), and the
+  // groups' (m, l, O) merged in the groups' order: m* = max m_g, O and l
+  // each rescaled by 2^(m_g - m*) (exact), O's key splits added in their order
 #pragma unroll
-    for (int c = 0; c < CHUNKS; ++c)
-      *reinterpret_cast<float4*>(o + c * 16 + part * 4) =
-          make_float4(acc[c][0] * inv, acc[c][1] * inv, acc[c][2] * inv, acc[c][3] * inv);
+  for (int i = 0; i < 4; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 8);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 16);
+    if (lane < 8) part[grp][wq][L.own + 8 * i] = l[i];  // the group's last tile read part before its last barrier
+    if (wq == 0 && lane < 8) row_m[grp][L.own + 8 * i] = m[i];
   }
+  __syncthreads();  // and the rings are read no more: they hold the partial sums of O
+  float m_row[4], l_row[4];  // the merged rows R.own + i
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = R.own + i;
+    float mx = row_m[0][row];  // finite: group 0 has a tile
+#pragma unroll
+    for (int g = 1; g < NG; ++g) mx = fmaxf(mx, row_m[g][row]);
+    const float own = pow2(row_m[grp][row] - mx);  // 0 for a group with no tile (m = -inf)
+    float sum = 0.f;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+      sum += ((part[g][0][row] + part[g][1][row]) + (part[g][2][row] + part[g][3][row])) * pow2(row_m[g][row] - mx);
+    m_row[i] = mx;
+    l_row[i] = sum;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) rings[((grp * KS + split) * 16 + 4 * i + e) * TPS + gt % TPS] = acc[i][e] * own;
+  }
+  __syncthreads();
+  if (gt >= TPS || grp > 0) return;  // group 0's first split: the block's output
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float inv = 1.f / l_row[i];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float sum = 0.f;
+#pragma unroll
+      for (int p = 0; p < NG * KS; ++p) sum += rings[(p * 16 + 4 * i + e) * TPS + gt];
+      acc[i][e] = sum * inv;
+    }
+  }
+  if constexpr (LSE) {  // the threads of dims 0, 4, 8, 12 take one of their rows each: one log a lane
+    const int i = R.dim / 4;
+    float m_i = m_row[0], l_i = l_row[0];
+#pragma unroll
+    for (int r = 1; r < 4; ++r) {
+      m_i = i == r ? m_row[r] : m_i;
+      l_i = i == r ? l_row[r] : l_i;
+    }
+    if (i < 4 && q0 + R.own + i < N)
+      lse[((int64_t)b * H + h) * N + q0 + R.own + i] =
+          dead ? static_cast<float>(log(static_cast<double>(M)))
+               : static_cast<float>(m_i * LN2_D + log(static_cast<double>(l_i)));
+  }
+  store_out<4>(out + (int64_t)b * N * H * DH + h * DH, q0, N, (int64_t)H * DH, acc, R);
 }
 
 // ------------------------------------------------------------------ launch
@@ -566,16 +689,27 @@ int launch_bf16(ATTENTION_ARGS(__nv_bfloat16)) {
 #undef TILED_PASS
 }
 
+// The f32 kernel at head width D, a block per 64 query rows; its shared
+// memory limit is raised once per kernel.
+template <int D, bool LSE>
+int run_f32(ATTENTION_ARGS(float)) {
+  constexpr int NG = FFMA_GROUPS, BYTES = ffma_smem_bytes<D, NG>();
+  static const cudaError_t attr = allow_smem(attention_ffma<D, NG, LSE>, BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  attention_ffma<D, NG, LSE><<<dim3((N + T - 1) / T, H, B), NG * FG, BYTES, stream>>>(ATTENTION_PASS);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool LSE>
 int launch_f32(ATTENTION_ARGS(float)) {
-  const dim3 grid((N + SIMT_ROWS - 1) / SIMT_ROWS, H, B);
+#define F32_PASS q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, out, lse, B, N, M, H, DH, scale, stream
   switch (DH) {
-    case 16: attention_simt<16, LSE><<<grid, SIMT_THREADS, 0, stream>>>(ATTENTION_PASS); break;
-    case 32: attention_simt<32, LSE><<<grid, SIMT_THREADS, 0, stream>>>(ATTENTION_PASS); break;
-    case 64: attention_simt<64, LSE><<<grid, SIMT_THREADS, 0, stream>>>(ATTENTION_PASS); break;
+    case 16: return run_f32<16, LSE>(F32_PASS);
+    case 32: return run_f32<32, LSE>(F32_PASS);
+    case 64: return run_f32<64, LSE>(F32_PASS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+#undef F32_PASS
 }
 
 }  // namespace

@@ -167,7 +167,8 @@ def attention_delta_plain(q, k, v, key_mask, lse, dout, num_heads: int = 4):
 
 def attention_lse(q, k, v, key_mask=None, num_heads: int = 4):
     """Forward with LSE, dispatched on the device: `csrc/attention.cu`
-    (LSE on) on the card, `attention_lse_plain` on the CPU. Returns
+    (LSE on; bf16: tensor cores, f32: `attention_ffma`, register-tiled on
+    plain f32 FMAs) on the card, `attention_lse_plain` on the CPU. Returns
     (out (B, N, H*dh), lse (B, H, N) f32)."""
     if q.device.type == "cpu":
         return attention_lse_plain(q, k, v, key_mask, num_heads)
@@ -246,9 +247,8 @@ def _head_dim(q, num_heads):
 
 def _check_call(q, k, v, key_mask, num_heads):
     """Validate what the kernels take; returns (b, n, m, dh). The forward
-    and backward kernels move 16 bytes at a time (`cp.async`, or float4 in
-    the f32 forward), so every row of q, k and v starts on 16 bytes: 8
-    bf16 or 4 f32. The model's q, k, v (views of a fused projection, head dims
+    and backward kernels move 16 bytes at a time (`cp.async`), so every row
+    of q, k and v starts on 16 bytes: 8 bf16 or 4 f32. The model's q, k, v (views of a fused projection, head dims
     of 16 and more) always qualify."""
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")

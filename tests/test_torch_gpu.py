@@ -234,6 +234,35 @@ def test_attention_forward_with_lse_kernel(cuda, dh, dtype, n, m):
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
 
+# (B, N, M): deep f32 forward cases, 2048 queries over 2048 keys and over a
+# ragged 2000 (neither a multiple of a block's 2 x 64 keys in flight)
+F32_DEEP_FORWARD = [(2, 2048, 2048), (2, 2048, 2000)]
+
+
+@pytest.mark.parametrize("b,n,m", F32_DEEP_FORWARD)
+@pytest.mark.parametrize("dh", [16, 32, 64])
+def test_attention_forward_f32_deep_sums(cuda, dh, b, n, m):
+    """The f32 forward (`attention_ffma`), with and without LSE, over 2048
+    keys: against the plain f32 version (1e-5, the LSE too) and against the
+    same function in float64, no further from it than twice the plain f32
+    version's own distance (sums of that many products in f32 lie ~1e-7 of
+    the largest entry from float64, in any order); the dead element's mean
+    of V and log(M); two runs bit-identical."""
+    q, k, v, mask, _ = _attention_case(cuda, dh, torch.float32, b=b, n=n, m=m)
+    out, lse = attention_lse(q, k, v, mask, 4)
+    out_inf = attention(q, k, v, mask, 4)
+    ref, ref_lse = attention_lse_plain(q, k, v, mask, 4)
+    exact, exact_lse = attention_lse_plain(q.double(), k.double(), v.double(), mask, 4)
+    for got, plain, ex in ((out, ref, exact), (out_inf, ref, exact), (lse, ref_lse, exact_lse)):
+        torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+        assert (got.double() - ex).abs().max() <= 2 * (plain.double() - ex).abs().max()
+    torch.testing.assert_close(out[-1], v[-1].mean(0).expand_as(out[-1]), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse[-1], torch.full_like(lse[-1], math.log(m)), rtol=1e-5, atol=1e-5)
+    again, again_lse = attention_lse(q, k, v, mask, 4)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+    assert torch.equal(out_inf, attention(q, k, v, mask, 4))
+
+
 def _assert_backward_close(got, ref, dtype):
     """bf16 rounds P for dV's tensor-core product (f32 on the plain side),
     and dS enters dQ and dK as a bf16 part plus its residue: at most a few
