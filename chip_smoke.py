@@ -91,7 +91,21 @@ In order, it:
  10. registers seeded textured pairs with known homographies with the
      banked weights, subpixel refinement on, through both backbones and
      both matchers: corner error against the truth, every pair held to
-     less than 5 px.
+     less than 5 px;
+ 11. holds the image entry conv's alignedH output (`entry_conv_h`, the
+     H-only backbone's first layer) against its plain version at
+     (8, 480, 640) bf16, in f32 and at ragged shapes, bit for bit against
+     `space_to_depth_h` of the direct kernel's output, and times it beside
+     the direct kernel and cuDNN conv + affine + ReLU + `space_to_depth_h`;
+ 12. runs one detect of 4 images at 480x640 through the H-only backbone
+     (the JAX package's default layout), bn and vgg, bf16 and f32: launch
+     counts, agreement with the plain backbone, device times beside the
+     plain (and, bn bf16, the 2x2) backbone's;
+ 13. runs the evaluation CLI (`image_matching_tpu_torch/cli/evaluate.py`)
+     in-process at its defaults with the banked weights, through the H
+     backbone and then the plain one: each config's metrics beside the JAX
+     package's `EVAL_reference_regime.json`, held to a success rate and a
+     mean corner error, and the two layouts held to each other.
 
 Every check that fails raises; nothing is caught. TF32 is off for every
 phase, timed ones included, so f32 convolutions and matmuls are full f32.
@@ -99,7 +113,7 @@ The last two lines are the kernels' numbers as JSON (each kernel's
 launches counted on its own path: inference per forward, training per
 step, the 2x2 backbone's per registration call, its f32 route per f32
 detect, the f32 attention forward per f32 forward and, with LSE, per f32
-step) and the run's result as JSON. Without a CUDA device, or without the package beside it, the
+step, the alignedH entry conv per H-layout detect) and the run's result as JSON. Without a CUDA device, or without the package beside it, the
 script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -1070,6 +1084,8 @@ def plain_path():
 
     with mock.patch.object(common, "entry_conv", entry_conv.entry_conv_plain), \
             mock.patch.object(superpoint, "entry_conv", entry_conv.entry_conv_plain), \
+            mock.patch.object(common, "entry_conv_h", entry_conv.entry_conv_h_plain), \
+            mock.patch.object(superpoint, "entry_conv_h", entry_conv.entry_conv_h_plain), \
             mock.patch.object(common, "s2d_entry_conv", s2d_conv.conv3x3_s2d_entry), \
             mock.patch.object(superpoint, "s2d_entry_conv", s2d_conv.conv3x3_s2d_entry), \
             mock.patch.object(superpoint, "pool_from_raw", s2d_conv.maxpool2x2_s2d_from_raw), \
@@ -2097,10 +2113,11 @@ def check_realign(torch, dev, rng):
 REGISTRATION_LAUNCHES = {"s2d_entry_conv": 8, "realign": 6, "attention": 36, "sinkhorn": 1}
 
 
-def compare_backbones(torch, model, plain_model, images, label, tol):
-    """The 2x2 backbone through its kernels against (a) the same 2x2 path on
-    the plain versions and (b) the plain backbone with the same weights, on
-    `semi` and `desc_map`; then both backbones' time."""
+def compare_backbones(torch, model, plain_model, images, label, tol, layout: str = "2x2", others=()):
+    """The s2d backbone (`layout`) through its kernels against (a) the same
+    s2d path on the plain versions and (b) the plain backbone with the same
+    weights, on `semi` and `desc_map`; then both backbones' time, and that
+    of each (name, model) in `others`."""
     from image_matching_tpu_torch.ops import _build
 
     with torch.inference_mode():
@@ -2109,25 +2126,26 @@ def compare_backbones(torch, model, plain_model, images, label, tol):
             _build.reset_launch_counts()
             same_path = model.superpoint(images)
             torch.cuda.synchronize()
-            check(not _build.LAUNCHES, f"plain 2x2 path launched kernels: {dict(_build.LAUNCHES)}")
+            check(not _build.LAUNCHES, f"plain {layout} path launched kernels: {dict(_build.LAUNCHES)}")
         other = plain_model.superpoint(images)
     errs = {}
     for key in ("semi", "desc_map"):
         scale = other[key].abs().max().item()
         errs[key] = ((got[key] - same_path[key]).abs().max().item() / scale,
                      (got[key] - other[key]).abs().max().item() / scale)
-    print(f"{label}: 2x2 backbone through the kernels, max error relative to the largest entry: against the 2x2 path "
-          f"on the plain versions semi {errs['semi'][0]:.3e}, desc_map {errs['desc_map'][0]:.3e}; against the plain "
-          f"backbone semi {errs['semi'][1]:.3e}, desc_map {errs['desc_map'][1]:.3e} (tolerance {tol})")
-    check(max(max(e) for e in errs.values()) <= tol, f"{label}: the 2x2 backbone disagrees with the plain one")
+    print(f"{label}: {layout} backbone through the kernels, max error relative to the largest entry: against the "
+          f"{layout} path on the plain versions semi {errs['semi'][0]:.3e}, desc_map {errs['desc_map'][0]:.3e}; against "
+          f"the plain backbone semi {errs['semi'][1]:.3e}, desc_map {errs['desc_map'][1]:.3e} (tolerance {tol})")
+    check(max(max(e) for e in errs.values()) <= tol, f"{label}: the {layout} backbone disagrees with the plain one")
     # the backbone alone can be captured into a CUDA graph (the postprocess,
     # the same for both, copies small constants from the host)
     with torch.inference_mode():
         t = {name: (graph_ms(lambda: m.superpoint(images), 3), cuda_ms(lambda: m.detect(images), 5))
-             for name, m in (("2x2", model), ("plain", plain_model))}
-    print(f"{label}: {images.shape[0]} images: backbone alone, device time (CUDA graph replay): 2x2 {t['2x2'][0]:.3f} "
-          f"ms, plain {t['plain'][0]:.3f} ms; whole detect, CUDA events over back-to-back eager calls (the host's "
-          f"launch rate included): 2x2 {t['2x2'][1]:.3f} ms, plain {t['plain'][1]:.3f} ms")
+             for name, m in ((layout, model), ("plain", plain_model), *others)}
+    print(f"{label}: {images.shape[0]} images: backbone alone, device time (CUDA graph replay): "
+          + ", ".join(f"{name} {v[0]:.3f} ms" for name, v in t.items())
+          + "; whole detect, CUDA events over back-to-back eager calls (the host's launch rate included): "
+          + ", ".join(f"{name} {v[1]:.3f} ms" for name, v in t.items()))
 
 
 def run_registration(torch, dev, backbone: str, timed: bool):
@@ -2279,7 +2297,8 @@ def run_banked_registration(torch, dev, n_pairs: int = 4):
 
     models = {}
     for name, s2d in (("2x2", True), ("plain", False)):
-        cfg = dataclasses.replace(MatchingConfig.self_trained_128(), s2d_backbone=s2d, subpixel=True)
+        cfg = dataclasses.replace(MatchingConfig.self_trained_128(), s2d_backbone=s2d, s2d_layout="2x2",
+                                  subpixel=True)
         models[name] = Matching(cfg, device=dev, seed=0)
         load_npz(models[name].superpoint, str(ROOT / "weights" / "sp_photo.npz"))
         load_npz(models[name].superglue, str(ROOT / "weights" / "sg_photo.npz"))
@@ -2318,6 +2337,178 @@ def run_banked_registration(torch, dev, n_pairs: int = 4):
             if name == "2x2":
                 check(_build.LAUNCHES["s2d_entry_conv"] == 8 * n_pairs and _build.LAUNCHES["realign"] == 6 * n_pairs,
                       f"banked registration ({matcher}, 2x2) missed the kernels")
+
+
+# ---------------------------------------------------------------- H-only layout and the evaluation CLI
+
+def check_entry_conv_h(torch, dev, rng):
+    """The image entry conv's alignedH output (`ops/entry_conv.entry_conv_h`,
+    the H-only backbone's first layer) against its plain version at the
+    2B-batched shape (8, 480, 640) in bf16, in f32 and at ragged shapes; equal
+    bit for bit to `space_to_depth_h` of the direct kernel's output, two runs
+    bit-identical; timed by CUDA graph replay beside the direct kernel
+    (interleaved) and cuDNN conv + affine + ReLU + `space_to_depth_h`."""
+    import torch.nn.functional as F
+    from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_h, entry_conv_h_plain
+    from image_matching_tpu_torch.ops.s2d_conv import space_to_depth_h
+
+    def direct_h(x, kk, sc, sh):
+        return space_to_depth_h(entry_conv(x, kk, sc, sh).permute(0, 2, 3, 1))
+
+    err = 0.0
+    for b, h, w, dtype in ((8, 480, 640, torch.bfloat16), (2, 480, 640, torch.float32), (3, 96, 200, torch.bfloat16),
+                           (3, 96, 200, torch.float32), (3, 38, 53, torch.bfloat16), (1, 2, 5, torch.float32)):
+        img, k, scale, shift = _entry_inputs(torch, dev, rng, b, h, w)
+        img = img.to(dtype)
+        got = entry_conv_h(img, k, scale, shift)
+        ref = entry_conv_h_plain(img, k, scale, shift).float()
+        torch.cuda.synchronize()
+        check(tuple(got.shape) == (b, h // 2, w, 128) and got.dtype == dtype, f"entry_conv_h shape {tuple(got.shape)}")
+        rel = ((got.float() - ref).abs() / ref.abs().clamp_min(1.0)).max().item()
+        tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+        same = bool(torch.equal(got, entry_conv_h(img, k, scale, shift)))
+        exact = bool(torch.equal(got, direct_h(img, k, scale, shift)))
+        if (b, h, w, dtype) == (8, 480, 640, torch.bfloat16):
+            err = (got.float() - ref).abs().max().item()
+        # the same bf16-rounded inputs, f32 sums of 9 products in another order
+        # than the plain version's, one rounding: at most one bf16 step
+        print(f"entry_conv_h ({b}, {h}, {w}) {str(dtype)[6:]} -> ({b}, {h // 2}, {w}, 128): max err/max(|y|,1) "
+              f"{rel:.3e} (tolerance {tol}); a second run bit-identical: {same}; equal bit for bit to "
+              f"space_to_depth_h of the direct kernel's output: {exact}")
+        check(rel <= tol and same and exact, f"entry_conv_h ({b}, {h}, {w}) {dtype} disagrees or is not reproducible")
+
+    b, h, w = 8, 480, 640
+    img, k, scale, shift = _entry_inputs(torch, dev, rng, b, h, w)
+    times = time_interleaved({"alignedH": lambda: entry_conv_h(img, k, scale, shift),
+                              "direct": lambda: entry_conv(img, k, scale, shift)}, reps=20)
+    ms = statistics.mean(times["alignedH"])
+    plain_ms = graph_ms(lambda: entry_conv_h_plain(img, k, scale, shift), 5)
+    w_lib = k.permute(3, 2, 0, 1).to(torch.bfloat16)
+    sc, sh = scale.to(torch.bfloat16)[:, None, None], shift.to(torch.bfloat16)[:, None, None]
+    lib = lambda: space_to_depth_h(torch.relu(F.conv2d(img[:, None], w_lib, padding=1) * sc + sh).permute(0, 2, 3, 1))
+    lib_ms = graph_ms(lib, 20)
+    img32 = img.float()
+    f32 = time_interleaved({"alignedH": lambda: entry_conv_h(img32, k, scale, shift),
+                            "direct": lambda: entry_conv(img32, k, scale, shift)}, reps=20)
+    npix = b * h * w
+    bms, by = bound(npix * 2 + npix * 64 * 2 + (9 + 2) * 64 * 4, npix * 64 * (2 * 9 + 2), F32_FLOPS)
+    bms32, _ = bound(npix * 4 + npix * 64 * 4 + (9 + 2) * 64 * 4, npix * 64 * (2 * 9 + 2), F32_FLOPS)
+    print(f"entry_conv_h ({b}, {h}, {w}) bf16: ms per call by CUDA graph replay, interleaved: "
+          + "; ".join(f"{label} " + " / ".join(f"{t:.4f}" for t in ts) for label, ts in times.items())
+          + f" ({ms / statistics.mean(times['direct']):.3f} of the direct layout's); plain {plain_ms:.4f}; cuDNN conv + "
+          f"affine + ReLU + space_to_depth_h {lib_ms:.4f} ({ms / lib_ms:.3f} of it); bound {bms:.4f} ({by}; "
+          f"{bms / ms:.2f} of it reached). f32: "
+          + "; ".join(f"{label} " + " / ".join(f"{t:.4f}" for t in ts) for label, ts in f32.items())
+          + f"; bound {bms32:.4f}")
+    return dict(name="entry_conv_h", route="cuda", source="image_matching_tpu_torch/csrc/entry_conv.cu",
+                replaces="image_matching_tpu/ops/pallas/entry_h.py:119", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
+H_DETECT_LAUNCHES = {"entry_conv_h": 1}
+
+
+def run_h_backbone(torch, dev):
+    """One detect of 4 images at 480x640 through the H-only backbone (the
+    JAX package's default layout), `SuperPointBN` and `SuperPointVGG`, bf16
+    and f32, seeded random weights: launch counts, agreement with the H path
+    on the plain versions and with the plain backbone on the same weights
+    (bf16 within 5e-2, f32 within 1e-4 of the largest entry), and the
+    backbones' device time (bn bf16: beside the 2x2 one too). Returns the
+    launch counts of the bn bf16 detect."""
+    import dataclasses
+
+    import numpy as np
+    from image_matching_tpu_torch.models import Matching, MatchingConfig
+    from image_matching_tpu_torch.ops import _build
+
+    batch, h, w, k = 4, 480, 640, 1024
+    images = torch.from_numpy(np.random.default_rng(6).uniform(0, 1, (batch, h, w, 1)).astype("float32")).to(dev)
+    result = None
+    for backbone in ("bn", "vgg"):
+        for dtype in ("bfloat16", "float32"):
+            cfg = MatchingConfig(backbone=backbone, s2d_backbone=True, s2d_layout="h", descriptor_dim=256,
+                                 max_keypoints=k, keypoint_threshold=0.005, compute_dtype=dtype)
+            model = Matching(cfg, device=dev, seed=0)
+            plain_model = Matching(dataclasses.replace(cfg, s2d_backbone=False), device=dev, seed=0)
+            plain_model.load_state_dict(model.state_dict(), strict=True)
+            others = ()
+            if (backbone, dtype) == ("bn", "bfloat16"):
+                other = Matching(dataclasses.replace(cfg, s2d_layout="2x2"), device=dev, seed=0)
+                other.load_state_dict(model.state_dict(), strict=True)
+                others = (("2x2", other),)
+            label = f"H-layout detect ({backbone}, {dtype})"
+            with torch.inference_mode():
+                model.detect(images)  # warm-up
+                torch.cuda.synchronize()
+                _build.reset_launch_counts()
+                kp = model.detect(images)
+                torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            print(f"{label} launches per detect of {batch} images: {launches}")
+            check(launches == H_DETECT_LAUNCHES, f"{label} launch counts {launches} != {H_DETECT_LAUNCHES}")
+            check(tuple(kp.desc.shape) == (batch, k, 256) and bool(torch.isfinite(kp.desc).all()),
+                  f"{label}: descriptors")
+            # bf16 rounds at other places on the two backbones; f32 sums in other orders
+            compare_backbones(torch, model, plain_model, images, label, 5e-2 if dtype == "bfloat16" else 1e-4,
+                              layout="h", others=others)
+            if result is None:
+                result = launches
+            del model, plain_model, others
+    return result
+
+
+EVAL_MIN_SUCCESS, EVAL_MAX_MEAN_PX, EVAL_H_AGAINST_PLAIN_PX = 0.96, 1.0, 0.25
+
+
+def run_evaluation_cli(torch, dev):
+    """`python -m image_matching_tpu_torch.cli.evaluate` in-process at its
+    defaults (50 photo-texture pairs at 480x640, K = 1200, similarity RANSAC
+    at 7 px, sp and spsg) with the banked weights, through the H-only
+    backbone and then the plain one on the same pairs: each config's JSON
+    beside the JAX package's `EVAL_reference_regime.json`, each held to a
+    success rate of 0.96 and a mean corner error of 1 px, and the two
+    layouts to the same success count and per-pair errors within 0.25 px."""
+    from image_matching_tpu_torch.cli import evaluate as cli
+    from image_matching_tpu_torch.ops import _build
+
+    weights = ["--sp_checkpoint", str(ROOT / "weights" / "sp_photo.npz"),
+               "--sg_checkpoint", str(ROOT / "weights" / "sg_photo.npz")]
+    keys = ("success_rate", "mean_corner_err_px", "median_corner_err_px", "mean_matches", "mean_inliers",
+            "fit_valid_rate", "wall_s_total")
+    results = {}
+    for layout, kernel in (("h", "entry_conv_h"), ("off", "entry_conv")):
+        out = ROOT / "build" / f"eval_{layout}.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        results[layout] = cli.main([*weights, "--s2d_backbone", layout, "--per_pair", "--out", str(out)])
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        n = results[layout]["sp"]["n_pairs"]
+        print(f"evaluation CLI, defaults, --s2d_backbone {layout}: {n} pairs, sp and spsg in "
+              f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+        check(n == 50 and launches.get(kernel) == 2 * 2 * n and launches.get("attention", 0) > 0
+              and launches.get("sinkhorn") == n, f"evaluation CLI ({layout}) missed its kernels: {launches}")
+        for name, res in results[layout].items():
+            print(f"evaluation CLI {name} (--s2d_backbone {layout}): "
+                  + json.dumps({key: res[key] for key in keys}))
+            check(res["success_rate"] >= EVAL_MIN_SUCCESS and res["mean_corner_err_px"] <= EVAL_MAX_MEAN_PX,
+                  f"evaluation CLI {name} ({layout}): success {res['success_rate']}, mean "
+                  f"{res['mean_corner_err_px']} px")
+    ref = json.loads((ROOT / "EVAL_reference_regime.json").read_text())
+    for name in ("sp", "spsg"):
+        print(f"JAX package, EVAL_reference_regime.json, {name} (a TPU run on pairs made with OpenCV): "
+              + json.dumps({key: ref[name][key] for key in keys}))
+        h, off = (results[layout][name]["per_pair"] for layout in ("h", "off"))
+        ok = lambda p: p["corner_err_px"] is not None and p["corner_err_px"] < 5.0
+        both = [(a["corner_err_px"], b["corner_err_px"]) for a, b in zip(h, off) if ok(a) and ok(b)]
+        worst = max(abs(a - b) for a, b in both)
+        print(f"evaluation CLI {name}: H against plain backbone: successes {sum(map(ok, h))} / {sum(map(ok, off))}; "
+              f"largest per-pair corner error difference {worst:.4f} px over {len(both)} pairs (tolerance "
+              f"{EVAL_H_AGAINST_PLAIN_PX})")
+        check(sum(map(ok, h)) == sum(map(ok, off)) and worst <= EVAL_H_AGAINST_PLAIN_PX,
+              f"evaluation CLI {name}: the H backbone's registrations differ from the plain one's")
 
 
 def main() -> int:
@@ -2381,6 +2572,11 @@ def main() -> int:
     s2d_f32["launches"] = run_f32_backbone(torch, dev, s2d_libs).get("s2d_entry_conv", 0)
     kernels += s2d_kernels + [s2d_f32] + f32_fwd + f32_bwd
     run_banked_registration(torch, dev)
+
+    entry_h = check_entry_conv_h(torch, dev, rng)
+    entry_h["launches"] = run_h_backbone(torch, dev).get("entry_conv_h", 0)
+    kernels.append(entry_h)
+    run_evaluation_cli(torch, dev)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

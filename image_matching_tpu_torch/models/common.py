@@ -6,10 +6,11 @@ dtype given at call time; normalisation is computed in f32 and cast
 back, as JAX's dtype promotion does in the reference. Module attribute
 names follow the JAX package's (`Conv_0`, `BatchNorm_0`, `Dense_0`,
 `MaskedBatchNorm1d_0`, ...) so weights map across by path
-(`image_matching_tpu_torch/weights.py`). `S2DConvBNReLU` and
-`S2DDoubleConv` are the plain blocks with a second way to run, in the 2x2
-space-to-depth layout on NHWC maps (`ops/s2d_conv.py`), on the same
-parameters. Of the training branches, the
+(`image_matching_tpu_torch/weights.py`). `S2DConvBNReLU` /
+`S2DDoubleConv` (2x2) and `S2DConvBNReLUH` / `S2DDoubleConvH` (H-only)
+are the plain blocks with a second way to run, in a space-to-depth
+layout on NHWC maps (`ops/s2d_conv.py`), on the same parameters. Of the
+training branches, the
 port has `MaskedBatchNorm1d`'s (SuperGlue training): the convolutional
 `BatchNorm` stays inference-only, since SuperPoint is frozen in the only
 trainer ported so far.
@@ -22,8 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from image_matching_tpu_torch.ops.entry_conv import entry_conv, fold_bn
-from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_raw
+from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_h, fold_bn
+from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_raw, conv3x3_s2dh_entry, conv3x3_s2dh_raw
 from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
 
 EPS = 1e-5
@@ -94,12 +95,14 @@ class ConvBNReLU(nn.Module):
     def forward(self, x, dtype):
         return torch.relu(self.BatchNorm_0(conv2d(x, self.Conv_0, dtype)))
 
-    def entry(self, image):
+    def entry(self, image, h_layout: bool = False):
         """The same layer on a (B, H, W) image in the compute dtype, as one
-        fused pass (`ops/entry_conv.py`: the CUDA kernel on the card)."""
+        fused pass (`ops/entry_conv.py`: the CUDA kernel on the card);
+        `h_layout` gives the H-only space-to-depth output."""
         bn = self.BatchNorm_0
         scale, shift = fold_bn(self.Conv_0.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var, EPS)
-        return entry_conv(image, self.Conv_0.weight.permute(2, 3, 1, 0), scale, shift)
+        fused = entry_conv_h if h_layout else entry_conv
+        return fused(image, self.Conv_0.weight.permute(2, 3, 1, 0), scale, shift)
 
 
 class DoubleConv(nn.Module):
@@ -118,7 +121,8 @@ class DoubleConv(nn.Module):
 
 def fold_parity(x, groups: int = 4):
     """View an s2d / U tensor (..., W', G*C) as (..., W'*G, C), so that
-    per-channel ops (batch norm) see C features. G = 4 for the 2x2 layout."""
+    per-channel ops (batch norm) see C features. G = 4 for the 2x2 layout,
+    2 for the H-only layout."""
     *lead, wh, cg = x.shape
     return x.reshape(*lead, wh * groups, cg // groups)
 
@@ -128,13 +132,13 @@ def unfold_parity(x, cg: int, groups: int = 4):
     return x.reshape(*lead, wg // groups, cg)
 
 
-def s2d_bias_bn(y, bias, bn: BatchNorm, dtype):
-    """What follows a conv in the s2d layout, on an NHWC aligned or U
-    tensor (..., 4C): the bias, tiled over the four parity groups and added
+def s2d_bias_bn(y, bias, bn: BatchNorm, dtype, groups: int = 4):
+    """What follows a conv in an s2d layout, on an NHWC aligned or U
+    tensor (..., G*C): the bias, tiled over the G parity groups and added
     in the compute dtype to the conv's rounded output, then the inference
     batch norm per channel."""
-    y = y + bias.to(dtype).repeat(4)
-    return unfold_parity(bn(fold_parity(y), dim=-1), y.shape[-1])
+    y = y + bias.to(dtype).repeat(groups)
+    return unfold_parity(bn(fold_parity(y, groups), dim=-1), y.shape[-1], groups)
 
 
 class S2DConvBNReLU(ConvBNReLU):
@@ -171,13 +175,43 @@ class S2DDoubleConv(DoubleConv):
     width its TPU pool wants) is left to `ops/s2d_conv.conv3x3_s2d_raw`: the
     CUDA pool takes any width."""
 
+    block = S2DConvBNReLU
+
     def __init__(self, in_channels: int, features: int):
         nn.Module.__init__(self)
-        self.ConvBNReLU_0 = S2DConvBNReLU(in_channels, features, "entry")
-        self.ConvBNReLU_1 = S2DConvBNReLU(features, features, "raw")
+        self.ConvBNReLU_0 = self.block(in_channels, features, "entry")
+        self.ConvBNReLU_1 = self.block(features, features, "raw")
 
     def s2d(self, x, dtype):
         return self.ConvBNReLU_1.s2d(self.ConvBNReLU_0.s2d(x, dtype), dtype)
+
+
+class S2DConvBNReLUH(S2DConvBNReLU):
+    """`ConvBNReLU` that can also run in the H-only (2, 1) s2d layout
+    (`s2d`), the JAX package's `S2DConvBNReLUH`, with the same parameters
+    under the same names. "entry" takes a direct NHWC map through the
+    stride-(2, 1) conv and gives alignedH; the image (ci = 1) goes through
+    the fused entry conv's alignedH output (`ops/entry_conv.entry_conv_h`,
+    conv bias and batch norm folded; the CUDA kernel on the card) in every
+    compute dtype. "raw" takes alignedH and gives the unaligned Uh, whose
+    row realignment is left to the consumer. Inference only, as in JAX:
+    `train=True` raises."""
+
+    def s2d(self, x, dtype, train: bool = False):
+        if train:
+            raise ValueError("S2DConvBNReLUH is inference-only (running BN stats); use ConvBNReLU for training")
+        if self.mode == "entry" and x.shape[-1] == 1:
+            return self.entry(x[..., 0].to(dtype).contiguous(), h_layout=True)
+        kernel = self.Conv_0.weight.permute(2, 3, 1, 0).to(dtype)  # (3, 3, ci, co)
+        conv = conv3x3_s2dh_entry if self.mode == "entry" else conv3x3_s2dh_raw
+        y = conv(x.to(dtype), kernel)
+        return torch.relu(s2d_bias_bn(y, self.Conv_0.bias, self.BatchNorm_0, dtype, groups=2))
+
+
+class S2DDoubleConvH(S2DDoubleConv):
+    """`S2DDoubleConv` in the H-only layout: direct NHWC map in, Uh out."""
+
+    block = S2DConvBNReLUH
 
 
 def max_pool_stride2(x):

@@ -5,15 +5,15 @@
 `MatchingConfig` keeps the JAX defaults, including the mismatch that
 `Matching` stores attention logits in bf16 while `SuperGlue` alone
 defaults to f32 (on the card the attention kernel keeps f32 logits
-either way; the setting reaches only the plain CPU attention), with two
-exceptions. `s2d_backbone` defaults to False and `s2d_layout` to "2x2":
-the space-to-depth layouts are devices for the TPU's 128-lane matrix
-unit, and on an H100 the 2x2 layout does 16/9 of the useful
-multiply-adds in its in-level convs, so the plain backbone is the
-port's default; "2x2" is the one s2d layout ported ("h" raises, see
-`ROADMAP.md`). Left out are the JAX config's choices among TPU
-implementations of one function: `stack_sides`, `attention_impl`,
-`sinkhorn_impl`.
+either way; the setting reaches only the plain CPU attention), with one
+exception: `s2d_backbone` defaults to False. The space-to-depth layouts
+are devices for the TPU's 128-lane matrix unit, and on an H100 their
+in-level convs do more than the useful multiply-adds (4/3 for the H-only
+layout, 16/9 for 2x2), so the plain backbone is the port's default.
+`s2d_backbone=True` means what it means in JAX: the H-only layout
+(`s2d_layout="h"`), or the 2x2 one when asked. Left out are the JAX
+config's choices among TPU implementations of one function:
+`stack_sides`, `attention_impl`, `sinkhorn_impl`.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from image_matching_tpu_torch.structs import Keypoints
 class MatchingConfig:
     backbone: str = "bn"  # "bn" (SuperPointBN) | "vgg" (SuperPointVGG)
     s2d_backbone: bool = False  # run the backbone in the s2d layout (H, W divisible by 16)
-    s2d_layout: str = "2x2"
+    s2d_layout: str = "h"  # "h" (H-only, (2, 1)) | "2x2"
     descriptor_dim: int = 256
     max_keypoints: int = 1024
     keypoint_threshold: float = 0.005

@@ -1,5 +1,7 @@
-"""3x3 convolutions resident in the 2x2 space-to-depth ("s2d") layout —
-the counterpart of `image_matching_tpu/ops/s2d_conv.py:33-222`.
+"""3x3 convolutions resident in the space-to-depth ("s2d") layouts —
+the counterpart of `image_matching_tpu/ops/s2d_conv.py`: the 2x2 layout
+(`:33-222`) and the H-only (2, 1) layout (`:240-408`, at the end of this
+module).
 
 A stride-1 SAME 3x3 conv on (H, W, C) equals four 2x2 convs on the
 space-to-depth tensor (H/2, W/2, 4C), one per output-pixel parity
@@ -9,11 +11,12 @@ u = 2a + dy, so parity (py, px) reads the 2x2 decimated window at offset
 (dy, dx, ci) for inputs and (py, px, co) for outputs, row-major, as in
 `space_to_depth`.
 
-The layout is a device for a 128-lane matrix unit. On an H100 the 2x2
+The layouts are devices for a 128-lane matrix unit. On an H100 the 2x2
 kernel of `conv3x3_s2d_raw` is 9/16 dense, so the card does 16/9 of the
-useful multiply-adds there; the port's default backbone is the plain one
-(`models/matching.MatchingConfig`). This module exists so that the port
-covers the JAX package's configurations and outputs the same values.
+useful multiply-adds there (the H-only kernel: 4/3); the port's default
+backbone is the plain one (`models/matching.MatchingConfig`). This module
+exists so that the port covers the JAX package's configurations and
+outputs the same values.
 
 Tensors are NHWC and contiguous, as in the JAX package. Representations:
 
@@ -135,7 +138,7 @@ def entry_kernel(w):
     return k.permute(2, 3, 4, 0, 1, 5).reshape(4, 4, ci, 4 * co)
 
 
-def _conv_nhwc(x, k_hwio, stride: int = 1, padding=0):
+def _conv_nhwc(x, k_hwio, stride=1, padding=0):
     """A library convolution on NHWC tensors with an HWIO kernel. The NCHW
     views it hands to `F.conv2d` are channels_last, so nothing is copied."""
     y = F.conv2d(x.permute(0, 3, 1, 2), k_hwio.permute(3, 2, 0, 1), stride=stride, padding=padding)
@@ -213,3 +216,109 @@ def mm1x1_s2d(x, w, bias=None):
     if bias is not None:
         y = y + bias
     return y.reshape(*lead, 4 * co)
+
+
+# ---------------------------------------------------------------------------
+# The H-only (2, 1) layout: rows are split by parity, columns stay dense, so
+# the in-level kernel (2, 3, 2ci, 2co) is 3/4 dense (4/3 of the useful
+# multiply-adds, against 16/9 for the 2x2 layout). Representations:
+#
+#   direct   : (B, H, W, C)
+#   alignedH : (B, H/2, W, 2C), channels (dy, c) (== `space_to_depth_h`)
+#   Uh       : (B, H/2+1, W, 2C) unaligned conv output; parity group py
+#              holds its aligned row i at Uh[i + py]
+#
+# These are XLA ops in the JAX package and stay plain PyTorch here; the one
+# kernel of the layout is the image entry conv (`ops/entry_conv.entry_conv_h`).
+# ---------------------------------------------------------------------------
+
+
+def space_to_depth_h(x):
+    """(B, H, W, C) -> (B, H/2, W, 2C), channel layout (dy, c)."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // 2, 2, w, c).permute(0, 1, 3, 2, 4).reshape(b, h // 2, w, 2 * c)
+
+
+def depth_to_space_h(x):
+    """(B, H/2, W, 2C) with (dy, c) channels -> (B, H, W, C)."""
+    b, hh, w, c2 = x.shape
+    c = c2 // 2
+    return x.reshape(b, hh, w, 2, c).permute(0, 1, 3, 2, 4).reshape(b, hh * 2, w, c)
+
+
+def s2dh_kernel(w, py: int):
+    """(3, 3, ci, co) -> the (2, 3, 2ci, co) kernel of output row parity py
+    in H-s2d space: full-resolution tap row u = py + ky - 1 = 2a + dy,
+    kernel row r = a + 1 - py in {0, 1}; columns stay dense."""
+    ci, co = w.shape[2], w.shape[3]
+    out = w.new_zeros(2, 3, 2 * ci, co)
+    for ky in range(3):
+        u = py + ky - 1
+        a, dy = u >> 1, u & 1
+        out[a + 1 - py, :, dy * ci:(dy + 1) * ci] = w[ky]
+    return out
+
+
+def s2dh_kernel_all(w):
+    """(3, 3, ci, co) -> (2, 3, 2ci, 2co): both row-parity kernels stacked
+    along output channels in (py, co) order."""
+    return torch.cat([s2dh_kernel(w, 0), s2dh_kernel(w, 1)], dim=-1)
+
+
+def entry_kernel_h(w):
+    """(3, 3, ci, co) -> (4, 3, ci, 2co): kernel of the stride-(2, 1) conv
+    that computes conv3x3-then-`space_to_depth_h` straight from a direct
+    input. Row parity py takes full-resolution rows u = py + ky - 1 at
+    kernel row u + 1 of a 4-row window anchored at row 2i - 1 (pad
+    ((1, 2), (1, 1)), row stride 2)."""
+    ci, co = w.shape[2], w.shape[3]
+    out = w.new_zeros(4, 3, ci, 2 * co)
+    for py in range(2):
+        for ky in range(3):
+            out[py + ky, :, :, py * co:(py + 1) * co] = w[ky]
+    return out
+
+
+def conv3x3_s2dh_entry(x, w):
+    """SAME 3x3 conv fused with `space_to_depth_h`: direct (B, H, W, ci) in,
+    alignedH (B, H/2, W, 2co) out, as one stride-(2, 1) 4x3 conv in the
+    inputs' type. Equal to space_to_depth_h(conv3x3(x, w)). No bias. The JAX
+    package phrases ci = 1 as a matmul over 12 tap channels (`_entry_h_mm`,
+    for its matrix unit); it is the same function, and here the same conv."""
+    return _conv_nhwc(F.pad(x, (0, 0, 1, 1, 1, 2)), entry_kernel_h(w), stride=(2, 1))
+
+
+def conv3x3_s2dh_raw(x_h, w):
+    """SAME 3x3 stride-1 conv in H-s2d space: alignedH (B, H/2, W, 2ci) in,
+    unaligned Uh (B, H/2+1, W, 2co) out. Parity group py aligns at row
+    offset py (`realign_h` and the pool shift rows only)."""
+    return _conv_nhwc(x_h, s2dh_kernel_all(w), padding=1)
+
+
+def realign_h(u):
+    """Uh (B, H/2+1, W, 2C) -> alignedH (B, H/2, W, 2C): two row-shifted
+    halves. (The JAX package phrases it as a select, to dodge a TPU
+    miscompile of this concatenation; the values are the same.)"""
+    hh, c = u.shape[1] - 1, u.shape[3] // 2
+    return torch.cat([u[:, :hh, :, :c], u[:, 1:, :, c:]], dim=-1)
+
+
+def maxpool2x2_s2dh_from_raw(u):
+    """2x2 / stride-2 max pool fused with the realignment: Uh in, direct
+    (B, H/2, W/2, C) out. Rows reduce across the two parity groups, columns
+    pairwise (an odd last column is dropped, as by a VALID window). A NaN
+    in any tap gives NaN (`torch.maximum`)."""
+    hh, w, c = u.shape[1] - 1, u.shape[2], u.shape[3] // 2
+    y = torch.maximum(u[:, :hh, :, :c], u[:, 1:, :, c:])
+    return torch.maximum(y[:, :, 0:w - 1:2], y[:, :, 1:w:2])
+
+
+def mm1x1_s2dh(x, w, bias=None):
+    """1x1 conv in H-s2d layout (alignedH or Uh): (..., 2ci) @ (ci, co) ->
+    (..., 2co)."""
+    *lead, _ = x.shape
+    ci, co = w.shape
+    y = x.reshape(*lead, 2, ci) @ w
+    if bias is not None:
+        y = y + bias
+    return y.reshape(*lead, 2 * co)

@@ -79,7 +79,7 @@ def test_superpoint_bn_2x2_matches_jax_and_plain_path():
 
 def test_superpoint_bn_2x2_takes_other_sizes_on_the_plain_path():
     img = _images(1, b=1, h=40, w=56)  # divisible by 8, not by 16
-    tm = SuperPointBN(32, device="cpu", s2d=True)
+    tm = SuperPointBN(32, device="cpu", s2d=True, s2d_layout="2x2")
     plain = SuperPointBN(32, device="cpu")
     plain.load_state_dict(tm.state_dict(), strict=True)
     with torch.no_grad():
@@ -89,11 +89,18 @@ def test_superpoint_bn_2x2_takes_other_sizes_on_the_plain_path():
 
 @pytest.mark.parametrize("cls", [SuperPointBN, SuperPointVGG])
 def test_h_layout_is_not_ported(cls):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cls(32, device="cpu", s2d=True, s2d_layout="h")
-    cls(32, device="cpu", s2d=False, s2d_layout="h")  # the layout is not looked at without s2d
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Matching(MatchingConfig(gnn_layers=2, s2d_backbone=True, s2d_layout="h"), device="cpu")
+    """What the layout argument takes: "h" (the default, as in JAX) and
+    "2x2" build; another layout raises; without s2d the layout is not
+    looked at. The H layout's numbers are held in `test_torch_s2dh.py`."""
+    assert cls(32, device="cpu", s2d=True).s2d_layout == "h"
+    assert cls(32, device="cpu", s2d=True, s2d_layout="2x2").s2d_layout == "2x2"
+    with pytest.raises(ValueError, match="unknown s2d_layout"):
+        cls(32, device="cpu", s2d=True, s2d_layout="w")
+    cls(32, device="cpu", s2d=False, s2d_layout="w")
+    model = Matching(MatchingConfig(gnn_layers=2, s2d_backbone=True), device="cpu")
+    assert model.superpoint.s2d_layout == "h"
+    with pytest.raises(ValueError, match="unknown s2d_layout"):
+        Matching(MatchingConfig(gnn_layers=2, s2d_backbone=True, s2d_layout="w"), device="cpu")
 
 
 @pytest.mark.parametrize("s2d", [False, True])
@@ -102,7 +109,7 @@ def test_superpoint_vgg_matches_jax(s2d):
     jm = JaxSuperPointVGG(descriptor_dim=32, s2d=s2d, s2d_layout="2x2")
     v = _perturb(jm.init(jax.random.PRNGKey(1), jnp.asarray(img)), 3)
     ref = jm.apply(v, jnp.asarray(img))
-    tm = SuperPointVGG(32, device="cpu", s2d=s2d)
+    tm = SuperPointVGG(32, device="cpu", s2d=s2d, s2d_layout="2x2")
     load_jax_params(tm, flatten_tree(v))
     with torch.no_grad():
         got = tm(torch.from_numpy(img))
@@ -181,7 +188,7 @@ def test_detect_called_directly_runs_in_inference_mode(s2d):
     grad, as registration calls it: it brings its own inference mode (on
     the card the entry conv kernel has no backward and raises under grad)."""
     cfg = MatchingConfig(descriptor_dim=32, keypoint_encoder=(8,), gnn_layers=2, max_keypoints=32,
-                         compute_dtype="float32", s2d_backbone=s2d)
+                         compute_dtype="float32", s2d_backbone=s2d, s2d_layout="2x2")
     model = Matching(cfg, device="cpu")
     assert all(p.requires_grad for p in model.parameters()) and torch.is_grad_enabled()
     kp = model.detect(torch.from_numpy(_images(8)))

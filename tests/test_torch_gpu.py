@@ -24,9 +24,9 @@ from image_matching_tpu_torch.ops.attention import (
     attention_lse_plain,
     attention_plain,
 )
-from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_plain
+from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_h, entry_conv_h_plain, entry_conv_plain
 from image_matching_tpu_torch.ops.realign import maxpool_realign
-from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_entry, maxpool2x2_s2d_from_raw
+from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_entry, maxpool2x2_s2d_from_raw, space_to_depth_h
 from image_matching_tpu_torch.ops import s2d_entry as s2d_entry_ops
 from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
 from image_matching_tpu_torch.registration import build_registration_fn
@@ -170,6 +170,33 @@ def test_entry_conv_kernel_ragged_tiles_and_borders(cuda, b, h, w, dtype):
     for border in (rel[:, :, 0], rel[:, :, -1], rel[:, :, :, 0], rel[:, :, :, -1]):
         assert border.max() <= tol
     assert torch.equal(got, entry_conv(img, k, scale, shift))
+
+
+@pytest.mark.parametrize("b,h,w", [(3, 38, 53), (1, 2, 5), (2, 96, 200), (1, 480, 640)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_entry_conv_h_kernel(cuda, b, h, w, dtype):
+    """The alignedH output: against its plain version (tolerances as the
+    direct layout's), equal bit for bit to `space_to_depth_h` of the direct
+    kernel's output, the same bits again, one launch counted."""
+    g = _gen()
+    img = torch.rand(b, h, w, generator=g).to(cuda, dtype)
+    k = (torch.randn(3, 3, 1, 64, generator=g) * 0.3).to(cuda)
+    scale = (1 + 0.2 * torch.randn(64, generator=g)).to(cuda)
+    shift = (0.2 * torch.randn(64, generator=g)).to(cuda)
+    before = _build.LAUNCHES["entry_conv_h"]
+    got = entry_conv_h(img, k, scale, shift)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["entry_conv_h"] == before + 1
+    assert got.shape == (b, h // 2, w, 128) and got.dtype == dtype and got.is_contiguous()
+    ref = entry_conv_h_plain(img, k, scale, shift).float()
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert ((got.float() - ref).abs() / ref.abs().clamp_min(1)).max() <= tol
+    assert torch.equal(got, space_to_depth_h(entry_conv(img, k, scale, shift).permute(0, 2, 3, 1)))
+    assert torch.equal(got, entry_conv_h(img, k, scale, shift))
+    with pytest.raises(ValueError, match="even height"):
+        entry_conv_h(img[:, :-1].contiguous(), k, scale, shift)
+    with pytest.raises(RuntimeError, match="no backward"):
+        entry_conv_h(img, k.clone().requires_grad_(), scale, shift)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -653,7 +680,8 @@ def test_detect_called_directly_runs_on_the_card(cuda):
 @pytest.mark.parametrize("backbone", ["bn", "vgg"])
 def test_registration_runs_through_the_s2d_kernels(cuda, backbone):
     cfg = MatchingConfig(descriptor_dim=64, keypoint_encoder=(16, 32), gnn_layers=2, sinkhorn_iterations=10,
-                         max_keypoints=128, compute_dtype="float32", backbone=backbone, s2d_backbone=True)
+                         max_keypoints=128, compute_dtype="float32", backbone=backbone, s2d_backbone=True,
+                         s2d_layout="2x2")
     model = Matching(cfg)
     plain = Matching(dataclasses.replace(cfg, s2d_backbone=False))
     plain.load_state_dict(model.state_dict(), strict=True)
@@ -670,3 +698,31 @@ def test_registration_runs_through_the_s2d_kernels(cuda, backbone):
     # f32, TF32 off: the same network with sums in another order
     for key in ("semi", "desc_map"):
         torch.testing.assert_close(got[key], ref[key], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backbone", ["bn", "vgg"])
+def test_registration_runs_through_the_h_layout(cuda, backbone, dtype):
+    """The JAX package's default layout: one alignedH entry conv per detect,
+    the rest library ops; the H backbone against the plain one on the same
+    weights (f32: sums in another order; bf16: roundings at other places
+    through a dozen layers, a few bf16 steps of the largest entry)."""
+    cfg = MatchingConfig(descriptor_dim=64, keypoint_encoder=(16, 32), gnn_layers=2, sinkhorn_iterations=10,
+                         max_keypoints=128, compute_dtype=dtype, backbone=backbone, s2d_backbone=True)
+    assert cfg.s2d_layout == "h"
+    model = Matching(cfg)
+    plain = Matching(dataclasses.replace(cfg, s2d_backbone=False))
+    plain.load_state_dict(model.state_dict(), strict=True)
+    g = _gen()
+    a, b = (torch.rand(2, 64, 96, 1, generator=g).to(cuda) for _ in range(2))
+    register = build_registration_fn(model, matcher="superglue", ransac_model="homography", num_hypotheses=64)
+    _build.reset_launch_counts()
+    res = register(a, b, torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"entry_conv_h": 2, "attention": 4, "sinkhorn": 1}
+    assert res.fit.matrix.shape == (2, 3, 3) and bool(torch.isfinite(res.fit.matrix).all())
+    with torch.inference_mode():
+        got, ref = model.superpoint(a), plain.superpoint(a)
+    tol = 1e-3 if dtype == "float32" else 5e-2
+    for key in ("semi", "desc_map"):
+        assert (got[key] - ref[key]).abs().max() <= tol * ref[key].abs().max()
