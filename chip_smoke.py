@@ -105,7 +105,22 @@ In order, it:
      in-process at its defaults with the banked weights, through the H
      backbone and then the plain one: each config's metrics beside the JAX
      package's `EVAL_reference_regime.json`, held to a success rate and a
-     mean corner error, and the two layouts held to each other.
+     mean corner error, and the two layouts held to each other;
+ 14. runs the registration CLI (`cli/match_pair.py`) in-process at its
+     defaults (the H-only backbone, K = 1200, similarity RANSAC at 7 px, the
+     banked D = 128 weights) on a template and 8 sources written as
+     1920x2560 PNG files, registered at 480x640, with the ratio matcher and
+     with SuperGlue: each written transform against the known similarity
+     (at least 7 of 8 under 5 px of corner error at the 480x640 scale, a
+     mean under 1 px), per-pair wall time, launches; then its official
+     variant (--backbone vgg --descriptor_dim 256, SuperGlue loaded from a
+     seeded synthetic official state dict) on 2 pairs;
+ 15. runs the training CLI (`cli/train_superglue.py`) in-process at its
+     defaults with --synthetic, the banked SuperPoint, --photometric
+     --subpixel --warmup_steps 5 --grad_clip 1.0: 2 epochs of 10 steps, then
+     --resume for one more; finite losses, checkpoints, the step count
+     continued, the training kernels' launches a step, steps/s, peak memory
+     and the busy share of a step.
 
 Every check that fails raises; nothing is caught. TF32 is off for every
 phase, timed ones included, so f32 convolutions and matmuls are full f32.
@@ -1641,23 +1656,39 @@ def check_backward_calls(torch, calls, label, n_attn, dtype):
     from image_matching_tpu_torch.ops import attention as A
 
     check(len(calls) == n_attn, f"{label}: {len(calls)} attention backward calls recorded, not {n_attn}")
+    # as the kernel checks: in bf16 the kernels round P to bf16 for dV, the
+    # plain version keeps f32, and the kernels are held to the plain bf16
+    # version. In f32 they are held to the plain version run in float64 on
+    # the same inputs (the exact values): two f32 orders of these sums lie
+    # further apart than either lies from the exact values where dP - delta
+    # cancels (the plain f32 version 1.31e-4 from them, the kernel 5.05e-5,
+    # on one call of the f32 step; NVIDIA H100 80GB HBM3, 700.00 W). Errors
+    # are relative to each tensor's largest entry.
+    f32 = dtype == torch.float32
     errs = {"dq": [], "dk": [], "dv": []}
+    plain_errs = {"dq": [], "dk": [], "dv": []}  # f32: the plain f32 version's own distance from the exact values
     for args in calls:
         got = A.attention_backward(*args)
         ref = A.attention_backward_plain(*args)
+        if f32:
+            exact = A.attention_backward_plain(*(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                                                 for a in args))
+            for name, r, e in zip(plain_errs, ref, exact):
+                plain_errs[name].append(_grad_error((r,), (e,)))
+            ref = exact
         for name, a, r in zip(errs, got, ref):
             errs[name].append(_grad_error((a,), (r,)))
     torch.cuda.synchronize()
-    # as the kernel checks: in bf16 the kernels round P to bf16 for dV, the
-    # plain version keeps f32; f32 is full f32 on both sides, sums in other
-    # orders; relative to each tensor's largest entry
     kind = str(dtype)[6:]
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    print(f"training ({label}): the {len(calls)} attention backward calls of one {kind} step, kernels vs plain "
-          f"FA2 on the same inputs, error relative to the largest entry (tol {tol}): " + ", ".join(
-              f"{n} worst {max(e):.3e} median {statistics.median(e):.3e}" for n, e in errs.items()))
+    tol = 1e-4 if f32 else 2e-2
+    against = "the plain version in float64" if f32 else "plain FA2"
+    print(f"training ({label}): the {len(calls)} attention backward calls of one {kind} step, kernels vs {against} "
+          f"on the same inputs, error relative to the largest entry (tol {tol}): " + ", ".join(
+              f"{n} worst {max(e):.3e} median {statistics.median(e):.3e}" for n, e in errs.items())
+          + ("; the plain f32 version's own: " + ", ".join(f"{n} worst {max(e):.3e}" for n, e in plain_errs.items())
+             if f32 else ""))
     worst = max(max(e) for e in errs.values())
-    check(worst <= tol, f"{label}: attention backward kernels disagree with plain FA2 in training ({worst})")
+    check(worst <= tol, f"{label}: attention backward kernels disagree with {against} in training ({worst})")
 
     # each call's exact gradient: autograd of the plain attention on the
     # float64 upcast of its inputs. How far from it are the kernels (delta =
@@ -2511,6 +2542,250 @@ def run_evaluation_cli(torch, dev):
               f"evaluation CLI {name}: the H backbone's registrations differ from the plain one's")
 
 
+# ---------------------------------------------------------------- the SuperGlue entry points
+
+MATCH_PAIR_FULL = (1920, 2560)  # the files' size; the CLI's --resize_scale 0.25 registers at 480x640
+MATCH_PAIR_SCALE = 0.25
+MATCH_PAIR_SOURCES = 8
+MATCH_PAIR_MIN_SUCCESS, MATCH_PAIR_SUCCESS_PX, MATCH_PAIR_MAX_MEAN_PX = 7, 5.0, 1.0  # px at the 480x640 scale
+
+
+def write_match_pair_files(root, n_sources: int, seed: int):
+    """A template and `n_sources` sources at 1920x2560 as PNG files
+    (`imgproc.imwrite_png`): the evaluation's photo texture made at 480x640
+    (`evaluation.photo_texture`, blurred as `make_eval_pairs` blurs it),
+    brought to full size by a cubic resize, and warped by similarities drawn
+    as `make_eval_pairs` draws them (angle up to 0.25 rad, scale 0.9-1.1,
+    shift up to 48 px at 480x640). Returns the full-size template -> source
+    matrices, one a source, in file order."""
+    import numpy as np
+    from image_matching_tpu_torch import evaluation, imgproc
+
+    h, w = MATCH_PAIR_FULL
+    rng = np.random.default_rng(seed)
+    small = imgproc.gaussian_blur(evaluation.photo_texture(rng, h // 4, w // 4), 1.0)
+    template = np.clip(imgproc.resize(small, (w, h)), 0, 1)
+    (root / "src").mkdir(parents=True, exist_ok=True)
+    imgproc.imwrite_png(str(root / "template.png"), (template * 255).astype(np.uint8))
+    gts = []
+    for i in range(n_sources):
+        ang, sc = rng.uniform(-0.25, 0.25), rng.uniform(0.9, 1.1)
+        tx, ty = rng.uniform(-48 * 4, 48 * 4, 2)
+        c, s = np.cos(ang) * sc, np.sin(ang) * sc
+        cx, cy = w / 2, h / 2
+        mat = np.float32([[c, -s, tx + cx - c * cx + s * cy], [s, c, ty + cy - s * cx - c * cy]])
+        source = np.clip(imgproc.warp_affine(template, mat, (w, h)), 0, 1)
+        imgproc.imwrite_png(str(root / "src" / f"s{i}.png"), (source * 255).astype(np.uint8))
+        gts.append(mat)
+    return gts
+
+
+def _match_pair(torch, argv):
+    """`cli/match_pair.main(argv)` with the launch counts set to 0 before it
+    and read after; returns (records, launches, seconds)."""
+    from image_matching_tpu_torch.cli import match_pair as cli
+    from image_matching_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    records = cli.main(argv)
+    torch.cuda.synchronize()
+    return records, dict(_build.LAUNCHES), time.perf_counter() - t0
+
+
+def run_match_pair_cli(torch, dev, smi: str):
+    """`python -m image_matching_tpu_torch.cli.match_pair` in-process at its
+    defaults (--resize_scale 0.25, K = 1200, similarity RANSAC at 7 px, D =
+    128, the H-only backbone, banked weights) on one template and 8 sources
+    at 1920x2560, with the ratio matcher and with SuperGlue: each written
+    transform against the known one (corner error at the 480x640 scale:
+    success under 5 px, at least 7 of 8 successes, a mean under 1 px a
+    matcher), the image entry conv's alignedH output twice a pair, attention
+    and the Sinkhorn under SuperGlue. Then the official variant (--backbone
+    vgg --descriptor_dim 256; SuperGlue from a seeded synthetic official
+    state dict through `load_magicleap_superglue`; 2 pairs): a run check,
+    dh = 64 attention. Returns the superglue run's launch counts."""
+    import numpy as np
+    from image_matching_tpu_torch.evaluation import corner_error
+    from image_matching_tpu_torch.models import SuperGlue
+    from image_matching_tpu_torch.weights import load_magicleap_superglue, save_npz
+
+    root = ROOT / "build" / "match_pair"
+    n = MATCH_PAIR_SOURCES
+    gts = write_match_pair_files(root, n, seed=11)
+    h, w = MATCH_PAIR_FULL
+    weights = ["--sp_checkpoint", str(ROOT / "weights" / "sp_photo.npz"),
+               "--sg_checkpoint", str(ROOT / "weights" / "sg_photo.npz")]
+    result = None
+    for matcher in ("ratio", "superglue"):
+        out = root / f"out_{matcher}"
+        records, launches, sec = _match_pair(torch, ["--template", str(root / "template.png"), "--source_dir",
+                                                     str(root / "src"), "--out", str(out), "--matcher", matcher,
+                                                     *weights])
+        errs = []
+        for rec, gt in zip(records, gts):
+            written = np.loadtxt(out / f"{rec['name']}_transform.txt")
+            check(np.allclose(written, rec["transform"], rtol=1e-6, atol=1e-6) and written.shape == (2, 3),
+                  f"match_pair ({matcher}) {rec['name']}: the written transform is not the one returned")
+            check(all((out / f"{rec['name']}_{kind}.png").is_file() for kind in ("matches", "warped")),
+                  f"match_pair ({matcher}) {rec['name']}: a plot is missing")
+            errs.append(corner_error(written, gt, h, w) * MATCH_PAIR_SCALE if rec["valid"] else float("inf"))
+        ok = [e < MATCH_PAIR_SUCCESS_PX for e in errs]
+        mean = float(np.mean([e for e in errs if e < MATCH_PAIR_SUCCESS_PX])) if any(ok) else float("inf")
+        walls = [rec["wall_s"] for rec in records]
+        for rec, e in zip(records, errs):
+            print(f"match_pair ({matcher}) {rec['name']}: {rec['wall_s'] * 1e3:.1f} ms, {rec['matches']} matches, "
+                  f"{rec['inliers']} inliers, valid {rec['valid']}, corner error {e:.4f} px at 480x640 "
+                  f"({e / MATCH_PAIR_SCALE:.3f} px at 1920x2560)")
+        print(f"match_pair ({matcher}), CLI defaults, {n} sources at 1920x2560 -> 480x640: {sum(ok)} / {n} under "
+              f"{MATCH_PAIR_SUCCESS_PX} px, mean corner error {mean:.4f} px at 480x640; wall s a pair (the CLI's own "
+              f"timer around the registration) median {statistics.median(walls):.4f}, first {walls[0]:.4f}, after "
+              f"the first median {statistics.median(walls[1:]):.4f}; whole run {sec:.1f} s with reading, resizing, "
+              f"plotting and writing; launches {launches}; {smi}")
+        check(sum(ok) >= MATCH_PAIR_MIN_SUCCESS and mean < MATCH_PAIR_MAX_MEAN_PX,
+              f"match_pair ({matcher}): {sum(ok)} successes, mean {mean} px")
+        want = {"entry_conv_h": 2 * n}
+        if matcher == "superglue":
+            want.update(attention=36 * n, sinkhorn=n)
+            result = launches
+        check(launches == want, f"match_pair ({matcher}) launch counts {launches} != {want}")
+
+    # the official variant: VGG backbone, D = 256 (dh = 64 heads), official SuperGlue names
+    official = root / "official"
+    (official / "src").mkdir(parents=True, exist_ok=True)
+    for i in range(2):
+        (official / "src" / f"s{i}.png").write_bytes((root / "src" / f"s{i}.png").read_bytes())
+    sg = SuperGlue(256, (32, 64, 128, 256), gnn_layers=18, device="cpu")
+    load_magicleap_superglue(sg, synthetic_official_superglue(torch, 256, 18, (32, 64, 128, 256), seed=0))
+    save_npz(sg, str(official / "sg_official.npz"))
+    records, launches, sec = _match_pair(torch, ["--template", str(root / "template.png"), "--source_dir",
+                                                 str(official / "src"), "--out", str(official / "out"), "--matcher",
+                                                 "superglue", "--backbone", "vgg", "--descriptor_dim", "256",
+                                                 "--sg_checkpoint", str(official / "sg_official.npz")])
+    print(f"match_pair official variant (--backbone vgg --descriptor_dim 256, seeded random SuperPointVGG, SuperGlue "
+          f"from a seeded synthetic official state dict; a run check, no quality claim): "
+          + "; ".join(f"{r['name']} {r['wall_s'] * 1e3:.1f} ms, {r['matches']} matches, valid {r['valid']}"
+                      for r in records) + f"; launches {launches} (4 heads of dh 64: attention_wg<2>)")
+    want = {"entry_conv_h": 4, "attention": 72, "sinkhorn": 2}
+    check(launches == want and all(np.isfinite(r["transform"]).all() for r in records),
+          f"match_pair official variant: launches {launches} != {want}, or a non-finite transform")
+    return result
+
+
+def synthetic_official_superglue(torch, d: int, layers: int, kenc, seed: int) -> dict:
+    """A seeded state dict with the official MagicLeap SuperGlue's names and
+    layouts (Conv1d kernels (O, I, 1); BatchNorm1d with running statistics;
+    MLP slots conv, bn, relu)."""
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+
+    def conv1d(prefix, o, i):
+        state[f"{prefix}.weight"] = torch.randn(o, i, 1, generator=gen) / math.sqrt(i)
+        state[f"{prefix}.bias"] = torch.randn(o, generator=gen) * 0.01
+
+    def bn(prefix, c):
+        state[f"{prefix}.weight"] = torch.rand(c, generator=gen) + 0.5
+        state[f"{prefix}.bias"] = torch.randn(c, generator=gen) * 0.01
+        state[f"{prefix}.running_mean"] = torch.randn(c, generator=gen) * 0.1
+        state[f"{prefix}.running_var"] = torch.rand(c, generator=gen) + 0.5
+        state[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+    chans = [3, *kenc, d]
+    for i in range(1, len(chans)):
+        conv1d(f"kenc.encoder.{3 * (i - 1)}", chans[i], chans[i - 1])
+        if i < len(chans) - 1:
+            bn(f"kenc.encoder.{3 * (i - 1) + 1}", chans[i])
+    for li in range(layers):
+        for pi in range(3):
+            conv1d(f"gnn.layers.{li}.attn.proj.{pi}", d, d)
+        conv1d(f"gnn.layers.{li}.attn.merge", d, d)
+        conv1d(f"gnn.layers.{li}.mlp.0", 2 * d, 2 * d)
+        bn(f"gnn.layers.{li}.mlp.1", 2 * d)
+        conv1d(f"gnn.layers.{li}.mlp.3", d, 2 * d)
+    conv1d("final_proj", d, d)
+    state["bin_score"] = torch.tensor(1.0)
+    return {f"module.{k}": v for k, v in state.items()}
+
+
+TRAIN_CLI_STEPS = 10  # a CLI epoch here
+
+
+def run_train_superglue_cli(torch, dev, smi: str):
+    """`python -m image_matching_tpu_torch.cli.train_superglue` in-process at
+    its defaults (240x320, batch 4, K = 512, D = 128, 18 GNN layers, 100
+    Sinkhorn iterations, bf16, --synthetic) with the banked SuperPoint and
+    --photometric --subpixel --warmup_steps 5 --grad_clip 1.0: 2 epochs of
+    10 steps, then --resume for 1 more. Checks finite losses, the checkpoints
+    written, the step count continued, and the training kernels (attention
+    with LSE, dQ, dK/dV) launched 36 times a step; prints steps/s (median
+    over the steps after the first), peak memory and the busy share of a
+    step. Returns the launch counts of one step."""
+    import shutil
+
+    from image_matching_tpu_torch.cli import train_superglue as cli
+    from image_matching_tpu_torch.ops import _build
+
+    run_dir = ROOT / "build" / "train_superglue"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--synthetic", "--run_dir", str(run_dir), "--sp_checkpoint", str(ROOT / "weights" / "sp_photo.npz"),
+            "--photometric", "--subpixel", "--warmup_steps", "5", "--grad_clip", "1.0",
+            "--steps_per_epoch", str(TRAIN_CLI_STEPS), "--log_interval", "5"]
+    times, last = [], {}
+    real_factory = cli.make_superglue_train_step
+
+    def timed_factory(*args, **kwargs):
+        step = real_factory(*args, **kwargs)
+
+        def timed(state, images, gen):
+            t0 = time.perf_counter()
+            metrics = step(state, images, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            last.update(run=lambda: step(state, images, gen))
+            return metrics
+        return timed
+
+    runs = {}
+    with mock.patch.object(cli, "make_superglue_train_step", timed_factory):
+        for label, extra in (("2 epochs", ["--epochs", "2"]), ("--resume, 1 epoch", ["--epochs", "1", "--resume"])):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            first = len(times)
+            runs[label] = out = cli.main(argv + extra)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            steps = len(times) - first
+            step_times = times[first + 1:]
+            sec = statistics.median(step_times)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"train_superglue CLI ({label}): steps {out['history'][0]['first_step']} -> {out['state'].step}; "
+                  f"{1 / sec:.3f} steps/s (median over the {len(step_times)} steps after the first, {sec * 1e3:.2f} "
+                  f"ms; first step {times[first] * 1e3:.1f} ms); peak memory {peak:.3f} GiB; launches {launches}; "
+                  f"{smi}")
+            for rec in out["logged"]:
+                print("  " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in rec.items()))
+            for rec in out["history"]:
+                print(f"  epoch {rec['epoch']}: steps {rec['first_step']} -> {rec['last_step']}, mean loss "
+                      f"{rec['mean_loss']:.4f}, {rec['steps_per_s']:.3f} steps/s (the CLI's own clock)")
+            per_step = {k: v / steps for k, v in launches.items()}
+            check(per_step == {"entry_conv": 1, "attention_lse": 36, "attention_dq": 36, "attention_dkdv": 36},
+                  f"train_superglue CLI ({label}): launches per step {per_step}")
+            check(all(math.isfinite(r["loss"]) and r["skipped_nonfinite"] == 0 for r in out["logged"])
+                  and all(math.isfinite(r["mean_loss"]) for r in out["history"]),
+                  f"train_superglue CLI ({label}): a loss is not finite or a step was skipped")
+    ckpts = sorted(p.name for p in (run_dir / "checkpoints").iterdir())
+    print(f"train_superglue CLI: checkpoints {ckpts}")
+    check(runs["2 epochs"]["state"].step == 2 * TRAIN_CLI_STEPS
+          and runs["--resume, 1 epoch"]["history"][0]["first_step"] == 2 * TRAIN_CLI_STEPS
+          and runs["--resume, 1 epoch"]["state"].step == 3 * TRAIN_CLI_STEPS
+          and ckpts == [f"{k * TRAIN_CLI_STEPS}.npz" for k in (1, 2, 3)],
+          "train_superglue CLI: the checkpoints or the resumed step count are wrong")
+    profile_calls(torch, last["run"], statistics.median(times[1:]), "train_superglue CLI", "step", reps=2)
+    return per_step
+
+
 def main() -> int:
     import torch
 
@@ -2577,6 +2852,8 @@ def main() -> int:
     entry_h["launches"] = run_h_backbone(torch, dev).get("entry_conv_h", 0)
     kernels.append(entry_h)
     run_evaluation_cli(torch, dev)
+    run_match_pair_cli(torch, dev, smi)
+    run_train_superglue_cli(torch, dev, smi)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,15 @@
-"""The image operations the evaluation pair makers need, in numpy, with
-OpenCV's conventions: the JAX package's makers (`image_matching_tpu/
-evaluation.py:28-209`) call `cv2`, and the machine with the card has no
-OpenCV. Each function follows the OpenCV routine it replaces closely
-enough that the same inputs give the same images (the tests hold them to
-`cv2` itself):
+"""Image operations in numpy, with OpenCV's conventions: the JAX
+package's pair makers, datasets and plots (`image_matching_tpu/
+evaluation.py:28-209`, `data/datasets.py`, `utils/viz.py`) call `cv2`, and
+the machine with the card has no OpenCV. Each function follows the OpenCV
+routine it replaces closely enough that the same inputs give the same
+images (the tests hold them to `cv2` itself):
 
   * `resize`: INTER_CUBIC (a = -0.75, half-pixel centres, clamped edges);
+  * `resize_area`: INTER_AREA shrinking of uint8 images, both of OpenCV's
+    routes (integer factors: block sums, 2 x 2 rounded half up, others by
+    the float32 mean rounded half to even; other factors: the float32
+    area-weight tables summed in OpenCV's order);
   * `gaussian_blur`: sigma only, ksize = round(8 sigma + 1) | 1 for float
     images, BORDER_REFLECT_101;
   * `warp_affine`, `warp_perspective`: bilinear, BORDER_CONSTANT 0, in the
@@ -14,15 +18,23 @@ enough that the same inputs give the same images (the tests hold them to
     multiply-add, perspective by a division; interpolation by three fused
     lerps; OpenCV 4's 1/32-px fixed point is gone there);
   * `get_perspective_transform`: the 8 x 8 linear system;
-  * `fill_poly`, `line` (thickness 1-3), `circle` (filled): the integer
-    rasterisers of OpenCV's `drawing.cpp` (edge lists in 16.16 fixed point,
-    Bresenham lines, the midpoint circle), so that every pixel matches.
+  * `fill_poly`, `line` (thickness 1-3), `circle`, `rectangle` (filled):
+    the integer rasterisers of OpenCV's `drawing.cpp` (edge lists in 16.16
+    fixed point, Bresenham lines, the midpoint circle), so that every
+    pixel matches;
+  * `imread_gray`: `cv2.imread(path, IMREAD_GRAYSCALE)` of 8-bit PNG and
+    binary PGM / PPM files (zlib and struct, no image library);
+    `imwrite_png` writes 8-bit gray or BGR PNG files.
 
-Images are float32 (H, W) arrays; the drawing functions paint in place.
+Images are float32 (H, W) arrays unless a function says otherwise; the
+drawing functions paint in place, on (H, W) or (H, W, C) images.
 """
 from __future__ import annotations
 
 import math
+import re
+import struct
+import zlib
 
 import numpy as np
 
@@ -72,6 +84,99 @@ def resize(src: np.ndarray, size) -> np.ndarray:
     rows = (src.astype(np.float64)[:, xi] * xw).sum(-1).astype(np.float32)  # (H_src, width)
     out = (rows.astype(np.float64)[yi] * yw[:, :, None]).sum(1)
     return out.astype(np.float32)
+
+
+def _area_taps(n_src: int, n_dst: int, scale: float):
+    """OpenCV's `computeResizeAreaTab`: for each destination pixel, the
+    source pixels it covers and their float32 weights, in OpenCV's order,
+    padded with weight-0 taps to one width ((n_dst, k) indices, weights)."""
+    taps = []
+    for d in range(n_dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_src - f1)
+        s2 = min(math.floor(f2), n_src - 1)
+        s1 = min(math.ceil(f1), s2)
+        row = [(s1 - 1, (s1 - f1) / cell)] if s1 - f1 > 1e-3 else []
+        row += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            row.append((s2, min(f2 - s2, 1.0, cell) / cell))
+        taps.append(row)
+    idx = np.zeros((n_dst, max(map(len, taps))), np.int64)
+    wt = np.zeros(idx.shape, np.float32)
+    for d, row in enumerate(taps):
+        for j, (s, a) in enumerate(row):
+            idx[d, j], wt[d, j] = s, a
+    return idx, wt
+
+
+def _to_u8(x) -> np.ndarray:
+    """saturate_cast<uchar> of float32 values: to nearest, ties to even."""
+    return np.clip(np.rint(x), 0, 255).astype(np.uint8)
+
+
+def _area_integer(img: np.ndarray, dh: int, dw: int, ix: int, iy: int) -> np.ndarray:
+    """INTER_AREA at integer factors (OpenCV's `resizeAreaFast`): block
+    sums; a whole 2 x 2 block rounds (sum + 2) >> 2 (the SIMD route), any
+    other whole block sum * float32(1 / area) to nearest even, and the
+    blocks cut by the image's edge their float32 mean."""
+    h, w = img.shape
+    integral = np.zeros((h + 1, w + 1), np.int64)
+    integral[1:, 1:] = img.astype(np.int64).cumsum(0).cumsum(1)
+    r0, c0 = np.arange(dh) * iy, np.arange(dw) * ix
+    r1, c1 = np.minimum(r0 + iy, h), np.minimum(c0 + ix, w)
+    sums = integral[r1][:, c1] - integral[r0][:, c1] - integral[r1][:, c0] + integral[r0][:, c0]
+    counts = (r1 - r0)[:, None] * (c1 - c0)[None]
+    if ix == iy == 2:
+        whole = (sums + 2) >> 2
+    else:
+        whole = _to_u8(sums.astype(np.float32) * (np.float32(1) / np.float32(ix * iy)))
+    cut = _to_u8(sums.astype(np.float32) / counts.astype(np.float32))
+    return np.where(counts == ix * iy, whole, cut).astype(np.uint8)
+
+
+def _area_general(img: np.ndarray, dh: int, dw: int, sx: float, sy: float) -> np.ndarray:
+    """INTER_AREA at other factors (OpenCV's `ResizeArea_Invoker`): each
+    source row summed over the x taps in float32, then the rows over the y
+    taps, products rounded before each sum as OpenCV does."""
+    xi, xw = _area_taps(img.shape[1], dw, sx)
+    yi, yw = _area_taps(img.shape[0], dh, sy)
+    src = img.astype(np.float32)
+    rows = src[:, xi[:, 0]] * xw[:, 0]
+    for j in range(1, xi.shape[1]):
+        rows += src[:, xi[:, j]] * xw[:, j]
+    out = yw[:, :1] * rows[yi[:, 0]]
+    for j in range(1, yi.shape[1]):
+        out += yw[:, j:j + 1] * rows[yi[:, j]]
+    return _to_u8(out)
+
+
+def resize_area(img: np.ndarray, size=None, scale=None) -> np.ndarray:
+    """cv2.resize(img, (w, h), interpolation=INTER_AREA) of a uint8 (H, W)
+    image for `size=(h, w)`, or cv2.resize(img, None, fx=scale, fy=scale,
+    interpolation=INTER_AREA) for `scale`: the output is round(H * scale) x
+    round(W * scale), and the area weights follow `scale` itself, as
+    OpenCV's do. Shrinks only (each factor <= 1)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 2:
+        raise ValueError(f"resize_area takes a uint8 (H, W) image, not {img.dtype} {img.shape}")
+    if (size is None) == (scale is None):
+        raise ValueError("resize_area: give size=(h, w) or scale, one of them")
+    h, w = img.shape
+    if size is not None:
+        dh, dw = size
+        fx, fy = dw / w, dh / h
+    else:
+        fx = fy = float(scale)
+        dh, dw = int(np.rint(h * fy)), int(np.rint(w * fx))
+    if not (0 < fx <= 1 and 0 < fy <= 1 and dh > 0 and dw > 0):
+        raise ValueError(f"resize_area shrinks only: ({h}, {w}) -> ({dh}, {dw})")
+    sx, sy = 1.0 / fx, 1.0 / fy
+    ix, iy = int(np.rint(sx)), int(np.rint(sy))
+    eps = np.finfo(np.float64).eps
+    if abs(sx - ix) < eps and abs(sy - iy) < eps:
+        return _area_integer(img, dh, dw, ix, iy)
+    return _area_general(img, dh, dw, sx, sy)
 
 
 # ---------------------------------------------------------------- blur
@@ -222,7 +327,7 @@ def _clip_line(width: int, height: int, x1: int, y1: int, x2: int, y2: int):
 def _line8(img, x1: int, y1: int, x2: int, y2: int, color) -> None:
     """cv::Line: an 8-connected Bresenham segment (LineIterator, left to
     right), clipped to the image."""
-    h, w = img.shape
+    h, w = img.shape[:2]
     if not (0 <= x1 < w and 0 <= x2 < w and 0 <= y1 < h and 0 <= y2 < h):
         inside, x1, y1, x2, y2 = _clip_line(w, h, x1, y1, x2, y2)
         if not inside:
@@ -253,7 +358,7 @@ def _line8(img, x1: int, y1: int, x2: int, y2: int, color) -> None:
 
 def _line2(img, x1: int, y1: int, x2: int, y2: int, color) -> None:
     """cv::Line2: an 8-connected segment between 16.16 fixed-point ends."""
-    h, w = img.shape
+    h, w = img.shape[:2]
     inside, x1, y1, x2, y2 = _clip_line(w << XY_SHIFT, h << XY_SHIFT, x1, y1, x2, y2)
     if not inside:
         return
@@ -299,7 +404,7 @@ def _fill_convex_poly(img, pts, color) -> None:
     """cv::FillConvexPoly (LINE_8) of 16.16 fixed-point points: the outline
     by `_line2`, then spans between the two edge chains walked from the top
     vertex."""
-    h, w = img.shape
+    h, w = img.shape[:2]
     n = len(pts)
     half = XY_ONE >> 1
     for (x0, y0), (x1, y1) in zip(pts[-1:] + pts[:-1], pts):
@@ -346,7 +451,7 @@ def _fill_convex_poly(img, pts, color) -> None:
 def circle(img, center, radius: int, color) -> None:
     """cv2.circle(img, center, radius, color, -1): the filled midpoint
     circle of OpenCV's `Circle`, spans clipped to the image."""
-    h, w = img.shape
+    h, w = img.shape[:2]
     cx, cy = center
     err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
     while dx >= dy:
@@ -405,7 +510,7 @@ def fill_poly(img, pts, color) -> None:
     is the line through its two points, or through its ends clipped to the
     image where it leaves the image; it covers the rows from its upper
     point's to just above its lower point's."""
-    h, w = img.shape
+    h, w = img.shape[:2]
     pts = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
     edges = []
     for (x0, y0), (x1, y1) in zip(pts[-1:] + pts[:-1], pts):
@@ -430,3 +535,166 @@ def fill_poly(img, pts, color) -> None:
         for (_, left), (right, _) in zip(xs[0::2], xs[1::2]):
             if left < w and right >= 0:
                 _hline(img, y, max(left, 0), min(right, w - 1), color)
+
+
+def rectangle(img, p0, p1, color) -> None:
+    """cv2.rectangle(img, p0, p1, color, -1): the filled rectangle with both
+    corners included, clipped to the image."""
+    h, w = img.shape[:2]
+    (x0, x1), (y0, y1) = sorted((int(p0[0]), int(p1[0]))), sorted((int(p0[1]), int(p1[1])))
+    if x1 >= 0 and y1 >= 0:
+        img[max(y0, 0):min(y1, h - 1) + 1, max(x0, 0):min(x1, w - 1) + 1] = color
+
+
+# ---------------------------------------------------------------- image files
+
+READS = ("8-bit PNG (gray, gray + alpha, RGB, RGBA, palette; not interlaced) and binary PGM / PPM "
+         "(P5 / P6, maxval <= 255)")
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
+
+
+def _unsupported(path, what: str) -> ValueError:
+    return ValueError(f"{path}: {what}; imread_gray reads {READS}")
+
+
+def _png_chunks(data: bytes, path):
+    """(type, body) of each chunk up to IEND, CRCs checked."""
+    pos = len(PNG_SIGNATURE)
+    while True:
+        if pos + 12 > len(data):
+            raise _unsupported(path, "truncated PNG")
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body, crc = data[pos + 8:pos + 8 + n], data[pos + 8 + n:pos + 12 + n]
+        if len(crc) < 4 or zlib.crc32(kind + body) != struct.unpack(">I", crc)[0]:
+            raise _unsupported(path, f"damaged PNG chunk {kind!r}")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos += 12 + n
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(rows: np.ndarray, width: int, bpp: int) -> np.ndarray:
+    """Undo PNG's per-row filters (None, Sub, Up, Average, Paeth) of (H,
+    1 + W * bpp) filtered bytes; returns (H, W, bpp) uint8. A pixel depends
+    on its left, upper and upper-left neighbours, so the anti-diagonals
+    r + c = d are decoded one after another, each in one vector step."""
+    h = rows.shape[0]
+    kind = rows[:, 0].astype(np.int64)
+    if kind.max(initial=0) > 4:
+        raise ValueError(f"PNG filter type {kind.max()} does not exist")
+    x = rows[:, 1:].reshape(h, width, bpp).astype(np.int64)
+    if not kind.any():
+        return x.astype(np.uint8)
+    out = np.zeros((h + 1, width + 1, bpp), np.int64)  # pixel (r, c) at [r + 1, c + 1]; zero frame
+    for d in range(h + width - 1):
+        r = np.arange(max(0, d - width + 1), min(h - 1, d) + 1)
+        c = d - r
+        left, up, corner = out[r + 1, c], out[r, c + 1], out[r, c]
+        k = kind[r][:, None]
+        pred = np.select([k == 0, k == 1, k == 2, k == 3], [0, left, up, (left + up) >> 1], _paeth(left, up, corner))
+        out[r + 1, c + 1] = (x[r, c] + pred) & 255
+    return out[1:, 1:].astype(np.uint8)
+
+
+def _png_gray(rgb: np.ndarray) -> np.ndarray:
+    """libpng's `png_do_rgb_to_gray` with the coefficients OpenCV sets
+    (0.299, 0.587 -> 9797, 19234, 3737 of 32768), no gamma: the sum
+    truncated, a pixel whose three samples are equal kept as it is."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    gray = (9797 * r + 19234 * g + 3737 * b) >> 15
+    return np.where((r == g) & (g == b), r, gray).astype(np.uint8)
+
+
+def _read_png(data: bytes, path) -> np.ndarray:
+    chunks = list(_png_chunks(data, path))
+    kinds = {kind: body for kind, body in reversed(chunks)}  # the first chunk of each type
+    if chunks[0][0] != b"IHDR":
+        raise _unsupported(path, "PNG without IHDR")
+    w, h, depth, ctype, compression, filtering, interlace = struct.unpack(">IIBBBBB", chunks[0][1])
+    bpp = _PNG_CHANNELS.get(ctype)
+    if depth != 8 or bpp is None or interlace or compression or filtering:
+        raise _unsupported(path, f"{depth}-bit PNG of colour type {ctype}" + (", interlaced" if interlace else ""))
+    colour = ctype in (2, 3, 6)
+    if colour and (b"sRGB" in kinds or b"iCCP" in kinds or kinds.get(b"gAMA", struct.pack(">I", 100000))
+                   != struct.pack(">I", 100000)):
+        # libpng would convert to gray through the file's gamma
+        raise _unsupported(path, "colour PNG with a gamma or colour-space chunk (gAMA other than 1, sRGB, iCCP)")
+    try:
+        raw = zlib.decompress(b"".join(body for kind, body in chunks if kind == b"IDAT"))
+    except zlib.error as err:
+        raise _unsupported(path, f"damaged PNG image data ({err})") from err
+    if len(raw) != h * (1 + w * bpp):
+        raise _unsupported(path, "PNG whose image data does not fill its size")
+    px = _unfilter(np.frombuffer(raw, np.uint8).reshape(h, 1 + w * bpp), w, bpp)
+    if ctype == 3:
+        palette = np.frombuffer(kinds.get(b"PLTE", b""), np.uint8).reshape(-1, 3)
+        if px.max(initial=0) >= len(palette):
+            raise _unsupported(path, "palette PNG with indices outside its palette")
+        return _png_gray(palette[px[..., 0]])
+    if ctype in (2, 6):
+        return _png_gray(px)
+    return px[..., 0].copy()  # gray; gray + alpha drops the alpha, as libpng's strip_alpha does
+
+
+_PNM_HEADER = re.compile(rb"P([56])" + rb"(?:\s|#[^\n]*\n)+(\d+)" * 3 + rb"\s")
+
+
+def _read_pnm(data: bytes, path) -> np.ndarray:
+    """Binary PGM / PPM: magic, width, height and maxval, separated by
+    whitespace and `#` comments, one whitespace byte, then the samples.
+    maxval only bounds the samples: OpenCV does not rescale them."""
+    m = _PNM_HEADER.match(data)
+    if m is None:
+        raise _unsupported(path, "damaged PGM / PPM header")
+    w, h, maxval = (int(g) for g in m.groups()[1:])
+    if not 0 < maxval <= 255:
+        raise _unsupported(path, f"PGM / PPM with maxval {maxval}")
+    ch = 1 if m.group(1) == b"5" else 3
+    if len(data) - m.end() < h * w * ch:
+        raise _unsupported(path, "truncated PGM / PPM")
+    px = np.frombuffer(data, np.uint8, count=h * w * ch, offset=m.end()).reshape(h, w, ch)
+    if ch == 1:
+        return px[..., 0].copy()
+    r, g, b = (px[..., i].astype(np.int64) for i in range(3))
+    return ((4899 * r + 9617 * g + 1868 * b + 8192) >> 14).astype(np.uint8)  # OpenCV's RGB -> gray
+
+
+def imread_gray(path) -> np.ndarray:
+    """cv2.imread(path, IMREAD_GRAYSCALE) of the formats in `READS`: a
+    uint8 (H, W) image. Colour turns gray as OpenCV's decoders do it (PNG
+    through libpng's truncating fixed point, PPM through cvtColor's rounding
+    one). Any other file raises a `ValueError` that names what is read; a
+    missing one raises `FileNotFoundError`."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(PNG_SIGNATURE):
+        return _read_png(data, path)
+    if data[:2] in (b"P5", b"P6"):
+        return _read_pnm(data, path)
+    raise _unsupported(path, "not a file of these formats")
+
+
+def imwrite_png(path, img: np.ndarray) -> None:
+    """cv2.imwrite(path, img) for a uint8 (H, W) gray or (H, W, 3) BGR image:
+    an 8-bit gray or RGB PNG, rows unfiltered."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"imwrite_png takes uint8 (H, W) or (H, W, 3) BGR images, not {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    px = img[..., ::-1] if img.ndim == 3 else img  # BGR -> RGB
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), np.ascontiguousarray(px).reshape(h, -1)], 1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if img.ndim == 3 else 0, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(PNG_SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + chunk(b"IEND", b""))

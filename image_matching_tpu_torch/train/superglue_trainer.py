@@ -1,15 +1,17 @@
 """SuperGlue training step with pair generation on the device — the
 counterpart of `image_matching_tpu/train/superglue_trainer.py`:
 
-  sample homographies -> warp the images -> frozen SuperPoint on both
-  views (no grad) -> ground-truth assignment by mutual nearest neighbour
-  of the warped keypoints (< 3 px) -> SuperGlue(train=True) -> NLL ->
-  Adam update of SuperGlue, skipped when the loss is not finite.
+  sample homographies -> warp the images -> (optionally) an independent
+  photometric corruption of each view -> frozen SuperPoint on both views
+  (no grad; optionally subpixel-refined) -> ground-truth assignment by
+  mutual nearest neighbour of the warped keypoints (< 3 px) ->
+  SuperGlue(train=True) -> NLL -> Adam update of SuperGlue, skipped when
+  the loss is not finite.
 
 Both views are detected in one 2B-batched SuperPoint call (the JAX
 package makes two calls; the detector is per image, so the keypoints are
-the same). The JAX config's `subpixel` and `photometric` options, both
-off by default, are not in the port yet.
+the same). Random numbers come from a `torch.Generator`: the homographies,
+then each view's photometric draws.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from image_matching_tpu_torch.data.photometric import PhotometricConfig, apply_photometric, draw_photometric
 from image_matching_tpu_torch.geometry.homography import (
     HomographyConfig,
     invert_homography,
@@ -34,30 +37,43 @@ class SuperGluePairConfig(NamedTuple):
     max_keypoints: int = 512
     keypoint_threshold: float = 0.005
     nms_radius: int = 4
+    subpixel: bool = False  # refine the keypoints as the evaluation's postprocess does
     gt_dist_thresh: float = 3.0
     homography: HomographyConfig = HomographyConfig(patch_ratio=0.85, allow_artifacts=True)
+    # an independent photometric corruption of each view, after the warp:
+    # detection and description see the gap, the ground truth stays geometric
+    photometric: PhotometricConfig = PhotometricConfig(enable=False)
 
 
-def generate_pair_from_homographies(hs, superpoint, images, cfg: SuperGluePairConfig):
+def generate_pair_from_homographies(hs, superpoint, images, cfg: SuperGluePairConfig, draws=None):
     """images (B, H, W, 1), hs (B, 3, 3) image -> warped view ->
-    (kpts0, kpts1, gt0, gt1, warped)."""
+    (kpts0, kpts1, gt0, gt1, warped). With `cfg.photometric.enable`,
+    `draws` holds the two views' `PhotometricDraws` (images, warped)."""
     b = images.shape[0]
     warped = warp_image(images, invert_homography(hs))
+    if cfg.photometric.enable:
+        if draws is None:
+            raise ValueError("photometric pair generation needs each view's PhotometricDraws")
+        images = apply_photometric(images, draws[0], cfg.photometric)
+        warped = apply_photometric(warped, draws[1], cfg.photometric)
     with torch.no_grad():
         kp = superpoint_postprocess(superpoint(torch.cat([images, warped], 0)),
                                     max_keypoints=cfg.max_keypoints, threshold=cfg.keypoint_threshold,
-                                    nms_radius=cfg.nms_radius)
+                                    nms_radius=cfg.nms_radius, subpixel=cfg.subpixel)
     kp0, kp1 = kp.select(slice(None, b)), kp.select(slice(b, None))
     gt0, gt1 = make_gt_matches(warp_points(kp0.xy, hs), kp1.xy, kp0.mask, kp1.mask, cfg.gt_dist_thresh)
     return kp0, kp1, gt0, gt1, warped
 
 
 def generate_pair(gen: torch.Generator, superpoint, images, cfg: SuperGluePairConfig):
-    """Sample B homographies from `gen` (on the images' device) and
-    generate the pair."""
+    """Sample B homographies (and, with photometric corruption, each view's
+    draws) from `gen` (on the images' device) and generate the pair."""
     b, h, w, _ = images.shape
     hs = sample_homography_batch(gen, b, h, w, cfg.homography)
-    return generate_pair_from_homographies(hs, superpoint, images, cfg)
+    draws = None
+    if cfg.photometric.enable:
+        draws = tuple(draw_photometric(gen, images.shape, cfg.photometric) for _ in range(2))
+    return generate_pair_from_homographies(hs, superpoint, images, cfg, draws)
 
 
 def train_on_pair(state: TrainState, kp0, kp1, gt0, gt1, image_shape) -> dict:

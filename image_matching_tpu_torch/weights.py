@@ -22,7 +22,9 @@ Both the `Matching` tree (`params::superpoint::...`,
 `params::convDb::bias`, which maps the same way. Its layers carry the
 official MagicLeap checkpoint's names, so that checkpoint's state_dict
 loads with `load_magicleap_superpoint` (the JAX package converts it with
-`utils/torch_convert.convert_superpoint_vgg`).
+`utils/torch_convert.convert_superpoint_vgg`). The official SuperGlue
+state_dict loads with `load_magicleap_superglue` (the JAX package's
+`convert_superglue`).
 
 `params_to_jax` and `save_npz` go the other way, so weights trained by
 the port load into the JAX package (`utils/weights.load_npz_into`). A
@@ -75,21 +77,72 @@ def load_jax_params(module: torch.nn.Module, flat: dict[str, np.ndarray]) -> Non
     module.load_state_dict(state, strict=True)
 
 
+def read_npz(path: str) -> dict[str, np.ndarray]:
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
 def load_npz(module: torch.nn.Module, path: str) -> None:
     """Strictly load an npz written by the JAX package's `save_npz`."""
-    with np.load(path) as data:
-        flat = {k: data[k] for k in data.files}
-    load_jax_params(module, flat)
+    load_jax_params(module, read_npz(path))
+
+
+def _strip_module(state: dict) -> dict:
+    prefix = "module."
+    return {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in state.items()}
 
 
 def load_magicleap_superpoint(module: torch.nn.Module, state: dict) -> None:
     """Strictly load an official MagicLeap SuperPoint state_dict
     (`conv1a.weight` ... `convDb.bias`, with or without DataParallel's
     `module.` prefix) into a `SuperPointVGG`."""
-    prefix = "module."
-    state = {(k[len(prefix):] if k.startswith(prefix) else k): torch.as_tensor(v, dtype=torch.float32)
-             for k, v in state.items()}
+    state = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in _strip_module(state).items()}
     module.load_state_dict(state, strict=True)
+
+
+def _magicleap_mlp(state: dict, prefix: str, scope: str) -> dict:
+    """The official `MLP` (Conv1d / BatchNorm1d / ReLU slots under
+    `prefix.<i>`) -> the port's `SeqMLP` entries (`Dense_j`,
+    `MaskedBatchNorm1d_j`), in slot order, as `convert_superglue` maps it."""
+    slots = sorted({int(k[len(prefix) + 1:].split(".")[0]) for k in state if k.startswith(prefix + ".")})
+    out, dense, norm = {}, 0, 0
+    for i in slots:
+        w = state.get(f"{prefix}.{i}.weight")
+        if w is None:
+            continue
+        if w.dim() == 3:  # Conv1d (O, I, 1)
+            out[f"{scope}.Dense_{dense}.weight"] = w[..., 0]
+            out[f"{scope}.Dense_{dense}.bias"] = state[f"{prefix}.{i}.bias"]
+            dense += 1
+        elif w.dim() == 1 and f"{prefix}.{i}.running_mean" in state:
+            for leaf in ("weight", "bias", "running_mean", "running_var"):
+                out[f"{scope}.MaskedBatchNorm1d_{norm}.{leaf}"] = state[f"{prefix}.{i}.{leaf}"]
+            norm += 1
+    return out
+
+
+def load_magicleap_superglue(module: torch.nn.Module, state: dict) -> None:
+    """Strictly load an official MagicLeap SuperGlue state_dict (`kenc.encoder.<i>`,
+    `gnn.layers.<l>.attn.proj.{0,1,2}` for q, k, v, `.attn.merge`,
+    `.mlp.<i>`, `final_proj`, `bin_score`; Conv1d kernels (O, I, 1); with or
+    without DataParallel's `module.` prefix) into a `SuperGlue`, as the JAX
+    package's `utils/torch_convert.convert_superglue` maps it. Layer l is the
+    module's `layer_<l>_self` or `layer_<l>_cross`; `num_batches_tracked`
+    has no counterpart."""
+    state = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in _strip_module(state).items()
+             if not k.endswith("num_batches_tracked")}
+    out = _magicleap_mlp(state, "kenc.encoder", "kenc")
+    for li, name in enumerate(module.gnn.names):
+        layer = f"gnn.layers.{li}"
+        for src, dst in (("attn.proj.0", "proj_q"), ("attn.proj.1", "proj_k"), ("attn.proj.2", "proj_v"),
+                         ("attn.merge", "merge")):
+            out[f"gnn.{name}.attn.{dst}.weight"] = state[f"{layer}.{src}.weight"][..., 0]
+            out[f"gnn.{name}.attn.{dst}.bias"] = state[f"{layer}.{src}.bias"]
+        out.update(_magicleap_mlp(state, f"{layer}.mlp", f"gnn.{name}.mlp"))
+    out["final_proj.weight"] = state["final_proj.weight"][..., 0]
+    out["final_proj.bias"] = state["final_proj.bias"]
+    out["bin_score"] = state["bin_score"].reshape(())
+    module.load_state_dict(out, strict=True)
 
 
 def params_to_jax(state_dict: dict) -> dict[str, np.ndarray]:
@@ -112,13 +165,19 @@ def params_to_jax(state_dict: dict) -> dict[str, np.ndarray]:
     return flat
 
 
-def save_npz(module: torch.nn.Module, path: str) -> None:
-    """Write `module`'s weights as the JAX package's `save_npz` does: one
-    compressed npz keyed by tree path, written through one atomic rename."""
+def write_npz(flat: dict, path: str) -> None:
+    """Write a flat dict of arrays as the JAX package's `save_npz` does: one
+    compressed npz, written through one atomic rename."""
     buf = io.BytesIO()
-    np.savez_compressed(buf, **params_to_jax(module.state_dict()))
+    np.savez_compressed(buf, **flat)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(buf.getvalue())
     os.replace(tmp, path)
+
+
+def save_npz(module: torch.nn.Module, path: str) -> None:
+    """Write `module`'s weights as the JAX package's `save_npz` does, keyed by
+    tree path."""
+    write_npz(params_to_jax(module.state_dict()), path)

@@ -1,6 +1,6 @@
-"""Guards on the port: it imports no JAX, no JAX package and no OpenCV
-(the machine with the card has none), and it never falls back to the CPU
-on its own."""
+"""Guards on the port: it and `chip_smoke.py` import no JAX, no JAX
+package, no optax / orbax and no image library (the machine with the card
+has none), and it never falls back to the CPU on its own."""
 import ast
 from pathlib import Path
 
@@ -11,7 +11,8 @@ import image_matching_tpu_torch
 from image_matching_tpu_torch.models import Matching, MatchingConfig, SuperGlue, SuperPointBN, SuperPointVGG
 
 PACKAGE = Path(image_matching_tpu_torch.__file__).parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "image_matching_tpu", "cv2")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "image_matching_tpu", "cv2", "PIL")
+CHIP_SMOKE = PACKAGE.parent / "chip_smoke.py"
 
 
 def _imported_modules(tree):
@@ -27,11 +28,13 @@ def test_port_imports_no_jax():
     assert len(sources) >= 10
     names = {str(p.relative_to(PACKAGE)) for p in sources}
     assert {"registration.py", "evaluation.py", "imgproc.py", "cli/evaluate.py", "ops/s2d_conv.py",
-            "ops/s2d_entry.py", "ops/realign.py", "ops/matching.py", "ops/ransac.py"} <= names
-    for path in sources:
+            "ops/s2d_entry.py", "ops/realign.py", "ops/matching.py", "ops/ransac.py", "cli/match_pair.py",
+            "cli/train_superglue.py", "data/datasets.py", "data/photometric.py", "train/checkpoint.py",
+            "utils/viz.py"} <= names
+    for path in sources + [CHIP_SMOKE]:
         for mod in _imported_modules(ast.parse(path.read_text(), str(path))):
             top = mod.split(".")[0]
-            assert top not in FORBIDDEN, f"{path.relative_to(PACKAGE)} imports {mod}"
+            assert top not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
 @pytest.mark.parametrize("build", [
@@ -47,6 +50,28 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, build):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build()
+
+
+@pytest.mark.parametrize("cli", ["match_pair", "train_superglue"])
+def test_clis_raise_without_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path, cli):
+    import importlib
+
+    main = importlib.import_module(f"image_matching_tpu_torch.cli.{cli}").main
+    argv = (["--template", str(tmp_path / "t.png"), "--source_dir", str(tmp_path), "--out", str(tmp_path / "out")]
+            if cli == "match_pair" else ["--synthetic", "--run_dir", str(tmp_path / "run")])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(argv)
+    if cli == "match_pair":
+        with pytest.raises(FileNotFoundError):  # past the device, to the missing template
+            main(argv + ["--device", "cpu"])
+    else:
+        assert main(argv + ["--device", "cpu", *TINY_TRAINING])["state"].step == 1
+
+
+TINY_TRAINING = ["--epochs", "1", "--steps_per_epoch", "1", "--batch_size", "1", "--height", "32", "--width", "32",
+                 "--descriptor_dim", "16", "--keypoint_encoder", "8", "--gnn_layers", "2", "--sinkhorn_iterations",
+                 "3", "--max_keypoints", "16"]
 
 
 def test_cpu_on_request():
