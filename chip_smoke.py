@@ -15,7 +15,8 @@ In order, it:
      PyTorch yardstick with CUDA events, kernel and yardstick also by
      replaying a CUDA graph (no host launch gaps; the JSON rows hold
      these, and the attention forward is timed at the banked model's shape
-     too); the image entry conv also at ragged shapes and in f32, the
+     too); the image entry conv also at ragged shapes, at the pseudo-label
+     export's (400, 240, 320) and in f32, the
      Sinkhorn at the headline's, the banked model's and a streamed shape,
      each with its route and device launches per call, and both beside an
      earlier build interleaved where `build/entry_conv_before.cu` and
@@ -120,7 +121,20 @@ In order, it:
      --subpixel --warmup_steps 5 --grad_clip 1.0: 2 epochs of 10 steps, then
      --resume for one more; finite losses, checkpoints, the step count
      continued, the training kernels' launches a step, steps/s, peak memory
-     and the busy share of a step.
+     and the busy share of a step;
+ 16. runs the self-supervised cycle's SuperPoint stages in-process: stage 1,
+     `cli/train_superpoint.py --synthetic` at its defaults (240x320, batch 8,
+     D = 128, bf16, synthetic shapes made on the card) for 30 steps with
+     diagnostics, evaluation steps and checkpoints, then --resume to step
+     40: steps/s, the non-finite guard's read-back (its wait a step, and
+     steps/s with and without it), peak memory, a step's profile, the entry
+     conv's launches (diagnostics and evaluation only); stage 2,
+     `cli/export_pseudo.py` with `weights/sp_synth.npz` at 240x320, batch 8,
+     50 warps (400 views a model call) on 16 train and 8 val PNG files: s a
+     batch, keypoints an image, peak memory, and the first batch again on
+     the all-plain path with the same homographies (keypoint-set IoU >= 0.9);
+     stage 3, `train_superpoint --data_root --labels --init_weights
+     weights/sp_synth.npz` on those files and labels for 20 steps.
 
 Every check that fails raises; nothing is caught. TF32 is off for every
 phase, timed ones included, so f32 convolutions and matmuls are full f32.
@@ -303,6 +317,41 @@ def _entry_inputs(torch, dev, rng, b, h, w):
     return img, k, scale, shift
 
 
+EXPORT_VIEWS = (400, 240, 320)  # the export's one call: batch 8 x 50 warps at 240x320
+
+
+def check_entry_conv_export_shape(torch, dev):
+    """The image entry conv at the pseudo-label export's shape, (400, 240,
+    320) bf16 (more tiles a block of the persistent grid than any other
+    path), held to its plain version chunk by chunk (the plain version's f32
+    temporaries of the whole batch would take 24 GiB), and timed by CUDA
+    events over back-to-back calls, beside its bound. Its own seeded inputs,
+    so that the other checks' inputs stay as they were."""
+    import numpy as np
+    from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_plain
+
+    b, h, w = EXPORT_VIEWS
+    img, k, scale, shift = _entry_inputs(torch, dev, np.random.default_rng(14), b, h, w)
+    got = entry_conv(img, k, scale, shift)
+    rel = err = 0.0
+    for i in range(0, b, 50):
+        ref = entry_conv_plain(img[i:i + 50], k, scale, shift).float()
+        diff = (got[i:i + 50].float() - ref).abs()
+        err = max(err, diff.max().item())
+        rel = max(rel, (diff / ref.abs().clamp_min(1.0)).max().item())
+        del ref, diff
+    same = bool(torch.equal(got, entry_conv(img, k, scale, shift)))
+    ms = cuda_ms(lambda: entry_conv(img, k, scale, shift), 5, warmup=1)
+    npix = b * h * w
+    bms, by = bound(npix * 2 + npix * 64 * 2 + (9 + 2) * 64 * 4, npix * 64 * (2 * 9 + 2), F32_FLOPS)
+    print(f"entry_conv {EXPORT_VIEWS} -> 64 bf16 (the export's views): max_abs_err {err:.3e}, max err/max(|y|,1) "
+          f"{rel:.3e} (tolerance 2^-7), a second run bit-identical: {same}; {ms:.4f} ms per call (CUDA events over "
+          f"5 calls), bound {bms:.4f} ({by}; {bms / ms:.2f} of it reached)")
+    check(rel <= 2 ** -7 and same, f"entry_conv {EXPORT_VIEWS} disagrees with its plain version or is not reproducible")
+    del got
+    torch.cuda.empty_cache()
+
+
 def check_entry_conv(torch, dev, rng):
     """The image entry conv against its plain version at the main path's
     shape, at ragged ones (tiles the image does not fill, B = 1) and in
@@ -342,6 +391,8 @@ def check_entry_conv(torch, dev, rng):
             print(f"entry_conv ({rb}, {rh}, {rw}) {str(x.dtype)[6:]}: max err/max(|y|,1) {rel_r:.3e} "
                   f"(tolerance {tol}), a second run bit-identical: {same}")
             check(rel_r <= tol and same, f"entry_conv ({rb}, {rh}, {rw}) {x.dtype} disagrees or is not reproducible")
+
+    check_entry_conv_export_shape(torch, dev)
 
     builds = [("before", EARLIER_ENTRY_CONV, ())] if EARLIER_ENTRY_CONV.exists() else []
     libs = {"this checkout": _build.library("entry_conv"), **build_variants("entry_conv", builds)}
@@ -2786,6 +2837,232 @@ def run_train_superglue_cli(torch, dev, smi: str):
     return per_step
 
 
+SP_SYNTH = ROOT / "weights" / "sp_synth.npz"
+SP_STAGE1_STEPS = 30  # then 10 more after --resume
+SP_STAGE1_INTERVALS = ["--tensorboard_interval", "10", "--validation_interval", "15", "--save_interval", "15"]
+SP_STAGE3_STEPS = 20
+EXPORT_FILES = {"train": 16, "val": 8}  # 480x640 PNG files, read at 240x320
+
+
+def _superpoint_cli(torch, argv, label: str, smi: str):
+    """`cli/train_superpoint.main(argv)` with every train step timed on the
+    host clock (ending in a synchronize) and the non-finite guard's one
+    read-back a step timed on its own (how long the host waits there for
+    the device), the launch counts set to 0 before it and read after. Prints
+    steps/s (median over the steps after the first), the guard's wait, peak
+    memory, the entry conv's launches (one an inference forward: a
+    diagnostics interval runs one, an evaluation step two; a training step
+    none, its image conv is cuDNN's), the records, and checks finite losses,
+    no skipped step and those launches. Returns (out, a closure that runs one
+    more step, the median step in s, the launches)."""
+    from image_matching_tpu_torch.cli import train_superpoint as cli
+    from image_matching_tpu_torch.ops import _build
+    from image_matching_tpu_torch.train import superpoint_trainer
+
+    times, waits, last = [], [], {}
+    real_factory, real_finite = cli.make_superpoint_train_step, superpoint_trainer.is_finite
+
+    def timed_factory(*args, **kwargs):
+        step = real_factory(*args, **kwargs)
+
+        def timed(state, batch, gen):
+            t0 = time.perf_counter()
+            metrics = step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            last.update(run=lambda: step(state, batch, gen))
+            return metrics
+        return timed
+
+    def timed_finite(loss):
+        t0 = time.perf_counter()
+        ok = real_finite(loss)
+        waits.append(time.perf_counter() - t0)
+        return ok
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(cli, "make_superpoint_train_step", timed_factory), \
+            mock.patch.object(superpoint_trainer, "is_finite", timed_finite):
+        out = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    sec = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train_superpoint CLI ({label}): {len(times)} steps, to step {out['state'].step}; {1 / sec:.3f} steps/s "
+          f"(median over the {len(times) - 1} steps after the first, {sec * 1e3:.2f} ms; first step "
+          f"{times[0] * 1e3:.1f} ms); the guard's read-back waits {statistics.median(waits[1:]) * 1e3:.2f} ms a step "
+          f"(median); peak memory {peak:.3f} GiB; launches {launches}; whole run {wall:.1f} s; {smi}")
+    for rec in out["logged"] + out["history"]:
+        print("  " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in rec.items()))
+    want = len(out["logged"]) + 2 * len(out["history"])
+    check(launches == ({"entry_conv": want} if want else {}), f"train_superpoint CLI ({label}): launches {launches}")
+    check(all(math.isfinite(r["loss"]) and r["skipped_nonfinite"] == 0 for r in out["logged"])
+          and all(math.isfinite(r["loss"]) for r in out["history"]),
+          f"train_superpoint CLI ({label}): a loss is not finite or a step was skipped")
+    return out, last["run"], sec, launches
+
+
+def run_train_superpoint_cli(torch, dev, smi: str):
+    """The self-supervised cycle's stage 1: `python -m
+    image_matching_tpu_torch.cli.train_superpoint --synthetic` in-process at
+    its defaults (240x320, batch 8, D = 128, bf16, synthetic shapes made on
+    the card) for 30 steps with a diagnostics interval of 10, an evaluation
+    step every 15 and a checkpoint every 15, then `--resume` to step 40.
+    Checks the checkpoints and the resumed step, and profiles one step
+    (device time, launches, busy share). Returns the launch counts of both
+    runs."""
+    import shutil
+
+    run_dir = ROOT / "build" / "train_superpoint"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--synthetic", "--run_dir", str(run_dir), *SP_STAGE1_INTERVALS]
+    first, run, sec, launches = _superpoint_cli(torch, argv + ["--train_iter", str(SP_STAGE1_STEPS)], "stage 1", smi)
+    resumed, _, _, more = _superpoint_cli(torch, argv + ["--train_iter", str(SP_STAGE1_STEPS + 10), "--resume"],
+                                          "stage 1, --resume", smi)
+    ckpts = sorted(p.name for p in (run_dir / "checkpoints").iterdir())
+    print(f"train_superpoint CLI: checkpoints {ckpts}; resumed at step {first['state'].step}, first record after "
+          f"it at step {resumed['logged'][0]['step']}")
+    check(first["state"].step == SP_STAGE1_STEPS and resumed["state"].step == SP_STAGE1_STEPS + 10
+          and resumed["logged"][0]["step"] == SP_STAGE1_STEPS + 10 and ckpts == ["15.npz", "30.npz", "40.npz"],
+          "train_superpoint CLI: the checkpoints or the resumed step count are wrong")
+    profile_calls(torch, run, sec, "train_superpoint CLI (stage 1)", "step", reps=2)
+    time_guard_read_back(torch, dev)
+    return launches, more
+
+
+def time_guard_read_back(torch, dev, steps: int = 20, shape=(8, 240, 320)):
+    """What the non-finite guard's one read-back a step costs: `steps` train
+    steps back to back on one batch at stage 1's shapes (one synchronize at
+    the end of each run, none between steps), with the guard and with its
+    read-back replaced by True, interleaved (with, without, without, with).
+    Prints steps/s of each run."""
+    from image_matching_tpu_torch.data.pipeline import make_warped_pair_batch
+    from image_matching_tpu_torch.data.synthetic_device import synthetic_batch
+    from image_matching_tpu_torch.models import SuperPointBN
+    from image_matching_tpu_torch.train import superpoint_trainer
+    from image_matching_tpu_torch.train.state import TrainState
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    src = synthetic_batch(gen, *shape)
+    batch = make_warped_pair_batch(gen, src["image"], src["points"], src["points_mask"])
+    model = SuperPointBN(128, compute_dtype="bfloat16", device=dev)
+    state = TrainState.create(model, 1e-4)
+    step = superpoint_trainer.make_superpoint_train_step(model)
+    rates = {"with the read-back": [], "without": []}
+
+    def run(label):
+        with contextlib.ExitStack() as stack:
+            if label == "without":
+                stack.enter_context(mock.patch.object(superpoint_trainer, "is_finite", lambda loss: True))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step(state, batch, gen)
+            torch.cuda.synchronize()
+            rates[label].append(steps / (time.perf_counter() - t0))
+
+    run("without")  # warm-up
+    rates["without"].clear()
+    for label in ("with the read-back", "without", "without", "with the read-back"):
+        run(label)
+    print(f"train_superpoint step, {steps} steps back to back, batch {shape}: steps/s "
+          + "; ".join(f"{k} " + " / ".join(f"{r:.3f}" for r in v) for k, v in rates.items()))
+
+
+def write_export_files(torch, root, seed: int):
+    """`EXPORT_FILES` seeded textured 480x640 PNG files under root/<task>/."""
+    import numpy as np
+    from image_matching_tpu_torch import imgproc
+
+    rng = np.random.default_rng(seed)
+    for task, n in EXPORT_FILES.items():
+        (root / task).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            img = (texture(torch, rng, 480, 640) * 255).astype(np.uint8)
+            imgproc.imwrite_png(str(root / task / f"im_{i:02d}.png"), img)
+
+
+def run_export_pseudo_cli(torch, dev, smi: str):
+    """The cycle's stage 2 as `scripts/selfsup_cycle.sh` runs it: `python -m
+    image_matching_tpu_torch.cli.export_pseudo --checkpoint
+    weights/sp_synth.npz --height 240 --width 320 --batch_size 8` (50 warps,
+    top-k 1200: 400 views a model call) in-process on 16 train and 8 val
+    PNG files. Prints s a batch (images on the card to keypoints on the
+    host), keypoints an image, peak memory and launches (one entry conv a
+    batch, checked), then runs the first batch again, with the same
+    homographies, through the all-plain path: keypoint sets (at integer
+    pixels) with IoU >= 0.9. Returns (data root, labels dir, launches)."""
+    import shutil
+
+    from image_matching_tpu_torch import export
+    from image_matching_tpu_torch.cli import export_pseudo as cli
+    from image_matching_tpu_torch.models import SuperPointBN
+    from image_matching_tpu_torch.ops import _build
+    from image_matching_tpu_torch.train.checkpoint import load_weights
+
+    root = ROOT / "build" / "export_pseudo"
+    shutil.rmtree(root, ignore_errors=True)
+    write_export_files(torch, root / "data", seed=14)
+    recorded = []
+    real = export.export_pseudo_labels
+
+    def recording(hs, apply_fn, images, cfg):
+        kp = real(hs, apply_fn, images, cfg)
+        recorded.append((hs, images, cfg, kp))
+        return kp
+
+    launches = {}
+    with mock.patch.object(export, "export_pseudo_labels", recording):
+        for task in EXPORT_FILES:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = cli.main(["--data_root", str(root / "data"), "--out", str(root / "labels"), "--task", task,
+                            "--checkpoint", str(SP_SYNTH), "--height", "240", "--width", "320", "--batch_size", "8"])
+            wall = time.perf_counter() - t0
+            launches[task] = dict(_build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            kps = [n for b in out["batches"] for n in b["keypoints"]]
+            print(f"export_pseudo CLI ({task}, {len(kps)} images, batch 8 x 50 warps at 240x320): s a batch "
+                  + ", ".join(f"{b['seconds']:.3f}" for b in out["batches"])
+                  + f"; keypoints an image mean {statistics.mean(kps):.1f} (min {min(kps)}, max {max(kps)}); peak "
+                  f"memory {peak:.3f} GiB; launches {launches[task]}; whole run {wall:.1f} s; {smi}")
+            check(launches[task] == {"entry_conv": len(out["batches"])} and min(kps) > 0
+                  and len(out["written"]) == EXPORT_FILES[task],
+                  f"export_pseudo CLI ({task}): launches, keypoints or files are wrong")
+    hs, images, cfg, kp = recorded[0]
+    model = SuperPointBN(128, compute_dtype="bfloat16", device=dev)
+    load_weights(model, str(SP_SYNTH))
+    with plain_path(), torch.no_grad():
+        ref = real(hs, lambda views: model(views)["semi"], images, cfg)
+    iou = keypoint_set_iou(kp.replace(xy=torch.round(kp.xy)), ref.replace(xy=torch.round(ref.xy)))
+    print(f"export_pseudo CLI: the first batch through the all-plain path, same homographies: keypoint-set IoU "
+          f"{iou:.4f} (at least 0.9)")
+    check(iou >= 0.9, f"export_pseudo CLI: keypoints of the kernel path and the plain path differ (IoU {iou})")
+    return root / "data", root / "labels", launches
+
+
+def run_retrain_superpoint_cli(torch, dev, smi: str, data_root, labels):
+    """The cycle's stage 3: `train_superpoint --data_root ... --labels ...
+    --init_weights weights/sp_synth.npz` at its defaults on stage 2's files
+    and labels, 20 steps, diagnostics and an evaluation step every 10."""
+    import shutil
+
+    run_dir = ROOT / "build" / "retrain_superpoint"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    out, _, _, launches = _superpoint_cli(
+        torch, ["--data_root", str(data_root), "--labels", str(labels), "--run_dir", str(run_dir), "--init_weights",
+                str(SP_SYNTH), "--train_iter", str(SP_STAGE3_STEPS), "--tensorboard_interval", "10",
+                "--validation_interval", "10", "--save_interval", str(SP_STAGE3_STEPS)], "stage 3", smi)
+    check(out["state"].step == SP_STAGE3_STEPS, "train_superpoint CLI (stage 3): the step count is wrong")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2854,6 +3131,9 @@ def main() -> int:
     run_evaluation_cli(torch, dev)
     run_match_pair_cli(torch, dev, smi)
     run_train_superglue_cli(torch, dev, smi)
+    run_train_superpoint_cli(torch, dev, smi)
+    data_root, labels, _ = run_export_pseudo_cli(torch, dev, smi)
+    run_retrain_superpoint_cli(torch, dev, smi, data_root, labels)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

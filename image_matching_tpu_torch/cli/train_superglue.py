@@ -36,7 +36,7 @@ from image_matching_tpu_torch.models import SuperGlue, SuperPointBN
 from image_matching_tpu_torch.train.checkpoint import CheckpointManager, checkpoint_file, load_weights
 from image_matching_tpu_torch.train.state import TrainState
 from image_matching_tpu_torch.train.superglue_trainer import SuperGluePairConfig, make_superglue_train_step
-from image_matching_tpu_torch.utils.logging import get_logger
+from image_matching_tpu_torch.utils.logging import get_logger, summary_writer
 
 log = get_logger("train_superglue")
 
@@ -75,14 +75,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
-
-
-def _writer(run_dir: str):
-    try:
-        from tensorboardX import SummaryWriter
-    except ImportError:
-        return None
-    return SummaryWriter(f"{run_dir}/logdir")
 
 
 def main(argv=None) -> dict:
@@ -124,7 +116,7 @@ def main(argv=None) -> dict:
         log.info("resumed from step %d", state.step)
 
     step_fn = make_superglue_train_step(sg, sp, cfg)
-    writer = _writer(args.run_dir)
+    writer = summary_writer(args.run_dir)
     gen = torch.Generator(device=device).manual_seed(args.seed + 7)
     history, logged = [], []
     try:

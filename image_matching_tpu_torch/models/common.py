@@ -9,11 +9,10 @@ names follow the JAX package's (`Conv_0`, `BatchNorm_0`, `Dense_0`,
 (`image_matching_tpu_torch/weights.py`). `S2DConvBNReLU` /
 `S2DDoubleConv` (2x2) and `S2DConvBNReLUH` / `S2DDoubleConvH` (H-only)
 are the plain blocks with a second way to run, in a space-to-depth
-layout on NHWC maps (`ops/s2d_conv.py`), on the same parameters. Of the
-training branches, the
-port has `MaskedBatchNorm1d`'s (SuperGlue training): the convolutional
-`BatchNorm` stays inference-only, since SuperPoint is frozen in the only
-trainer ported so far.
+layout on NHWC maps (`ops/s2d_conv.py`), on the same parameters. Both batch
+norms have their training branches: `MaskedBatchNorm1d`'s for SuperGlue,
+`BatchNorm`'s (flax `nn.BatchNorm` in training) for SuperPoint's plain
+blocks. The s2d blocks stay inference-only, as in JAX.
 """
 from __future__ import annotations
 
@@ -31,10 +30,16 @@ EPS = 1e-5
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over the channel axis `dim` with running
-    statistics: (x - mean) * rsqrt(var + eps) * scale + bias in f32.
-    Serves flax `nn.BatchNorm`, and is the inference branch of
-    `MaskedBatchNorm1d` (which ignores the mask there)."""
+    """Batch norm over the channel axis `dim`, flax `nn.BatchNorm`
+    (momentum 0.9): (x - mean) * (rsqrt(var + eps) * scale) + bias in f32,
+    cast back to x's dtype. Inference uses the running statistics; it is
+    also the inference branch of `MaskedBatchNorm1d` (which ignores the
+    mask there). Training (`train=True`) uses the batch's statistics over
+    every axis but the channel's, in f32, with flax's fast variance
+    E[x^2] - E[x]^2 clipped at 0 (the biased variance), and moves the
+    running statistics ra = 0.9 * ra + 0.1 * batch in place, without grad."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, features: int, dim: int = -1):
         super().__init__()
@@ -44,14 +49,30 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x, dim=None):
+    def forward(self, x, dim=None, train: bool = False):
         """`dim` overrides the channel axis for this call (the s2d path
         normalises NHWC views of maps whose modules are built for NCHW)."""
+        axis = (self.dim if dim is None else dim) % x.dim()
         shape = [1] * x.dim()
-        shape[self.dim if dim is None else dim] = -1
-        inv = self.weight * torch.rsqrt(self.running_var + EPS)
-        y = (x.float() - self.running_mean.reshape(shape)) * inv.reshape(shape)
+        shape[axis] = -1
+        xf = x.float()
+        if train:
+            axes = tuple(a for a in range(x.dim()) if a != axis)
+            mean = xf.mean(dim=axes)
+            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            self.track(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = self.weight * torch.rsqrt(var + EPS)
+        y = (xf - mean.reshape(shape)) * inv.reshape(shape)
         return (y + self.bias.reshape(shape)).to(x.dtype)
+
+    @torch.no_grad()
+    def track(self, mean, var) -> None:
+        """Move the running statistics towards a batch's, flax's way."""
+        mom = self.MOMENTUM
+        self.running_mean.copy_(mom * self.running_mean + (1 - mom) * mean)
+        self.running_var.copy_(mom * self.running_var + (1 - mom) * var)
 
 
 class MaskedBatchNorm1d(BatchNorm):
@@ -61,8 +82,6 @@ class MaskedBatchNorm1d(BatchNorm):
     the biased variance over the valid (b, n) positions, in f32, and
     updates the running statistics with flax's convention,
     ra = 0.9 * ra + 0.1 * batch (in place, without grad)."""
-
-    MOMENTUM = 0.9
 
     def forward(self, x, mask=None, train: bool = False):
         if not train:
@@ -76,23 +95,24 @@ class MaskedBatchNorm1d(BatchNorm):
             denom = w.sum().clamp_min(1.0)
             mean = (xf * w).sum(dim=(0, 1)) / denom
             var = (w * (xf - mean) ** 2).sum(dim=(0, 1)) / denom
-        with torch.no_grad():
-            mom = self.MOMENTUM
-            self.running_mean.copy_(mom * self.running_mean + (1 - mom) * mean)
-            self.running_var.copy_(mom * self.running_var + (1 - mom) * var)
+        self.track(mean, var)
         y = (xf - mean) * torch.rsqrt(var + EPS) * self.weight + self.bias
         return y.to(x.dtype)
 
 
 class ConvBNReLU(nn.Module):
-    """SAME conv -> inference BN -> ReLU on NCHW (channels_last) maps."""
+    """SAME conv -> BN -> ReLU on NCHW (channels_last) maps. In training the
+    conv's output goes to BN in f32 and the ReLU's comes back in the
+    compute dtype, as JAX's `bn_dtype` does."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3):
         super().__init__()
         self.Conv_0 = nn.Conv2d(in_channels, features, kernel, padding=kernel // 2)
         self.BatchNorm_0 = BatchNorm(features, dim=1)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, train: bool = False):
+        if train:
+            return torch.relu(self.BatchNorm_0(conv2d(x, self.Conv_0, dtype).float(), train=True)).to(dtype)
         return torch.relu(self.BatchNorm_0(conv2d(x, self.Conv_0, dtype)))
 
     def entry(self, image, h_layout: bool = False):
@@ -106,17 +126,21 @@ class ConvBNReLU(nn.Module):
 
 
 class DoubleConv(nn.Module):
-    """(conv => BN => ReLU) * 2. A 3-dim input is the 1-channel image, and
-    the first layer then runs as the fused entry conv."""
+    """(conv => BN => ReLU) * 2. A 3-dim input is the 1-channel image: in
+    inference the first layer then runs as the fused entry conv (which has
+    no backward), in training as a library conv of the (B, 1, H, W) image."""
 
     def __init__(self, in_channels: int, features: int):
         super().__init__()
         self.ConvBNReLU_0 = ConvBNReLU(in_channels, features)
         self.ConvBNReLU_1 = ConvBNReLU(features, features)
 
-    def forward(self, x, dtype):
-        x = self.ConvBNReLU_0.entry(x) if x.dim() == 3 else self.ConvBNReLU_0(x, dtype)
-        return self.ConvBNReLU_1(x, dtype)
+    def forward(self, x, dtype, train: bool = False):
+        if x.dim() == 3 and not train:
+            x = self.ConvBNReLU_0.entry(x)
+        else:
+            x = self.ConvBNReLU_0(x[:, None] if x.dim() == 3 else x, dtype, train)
+        return self.ConvBNReLU_1(x, dtype, train)
 
 
 def fold_parity(x, groups: int = 4):

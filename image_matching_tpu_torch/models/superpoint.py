@@ -128,20 +128,25 @@ class SuperPointBN(nn.Module):
         init_weights(self, seed)
         self.to(resolve_device(device))
 
-    def forward(self, image) -> dict:
-        """image (B, H, W, 1) in [0, 1] -> {"semi", "desc_map"}."""
-        if self.s2d and _takes_s2d(image):
+    def forward(self, image, train: bool = False) -> dict:
+        """image (B, H, W, 1) in [0, 1] -> {"semi", "desc_map"}. `train`
+        normalises with the batch's statistics and moves the running ones
+        (every BN in f32); it always takes the plain path, whose first conv
+        is then a library conv, not the fused entry conv."""
+        if self.s2d and not train and _takes_s2d(image):
             return self._forward_s2d(image)
         dt = self.dtype
-        x = self.inc(image[..., 0].to(dt).contiguous(), dt)
-        x = self.down1(max_pool_stride2(x), dt)
-        x = self.down2(max_pool_stride2(x), dt)
-        x = self.down3(max_pool_stride2(x), dt)
+        # f32 BN statistics in training; BN on the compute dtype's output in inference
+        bn_in = (lambda y: y.float()) if train else (lambda y: y)
+        x = self.inc(image[..., 0].to(dt).contiguous(), dt, train)
+        x = self.down1(max_pool_stride2(x), dt, train)
+        x = self.down2(max_pool_stride2(x), dt, train)
+        x = self.down3(max_pool_stride2(x), dt, train)
 
-        cpa = torch.relu(self.bnPa(conv2d(x, self.convPa, dt)))
-        semi = self.bnPb(conv2d(cpa, self.convPb, dt)).float()
-        cda = torch.relu(self.bnDa(conv2d(x, self.convDa, dt)))
-        desc = _normalize_desc(self.bnDb(conv2d(cda, self.convDb, dt)).float(), 1)
+        cpa = torch.relu(self.bnPa(bn_in(conv2d(x, self.convPa, dt)), train=train))
+        semi = self.bnPb(bn_in(conv2d(cpa, self.convPb, dt)), train=train).float()
+        cda = torch.relu(self.bnDa(bn_in(conv2d(x, self.convDa, dt)), train=train))
+        desc = _normalize_desc(self.bnDb(bn_in(conv2d(cda, self.convDb, dt)), train=train).float(), 1)
         return {"semi": semi.permute(0, 2, 3, 1), "desc_map": desc.permute(0, 2, 3, 1)}
 
     def _forward_s2d(self, image) -> dict:

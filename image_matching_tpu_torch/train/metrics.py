@@ -1,6 +1,27 @@
-"""Matching metrics of training — the counterpart of
-`matching_precision_recall` in `image_matching_tpu/train/metrics.py`."""
+"""Training metrics — the counterpart of `image_matching_tpu/train/metrics.py`:
+binary precision / recall, the detector's against its labels after NMS,
+and SuperGlue's match-level precision / recall."""
 from __future__ import annotations
+
+import torch
+
+from image_matching_tpu_torch.geometry.labels import flatten_detection
+from image_matching_tpu_torch.ops.nms import simple_nms
+
+
+def precision_recall(pred, labels) -> dict:
+    """Binary precision and recall with the reference's 1e-6 smoothing."""
+    pred, labels = pred.float(), labels.float()
+    tp = (pred * labels).sum()
+    return {"precision": tp / (pred.sum() + 1e-6), "recall": tp / (labels.sum() + 1e-6)}
+
+
+def detector_precision_recall(semi, labels_2d, detection_threshold: float = 0.015, nms_radius: int = 4) -> dict:
+    """The f32 heatmap of semi (B, Hc, Wc, 65) after NMS, thresholded,
+    against the labels (B, H, W, 1) above 0.5, as the trainers log."""
+    heat = flatten_detection(semi, dtype=torch.float32)[..., 0]
+    pred = simple_nms(heat, nms_radius) > detection_threshold
+    return precision_recall(pred, labels_2d[..., 0] > 0.5)
 
 
 def matching_precision_recall(matches0, gt0, mask0, n1: int) -> dict:

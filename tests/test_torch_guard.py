@@ -30,7 +30,9 @@ def test_port_imports_no_jax():
     assert {"registration.py", "evaluation.py", "imgproc.py", "cli/evaluate.py", "ops/s2d_conv.py",
             "ops/s2d_entry.py", "ops/realign.py", "ops/matching.py", "ops/ransac.py", "cli/match_pair.py",
             "cli/train_superglue.py", "data/datasets.py", "data/photometric.py", "train/checkpoint.py",
-            "utils/viz.py"} <= names
+            "utils/viz.py", "cli/train_superpoint.py", "cli/export_pseudo.py", "export.py", "data/pipeline.py",
+            "data/synthetic_device.py", "losses/detector.py", "losses/descriptor.py", "losses/subpixel.py",
+            "train/superpoint_trainer.py"} <= names
     for path in sources + [CHIP_SMOKE]:
         for mod in _imported_modules(ast.parse(path.read_text(), str(path))):
             top = mod.split(".")[0]
@@ -52,26 +54,32 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, build):
         build()
 
 
-@pytest.mark.parametrize("cli", ["match_pair", "train_superglue"])
+@pytest.mark.parametrize("cli", ["match_pair", "train_superglue", "train_superpoint", "export_pseudo"])
 def test_clis_raise_without_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path, cli):
     import importlib
 
     main = importlib.import_module(f"image_matching_tpu_torch.cli.{cli}").main
-    argv = (["--template", str(tmp_path / "t.png"), "--source_dir", str(tmp_path), "--out", str(tmp_path / "out")]
-            if cli == "match_pair" else ["--synthetic", "--run_dir", str(tmp_path / "run")])
+    argv = {"match_pair": ["--template", str(tmp_path / "t.png"), "--source_dir", str(tmp_path), "--out",
+                           str(tmp_path / "out")],
+            "export_pseudo": ["--data_root", str(tmp_path), "--out", str(tmp_path / "out")]}.get(
+        cli, ["--synthetic", "--run_dir", str(tmp_path / "run")])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(argv)
-    if cli == "match_pair":
-        with pytest.raises(FileNotFoundError):  # past the device, to the missing template
+    if cli in ("match_pair", "export_pseudo"):
+        with pytest.raises(FileNotFoundError):  # past the device, to the missing template / image directory
             main(argv + ["--device", "cpu"])
     else:
-        assert main(argv + ["--device", "cpu", *TINY_TRAINING])["state"].step == 1
+        assert main(argv + ["--device", "cpu", *TINY_TRAINING[cli]])["state"].step == 1
 
 
-TINY_TRAINING = ["--epochs", "1", "--steps_per_epoch", "1", "--batch_size", "1", "--height", "32", "--width", "32",
-                 "--descriptor_dim", "16", "--keypoint_encoder", "8", "--gnn_layers", "2", "--sinkhorn_iterations",
-                 "3", "--max_keypoints", "16"]
+TINY_TRAINING = {
+    "train_superglue": ["--epochs", "1", "--steps_per_epoch", "1", "--batch_size", "1", "--height", "32", "--width",
+                        "32", "--descriptor_dim", "16", "--keypoint_encoder", "8", "--gnn_layers", "2",
+                        "--sinkhorn_iterations", "3", "--max_keypoints", "16"],
+    "train_superpoint": ["--train_iter", "1", "--batch_size", "1", "--height", "32", "--width", "32",
+                         "--descriptor_dim", "16"],
+}
 
 
 def test_cpu_on_request():
