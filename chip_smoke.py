@@ -134,7 +134,23 @@ In order, it:
      batch, keypoints an image, peak memory, and the first batch again on
      the all-plain path with the same homographies (keypoint-set IoU >= 0.9);
      stage 3, `train_superpoint --data_root --labels --init_weights
-     weights/sp_synth.npz` on those files and labels for 20 steps.
+     weights/sp_synth.npz` on those files and labels for 20 steps;
+ 17. runs the classical configs of the evaluation CLI (`cli/evaluate.py
+     --configs sift orb`) at its defaults (50 pairs at 480x640) and in the
+     regime of the JAX package's `EVAL_classical_photo.json` (40 pairs at
+     240x320, each method held to a success rate of 0.9): metrics, ms a
+     pair, peak memory, a pair's profile and busy share, where a pair's time
+     goes by stage, and one pair a method held to the port's CPU path with
+     the same sample indices (fits within 1e-3 px of corner error);
+ 18. runs `cli/traditional.py` at its defaults (--resize_scale 0.5) on
+     match_pair's template and 8 sources of 1920x2560, --method sift and
+     orb: corner error per source at 960x1280 (at least 7 of 8 under 5 px),
+     the CLI's seconds a pair, peak memory;
+ 19. runs `cli/sequence.py --synthetic --n_frames 24 --ba`: valid edges,
+     both ATEs (under 0.1 px), tracks and landmarks beside the JAX
+     package's `EVAL_sequence.json`, wall time, and the two solvers' wall
+     time, device time and device launches. No kernel of the port runs in
+     17-19: each checks that none launched.
 
 Every check that fails raises; nothing is caught. TF32 is off for every
 phase, timed ones included, so f32 convolutions and matmuls are full f32.
@@ -2544,9 +2560,10 @@ EVAL_MIN_SUCCESS, EVAL_MAX_MEAN_PX, EVAL_H_AGAINST_PLAIN_PX = 0.96, 1.0, 0.25
 
 
 def run_evaluation_cli(torch, dev):
-    """`python -m image_matching_tpu_torch.cli.evaluate` in-process at its
-    defaults (50 photo-texture pairs at 480x640, K = 1200, similarity RANSAC
-    at 7 px, sp and spsg) with the banked weights, through the H-only
+    """`python -m image_matching_tpu_torch.cli.evaluate --configs sp spsg`
+    in-process at its defaults (50 photo-texture pairs at 480x640, K = 1200,
+    similarity RANSAC at 7 px; the classical configs are
+    `run_classical_evaluation`'s) with the banked weights, through the H-only
     backbone and then the plain one on the same pairs: each config's JSON
     beside the JAX package's `EVAL_reference_regime.json`, each held to a
     success rate of 0.96 and a mean corner error of 1 px, and the two
@@ -2564,7 +2581,8 @@ def run_evaluation_cli(torch, dev):
         out.parent.mkdir(parents=True, exist_ok=True)
         _build.reset_launch_counts()
         t0 = time.perf_counter()
-        results[layout] = cli.main([*weights, "--s2d_backbone", layout, "--per_pair", "--out", str(out)])
+        results[layout] = cli.main([*weights, "--configs", "sp", "spsg", "--s2d_backbone", layout, "--per_pair",
+                                    "--out", str(out)])
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
         n = results[layout]["sp"]["n_pairs"]
@@ -3063,6 +3081,279 @@ def run_retrain_superpoint_cli(torch, dev, smi: str, data_root, labels):
     return launches
 
 
+# ---------------------------------------------------------------- classical registration and the sequence back end
+
+CLASSICAL_MIN_SUCCESS = 0.9  # sift and orb, the 240x320 regime of EVAL_classical_photo.json
+CLASSICAL_CPU_MAX_PX = 1e-3  # the card's fit against the port's CPU path on one pair
+# the card's descriptors on the keypoints it shares with the CPU path: SIFT's
+# differ by float32 sum orders (scatter-adds, resize products; 2.2e-5 measured),
+# ORB's bits not at all
+CLASSICAL_CPU_MAX_DESC = {"sift": 1e-4, "orb": 0}
+TRADITIONAL_FULL = (1920, 2560)  # the files; the CLI's --resize_scale 0.5 registers at 960x1280
+TRADITIONAL_SCALE = 0.5
+TRADITIONAL_MIN_SUCCESS, TRADITIONAL_SUCCESS_PX = 7, 5.0  # of 8, px at the 960x1280 scale
+SEQUENCE_MAX_ATE_PX = 0.1
+
+
+@contextlib.contextmanager
+def staged_times(torch, stages: dict):
+    """Each function of `stages` ({label: [(module, attribute), ...]})
+    wrapped to add its own host time, bracketed by synchronizes, to its
+    label's total; yields the totals (seconds). A stage called inside
+    another one counts in both."""
+    totals = {label: 0.0 for label in stages}
+    patches = []
+    for label, targets in stages.items():
+        for module, attr in targets:
+            real = getattr(module, attr)
+
+            def timed(*args, _real=real, _label=label, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _real(*args, **kwargs)
+                torch.cuda.synchronize()
+                totals[_label] += time.perf_counter() - t0
+                return out
+            patches.append(mock.patch.object(module, attr, timed))
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        yield totals
+
+
+def classical_stages(method: str) -> dict:
+    """Where a classical registration's time goes, by the functions each
+    stage calls."""
+    from image_matching_tpu_torch.features import orb, registration, sift
+
+    common = {"matching": [(registration, "match_ratio_mutual" if method == "sift" else "match_hamming")],
+              "RANSAC": [(registration, "sample_indices"), (registration, "ransac_similarity_from_indices")]}
+    if method == "sift":
+        return {"2x upscale": [(sift, "resize_linear")], "pyramid blurs": [(sift, "_blur")],
+                "extrema + refine": [(sift, "_octave_keypoints")], "gradients": [(sift, "_gradients")],
+                "orientations": [(sift, "_orientation_histograms"), (sift, "_orientation_peaks")],
+                "descriptors": [(sift, "_descriptor")], **common}
+    return {"pyramid resizes": [(orb, "resize_linear")], "FAST": [(orb, "fast_score")], "NMS": [(orb, "simple_nms")],
+            "blur": [(orb, "_blur7")], "orientation": [(orb, "_orientation_centroid")], **common}
+
+
+def classical_against_cpu(torch, dev, pair, method: str):
+    """One pair registered on the card and by the port's CPU path with the
+    same sample indices: keypoint agreement, descriptor distance on shared
+    keypoints, and the corner error between the two fits."""
+    import numpy as np
+    from image_matching_tpu_torch.evaluation import corner_error
+    from image_matching_tpu_torch.features.registration import build_classical_registration_fn
+    from image_matching_tpu_torch.ops.ransac import sample_indices
+
+    register = build_classical_registration_fn(method)
+    t, s = (torch.from_numpy(a)[None] for a in (pair.template, pair.source))
+    card = register(t.to(dev), s.to(dev), torch.Generator(device=dev).manual_seed(0))
+    idx = sample_indices(torch.Generator(device=dev).manual_seed(1), card.matches.matches0 >= 0, 512, 2)
+    card = register(t.to(dev), s.to(dev), indices=idx)
+    cpu = register(t, s, indices=idx.cpu())
+    shared, counts, desc_err = [], [], []
+    for side in ("kpts0", "kpts1"):
+        kc, kp = getattr(card, side), getattr(cpu, side)
+        mc, mp = kc.mask[0].cpu().numpy(), kp.mask[0].numpy()
+        xc, xp = kc.xy[0].cpu().numpy()[mc], kp.xy[0].numpy()[mp]
+        dc, dp = kc.desc[0].cpu().numpy()[mc], kp.desc[0].numpy()[mp]
+        counts.append((len(xc), len(xp)))
+        for i in range(len(xc)):
+            near = np.nonzero(np.abs(xp - xc[i]).max(-1) <= 1e-3)[0]
+            shared.append(len(near) > 0)
+            if len(near):  # a keypoint with two orientations has two slots at one position
+                if method == "orb":
+                    desc_err.append(min(int((np.unpackbits(dc[i]) != np.unpackbits(dp[j])).sum()) for j in near))
+                else:
+                    desc_err.append(min(float(np.abs(dc[i] - dp[j]).max()) for j in near))
+    h, w = pair.template.shape[:2]
+    fit_px = corner_error(card.fit.matrix[0].cpu().numpy(), cpu.fit.matrix[0].numpy(), h, w)
+    same_matches = bool(torch.equal(card.matches.matches0.cpu(), cpu.matches.matches0))
+    unit = "bits" if method == "orb" else "abs"
+    print(f"classical {method}, card against the port's CPU path on one {h}x{w} pair (the same sample indices): "
+          f"keypoints (card, CPU) {counts}, {np.mean(shared):.4f} of the card's within 1e-3 px of the CPU's, "
+          f"descriptor distance on those max "
+          f"{max(desc_err)} ({unit}), matches0 equal {same_matches}, fits {fit_px:.2e} px apart in corner error "
+          f"(tolerances {CLASSICAL_CPU_MAX_DESC[method]} {unit}, {CLASSICAL_CPU_MAX_PX} px)")
+    check(np.mean(shared) >= 0.98 and all(abs(a - b) <= 0.02 * a for a, b in counts) and fit_px <= CLASSICAL_CPU_MAX_PX
+          and max(desc_err) <= CLASSICAL_CPU_MAX_DESC[method] and same_matches and bool(card.fit.valid[0]),
+          f"classical {method}: the card's registration differs from the CPU path's")
+
+
+def run_classical_evaluation(torch, dev, smi: str):
+    """`cli/evaluate.py --configs sift orb` in-process: the reference regime
+    (its defaults: 50 photo-texture pairs at 480x640, similarity RANSAC at
+    7 px, SIFT doubled to 960x1280, ORB over 8 levels), then the regime of
+    the JAX package's `EVAL_classical_photo.json` (40 pairs at 240x320),
+    printed beside that record and held to a success rate of 0.9 a method;
+    launches of the port's kernels (none), peak memory, a pair's profile
+    (device launches, busy share), where a pair's time goes by stage; and
+    one pair a method held to the port's CPU path."""
+    import numpy as np
+    from image_matching_tpu_torch.cli import evaluate as cli
+    from image_matching_tpu_torch.features.registration import build_classical_registration_fn
+    from image_matching_tpu_torch.ops import _build
+
+    keys = ("success_rate", "mean_corner_err_px", "median_corner_err_px", "mean_matches", "mean_inliers",
+            "fit_valid_rate", "wall_s_total")
+    record = json.loads((ROOT / "EVAL_classical_photo.json").read_text())
+    for label, extra in (("reference regime, 50 pairs at 480x640", []),
+                         ("EVAL_classical_photo.json regime, 40 pairs at 240x320",
+                          ["--n_pairs", "40", "--height", "240", "--width", "320"])):
+        out = ROOT / "build" / f"eval_classical_{'x'.join(extra[3::2]) or 'defaults'}.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        results = cli.main(["--configs", "sift", "orb", *extra, "--out", str(out)])
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(launches == {}, f"classical evaluation: the port's kernels launched {launches}")
+        for name, res in results.items():
+            print(f"evaluation CLI {name} ({label}): " + json.dumps({k: res[k] for k in keys})
+                  + f"; {res['wall_s_total'] / res['n_pairs'] * 1e3:.1f} ms a pair; peak memory {peak:.3f} GiB; "
+                  f"launches of the port's kernels {launches}; {smi}")
+            if extra:
+                print(f"JAX package, EVAL_classical_photo.json, {name} (a TPU run, for quality only): "
+                      + json.dumps({k: record[name][k] for k in keys}))
+                check(res["success_rate"] >= CLASSICAL_MIN_SUCCESS,
+                      f"classical evaluation {name} ({label}): success {res['success_rate']}")
+            check(res["fit_valid_rate"] > 0.5, f"classical evaluation {name} ({label}): too few valid fits")
+
+    pairs = cli.make_pairs(cli.parse_args([]))[:4]
+    for method in ("sift", "orb"):
+        register = build_classical_registration_fn(method)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t, s = (torch.from_numpy(a)[None].to(dev) for a in (pairs[0].template, pairs[0].source))
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            register(t, s, gen)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        sec = statistics.median(walls)
+        profile_calls(torch, lambda: register(t, s, gen), sec, f"classical {method} pair (480x640)", "pair", 3)
+        with staged_times(torch, classical_stages(method)) as totals:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for p in pairs:
+                register(torch.from_numpy(p.template)[None].to(dev), torch.from_numpy(p.source)[None].to(dev), gen)
+            torch.cuda.synchronize()
+            whole = (time.perf_counter() - t0) / len(pairs)
+        print(f"classical {method} pair (480x640), stages timed one by one (synchronized), ms a pair over "
+              f"{len(pairs)} pairs: " + ", ".join(f"{k} {v / len(pairs) * 1e3:.2f}" for k, v in totals.items())
+              + f"; whole {whole * 1e3:.2f} (median unstaged {sec * 1e3:.2f}); {smi}")
+        classical_against_cpu(torch, dev, pairs[1], method)
+
+
+def run_traditional_cli(torch, dev, smi: str):
+    """`cli/traditional.py` in-process at its defaults (--resize_scale 0.5,
+    ratio 0.7, similarity RANSAC at 7 px) on match_pair's template and 8
+    sources of 1920x2560 with known similarities, --method sift and orb:
+    each written transform's corner error against the known one at the
+    960x1280 scale (at least 7 of 8 under 5 px), the CLI's seconds a pair,
+    launches of the port's kernels (none), peak memory, the written files."""
+    import numpy as np
+    from image_matching_tpu_torch.cli import traditional as cli
+    from image_matching_tpu_torch.evaluation import corner_error
+    from image_matching_tpu_torch.ops import _build
+
+    root = ROOT / "build" / "traditional"
+    gts = write_match_pair_files(root, MATCH_PAIR_SOURCES, seed=11)
+    h, w = TRADITIONAL_FULL
+    for method in ("sift", "orb"):
+        out = root / f"out_{method}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        records = cli.main(["--template", str(root / "template.png"), "--source_dir", str(root / "src"), "--out",
+                            str(out), "--method", method])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, peak = dict(_build.LAUNCHES), torch.cuda.max_memory_allocated() / 2 ** 30
+        errs = []
+        for rec, gt in zip(records, gts):
+            written = np.loadtxt(out / f"{rec['name']}_transform.txt")
+            check(np.allclose(written, rec["transform"], rtol=1e-6, atol=1e-6) and written.shape == (2, 3),
+                  f"traditional ({method}) {rec['name']}: the written transform is not the one returned")
+            check(all((out / f"{rec['name']}_{kind}.png").is_file() for kind in ("matches", "warped")),
+                  f"traditional ({method}) {rec['name']}: a picture is missing")
+            errs.append(corner_error(written, gt, h, w) * TRADITIONAL_SCALE if rec["valid"] else float("inf"))
+            print(f"traditional ({method}) {rec['name']}: {rec['wall_s'] * 1e3:.1f} ms, {rec['matches']} matches, "
+                  f"{rec['inliers']} inliers, valid {rec['valid']}, corner error {errs[-1]:.4f} px at 960x1280")
+        ok = [e < TRADITIONAL_SUCCESS_PX for e in errs]
+        walls = [rec["wall_s"] for rec in records]
+        print(f"traditional ({method}), CLI defaults, {len(records)} sources at 1920x2560 -> 960x1280: {sum(ok)} / "
+              f"{len(records)} under {TRADITIONAL_SUCCESS_PX} px, mean corner error "
+              f"{np.mean([e for e in errs if e < TRADITIONAL_SUCCESS_PX]):.4f} px; s a pair (the CLI's timer) median "
+              f"{statistics.median(walls):.4f}, first {walls[0]:.4f}; whole run {wall:.1f} s with reading, resizing, "
+              f"plotting and writing; peak memory {peak:.3f} GiB; launches of the port's kernels {launches}; {smi}")
+        check(sum(ok) >= TRADITIONAL_MIN_SUCCESS and launches == {},
+              f"traditional ({method}): {sum(ok)} successes, launches {launches}")
+
+
+def run_sequence_cli(torch, dev, smi: str):
+    """`cli/sequence.py --synthetic --n_frames 24 --ba` in-process (the
+    regime of the JAX package's `EVAL_sequence.json`): valid edges, both
+    ATEs (each under 0.1 px), tracks and landmarks beside that record;
+    the run's wall time; then the two solvers (pose graph, robust bundle
+    adjustment) called again on the run's own inputs under the profiler:
+    device time, device launches, wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from image_matching_tpu_torch.cli import sequence as cli
+    from image_matching_tpu_torch.ops import _build
+
+    captured = {}
+
+    def capture(name, real):
+        def run(*args, **kwargs):
+            captured[name] = (args, kwargs)
+            return real(*args, **kwargs)
+        return run
+
+    out = ROOT / "build" / "sequence.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(cli, "solve_trajectory", capture("pose graph", cli.solve_trajectory)), \
+            mock.patch.object(cli, "refine_trajectory_with_tracks",
+                              capture("bundle adjustment", cli.refine_trajectory_with_tracks)):
+        result = cli.main(["--synthetic", "--n_frames", "24", "--ba", "--out", str(out)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, peak = dict(_build.LAUNCHES), torch.cuda.max_memory_allocated() / 2 ** 30
+    ref = json.loads((ROOT / "EVAL_sequence.json").read_text())
+    keys = ("valid_edges", "ate_pose_graph_px", "ate_bundle_adjusted_px", "num_tracks", "num_landmarks")
+    print(f"sequence CLI --synthetic --n_frames 24 --ba: " + json.dumps({k: result[k] for k in keys})
+          + f"; whole run {wall:.2f} s; peak memory {peak:.3f} GiB; launches of the port's kernels {launches}; {smi}")
+    print("JAX package, EVAL_sequence.json (a TPU run, for quality only): " + json.dumps({k: ref[k] for k in keys}))
+    check(result["ate_pose_graph_px"] < SEQUENCE_MAX_ATE_PX and result["ate_bundle_adjusted_px"] < SEQUENCE_MAX_ATE_PX
+          and launches == {} and len(result["trajectory"]) == 24,
+          f"sequence CLI: ATEs {result['ate_pose_graph_px']} / {result['ate_bundle_adjusted_px']}, launches {launches}")
+    for name, (args, kwargs) in captured.items():
+        fn = cli.solve_trajectory if name == "pose graph" else cli.refine_trajectory_with_tracks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        events = _kernel_events(prof)
+        dev_ms = sum(_dev_us(e) for e in events) / 1e3
+        n = sum(e.count for e in events)
+        print(f"sequence CLI, {name} solver (CG, 300 iterations{', 4 IRLS rounds' if 'bundle' in name else ''}): "
+              f"wall {sec * 1e3:.1f} ms, device time {dev_ms:.3f} ms in {n} device launches, busy "
+              f"{dev_ms / (sec * 1e3):.3f}; {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -3134,6 +3425,9 @@ def main() -> int:
     run_train_superpoint_cli(torch, dev, smi)
     data_root, labels, _ = run_export_pseudo_cli(torch, dev, smi)
     run_retrain_superpoint_cli(torch, dev, smi, data_root, labels)
+    run_classical_evaluation(torch, dev, smi)
+    run_traditional_cli(torch, dev, smi)
+    run_sequence_cli(torch, dev, smi)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

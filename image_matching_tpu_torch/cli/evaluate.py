@@ -1,27 +1,30 @@
-"""Evaluate the learned registration pipelines on synthetic pairs with
-exact ground truth — the counterpart of `image_matching_tpu/cli/evaluate.py`.
+"""Evaluate the registration pipelines on synthetic pairs with exact
+ground truth — the counterpart of `image_matching_tpu/cli/evaluate.py`.
 
 Configs:
+  sift  — SIFT + ratio-KNN + similarity RANSAC
+  orb   — ORB + Hamming cross-check + similarity RANSAC
   sp    — SuperPoint + ratio-KNN + RANSAC
   spsg  — SuperPoint + SuperGlue + RANSAC
-(`sift` and `orb`, the classical features, are not ported: ROADMAP.md,
-Queue A item 7.)
 
-Usage, on the card (the defaults: 50 photo-texture pairs at 480x640,
-K = 1200, similarity RANSAC at 7 px, the H-only backbone):
+Usage, on the card (the defaults: all four configs, 50 photo-texture pairs
+at 480x640, K = 1200, similarity RANSAC at 7 px, the H-only backbone):
   python -m image_matching_tpu_torch.cli.evaluate \
       --sp_checkpoint weights/sp_photo.npz --sg_checkpoint weights/sg_photo.npz
 and on the CPU, smaller:
   python -m image_matching_tpu_torch.cli.evaluate --device cpu --n_pairs 3 \
       --height 240 --width 320 --max_keypoints 256 \
       --sp_checkpoint weights/sp_photo.npz --sg_checkpoint weights/sg_photo.npz
+  python -m image_matching_tpu_torch.cli.evaluate --device cpu --configs sift orb \
+      --n_pairs 3 --height 240 --width 320
 
 It prints one JSON object per config and writes them all to `--out`.
 Where the JAX CLI differs: checkpoints are npz files written by the JAX
 package's `save_npz` (orbax directories are not read); `--device`
 defaults to cuda; RANSAC draws from a `torch.Generator` seeded with
 seed + 1 where JAX takes PRNGKey(seed + 1). The pairs are the JAX CLI's:
-`np.random.default_rng(seed)` through the same makers.
+`np.random.default_rng(seed)` through the same makers. The classical
+configs run one pair a call (B = 1), as the JAX CLI runs them unbatched.
 """
 from __future__ import annotations
 
@@ -36,19 +39,19 @@ import torch
 
 from image_matching_tpu_torch.device import resolve_device
 from image_matching_tpu_torch.evaluation import evaluate_pipeline, make_eval_pairs
+from image_matching_tpu_torch.features.registration import build_classical_registration_fn
 from image_matching_tpu_torch.models.matching import Matching, MatchingConfig
 from image_matching_tpu_torch.registration import build_registration_fn
 from image_matching_tpu_torch.weights import load_npz
 
 log = logging.getLogger("evaluate")
 
-CLASSICAL_NOT_PORTED = ("the classical features (sift, orb) are not ported yet: "
-                        "ROADMAP.md, Queue A item 7")
+CLASSICAL = ("sift", "orb")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--configs", nargs="+", default=["sp", "spsg"], choices=["sift", "orb", "sp", "spsg"])
+    p.add_argument("--configs", nargs="+", default=["sift", "orb", "sp", "spsg"], choices=["sift", "orb", "sp", "spsg"])
     p.add_argument("--n_pairs", type=int, default=50)
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--width", type=int, default=640)
@@ -75,10 +78,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--out", default="EVAL.json")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
-    args = p.parse_args(argv)
-    if {"sift", "orb"} & set(args.configs):
-        p.error(CLASSICAL_NOT_PORTED)
-    return args
+    return p.parse_args(argv)
 
 
 def make_pairs(args):
@@ -115,17 +115,23 @@ def build_model(args, **config) -> Matching:
     return model
 
 
-def evaluate_configs(model: Matching, pairs, args) -> dict:
+def evaluate_configs(model, pairs, args) -> dict:
     """{config: metrics} for each of `args.configs`, each config's RANSAC
-    drawing from a generator seeded with seed + 1."""
+    drawing from a generator seeded with seed + 1, on the model's device.
+    `model` (a `Matching`, for sp and spsg) is None when only classical
+    configs are asked for; they then run on `--device`."""
     results = {}
-    device = next(model.parameters()).device
+    device = next(model.parameters()).device if model is not None else resolve_device(args.device)
     for name in args.configs:
         t0 = time.perf_counter()
-        register = build_registration_fn(
-            model, matcher="ratio" if name == "sp" else "superglue", ransac_model=args.ransac_model,
-            ransac_threshold=args.ransac_threshold, min_match_count=8, produce_warp=False,
-            confidence_gamma=args.conf_gamma, sg_ratio_gate=args.sg_ratio_gate)
+        if name in CLASSICAL:
+            register = build_classical_registration_fn(name, ransac_model=args.ransac_model,
+                                                       ransac_threshold=args.ransac_threshold)
+        else:
+            register = build_registration_fn(
+                model, matcher="ratio" if name == "sp" else "superglue", ransac_model=args.ransac_model,
+                ransac_threshold=args.ransac_threshold, min_match_count=8, produce_warp=False,
+                confidence_gamma=args.conf_gamma, sg_ratio_gate=args.sg_ratio_gate)
         gen = torch.Generator(device=device).manual_seed(args.seed + 1)
         res = evaluate_pipeline(register, pairs, gen, args.success_px, per_pair=args.per_pair)
         res["wall_s_total"] = round(time.perf_counter() - t0, 2)
@@ -140,7 +146,8 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     pairs = make_pairs(args)
     log.info("%d synthetic pairs (%dx%d)", len(pairs), args.height, args.width)
-    results = evaluate_configs(build_model(args), pairs, args)
+    learned = set(args.configs) - set(CLASSICAL)
+    results = evaluate_configs(build_model(args) if learned else None, pairs, args)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=2)
     log.info("wrote %s", args.out)

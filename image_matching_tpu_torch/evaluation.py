@@ -1,7 +1,8 @@
 """Registration evaluation on pairs with exact ground truth — the
-counterpart of `image_matching_tpu/evaluation.py:28-306`: the pair makers
+counterpart of `image_matching_tpu/evaluation.py`: the pair makers
 (`photo_texture`, `photometric_asymmetry`, `make_eval_pairs`),
-`corner_error` and `evaluate_pipeline`.
+`corner_error`, `evaluate_pipeline` and the sequence maker
+`make_synthetic_sequence`.
 
 Metrics per pipeline: success rate (fit valid and mean corner error
 below a threshold), mean / median corner error (px) of the estimated
@@ -10,7 +11,7 @@ against the ground-truth transform, matches and inliers per pair.
 Everything here is numpy (no OpenCV): the makers call `imgproc`, which
 follows OpenCV's routines, and draw the same random numbers in the same
 order as the JAX package's makers, so a seed gives the same ground truth
-and the same images. (`make_synthetic_sequence` is not ported yet.)
+and the same images.
 """
 from __future__ import annotations
 
@@ -215,3 +216,29 @@ def evaluate_pipeline(
         "mean_inliers": float(np.mean(inliers)),
         "fit_valid_rate": float(np.mean(valids)),
     }
+
+
+def make_synthetic_sequence(rng: np.random.Generator, n_frames: int = 8, h: int = 160, w: int = 160):
+    """A drifting-camera synthetic video over a fixed textured world, as
+    the JAX package's maker draws it. Returns (frames, gt): frames are (H,
+    W, 1) float32 arrays; gt[i] the world-from-frame similarity params (a,
+    b, tx, ty) of frame i."""
+    # smoothed noise: distinctive texture everywhere (uniform blobs are
+    # self-similar and die in the ratio test)
+    world = rng.uniform(0, 1, (h * 2, w * 2)).astype(np.float32)
+    world = imgproc.gaussian_blur(world, 2.0)
+    world = (world - world.min()) / (world.max() - world.min() + 1e-9)
+
+    frames, gt = [], []
+    x, y, ang = w // 2, h // 2, 0.0
+    for _ in range(n_frames):
+        c, s = np.cos(ang), np.sin(ang)
+        # world <- frame: rotate by ang, then translate by (x, y)
+        m = np.float32([[c, -s, x], [s, c, y]])
+        gt.append(np.array([c, s, x, y], np.float32))
+        frame = imgproc.warp_affine(world, imgproc.invert_affine_transform(m), (w, h))
+        frames.append(frame[..., None])
+        x += rng.uniform(2, 10)
+        y += rng.uniform(-4, 6)
+        ang += rng.uniform(-0.05, 0.05)
+    return frames, np.stack(gt)

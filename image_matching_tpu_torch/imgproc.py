@@ -246,6 +246,21 @@ def _grid(width: int, height: int, m):
     return [_fma(m[i], x, (m[i + 1] * y + m[i + 2]).astype(np.float32)) for i in range(0, len(m), 3)]
 
 
+def invert_affine_transform(mat: np.ndarray) -> np.ndarray:
+    """cv2.invertAffineTransform of a float32 (2, 3) matrix, as OpenCV 5.0
+    computes it (found by probing): the determinant, its reciprocal and the
+    2x2 inverse in float32, the translation from those in float64, rounded
+    to float32; 0 where the matrix is singular."""
+    f = np.asarray(mat, np.float32).reshape(6)
+    det = np.float32(np.float32(f[0] * f[4]) - np.float32(f[1] * f[3]))
+    d = np.float32(1) / det if det != 0 else np.float32(0)
+    a11, a22, a12, a21 = (np.float32(x) for x in (f[4] * d, f[0] * d, -f[1] * d, -f[3] * d))
+    m2, m5 = np.float64(f[2]), np.float64(f[5])
+    b1 = -np.float64(a11) * m2 - np.float64(a12) * m5
+    b2 = -np.float64(a21) * m2 - np.float64(a22) * m5
+    return np.array([[a11, a12, b1], [a21, a22, b2]]).astype(np.float32)
+
+
 def warp_affine(src: np.ndarray, mat: np.ndarray, size) -> np.ndarray:
     """cv2.warpAffine(src, mat, (width, height)): `mat` (2, 3) maps source
     to destination; bilinear, BORDER_CONSTANT 0. The inverse map is

@@ -36,6 +36,7 @@ from image_matching_tpu.utils.weights import load_npz_into
 from image_matching_tpu_torch import evaluation, imgproc
 from image_matching_tpu_torch.cli import evaluate as cli
 from image_matching_tpu_torch.registration import build_registration_fn
+from test_torch_features import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
 
 ROOT = Path(__file__).resolve().parents[1]
 WEIGHTS = ROOT / "weights"
@@ -238,23 +239,19 @@ def test_cli_matches_jax_evaluation(jax_side):
 
 
 def test_cli_main_at_its_defaults_writes_the_jax_clis_json(tmp_path):
-    """bf16, the H layout, similarity RANSAC: the JAX CLI's defaults, on one
-    small pair; the JSON has the keys of the JAX CLI's own output."""
+    """bf16, the H layout, similarity RANSAC and the JAX CLI's default
+    configs (sift, orb, sp, spsg) on one small pair; the JSON has the keys
+    of the JAX CLI's own output."""
     out = tmp_path / "eval.json"
     results = cli.main(["--device", "cpu", "--n_pairs", "1", "--height", "96", "--width", "128", "--max_keypoints",
                         "128", "--sp_checkpoint", str(WEIGHTS / "sp_photo.npz"), "--sg_checkpoint",
                         str(WEIGHTS / "sg_photo.npz"), "--out", str(out)])
     written = json.loads(out.read_text())
-    jax_keys = {k: set(v) for k, v in json.loads((ROOT / "EVAL_reference_regime.json").read_text()).items()}
-    assert set(written) == {"sp", "spsg"} and written == json.loads(json.dumps(results))
+    jax_keys = {k: set(v) for name in ("EVAL_reference_regime.json", "EVAL_classical_photo.json")
+                for k, v in json.loads((ROOT / name).read_text()).items()}
+    assert list(written) == ["sift", "orb", "sp", "spsg"] and written == json.loads(json.dumps(results))
     for name, res in written.items():
         assert set(res) == jax_keys[name]
-        assert res["n_pairs"] == 1 and res["fit_valid_rate"] == 1.0
-
-
-@pytest.mark.parametrize("config", ["sift", "orb"])
-def test_cli_classical_configs_exit_naming_their_queue_item(config, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.parse_args(["--configs", "sp", config])
-    assert exc.value.code == 2
-    assert "Queue A item 7" in capsys.readouterr().err
+        assert res["n_pairs"] == 1
+        if name in ("sp", "spsg"):
+            assert res["fit_valid_rate"] == 1.0

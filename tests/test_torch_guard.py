@@ -9,6 +9,9 @@ import torch
 
 import image_matching_tpu_torch
 from image_matching_tpu_torch.models import Matching, MatchingConfig, SuperGlue, SuperPointBN, SuperPointVGG
+from image_matching_tpu_torch.models.tracker import tracker_init
+from image_matching_tpu_torch.slam import tracks_to_ba_problem
+from image_matching_tpu_torch.slam.sequence import register_sequence
 
 PACKAGE = Path(image_matching_tpu_torch.__file__).parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "image_matching_tpu", "cv2", "PIL")
@@ -32,7 +35,10 @@ def test_port_imports_no_jax():
             "cli/train_superglue.py", "data/datasets.py", "data/photometric.py", "train/checkpoint.py",
             "utils/viz.py", "cli/train_superpoint.py", "cli/export_pseudo.py", "export.py", "data/pipeline.py",
             "data/synthetic_device.py", "losses/detector.py", "losses/descriptor.py", "losses/subpixel.py",
-            "train/superpoint_trainer.py"} <= names
+            "train/superpoint_trainer.py", "ops/resize.py", "ops/topk.py", "features/__init__.py",
+            "features/sift.py", "features/orb.py", "features/_brief_table.py", "features/registration.py",
+            "models/tracker.py", "slam/__init__.py", "slam/cg.py", "slam/pose_graph.py",
+            "slam/bundle_adjustment.py", "slam/sequence.py", "cli/traditional.py", "cli/sequence.py"} <= names
     for path in sources + [CHIP_SMOKE]:
         for mod in _imported_modules(ast.parse(path.read_text(), str(path))):
             top = mod.split(".")[0]
@@ -47,6 +53,9 @@ def test_port_imports_no_jax():
     lambda: Matching(MatchingConfig(gnn_layers=2, backbone="vgg", s2d_backbone=True, s2d_layout="2x2")),
     lambda: Matching(MatchingConfig(gnn_layers=2, s2d_backbone=True, s2d_layout="h")),
     lambda: SuperPointVGG(64, s2d=True, s2d_layout="h"),
+    lambda: tracker_init(4, 16, 8),
+    lambda: tracks_to_ba_problem([(0, [(0, 1.0, 2.0), (1, 1.5, 2.5)])], 2, 8),
+    lambda: register_sequence(None, [], strides=(1,)),
 ])
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch, build):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -54,19 +63,21 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, build):
         build()
 
 
-@pytest.mark.parametrize("cli", ["match_pair", "train_superglue", "train_superpoint", "export_pseudo"])
+@pytest.mark.parametrize("cli", ["match_pair", "train_superglue", "train_superpoint", "export_pseudo", "traditional",
+                                 "sequence"])
 def test_clis_raise_without_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path, cli):
     import importlib
 
     main = importlib.import_module(f"image_matching_tpu_torch.cli.{cli}").main
-    argv = {"match_pair": ["--template", str(tmp_path / "t.png"), "--source_dir", str(tmp_path), "--out",
-                           str(tmp_path / "out")],
-            "export_pseudo": ["--data_root", str(tmp_path), "--out", str(tmp_path / "out")]}.get(
+    files = ["--template", str(tmp_path / "t.png"), "--source_dir", str(tmp_path), "--out", str(tmp_path / "out")]
+    argv = {"match_pair": files, "traditional": files,
+            "export_pseudo": ["--data_root", str(tmp_path), "--out", str(tmp_path / "out")],
+            "sequence": ["--frames_dir", str(tmp_path / "frames"), "--out", str(tmp_path / "t.json")]}.get(
         cli, ["--synthetic", "--run_dir", str(tmp_path / "run")])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(argv)
-    if cli in ("match_pair", "export_pseudo"):
+    if cli in ("match_pair", "export_pseudo", "traditional", "sequence"):
         with pytest.raises(FileNotFoundError):  # past the device, to the missing template / image directory
             main(argv + ["--device", "cpu"])
     else:
