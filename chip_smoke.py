@@ -150,7 +150,26 @@ In order, it:
      both ATEs (under 0.1 px), tracks and landmarks beside the JAX
      package's `EVAL_sequence.json`, wall time, and the two solvers' wall
      time, device time and device launches. No kernel of the port runs in
-     17-19: each checks that none launched.
+     17-19: each checks that none launched;
+ 20. checks that g++ finds `jpeglib.h` and `png.h` and links `-ljpeg
+     -lpng` (and says so on a line of its own; without them the phase stops
+     there), builds the C++ image loader (`native/imloader/imloader.cpp`
+     into `build/imloader/`), holds `imgproc.imread_gray` of the committed
+     JPEG, BMP and TIFF files of `tests/data/images/` to their committed
+     pixels and `NativeImageLoader` batches (4 threads) per index to
+     `decode_image`, then trains SuperPoint on the JPEG files (labels from
+     `export_pseudo`) for 20 steps with `--native_loader` and with the host
+     decoder: steps/s of each;
+ 21. runs `export_pseudo` at 480x640, batch 8, 50 warps on 16 seeded PNG
+     files: the 400 views of a batch in 4 model calls (4 entry conv
+     launches), s a batch, peak memory, and the first batch through the
+     all-plain path with the same homographies (keypoint-set IoU >= 0.9);
+ 22. runs `train_superglue` and `train_superpoint --synthetic` at their
+     defaults for 10 steps each, as one process, in a world of one NCCL
+     rank (a process group made here) and as one process again: the
+     losses, metrics and trained state bit-equal (cuDNN and PyTorch in
+     their deterministic algorithms for this phase), the training kernels'
+     launches a step, steps/s. More than one card is not run.
 
 Every check that fails raises; nothing is caught. TF32 is off for every
 phase, timed ones included, so f32 convolutions and matmuls are full f32.
@@ -164,6 +183,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import statistics
@@ -2916,7 +2936,10 @@ def _superpoint_cli(torch, argv, label: str, smi: str):
           f"(median); peak memory {peak:.3f} GiB; launches {launches}; whole run {wall:.1f} s; {smi}")
     for rec in out["logged"] + out["history"]:
         print("  " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in rec.items()))
-    want = len(out["logged"]) + 2 * len(out["history"])
+    # an evaluation step runs two inference forwards, and with a tensorboardX
+    # writer a third, the heatmap overlay's
+    overlay = importlib.util.find_spec("tensorboardX") is not None
+    want = len(out["logged"]) + (3 if overlay else 2) * len(out["history"])
     check(launches == ({"entry_conv": want} if want else {}), f"train_superpoint CLI ({label}): launches {launches}")
     check(all(math.isfinite(r["loss"]) and r["skipped_nonfinite"] == 0 for r in out["logged"])
           and all(math.isfinite(r["loss"]) for r in out["history"]),
@@ -2991,13 +3014,13 @@ def time_guard_read_back(torch, dev, steps: int = 20, shape=(8, 240, 320)):
           + "; ".join(f"{k} " + " / ".join(f"{r:.3f}" for r in v) for k, v in rates.items()))
 
 
-def write_export_files(torch, root, seed: int):
-    """`EXPORT_FILES` seeded textured 480x640 PNG files under root/<task>/."""
+def write_export_files(torch, root, seed: int, files=EXPORT_FILES):
+    """`files` ({task: count}) seeded textured 480x640 PNG files under root/<task>/."""
     import numpy as np
     from image_matching_tpu_torch import imgproc
 
     rng = np.random.default_rng(seed)
-    for task, n in EXPORT_FILES.items():
+    for task, n in files.items():
         (root / task).mkdir(parents=True, exist_ok=True)
         for i in range(n):
             img = (texture(torch, rng, 480, 640) * 255).astype(np.uint8)
@@ -3354,6 +3377,277 @@ def run_sequence_cli(torch, dev, smi: str):
               f"{dev_ms / (sec * 1e3):.3f}; {smi}")
 
 
+# ---------------------------------------------------------------- native loader, chunked export, data parallelism
+
+TEST_IMAGES = ROOT / "tests" / "data" / "images"  # seeded JPEG / BMP / TIFF files and their pixels (.npy)
+NATIVE_STEPS = 20
+CHUNKED_EXPORT = dict(files=16, batch=8, warps=50, height=480, width=640)  # 400 views a batch: 4 calls of 100
+DP_STEPS = 10
+
+
+def check_native_toolchain():
+    """Whether g++ finds jpeglib.h and png.h and links -ljpeg -lpng -lz here.
+    Returns (all present, the line to print)."""
+    build = ROOT / "build" / "imloader"
+    build.mkdir(parents=True, exist_ok=True)
+    found = {}
+    try:
+        for header in ("jpeglib.h", "png.h"):
+            src = f"#include <cstdio>\n#include <{header}>\n"
+            found[header] = subprocess.run(["g++", "-x", "c++", "-E", "-", "-o", "/dev/null"], input=src, text=True,
+                                           capture_output=True).returncode == 0
+        probe = build / "probe.cpp"
+        probe.write_text("#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\n"
+                         "int main() { jpeg_error_mgr e; jpeg_std_error(&e); return png_access_version_number() == 0; }\n")
+        link = subprocess.run(["g++", "-std=c++17", str(probe), "-o", str(build / "probe"), "-ljpeg", "-lpng", "-lz"],
+                              capture_output=True, text=True)
+        found["-ljpeg -lpng -lz link"] = link.returncode == 0
+    except FileNotFoundError:
+        return False, "native loader toolchain: g++ not found"
+    try:
+        cache = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True).stdout
+    except FileNotFoundError:
+        cache = ""
+    runtime = {lib: f"{lib}.so" in cache for lib in ("libjpeg", "libpng")}
+    line = ("native loader toolchain: " + ", ".join(f"{k} {'yes' if v else 'NO'}" for k, v in found.items())
+            + "; runtime libraries (ldconfig): " + ", ".join(f"{k} {'yes' if v else 'NO'}" for k, v in runtime.items()))
+    return all(found.values()), line
+
+
+def run_native_loader(torch, dev, smi: str):
+    """The C++ loader (`native_imloader.py`, `data/native_loader.py`, built from
+    `native/imloader/imloader.cpp` into `build/imloader/`): the toolchain
+    check, then the committed JPEG / BMP / TIFF files read by
+    `imgproc.imread_gray` against their committed pixels, `NativeImageLoader`
+    batches (4 threads) held per index to `decode_image`, and
+    `train_superpoint` on the 4 JPEG files (labels from `export_pseudo`)
+    for `NATIVE_STEPS` steps with `--native_loader` and with the host's
+    decoder: steps/s of each. Without the headers it says so and returns."""
+    import shutil
+
+    import numpy as np
+    from image_matching_tpu_torch import imgproc, native_imloader
+    from image_matching_tpu_torch.cli import export_pseudo
+    from image_matching_tpu_torch.data import native_loader
+
+    ok, line = check_native_toolchain()
+    print(line)
+    if not ok:
+        print("native loader phase: not run, the headers or libraries above are missing on this machine")
+        return None
+    t0 = time.perf_counter()
+    native_imloader.load_library()
+    print(f"native loader: built {native_imloader.library_path().relative_to(ROOT)} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    files = sorted(p for p in TEST_IMAGES.iterdir() if p.suffix != ".npy")
+    for path in files:
+        want = np.load(path.with_suffix(".npy"))
+        got = imgproc.imread_gray(str(path))
+        diff = int(np.abs(got.astype(int) - want).max()) if got.shape == want.shape else None
+        print(f"  imread_gray {path.name}: {got.shape}, max difference from the committed pixels {diff}")
+        check(diff == 0, f"native loader: imread_gray({path.name}) differs from its committed pixels")
+    jpegs = [str(p) for p in files if p.suffix == ".jpg"]
+    seen = {}
+    loader = native_loader.NativeImageLoader(jpegs, 240, 320, n_threads=4, loop=False, seed=0)
+    for batch in loader.batches(3):
+        seen.update({int(i): img for i, img in zip(batch["indices"], batch["image"])})
+    loader.close()
+    check(sorted(seen) == list(range(len(jpegs))), f"native loader: drained indices {sorted(seen)}")
+    for i, path in enumerate(jpegs):
+        want = native_loader.decode_image(path, 240, 320)
+        check(np.array_equal(seen[i], want) and np.array_equal(np.rint(want[..., 0] * 255), imgproc.imread_gray(path)),
+              f"native loader: batch image {i} differs from decode_image / imread_gray")
+    print(f"native loader: {len(jpegs)} JPEG files through 4 threads equal decode_image per index, and imread_gray")
+
+    root = ROOT / "build" / "native_loader"
+    shutil.rmtree(root, ignore_errors=True)
+    for task in ("train", "val"):
+        (root / "data" / task).mkdir(parents=True)
+        for path in jpegs:
+            shutil.copy(path, root / "data" / task)
+        export_pseudo.main(["--data_root", str(root / "data"), "--out", str(root / "labels"), "--task", task,
+                            "--checkpoint", str(SP_SYNTH), "--height", "240", "--width", "320", "--batch_size", "4",
+                            "--num_homographies", "10"])
+    common = ["--data_root", str(root / "data"), "--labels", str(root / "labels"), "--init_weights", str(SP_SYNTH),
+              "--batch_size", "4", "--train_iter", str(NATIVE_STEPS), "--tensorboard_interval", "10",
+              "--validation_interval", str(NATIVE_STEPS), "--save_interval", str(NATIVE_STEPS)]
+    rates = {}
+    for label, extra in (("host decoder", []), ("--native_loader", ["--native_loader"])):
+        out, _, sec, _ = _superpoint_cli(torch, [*common, *extra, "--run_dir", str(root / label.strip("-"))],
+                                         f"JPEG files, {label}", smi)
+        check(out["state"].step == NATIVE_STEPS, f"train_superpoint ({label}): the step count is wrong")
+        rates[label] = 1 / sec
+    print("native loader: train_superpoint on the JPEG files, batch 4 at 240x320: "
+          + "; ".join(f"{k} {v:.3f} steps/s" for k, v in rates.items()) + f"; {smi}")
+    return rates
+
+
+def run_chunked_export(torch, dev, smi: str):
+    """`export_pseudo` at 480x640, batch 8, 50 warps (400 views a batch, past
+    the entry conv's one-call pixel limit) on 16 seeded PNG files: 4 model
+    calls of 100 views a batch (4 entry conv launches), s a batch (the
+    first holds the new shapes' warm-up), peak memory, keypoints; then the
+    first batch again through the all-plain path with the same homographies
+    (keypoint-set IoU >= 0.9). Returns the launches."""
+    import shutil
+
+    from image_matching_tpu_torch import export
+    from image_matching_tpu_torch.cli import export_pseudo as cli
+    from image_matching_tpu_torch.models import SuperPointBN
+    from image_matching_tpu_torch.ops import _build
+    from image_matching_tpu_torch.train.checkpoint import load_weights
+
+    c = CHUNKED_EXPORT
+    root = ROOT / "build" / "export_chunked"
+    shutil.rmtree(root, ignore_errors=True)
+    write_export_files(torch, root / "data", seed=16, files={"train": c["files"]})
+    recorded, real = [], export.export_pseudo_labels
+
+    def recording(hs, apply_fn, images, cfg):
+        kp = real(hs, apply_fn, images, cfg)
+        recorded.append((hs, images, cfg, kp))
+        return kp
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with mock.patch.object(export, "export_pseudo_labels", recording):
+        out = cli.main(["--data_root", str(root / "data"), "--out", str(root / "labels"), "--checkpoint", str(SP_SYNTH),
+                        "--height", str(c["height"]), "--width", str(c["width"]), "--batch_size", str(c["batch"]),
+                        "--num_homographies", str(c["warps"])])
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    views = c["batch"] * c["warps"]
+    chunk = export.VIEW_PIXELS_PER_CALL // (c["height"] * c["width"])
+    calls = -(-views // chunk)
+    kps = [n for b in out["batches"] for n in b["keypoints"]]
+    print(f"export_pseudo CLI, chunked ({c['files']} images at {c['height']}x{c['width']}, batch {c['batch']} x "
+          f"{c['warps']} warps = {views} views in {calls} calls of {chunk}): s a batch "
+          + ", ".join(f"{b['seconds']:.3f}" for b in out["batches"])
+          + f"; keypoints an image mean {statistics.mean(kps):.1f} (min {min(kps)}); peak memory {peak:.3f} GiB; "
+          f"launches {launches}; {smi}")
+    check(calls == 4 and launches == {"entry_conv": calls * len(out["batches"])} and min(kps) > 0,
+          f"export_pseudo CLI, chunked: {calls} calls, launches {launches}")
+    hs, images, cfg, kp = recorded[0]
+    model = SuperPointBN(128, compute_dtype="bfloat16", device=dev)
+    load_weights(model, str(SP_SYNTH))
+    with plain_path(), torch.no_grad():
+        ref = real(hs, lambda v: model(v)["semi"], images, cfg)
+    iou = keypoint_set_iou(kp.replace(xy=torch.round(kp.xy)), ref.replace(xy=torch.round(ref.xy)))
+    print(f"export_pseudo CLI, chunked: the first batch through the all-plain path, same homographies: keypoint-set IoU "
+          f"{iou:.4f} (at least 0.9)")
+    check(iou >= 0.9, f"export_pseudo CLI, chunked: keypoints of the kernel path and the plain path differ ({iou})")
+    return launches
+
+
+@contextlib.contextmanager
+def timed_steps(cli, factory: str, times: list):
+    """Patch `cli.<factory>` so that every step it makes is timed on the
+    host clock, ending in a synchronize; the times go to `times`."""
+    import torch
+
+    real = getattr(cli, factory)
+
+    def timed_factory(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def timed(*a):
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    with mock.patch.object(cli, factory, timed_factory):
+        yield
+
+
+def run_data_parallel(torch, dev, smi: str):
+    """Both training CLIs at their defaults (`train_superglue --synthetic`
+    with the banked SuperPoint, `train_superpoint --synthetic`), `DP_STEPS`
+    steps each, as one process, in a world of one NCCL rank (a process
+    group over a localhost TCP store, made here), and as one process again:
+    losses, metrics and the trained state bit-equal, the training kernels'
+    launches a SuperGlue step, steps/s of each run (median step after the
+    first), and the all_reduce calls a step of each CLI. cuDNN and PyTorch
+    run their deterministic algorithms in this
+    phase, so two runs can be compared bit for bit. More than one card is
+    not run here."""
+    import shutil
+    import socket
+
+    import torch.distributed as dist
+    from image_matching_tpu_torch.cli import train_superglue, train_superpoint
+    from image_matching_tpu_torch.ops import _build
+
+    root = ROOT / "build" / "data_parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    sg_args = ["--synthetic", "--sp_checkpoint", str(ROOT / "weights" / "sp_photo.npz"), "--epochs", "1",
+               "--steps_per_epoch", str(DP_STEPS), "--log_interval", str(DP_STEPS // 2)]
+    sp_args = ["--synthetic", "--train_iter", str(DP_STEPS), "--tensorboard_interval", str(DP_STEPS // 2),
+               "--validation_interval", str(DP_STEPS), "--save_interval", str(DP_STEPS)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    all_reduce, reduces = dist.all_reduce, [0]
+
+    def counted_all_reduce(*args, **kwargs):
+        reduces[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    dist.all_reduce = counted_all_reduce
+    runs = []
+    try:
+        for i, label in enumerate(("one process", "NCCL, world 1", "one process, again")):
+            if label.startswith("NCCL"):
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", 0))
+                    port = sock.getsockname()[1]
+                dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+            sg_times, sp_times = [], []
+            _build.reset_launch_counts()
+            reduces[0] = 0
+            with timed_steps(train_superglue, "make_superglue_train_step", sg_times):
+                sg = train_superglue.main([*sg_args, "--run_dir", str(root / f"sg{i}")])
+            sg_launches = {k: v / DP_STEPS for k, v in _build.LAUNCHES.items()}
+            sg_reduces, reduces[0] = reduces[0] / DP_STEPS, 0
+            with timed_steps(train_superpoint, "make_superpoint_train_step", sp_times):
+                sp = train_superpoint.main([*sp_args, "--run_dir", str(root / f"sp{i}")])
+            sp_reduces = reduces[0] / DP_STEPS
+            backend = dist.get_backend() if dist.is_initialized() else None
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            runs.append((sg, sp))
+            rates = [1 / statistics.median(t[1:]) for t in (sg_times, sp_times)]
+            print(f"data parallel ({label}, backend {backend}): train_superglue {rates[0]:.3f} steps/s, "
+                  f"train_superpoint {rates[1]:.3f} steps/s (median step after the first of {DP_STEPS}); "
+                  f"all_reduce calls a step (the CLI's runs over the steps, its evaluations included) "
+                  f"{sg_reduces:.1f} / {sp_reduces:.1f}; launches a SuperGlue step {sg_launches}; losses " + ", ".join(f"{r['loss']:.6f}" for r in sg["logged"])
+                  + " / " + ", ".join(f"{r['loss']:.6f}" for r in sp["logged"]) + f"; {smi}")
+            check(sg_launches == {"entry_conv": 1, "attention_lse": 36, "attention_dq": 36, "attention_dkdv": 36},
+                  f"data parallel ({label}): launches a SuperGlue step {sg_launches}")
+    finally:
+        dist.all_reduce = all_reduce
+        torch.backends.cudnn.deterministic = deterministic
+        torch.use_deterministic_algorithms(False)
+    worst = {}
+    for j, name in enumerate(("superglue", "superpoint")):
+        ref = runs[0][j]
+        for other in runs[1:]:
+            got = other[j]
+            sa, sb = ref["state"].module.state_dict(), got["state"].module.state_dict()
+            d = max(float((sa[k].double() - sb[k].double()).abs().max()) for k in sa)
+            worst[name] = max(worst.get(name, 0.0), d)
+            same = [{k: v for k, v in r.items() if k != "steps_per_s"} for r in ref["logged"]] == [
+                {k: v for k, v in r.items() if k != "steps_per_s"} for r in got["logged"]]
+            check(same and d == 0.0, f"data parallel: {name} differs between runs (parameters up to {d}, records "
+                                     f"equal {same})")
+    print(f"data parallel: losses, metrics, parameters and batch statistics bit-equal across the three runs, both "
+          f"CLIs (largest parameter difference {worst}); more than one card not run")
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -3428,6 +3722,9 @@ def main() -> int:
     run_classical_evaluation(torch, dev, smi)
     run_traditional_cli(torch, dev, smi)
     run_sequence_cli(torch, dev, smi)
+    run_native_loader(torch, dev, smi)
+    run_chunked_export(torch, dev, smi)
+    run_data_parallel(torch, dev, smi)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

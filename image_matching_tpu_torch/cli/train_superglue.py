@@ -8,15 +8,21 @@ Usage, on the card (the JAX CLI's defaults: 240x320, batch 4, K = 512,
 D = 128, 18 GNN layers, 100 Sinkhorn iterations, lr 1e-4, bf16):
   python -m image_matching_tpu_torch.cli.train_superglue --synthetic \
       --sp_checkpoint weights/sp_photo.npz --run_dir runs/superglue
-and on the CPU, smaller, with `--device cpu`.
+and on the CPU, smaller, with `--device cpu`. Data-parallel over N cards
+(gloo over N processes with `--device cpu`), the same flags:
+  torchrun --nproc_per_node N -m image_matching_tpu_torch.cli.train_superglue ...
+Each rank reads the global batch, keeps its dim-0 shard and runs its part
+of the global step (`parallel/mesh.py`): the same losses and updates as
+one process on the whole batch, up to the order of f32 sums. Only rank 0
+logs and writes checkpoints; `--resume` restores on every rank.
 
 Where the JAX CLI differs: `--sp_checkpoint` and `--init_weights` take npz
 files (the JAX package's `save_npz`, or a trainer checkpoint of the port;
 for `--sp_checkpoint` also a directory of those); checkpoints are written
 as `<run_dir>/checkpoints/<step>.npz` (`train/checkpoint.py`), not orbax.
-One card, so no data mesh. Random numbers: the data from `--seed` as in
-JAX; each step's homographies and photometric draws from a
-`torch.Generator` seeded with seed + 7. Metrics go to the log (and to
+Random numbers: the data from `--seed` as in JAX; each step's homographies
+and photometric draws, for the global batch, from a `torch.Generator`
+seeded with seed + 7 on every rank. Metrics go to the log (and to
 tensorboardX where it is installed) every `--log_interval` steps, one
 host read-back an interval.
 """
@@ -33,6 +39,14 @@ from image_matching_tpu_torch.data.photometric import PhotometricConfig
 from image_matching_tpu_torch.device import resolve_device
 from image_matching_tpu_torch.geometry.homography import HomographyConfig
 from image_matching_tpu_torch.models import SuperGlue, SuperPointBN
+from image_matching_tpu_torch.parallel import (
+    initialize_multihost,
+    is_primary,
+    make_data_mesh,
+    replicate,
+    shard_batch,
+    use_mesh,
+)
 from image_matching_tpu_torch.train.checkpoint import CheckpointManager, checkpoint_file, load_weights
 from image_matching_tpu_torch.train.state import TrainState
 from image_matching_tpu_torch.train.superglue_trainer import SuperGluePairConfig, make_superglue_train_step
@@ -84,6 +98,13 @@ def main(argv=None) -> dict:
     metrics)}."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    initialize_multihost(device)
+    mesh = make_data_mesh(args.batch_size, device)
+    if not mesh.active:
+        log.info("this rank holds no shard of the data mesh (%d ranks divide batch %d): idle", mesh.size,
+                 args.batch_size)
+        return {"state": None, "history": [], "logged": []}
+    primary = is_primary()
     if args.synthetic or args.data_root is None:
         data_iter = SyntheticShapesDataset(args.height, args.width, seed=args.seed).batches(args.batch_size)
     else:
@@ -114,9 +135,10 @@ def main(argv=None) -> dict:
     if args.resume and ckpt.latest_step() is not None:
         ckpt.restore(state)
         log.info("resumed from step %d", state.step)
+    replicate(mesh, sg)
 
     step_fn = make_superglue_train_step(sg, sp, cfg)
-    writer = summary_writer(args.run_dir)
+    writer = summary_writer(args.run_dir) if primary else None
     gen = torch.Generator(device=device).manual_seed(args.seed + 7)
     history, logged = [], []
     try:
@@ -124,8 +146,9 @@ def main(argv=None) -> dict:
             losses = []  # device scalars, read back at log points
             first, t0 = state.step, time.perf_counter()
             for i in range(args.steps_per_epoch):
-                images = torch.from_numpy(next(data_iter)["image"]).to(device)
-                metrics = step_fn(state, images, gen)
+                images = shard_batch(mesh, next(data_iter)["image"])
+                with use_mesh(mesh):
+                    metrics = step_fn(state, images, gen)
                 losses.append(metrics["loss"])
                 if (i + 1) % args.log_interval == 0:
                     names = [k for k in metrics if k != "loss"]
@@ -138,16 +161,18 @@ def main(argv=None) -> dict:
                         for k, v in m.items():
                             writer.add_scalar(f"train/{k}", v, state.step)
                     rate = (i + 1) / (time.perf_counter() - t0)
-                    log.info("epoch %d step %d: loss %.4f (%.1f it/s) %s", epoch, state.step, recent, rate, m)
+                    if primary:
+                        log.info("epoch %d step %d: loss %.4f (%.1f it/s) %s", epoch, state.step, recent, rate, m)
                     logged.append(dict(step=state.step, loss=recent, **m))
             mean = float(torch.stack(losses).float().mean())
             rate = args.steps_per_epoch / (time.perf_counter() - t0)
-            log.info("epoch %d: mean loss %.4f (%.1f steps/s)", epoch, mean, rate)
+            if primary:
+                log.info("epoch %d: mean loss %.4f (%.1f steps/s)", epoch, mean, rate)
+                ckpt.save(state)
             history.append(dict(epoch=epoch, first_step=first, last_step=state.step, mean_loss=mean, steps_per_s=rate))
-            ckpt.save(state)
     except KeyboardInterrupt:
         log.info("interrupted — saving checkpoint")
-    if ckpt.latest_step() != state.step:
+    if primary and ckpt.latest_step() != state.step:
         ckpt.save(state)
     return {"state": state, "history": history, "logged": logged}
 

@@ -6,8 +6,9 @@ Images are read by `imgproc.imread_gray` and shrunk by
 `cv2.resize(INTER_AREA)` give, for the formats of `imgproc.READS`.
 `SyntheticShapesDataset` draws with `imgproc`'s rasterisers and the same
 `np.random.default_rng` calls in the same order as the JAX package's, so a
-seed gives the same points and images. (The JAX package's threaded C++
-loader, `batches(native=True)`, is not ported.)
+seed gives the same points and images. `ALLSSDataset.batches(native=True)`
+decodes through the repository's threaded C++ loader
+(`data/native_loader.py`), as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -76,8 +77,23 @@ class ALLSSDataset:
         pts = np.load(os.path.join(self.labels_dir, Path(self.files[idx]).stem + ".npz"))["pts"]
         return pad_points(pts[:, :2].astype(np.float32), self.max_points)
 
-    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0, drop_last: bool = True) -> Iterator[dict]:
-        """Endless batches, reshuffled each pass by `default_rng(seed)`."""
+    def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0, drop_last: bool = True,
+                native: bool = False, n_threads: int = 4) -> Iterator[dict]:
+        """Endless batches, reshuffled each pass by `default_rng(seed)`.
+        With `native=True` the C++ loader decodes and resizes the images on
+        `n_threads` threads (PNG and JPEG only; its truncating area bins
+        equal `_load_gray`'s resize at integer factors only) and reshuffles
+        with its own `mt19937(seed)`; labels are still read per index, a
+        file that does not decode keeps its zero image and masks its points
+        out, and `names` come with the batch, as in the JAX package. A
+        split with no file, or (with `drop_last`) fewer files than
+        `batch_size`, raises a `ValueError`: it would yield no batch."""
+        if not self.files or (drop_last and not native and len(self) < batch_size):
+            raise ValueError(f"{self.root}: {len(self)} image files, fewer than batch_size {batch_size}; "
+                             "a batch needs that many")
+        if native:
+            yield from self._native_batches(batch_size, seed, drop_last, n_threads)
+            return
         order = np.arange(len(self))
         rng = np.random.default_rng(seed)
         while True:
@@ -89,6 +105,29 @@ class ALLSSDataset:
                 batch = {k: np.stack([s[k] for s in samples]) for k in samples[0] if k != "name"}
                 batch["names"] = [s["name"] for s in samples]
                 yield batch
+
+
+    def _native_batches(self, batch_size: int, seed: int, drop_last: bool, n_threads: int) -> Iterator[dict]:
+        from image_matching_tpu_torch.data.native_loader import NativeImageLoader
+
+        loader = NativeImageLoader(self.files, self.resize[0], self.resize[1], n_threads=n_threads, loop=True,
+                                   seed=seed)
+        try:
+            while True:
+                images, idxs = loader.next_batch(batch_size)
+                if len(images) < batch_size and drop_last:
+                    continue
+                ok = idxs >= 0
+                idxs = np.where(ok, idxs, 0)
+                batch = {"image": images}
+                if self.labels_dir:
+                    pts = [self._load_points(int(i)) for i in idxs]
+                    batch["points"] = np.stack([p[0] for p in pts])
+                    batch["points_mask"] = np.stack([p[1] & o for p, o in zip(pts, ok)])
+                batch["names"] = [Path(self.files[int(i)]).stem for i in idxs]
+                yield batch
+        finally:
+            loader.close()
 
 
 class SSHIDataset:

@@ -4,9 +4,13 @@
 heatmaps are warped back, masked and averaged, then NMS, top-k and an
 optional soft-argmax subpixel refinement give its pseudo-label keypoints.
 
-All the views of a batch (B images x N warps, 400 at the cycle's batch 8
-and 50 warps) go through the model in one call. The homographies are drawn
-from a `torch.Generator` by `draw_export_homographies` and applied by
+The views of a batch (B images x N warps) go through the model in chunks
+of at most `VIEW_PIXELS_PER_CALL` pixels a call: the image entry conv's
+32-bit limit, or 400 views at 240x320 if that is less (the cycle's batch 8
+and 50 warps, which stays one call; 480x640 takes 4 calls of 100 views).
+The chunks' heatmaps are joined in view order before the sum, so the sum
+is the unchunked one. The homographies are drawn from a `torch.Generator`
+by `draw_export_homographies` and applied by
 `homographic_adaptation_heatmap` / `export_pseudo_labels`.
 """
 from __future__ import annotations
@@ -19,8 +23,13 @@ from image_matching_tpu_torch.geometry.homography import HomographyConfig, inver
 from image_matching_tpu_torch.geometry.labels import combine_heatmaps, flatten_detection
 from image_matching_tpu_torch.geometry.warp import compute_valid_mask, warp_image
 from image_matching_tpu_torch.ops.detect import detect_keypoints
+from image_matching_tpu_torch.ops.entry_conv import MAX_PIXELS
 from image_matching_tpu_torch.ops.sampling import refine_keypoints_subpixel
 from image_matching_tpu_torch.structs import Keypoints
+
+
+# pixels a model call: under the entry conv's limit, at most 400 views at 240x320
+VIEW_PIXELS_PER_CALL = min(MAX_PIXELS - 1, 400 * 240 * 320)
 
 
 class ExportConfig(NamedTuple):
@@ -54,14 +63,19 @@ def draw_export_homographies(gen: torch.Generator, batch: int, height: int, widt
 
 def homographic_adaptation_heatmap(hs, apply_fn: Callable, images, cfg: ExportConfig = ExportConfig()):
     """images (B, H, W, 1), hs (B, N, 3, 3) image -> view; `apply_fn`: views
-    (B*N, H, W, 1) -> semi logits (B*N, Hc, Wc, 65). Returns the aggregated
+    (V, H, W, 1) -> semi logits (V, Hc, Wc, 65), called on consecutive
+    chunks of the B*N views (`VIEW_PIXELS_PER_CALL`). Returns the aggregated
     f32 heatmaps (B, H, W, 1)."""
     b, h, w, c = images.shape
     n = hs.shape[1]
     h_inv = invert_homography(hs.reshape(b * n, 3, 3))
-    views = warp_image(images.repeat_interleave(n, dim=0), h_inv)
+    chunk = max(1, VIEW_PIXELS_PER_CALL // (h * w))
+    heats = []
+    for start in range(0, b * n, chunk):
+        view = torch.arange(start, min(start + chunk, b * n), device=images.device)
+        heats.append(flatten_detection(apply_fn(warp_image(images[view // n], h_inv[view])), dtype=torch.float32))
+    heat = torch.cat(heats)
     masks = compute_valid_mask(h_inv, h, w)[..., None]
-    heat = flatten_detection(apply_fn(views), dtype=torch.float32)
     agg = combine_heatmaps(heat.reshape(b, n, h, w, 1), hs, masks.reshape(b, n, h, w, 1))
     if cfg.filter_counts > 0:
         counts = warp_image(masks, hs.reshape(b * n, 3, 3), mode="nearest").reshape(b, n, h, w, 1).sum(dim=1)

@@ -22,9 +22,11 @@ images (the tests hold them to `cv2` itself):
     the integer rasterisers of OpenCV's `drawing.cpp` (edge lists in 16.16
     fixed point, Bresenham lines, the midpoint circle), so that every
     pixel matches;
-  * `imread_gray`: `cv2.imread(path, IMREAD_GRAYSCALE)` of 8-bit PNG and
-    binary PGM / PPM files (zlib and struct, no image library);
-    `imwrite_png` writes 8-bit gray or BGR PNG files.
+  * `imread_gray`: `cv2.imread(path, IMREAD_GRAYSCALE)` of 8-bit PNG,
+    binary PGM / PPM, BMP and TIFF files (zlib and struct, no image
+    library), and of baseline or progressive JPEG files through libjpeg,
+    by the repository's C++ loader (`native_imloader.py`), at their own
+    size; `imwrite_png` writes 8-bit gray or BGR PNG files.
 
 Images are float32 (H, W) arrays unless a function says otherwise; the
 drawing functions paint in place, on (H, W) or (H, W, C) images.
@@ -37,6 +39,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from image_matching_tpu_torch import native_imloader
 
 XY_SHIFT = 16
 XY_ONE = 1 << XY_SHIFT
@@ -563,8 +567,10 @@ def rectangle(img, p0, p1, color) -> None:
 
 # ---------------------------------------------------------------- image files
 
-READS = ("8-bit PNG (gray, gray + alpha, RGB, RGBA, palette; not interlaced) and binary PGM / PPM "
-         "(P5 / P6, maxval <= 255)")
+READS = ("8-bit PNG (gray, gray + alpha, RGB, RGBA, palette; not interlaced), binary PGM / PPM "
+         "(P5 / P6, maxval <= 255), 8-bit JPEG (baseline or progressive, gray or YCbCr, no EXIF rotation), "
+         "uncompressed BMP (8-bit palette, 24-bit, 32-bit; bottom-up or top-down) and TIFF (uncompressed or "
+         "Deflate strips, 8-bit gray or RGB, chunky)")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
 
@@ -677,22 +683,200 @@ def _read_pnm(data: bytes, path) -> np.ndarray:
     px = np.frombuffer(data, np.uint8, count=h * w * ch, offset=m.end()).reshape(h, w, ch)
     if ch == 1:
         return px[..., 0].copy()
-    r, g, b = (px[..., i].astype(np.int64) for i in range(3))
-    return ((4899 * r + 9617 * g + 1868 * b + 8192) >> 14).astype(np.uint8)  # OpenCV's RGB -> gray
+    return _bgr_gray(px[..., 2], px[..., 1], px[..., 0])
+
+
+def _bgr_gray(b, g, r) -> np.ndarray:
+    """OpenCV's `icvCvt_BGR2Gray_8u`: (1868 B + 9617 G + 4899 R + 8192) >> 14,
+    the gray of its PPM, BMP and TIFF decoders."""
+    b, g, r = (np.asarray(c).astype(np.int64) for c in (b, g, r))
+    return ((4899 * r + 9617 * g + 1868 * b + 8192) >> 14).astype(np.uint8)
+
+
+# JPEG markers that start a frame: SOF0-SOF15 but DHT (C4), JPG (C8) and DAC (CC)
+_JPEG_SOF = set(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def _exif_orientation(body: bytes) -> int:
+    """The orientation tag (0x0112) of an APP1 Exif body's first IFD, 1 if absent."""
+    tiff = body[6:]
+    if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+        return 1
+    bo = "<" if tiff[:2] == b"II" else ">"
+    off = struct.unpack(bo + "I", tiff[4:8])[0]
+    if off + 2 > len(tiff):
+        return 1
+    for i in range(struct.unpack(bo + "H", tiff[off:off + 2])[0]):
+        entry = tiff[off + 2 + 12 * i:off + 14 + 12 * i]
+        if len(entry) == 12 and struct.unpack(bo + "H", entry[:2])[0] == 0x0112:
+            return struct.unpack(bo + "H", entry[8:10])[0]
+    return 1
+
+
+def _read_jpeg(data: bytes, path) -> np.ndarray:
+    """The frame's size from its SOF marker, then libjpeg's gray output
+    (`JCS_GRAYSCALE`, as OpenCV asks for it) through the C++ loader at that
+    size, where its area resize is the identity; the loader's x / 255 in
+    float32 is turned back into the byte exactly."""
+    pos, size = 2, None
+    while pos + 4 <= len(data) and size is None:
+        if data[pos] != 0xFF:
+            raise _unsupported(path, "damaged JPEG marker stream")
+        marker = data[pos + 1]
+        if marker == 0xFF:  # fill byte
+            pos += 1
+            continue
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        body = data[pos + 4:pos + 2 + n]
+        if marker == 0xE1 and body.startswith(b"Exif\0\0") and _exif_orientation(body) != 1:
+            raise _unsupported(path, f"JPEG with EXIF orientation {_exif_orientation(body)} (OpenCV rotates it)")
+        if marker in _JPEG_SOF:
+            if len(body) < 6:
+                raise _unsupported(path, "damaged JPEG frame header")
+            precision, h, w, comps = struct.unpack(">BHHB", body[:6])
+            if precision != 8 or comps not in (1, 3) or h == 0:
+                raise _unsupported(path, f"{precision}-bit JPEG of {comps} components, height {h}")
+            size = h, w
+        pos += 2 + n
+    if size is None:
+        raise _unsupported(path, "JPEG without a frame header")
+    try:
+        out = native_imloader.decode_image(str(path), *size)[..., 0]
+    except IOError as err:
+        raise _unsupported(path, "JPEG that libjpeg does not decode") from err
+    return np.rint(out * 255.0).astype(np.uint8)
+
+
+_BMP_INFO = {40, 52, 56, 108, 124}  # BITMAPINFOHEADER and its V2-V5 extensions
+_BMP_BGRA_MASKS = (0xFF0000, 0xFF00, 0xFF)
+
+
+def _read_bmp(data: bytes, path) -> np.ndarray:
+    """Uncompressed BMP: 8-bit palette (entries past the palette's count
+    black, as OpenCV zeroes them), 24-bit BGR, 32-bit BGRA (BI_RGB, or
+    BI_BITFIELDS with the BGRA masks; alpha ignored); rows padded to 4
+    bytes, bottom-up unless the height is negative. Colour turns gray as
+    OpenCV does it: its rounding fixed point, BI_BITFIELDS in float32."""
+    if len(data) < 54:
+        raise _unsupported(path, "truncated BMP")
+    offset, dib = struct.unpack("<I", data[10:14])[0], struct.unpack("<I", data[14:18])[0]
+    if dib not in _BMP_INFO:
+        raise _unsupported(path, f"BMP with a {dib}-byte header")
+    w, h, _, bpp, compression, _, _, _, used = struct.unpack("<iiHHIIiiI", data[18:50])
+    masks = struct.unpack("<III", data[54:66]) if compression == 3 and len(data) >= 66 else None
+    if not (compression == 0 and bpp in (8, 24, 32) or compression == 3 and bpp == 32 and masks == _BMP_BGRA_MASKS):
+        kind = {1: "RLE8", 2: "RLE4", 3: "BI_BITFIELDS"}.get(compression, f"compression {compression}")
+        raise _unsupported(path, f"{bpp}-bit BMP" + (f" ({kind}, masks {masks})" if compression else ""))
+    top_down, h = h < 0, abs(h)
+    stride = (w * bpp + 31) // 32 * 4
+    if w <= 0 or offset + stride * h > len(data):
+        raise _unsupported(path, "truncated BMP")
+    rows = np.frombuffer(data, np.uint8, count=stride * h, offset=offset).reshape(h, stride)
+    if not top_down:
+        rows = rows[::-1]
+    if bpp == 8:
+        count = used or 256
+        palette = np.zeros((256, 4), np.uint8)
+        entries = np.frombuffer(data, np.uint8, count=4 * min(count, 256), offset=14 + dib).reshape(-1, 4)
+        palette[:len(entries)] = entries
+        gray = _bgr_gray(palette[:, 0], palette[:, 1], palette[:, 2])
+        return gray[rows[:, :w]]
+    px = rows[:, :w * bpp // 8].reshape(h, w, bpp // 8)
+    if compression == 0:
+        return _bgr_gray(px[..., 0], px[..., 1], px[..., 2])
+    # OpenCV 5 turns BI_BITFIELDS (BGRA) BMP gray in float32, truncated:
+    # 0.299 R + 0.587 G + 0.114 B, each product rounded and summed in that
+    # order (found by probing: equal on 2^20 random colours, where the
+    # rounding rule is off by one on 0.8% of them)
+    b, g, r = (px[..., i].astype(np.float32) for i in range(3))
+    return np.floor(np.float32(0.299) * r + np.float32(0.587) * g + np.float32(0.114) * b).astype(np.uint8)
+
+
+_TIFF_TYPES = {1: "B", 3: "H", 4: "I"}  # BYTE, SHORT, LONG
+_TIFF_COMPRESSION = {1: "none", 5: "LZW", 6: "old JPEG", 7: "JPEG", 8: "Deflate", 32773: "PackBits",
+                     32946: "Deflate", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
+
+
+def _tiff_tags(data: bytes, path):
+    bo = {b"II": "<", b"MM": ">"}.get(data[:2])
+    if bo is None or struct.unpack(bo + "H", data[2:4])[0] != 42:
+        raise _unsupported(path, "TIFF header (BigTIFF is not read)")
+    off = struct.unpack(bo + "I", data[4:8])[0]
+    tags = {}
+    for i in range(struct.unpack(bo + "H", data[off:off + 2])[0]):
+        tag, kind, count = struct.unpack(bo + "HHI", data[off + 2 + 12 * i:off + 10 + 12 * i])
+        if kind not in _TIFF_TYPES:
+            continue
+        fmt = bo + _TIFF_TYPES[kind] * count
+        nbytes = struct.calcsize(fmt)
+        at = off + 10 + 12 * i
+        if nbytes > 4:
+            at = struct.unpack(bo + "I", data[at:at + 4])[0]
+        tags[tag] = struct.unpack(fmt, data[at:at + nbytes])
+    return tags
+
+
+def _read_tiff(data: bytes, path) -> np.ndarray:
+    """The first image of a TIFF file: 8-bit gray (BlackIsZero) or RGB,
+    chunky, in uncompressed or Deflate strips, with or without horizontal
+    differencing (predictor 2). RGB turns gray as OpenCV does it."""
+    tags = _tiff_tags(data, path)
+    w, h = tags[256][0], tags[257][0]
+    spp = tags.get(277, (1,))[0]
+    bits = tags.get(258, (1,) * spp)
+    compression = tags.get(259, (1,))[0]
+    photometric = tags.get(262, (None,))[0]
+    predictor = tags.get(317, (1,))[0]
+    if 322 in tags:
+        raise _unsupported(path, "tiled TIFF")
+    if compression not in (1, 8, 32946):
+        raise _unsupported(path, f"TIFF with {_TIFF_COMPRESSION.get(compression, compression)} compression")
+    if set(bits) != {8} or (spp, photometric) not in ((1, 1), (3, 2)) or tags.get(284, (1,))[0] != 1 \
+            or predictor not in (1, 2) or set(tags.get(339, (1,))) != {1}:
+        raise _unsupported(path, f"TIFF of {spp} samples of {bits} bits, photometric {photometric}, predictor "
+                                 f"{predictor}, planar {tags.get(284, (1,))[0]}")
+    rows_per_strip = tags.get(278, (h,))[0]
+    raw = []
+    for start, n in zip(tags[273], tags[279]):
+        strip = data[start:start + n]
+        if compression != 1:
+            try:
+                strip = zlib.decompress(strip)
+            except zlib.error as err:
+                raise _unsupported(path, f"damaged TIFF Deflate strip ({err})") from err
+        raw.append(strip)
+    raw = b"".join(raw)
+    if len(raw) < h * w * spp or len(tags[273]) != -(-h // rows_per_strip):
+        raise _unsupported(path, "TIFF whose strips do not fill its size")
+    px = np.frombuffer(raw, np.uint8, count=h * w * spp).reshape(h, w, spp)
+    if predictor == 2:  # each sample stored as its difference from the pixel to its left
+        px = np.cumsum(px, axis=1, dtype=np.uint64).astype(np.uint8)
+    if spp == 1:
+        return px[..., 0].copy()
+    return _bgr_gray(px[..., 2], px[..., 1], px[..., 0])
 
 
 def imread_gray(path) -> np.ndarray:
     """cv2.imread(path, IMREAD_GRAYSCALE) of the formats in `READS`: a
     uint8 (H, W) image. Colour turns gray as OpenCV's decoders do it (PNG
-    through libpng's truncating fixed point, PPM through cvtColor's rounding
-    one). Any other file raises a `ValueError` that names what is read; a
-    missing one raises `FileNotFoundError`."""
+    through libpng's truncating fixed point; PPM, BMP and TIFF through
+    OpenCV's rounding one; JPEG in libjpeg's own gray output). Any other
+    file or variant raises a `ValueError` that names it; a missing one
+    raises `FileNotFoundError`. JPEG needs the C++ loader's library (built
+    on first use): where it cannot be built, a JPEG raises its
+    `RuntimeError`."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(PNG_SIGNATURE):
         return _read_png(data, path)
     if data[:2] in (b"P5", b"P6"):
         return _read_pnm(data, path)
+    if data[:3] == b"\xff\xd8\xff":
+        return _read_jpeg(data, path)
+    if data[:2] == b"BM":
+        return _read_bmp(data, path)
+    if data[:4] in (b"II*\0", b"MM\0*"):
+        return _read_tiff(data, path)
     raise _unsupported(path, "not a file of these formats")
 
 

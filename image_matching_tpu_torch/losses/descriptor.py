@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from image_matching_tpu_torch.geometry.homography import warp_points
+from image_matching_tpu_torch.parallel.mesh import global_count
 
 
 class DescriptorDraws(NamedTuple):
@@ -75,7 +76,9 @@ def sparse_descriptor_loss(draws: DescriptorDraws, desc0, desc1, homographies, l
                            margin_pos: float = 1.0, margin_neg: float = 0.2, cell_size: int = 8):
     """desc0, desc1 (B, Hc, Wc, D) unit-norm coarse maps of an image and
     its warp; homographies (B, 3, 3) pixel homographies image -> warp.
-    Returns the batch means (total, positive, negative)."""
+    Returns the batch means (total, positive, negative); under a data mesh,
+    this rank's share of the global batch's means (the per-image
+    normalisers stay per image)."""
     b, hc, wc, d = desc0.shape
     n = hc * wc
     m = draws.negatives.shape[1]
@@ -117,4 +120,5 @@ def sparse_descriptor_loss(draws: DescriptorDraws, desc0, desc1, homographies, l
     non_match_loss = neg_hinge.sum(dim=(1, 2)) / ((neg_hinge > 0).sum(dim=(1, 2)) + 1.0)
 
     pos = lamda_d * match_loss
-    return (pos + non_match_loss).mean(), pos.mean(), non_match_loss.mean()
+    n = global_count(b)
+    return (pos + non_match_loss).sum() / n, pos.sum() / n, non_match_loss.sum() / n

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from image_matching_tpu_torch.parallel.mesh import all_sum
+
 
 def make_gt_matches(xy0_warped_to1, xy1, mask0, mask1, dist_thresh: float = 3.0):
     """Mutual nearest neighbours of the warped keypoints of set 0 and the
@@ -36,11 +38,12 @@ def make_gt_matches(xy0_warped_to1, xy1, mask0, mask1, dist_thresh: float = 3.0)
 def superglue_nll_loss(log_coupling, gt0, gt1, mask0, mask1):
     """Mean -log P over the ground-truth pairs: (i, gt0[i]) for every valid
     keypoint i of set 0, matched or dustbin-assigned, and (dustbin, j) for
-    every valid keypoint j of set 1 left unmatched."""
+    every valid keypoint j of set 1 left unmatched. Under a data mesh, this
+    rank's share of the global batch's mean: the count is global."""
     m, n = log_coupling.shape[1] - 1, log_coupling.shape[2] - 1
     z0 = torch.gather(log_coupling[:, :m, :], 2, gt0.long()[..., None])[..., 0]
     loss0 = -z0 * mask0.float()
     unmatched1 = (gt1 == m) & mask1
     loss1 = -log_coupling[:, m, :n] * unmatched1.float()
-    count = (mask0.sum() + unmatched1.sum()).float().clamp_min(1.0)
+    count = all_sum((mask0.sum() + unmatched1.sum()).float()).clamp_min(1.0)
     return (loss0.sum() + loss1.sum()) / count

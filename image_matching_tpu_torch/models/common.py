@@ -25,6 +25,7 @@ from torch import nn
 from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_h, fold_bn
 from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_raw, conv3x3_s2dh_entry, conv3x3_s2dh_raw
 from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
+from image_matching_tpu_torch.parallel.mesh import all_sum, current_mesh
 
 EPS = 1e-5
 
@@ -37,7 +38,11 @@ class BatchNorm(nn.Module):
     mask there). Training (`train=True`) uses the batch's statistics over
     every axis but the channel's, in f32, with flax's fast variance
     E[x^2] - E[x]^2 clipped at 0 (the biased variance), and moves the
-    running statistics ra = 0.9 * ra + 0.1 * batch in place, without grad."""
+    running statistics ra = 0.9 * ra + 0.1 * batch in place, without grad.
+    Under a data mesh (`parallel.use_mesh`) the statistics are the global
+    batch's: every rank holds a shard of the same size, so the ranks' means
+    of x and x^2 are averaged (one all_reduce), and every rank normalises
+    and tracks alike."""
 
     MOMENTUM = 0.9
 
@@ -58,8 +63,11 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             axes = tuple(a for a in range(x.dim()) if a != axis)
-            mean = xf.mean(dim=axes)
-            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            mean, sq = xf.mean(dim=axes), (xf * xf).mean(dim=axes)
+            mesh = current_mesh()
+            if mesh is not None:  # the global batch's means
+                mean, sq = (all_sum(torch.stack([mean, sq])) / mesh.size).unbind(0)
+            var = (sq - mean * mean).clamp_min(0.0)
             self.track(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -81,20 +89,26 @@ class MaskedBatchNorm1d(BatchNorm):
     statistics and ignores the mask. Training normalises with the mean and
     the biased variance over the valid (b, n) positions, in f32, and
     updates the running statistics with flax's convention,
-    ra = 0.9 * ra + 0.1 * batch (in place, without grad)."""
+    ra = 0.9 * ra + 0.1 * batch (in place, without grad). Under a data
+    mesh the count and the sum are summed over the ranks in one all_reduce,
+    then the squared deviations in a second."""
 
     def forward(self, x, mask=None, train: bool = False):
         if not train:
             return super().forward(x)
         xf = x.float()
-        if mask is None:
+        if mask is None and current_mesh() is None:
             mean = xf.mean(dim=(0, 1))
             var = xf.var(dim=(0, 1), unbiased=False)
-        else:
-            w = mask.float()[..., None]
-            denom = w.sum().clamp_min(1.0)
-            mean = (xf * w).sum(dim=(0, 1)) / denom
-            var = (w * (xf - mean) ** 2).sum(dim=(0, 1)) / denom
+        else:  # under a mesh, every sum is the global batch's
+            w = mask.float()[..., None] if mask is not None else torch.ones_like(xf[..., :1])
+            count, total = w.sum(), (xf * w).sum(dim=(0, 1))
+            if current_mesh() is not None:  # the global batch's, in one all_reduce
+                sums = all_sum(torch.cat([count[None], total]))
+                count, total = sums[0].detach(), sums[1:]
+            denom = count.clamp_min(1.0)
+            mean = total / denom
+            var = all_sum((w * (xf - mean) ** 2).sum(dim=(0, 1))) / denom
         self.track(mean, var)
         y = (xf - mean) * torch.rsqrt(var + EPS) * self.weight + self.bias
         return y.to(x.dtype)

@@ -40,6 +40,7 @@ from image_matching_tpu_torch.ops import _build
 from image_matching_tpu_torch.ops.s2d_conv import space_to_depth_h
 
 CHANNELS = 64
+MAX_PIXELS = 2 ** 31 // CHANNELS  # the kernel indexes its output's elements in 32 bits
 
 
 def fold_bn(conv_bias, bn_scale, bn_bias, mean, var, eps: float = 1e-5):
@@ -101,7 +102,7 @@ def _entry_conv_cuda(img, w, scale, shift, h_layout: bool):
     b, h, wd = img.shape
     if h_layout and h % 2:
         raise ValueError(f"{name}: the H-only layout needs an even height, got {h}")
-    if b * h * wd >= 2 ** 31 // CHANNELS:
+    if b * h * wd >= MAX_PIXELS:
         raise ValueError(f"{name}: image too large for 32-bit pixel indexing")
     taps = w.to(img.device, img.dtype).float().reshape(9, CHANNELS).contiguous()
     scale, shift = scale.contiguous(), shift.contiguous()

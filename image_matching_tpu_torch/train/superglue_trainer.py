@@ -12,6 +12,13 @@ Both views are detected in one 2B-batched SuperPoint call (the JAX
 package makes two calls; the detector is per image, so the keypoints are
 the same). Random numbers come from a `torch.Generator`: the homographies,
 then each view's photometric draws.
+
+Under a data mesh (`parallel.use_mesh`), a step on a rank's shard of the
+global batch is that shard's part of the global step: the draws are made
+for the global batch and sliced, the loss's count, the batch norms'
+statistics and the metrics' counts are global, the gradients are summed
+over the ranks, and the guard reads the global loss, so every rank
+applies or skips the same update.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from image_matching_tpu_torch.geometry.homography import (
 from image_matching_tpu_torch.geometry.warp import warp_image
 from image_matching_tpu_torch.losses.superglue_loss import make_gt_matches, superglue_nll_loss
 from image_matching_tpu_torch.models.superpoint import superpoint_postprocess
+from image_matching_tpu_torch.parallel.mesh import all_sum_dict, global_count, local_shard, sync_gradients
 from image_matching_tpu_torch.train.metrics import matching_precision_recall
 from image_matching_tpu_torch.train.state import TrainState
 
@@ -68,11 +76,12 @@ def generate_pair_from_homographies(hs, superpoint, images, cfg: SuperGluePairCo
 def generate_pair(gen: torch.Generator, superpoint, images, cfg: SuperGluePairConfig):
     """Sample B homographies (and, with photometric corruption, each view's
     draws) from `gen` (on the images' device) and generate the pair."""
-    b, h, w, _ = images.shape
-    hs = sample_homography_batch(gen, b, h, w, cfg.homography)
+    b, h, w, c = images.shape
+    n = global_count(b)  # draws for the global batch, then this rank's slice
+    hs = local_shard(sample_homography_batch(gen, n, h, w, cfg.homography))
     draws = None
     if cfg.photometric.enable:
-        draws = tuple(draw_photometric(gen, images.shape, cfg.photometric) for _ in range(2))
+        draws = tuple(local_shard(draw_photometric(gen, (n, h, w, c), cfg.photometric)) for _ in range(2))
     return generate_pair_from_homographies(hs, superpoint, images, cfg, draws)
 
 
@@ -87,16 +96,17 @@ def train_on_pair(state: TrainState, kp0, kp1, gt0, gt1, image_shape) -> dict:
     out = sg(kp0, kp1, image_shape, image_shape, train=True)
     loss = superglue_nll_loss(out["log_coupling"], gt0, gt1, kp0.mask, kp1.mask)
     loss.backward()
-    ok = bool(torch.isfinite(loss))
+    n1 = kp1.mask.shape[-1]
+    metrics = all_sum_dict({"loss": loss.detach(), "gt_matches": (gt0 < n1).sum(),
+                            "pred_matches": (out["matches0"] >= 0).sum()})
+    ok = bool(torch.isfinite(metrics["loss"]))
     if ok:
+        sync_gradients(sg.parameters())
         state.apply_gradients()
     else:
         with torch.no_grad():
             for buf, old in zip(sg.buffers(), stats):
                 buf.copy_(old)
-    n1 = kp1.mask.shape[-1]
-    metrics = {"loss": loss.detach(), "gt_matches": (gt0 < n1).sum(),
-               "pred_matches": (out["matches0"] >= 0).sum()}
     metrics.update(matching_precision_recall(out["matches0"], gt0, kp0.mask, n1))
     metrics["skipped_nonfinite"] = int(not ok)
     return metrics

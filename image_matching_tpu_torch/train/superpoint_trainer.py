@@ -11,6 +11,13 @@ The non-finite guard reads `isfinite(loss)` back to the host once a step
 running statistics that the two forward passes moved, so the parameters,
 Adam's moments and count, the step and the statistics all stay as they
 were, as JAX's `tree_map(where(ok, new, old))` leaves them.
+
+Under a data mesh (`parallel.use_mesh`), a step on a rank's shard of the
+global batch is that shard's part of the global step: the loss's draws
+are made for the global batch and sliced, the batch norms' statistics and
+the losses' normalisers are global, the metrics are summed over the
+ranks (so they are the global batch's), the gradients are summed, and the
+guard reads the global loss.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 
 from image_matching_tpu_torch.losses.descriptor import DescriptorDraws, draw_descriptor_loss, sparse_descriptor_loss
 from image_matching_tpu_torch.losses.detector import detector_loss
+from image_matching_tpu_torch.parallel.mesh import all_sum_dict, global_count, local_shard, sync_gradients
 from image_matching_tpu_torch.train.state import TrainState
 
 
@@ -37,8 +45,8 @@ class SuperPointLossConfig(NamedTuple):
 def draw_superpoint_loss(gen: torch.Generator, batch: dict, cfg: SuperPointLossConfig) -> DescriptorDraws:
     """The loss's random numbers (the descriptor loss's) for `batch`."""
     b, h, w, _ = batch["image"].shape
-    return draw_descriptor_loss(gen, b, h // cfg.cell_size, w // cfg.cell_size, cfg.num_matching_attempts,
-                                cfg.num_masked_non_matches_per_match)
+    return local_shard(draw_descriptor_loss(gen, global_count(b), h // cfg.cell_size, w // cfg.cell_size,
+                                            cfg.num_matching_attempts, cfg.num_masked_non_matches_per_match))
 
 
 def superpoint_loss_fn(model, batch: dict, draws: DescriptorDraws, cfg: SuperPointLossConfig = SuperPointLossConfig(),
@@ -73,14 +81,15 @@ def train_on_batch(state: TrainState, batch: dict, draws: DescriptorDraws,
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = superpoint_loss_fn(model, batch, draws, cfg, train=True)
     loss.backward()
-    ok = is_finite(loss)
+    metrics = all_sum_dict({k: v.detach() for k, v in metrics.items()})
+    ok = is_finite(metrics["loss"])
     if ok:
+        sync_gradients(model.parameters())
         state.apply_gradients()
     else:
         with torch.no_grad():
             for buf, old in zip(model.buffers(), stats):
                 buf.copy_(old)
-    metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["skipped_nonfinite"] = int(not ok)
     return metrics
 
@@ -106,6 +115,7 @@ def make_superpoint_eval_step(model, cfg: SuperPointLossConfig = SuperPointLossC
     def step(state: TrainState, batch: dict, gen: torch.Generator) -> dict:
         if state.module is not model:
             raise ValueError("eval step: the state holds another module than this step's SuperPoint")
-        return superpoint_loss_fn(model, batch, draw_superpoint_loss(gen, batch, cfg), cfg, train=False)[1]
+        return all_sum_dict(superpoint_loss_fn(model, batch, draw_superpoint_loss(gen, batch, cfg), cfg,
+                                               train=False)[1])
 
     return step

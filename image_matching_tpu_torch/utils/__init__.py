@@ -1,1 +1,1 @@
-"""Host-side utilities of the port: logging and plots."""
+"""Host-side utilities of the port: logging, plots, YAML configs and profiling."""

@@ -95,9 +95,9 @@ def test_allss_dataset_equals_jax(tmp_path):
 
 
 def test_load_gray_raises_on_unreadable_files(tmp_path):
-    cv2.imwrite(str(tmp_path / "a.jpg"), np.zeros((8, 8), np.uint8))
+    cv2.imwrite(str(tmp_path / "a.tif"), np.zeros((8, 8), np.uint8), [cv2.IMWRITE_TIFF_COMPRESSION, 5])
     with pytest.raises(ValueError, match="reads 8-bit PNG"):
-        datasets._load_gray(str(tmp_path / "a.jpg"))
+        datasets._load_gray(str(tmp_path / "a.tif"))
     with pytest.raises(FileNotFoundError):
         datasets._load_gray(str(tmp_path / "missing.png"))
 

@@ -99,7 +99,7 @@ def test_imread_gray_equals_cv2_on_pgm_and_ppm(tmp_path):
 
 def test_unreadable_files_raise_naming_the_formats(tmp_path):
     img = np.random.default_rng(3).integers(0, 256, (16, 16), dtype=np.uint8)
-    cv2.imwrite(str(tmp_path / "a.jpg"), img)
+    cv2.imwrite(str(tmp_path / "a.tif"), img, [cv2.IMWRITE_TIFF_COMPRESSION, 5])  # LZW: not read
     cv2.imwrite(str(tmp_path / "b.png"), img.astype(np.uint16) * 257)
     (tmp_path / "c.png").write_bytes(_png(16, 16, 0, img, interlace=1))
     (tmp_path / "d.png").write_bytes(_png(16, 16, 2, np.dstack([img] * 3), _chunk(b"sRGB", b"\x00")))
@@ -107,7 +107,7 @@ def test_unreadable_files_raise_naming_the_formats(tmp_path):
     damaged = bytearray(_png(16, 16, 0, img))
     damaged[40] ^= 0xFF
     (tmp_path / "f.png").write_bytes(bytes(damaged))
-    for name in ("a.jpg", "b.png", "c.png", "d.png", "e.pgm", "f.png"):
+    for name in ("a.tif", "b.png", "c.png", "d.png", "e.pgm", "f.png"):
         with pytest.raises(ValueError, match="reads 8-bit PNG .* binary PGM / PPM"):
             imgproc.imread_gray(str(tmp_path / name))
     with pytest.raises(FileNotFoundError):

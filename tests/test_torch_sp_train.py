@@ -17,7 +17,8 @@ bf16 moves each package from its own f32 gradients, as SuperGlue's are in
     running statistics within 1e-5, and Adam's update held as
     `test_torch_train.py` holds SuperGlue's (rtol 1e-3 where the gradient
     stands above rounding noise, the parameters within 2 lr elsewhere);
-    the evaluation step on the updated states within 1e-4 absolute.
+    the evaluation step on JAX's updated state (carried across by the
+    weight conversion) within 1e-4 absolute.
 """
 import functools
 
@@ -47,6 +48,7 @@ from image_matching_tpu_torch.train import metrics, superpoint_trainer
 from image_matching_tpu_torch.train.state import TrainState
 from image_matching_tpu_torch.weights import load_jax_params, params_to_jax
 
+from test_torch_features import one_torch_thread  # noqa: F401  (autouse: one torch thread in this module)
 from test_torch_train import STRICT_BF16, _perturb
 
 T = torch.from_numpy
@@ -268,15 +270,18 @@ def test_train_step_matches_jax():
                                    rtol=1e-3, atol=1e-3 * LR, err_msg=k)
         np.testing.assert_allclose(have[k], new[k], atol=2 * LR, err_msg=k)
 
-    # the eval step: inference, the same loss on the updated state, nothing moved
+    # the eval step: inference, the same loss on JAX's updated state (carried
+    # across by the weight conversion), nothing moved
     jeval = jtrainer.make_superpoint_eval_step(jm, jcfg)(new_state, jb, key)
-    before = {k: t.clone() for k, t in tm.state_dict().items()}
-    teval = superpoint_trainer.make_superpoint_eval_step(tm, superpoint_trainer.SuperPointLossConfig(**LOSS_KW))
+    em = SuperPointBN(D, compute_dtype="float32", device="cpu")
+    load_jax_params(em, new)
+    before = {k: t.clone() for k, t in em.state_dict().items()}
+    teval = superpoint_trainer.make_superpoint_eval_step(em, superpoint_trainer.SuperPointLossConfig(**LOSS_KW))
     with pytest.MonkeyPatch.context() as mp:  # feed the eval step JAX's draws
         mp.setattr(superpoint_trainer, "draw_superpoint_loss", lambda gen, batch, cfg: draws)
-        ev = teval(tstate, tb, torch.Generator())
-    assert all(torch.equal(before[k], t) for k, t in tm.state_dict().items())
-    for k in jeval:  # on states up to 2 lr apart where a gradient is rounding noise (measured 3.4e-5)
+        ev = teval(TrainState.create(em, LR), tb, torch.Generator())
+    assert all(torch.equal(before[k], t) for k, t in em.state_dict().items())
+    for k in jeval:  # one state on both sides: measured 9.5e-7 (the loss); two updated states gave 6.5e-4
         np.testing.assert_allclose(float(ev[k]), float(jeval[k]), rtol=0, atol=1e-4, err_msg=k)
 
 
@@ -357,10 +362,11 @@ def test_bf16_gradients_held_to_jax_bf16():
         and 0.57), not SuperGlue's 0.1: ten batch norms on batch statistics
         amplify a one-step bf16 difference of a conv output, so the order
         of the convs' f32 sums alone moves the port's bf16 gradients by more
-        than 0.1 d(JAX bf16, JAX f32) (its bf16 convs against f32 convs of
-        the same rounded inputs, rounded after: measured 0.15 in cosine,
-        checked here to exceed 0.1), where SuperGlue's dense layers differ
-        from JAX's by under 0.01 of it.
+        than 0.1 d(JAX bf16, JAX f32) in the largest entry (its bf16 convs
+        against f32 convs of the same rounded inputs, rounded after:
+        measured 0.185 in the largest entry and 0.098 in cosine, the same
+        under 1 and 8 torch threads; checked here to exceed 0.1 and 0.05),
+        where SuperGlue's dense layers differ from JAX's by under 0.01 of it.
     The conv biases ahead of a batch norm are held apart: their exact
     gradient is 0, and JAX's bf16 sums their cotangents in bf16 (0.94 of
     the largest f32 entry in inc's first conv) where torch sums in f32;
@@ -388,5 +394,5 @@ def test_bf16_gradients_held_to_jax_bf16():
     assert (pj <= 0.6 * jj).all(), (pj, jj)
     assert (pp <= 1.25 * jj).all(), (pp, jj)
     order = dists(pb, _port_gradients("bfloat16", _conv2d_f32_sums))
-    assert order[0] > 0.1 * jj[0], (order, jj)  # why SuperGlue's 0.1 is out of reach here
+    assert (order > [0.05, 0.1] * jj).all(), (order, jj)  # why SuperGlue's 0.1 is out of reach here
     assert max(np.abs(pb[k]).max() for k in biases) / scale <= 0.01
