@@ -169,7 +169,19 @@ In order, it:
      rank (a process group made here) and as one process again: the
      losses, metrics and trained state bit-equal (cuDNN and PyTorch in
      their deterministic algorithms for this phase), the training kernels'
-     launches a step, steps/s. More than one card is not run.
+     launches a step, steps/s. More than one card is not run;
+ 23. runs the JAX package's sharded paths, ported: context-parallel
+     SuperGlue (ring attention, the row-sharded Sinkhorn) and pipelined
+     SuperGlue (2 stages, 4 microbatches) at the headline's width in f32
+     (18 layers, K = 1024, batch 4, seeded weights), a tensor-parallel
+     training step at the training CLI's defaults in f32, and the sharded
+     pose graph and bundle adjustment on step 19's problem; in a world of
+     one NCCL rank (made here), then in a world of 4 gloo ranks all on
+     this card (spawned: NCCL refuses two ranks on one card, which the
+     phase asks it and prints); each path against the unsharded port on
+     the card (matches and scores; the step's metrics, statistics and
+     parameters; the solvers' distance from a float64 solve), with wall ms
+     and the kernels' launches a call on every rank, and peak memory.
 
 Every check that fails raises; nothing is caught. TF32 is off for every
 phase, timed ones included, so f32 convolutions and matmuls are full f32.
@@ -315,6 +327,15 @@ def _kernel_events(prof):
 def bound(bytes_moved: float, flops: float, rate: float):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def free_port() -> int:
+    """A free TCP port on this host, for a process group's store."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def nvidia_smi() -> str:
@@ -3325,7 +3346,8 @@ def run_sequence_cli(torch, dev, smi: str):
     ATEs (each under 0.1 px), tracks and landmarks beside that record;
     the run's wall time; then the two solvers (pose graph, robust bundle
     adjustment) called again on the run's own inputs under the profiler:
-    device time, device launches, wall time."""
+    device time, device launches, wall time. Returns those inputs,
+    {solver: (args, kwargs)}."""
     from torch.profiler import ProfilerActivity, profile
     from image_matching_tpu_torch.cli import sequence as cli
     from image_matching_tpu_torch.ops import _build
@@ -3375,6 +3397,7 @@ def run_sequence_cli(torch, dev, smi: str):
         print(f"sequence CLI, {name} solver (CG, 300 iterations{', 4 IRLS rounds' if 'bundle' in name else ''}): "
               f"wall {sec * 1e3:.1f} ms, device time {dev_ms:.3f} ms in {n} device launches, busy "
               f"{dev_ms / (sec * 1e3):.3f}; {smi}")
+    return captured
 
 
 # ---------------------------------------------------------------- native loader, chunked export, data parallelism
@@ -3575,7 +3598,6 @@ def run_data_parallel(torch, dev, smi: str):
     phase, so two runs can be compared bit for bit. More than one card is
     not run here."""
     import shutil
-    import socket
 
     import torch.distributed as dist
     from image_matching_tpu_torch.cli import train_superglue, train_superpoint
@@ -3601,10 +3623,7 @@ def run_data_parallel(torch, dev, smi: str):
     try:
         for i, label in enumerate(("one process", "NCCL, world 1", "one process, again")):
             if label.startswith("NCCL"):
-                with socket.socket() as sock:
-                    sock.bind(("127.0.0.1", 0))
-                    port = sock.getsockname()[1]
-                dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+                dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
             sg_times, sp_times = [], []
             _build.reset_launch_counts()
             reduces[0] = 0
@@ -3646,6 +3665,445 @@ def run_data_parallel(torch, dev, smi: str):
     print(f"data parallel: losses, metrics, parameters and batch statistics bit-equal across the three runs, both "
           f"CLIs (largest parameter difference {worst}); more than one card not run")
     return runs
+
+
+# ---------------------------------------------------------------- model parallelism
+
+# the headline's SuperGlue (bench.py:45-54) in f32, as the JAX package's context-parallel and
+# pipelined forwards compute; seeded random weights
+MP_SG = dict(descriptor_dim=256, keypoint_encoder=(32, 64, 128, 256), gnn_layers=18, sinkhorn_iterations=30,
+             match_threshold=0.2, compute_dtype="float32")
+MP_BATCH, MP_K, MP_SHAPE = 4, 1024, (480, 640)
+MP_MICROBATCHES = 4
+MP_WORLD = 4  # gloo ranks, all on the one card
+MP_TIMEOUT = 300.0  # s the phase waits for its ranks
+MP_SCORE_TOL = 1e-4  # the scores of equal matches against the unsharded forward
+# equal matches0 / matches1 and mutual nearest neighbours against the unsharded forward (f32 sums in
+# another order move near-tied argmaxes)
+MP_MIN_AGREE = 0.99
+# float32 CG of 300 iterations ends at its accuracy floor (PR 15), where the all-reduced sums' order
+# moves it: the sharded solvers are held to the float64 solution no further than twice the unsharded
+# float32 solver, plus this share of max(|value|, 1)
+MP_SOLVER_TOL = 1e-5
+
+
+def model_parallel_keypoints(torch, dev):
+    """Seeded keypoint sets (B, K) of the headline's size: set 1 is set 0
+    permuted within its valid slots, moved by up to half a pixel and with
+    its descriptors perturbed, so that the forwards find matches; element
+    i has 64 i padded slots."""
+    import numpy as np
+    from image_matching_tpu_torch.structs import Keypoints
+
+    rng = np.random.default_rng(17)
+    b, k, d = MP_BATCH, MP_K, MP_SG["descriptor_dim"]
+    h, w = MP_SHAPE
+    mask = np.arange(k)[None] < (k - 64 * np.arange(b))[:, None]
+    xy = rng.uniform(0, (w - 1, h - 1), (b, k, 2)).astype(np.float32)
+    desc = rng.normal(size=(b, k, d)).astype(np.float32)
+    score = rng.uniform(0.1, 1.0, (b, k)).astype(np.float32)
+    perm = np.stack([np.concatenate([rng.permutation(int(m.sum())), np.arange(int(m.sum()), k)]) for m in mask])
+    take = lambda a: np.take_along_axis(a, perm.reshape(b, k, *([1] * (a.ndim - 2))), 1)  # noqa: E731
+    xy1 = take(xy) + rng.uniform(-0.5, 0.5, (b, k, 2)).astype(np.float32)
+    desc1 = take(desc) + 0.1 * rng.normal(size=(b, k, d)).astype(np.float32)
+
+    def kpts(xy, score, desc):
+        desc = desc / np.linalg.norm(desc, axis=-1, keepdims=True) * mask[..., None]
+        arrays = dict(xy=xy, score=score * mask, mask=mask, desc=desc.astype(np.float32))
+        return Keypoints(**{n: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for n, a in arrays.items()})
+
+    return kpts(xy, score, desc), kpts(xy1, take(score), desc1)
+
+
+def model_parallel_training(torch, dev):
+    """The training step of the TP path: the training CLI's defaults
+    (240x320, batch 4, K = 512, D = 128, 18 layers, 100 Sinkhorn
+    iterations, lr 1e-4, SuperPoint and warm start from the banked
+    weights), in f32, on seeded textured images; returns (sp, sg, images,
+    generator, config)."""
+    import numpy as np
+    from image_matching_tpu_torch.models import SuperGlue, SuperPointBN
+    from image_matching_tpu_torch.train.superglue_trainer import SuperGluePairConfig
+    from image_matching_tpu_torch.weights import load_npz
+
+    sp = SuperPointBN(128, compute_dtype="float32", device=dev)
+    load_npz(sp, str(ROOT / "weights" / "sp_photo.npz"))
+    sg = SuperGlue(**SG_TRAIN_KW, compute_dtype="float32", device=dev)
+    load_npz(sg, str(ROOT / "weights" / "sg_photo.npz"))
+    rng = np.random.default_rng(2)
+    images = torch.from_numpy(np.stack([texture(torch, rng, 240, 320) for _ in range(4)])[..., None]).to(dev)
+    return sp, sg, images, torch.Generator(device=dev).manual_seed(0), SuperGluePairConfig()
+
+
+def model_parallel_paths(torch, dev, problems, world: int):
+    """Each sharded path on this rank, on meshes of `world` ranks:
+    context-parallel SuperGlue over a `context` axis of `world`, the
+    pipelined one over a `pipe` axis of 2 (of 1 in a world of one; the
+    data axis beside it feeds each pipeline the whole batch), a
+    tensor-parallel training step over a `model` axis of `world` (the
+    whole batch on every rank, so pair generation is the one process's),
+    the sharded pose graph and bundle adjustment over a `data` axis of
+    `world`. Returns this rank's outputs (on the host), the wall ms and
+    the kernels' launches of one call of each, and the peak memory."""
+    from image_matching_tpu_torch.models import SuperGlue
+    from image_matching_tpu_torch.ops import _build
+    from image_matching_tpu_torch.parallel import mesh as pmesh
+    from image_matching_tpu_torch.parallel.collectives import all_gather
+    from image_matching_tpu_torch.parallel.context_parallel import make_context_parallel_superglue
+    from image_matching_tpu_torch.parallel.pipeline import make_pipelined_superglue
+    from image_matching_tpu_torch.parallel.sharding import (
+        apply_param_sharding,
+        gather_param,
+        superglue_param_sharding,
+    )
+    from image_matching_tpu_torch.slam import bundle_adjustment as ba
+    from image_matching_tpu_torch.slam import pose_graph as pg
+    from image_matching_tpu_torch.structs import Keypoints
+    from image_matching_tpu_torch.train.state import TrainState
+    from image_matching_tpu_torch.train.superglue_trainer import make_superglue_train_step
+
+    out, ms, launches = {}, {}, {}
+
+    def timed(name, call, warm: bool = True):
+        if warm:
+            call()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = call()
+        torch.cuda.synchronize()
+        ms[name], launches[name] = (time.perf_counter() - t0) * 1e3, dict(_build.LAUNCHES)
+        return result
+
+    torch.cuda.reset_peak_memory_stats()
+    sg = SuperGlue(**MP_SG, device=dev, seed=3).eval()
+    kp0, kp1 = model_parallel_keypoints(torch, dev)
+    mesh = pmesh.make_mesh({"context": world}, dev)
+    axis = mesh.axis("context")
+    cp = make_context_parallel_superglue(mesh, MP_SG["gnn_layers"], MP_SG["sinkhorn_iterations"],
+                                         MP_SG["match_threshold"])
+    k0, k1 = (Keypoints(*(t[:, axis.shard(MP_K)] for t in (kp.xy, kp.score, kp.mask, kp.desc))) for kp in (kp0, kp1))
+    out["context parallel"] = [t.cpu() for t in timed("context parallel", lambda: cp(sg, k0, k1, MP_SHAPE, MP_SHAPE))]
+    stages = 2 if world > 1 else 1
+    mesh = pmesh.make_mesh({"data": world // stages, "pipe": stages}, dev)
+    pp = make_pipelined_superglue(mesh, MP_SG["gnn_layers"], MP_SG["sinkhorn_iterations"], MP_SG["match_threshold"],
+                                  MP_MICROBATCHES)
+    res = timed("pipeline", lambda: pp(sg, kp0, kp1, MP_SHAPE, MP_SHAPE))
+    out["pipeline"] = [res[k].cpu() for k in ("matches0", "matches1", "matching_scores0", "matching_scores1")]
+
+    sp, tsg, images, gen, cfg = model_parallel_training(torch, dev)
+    mesh = pmesh.make_mesh({"data": 1, "model": world}, dev)
+    specs = superglue_param_sharding(tsg, mesh)
+    apply_param_sharding(tsg, specs)
+    state = TrainState.create(tsg, 1e-4)
+    step = make_superglue_train_step(tsg, sp, cfg)
+    with pmesh.use_mesh(mesh):
+        metrics = timed("tensor parallel", lambda: step(state, images, gen), warm=False)
+    model = mesh.axis("model")
+    sd = tsg.state_dict()
+    out["tensor parallel"] = {
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "state": {k: gather_param(t, specs[k]).cpu() for k, t in sd.items()},
+        "split": sum(s.dim is not None for s in specs.values()),
+        "replicated differ": [k for k, t in sd.items() if specs[k].dim is None
+                              and not all(torch.equal(g, t) for g in all_gather(t, model))]}
+
+    graph, bap, traj = (problems[k] for k in ("pose graph", "bundle adjustment", "trajectory"))
+    mesh = pmesh.make_mesh({"data": world}, dev)
+    data = mesh.axis("data")
+    edges = [graph[k].to(dev)[data.shard(graph["src"].shape[0])] for k in ("src", "dst", "rel", "weight")]
+    solve = pg.make_sharded_pose_graph_solver(mesh, graph["num_frames"], iters=graph["iters"])
+    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).repeat(graph["num_frames"], 1)
+    out["pose graph"] = [timed("pose graph", lambda: solve(*edges, ident)).cpu()]
+    obs = [bap[k].to(dev)[data.shard(bap["frame"].shape[0])] for k in ("frame", "landmark", "uv", "weight")]
+    solve = ba.make_sharded_bundle_adjuster(mesh, bap["num_frames"], bap["num_landmarks"], iters=bap["iters"])
+    out["bundle adjustment"] = [t.cpu() for t in timed("bundle adjustment", lambda: solve(*obs, traj.to(dev)))]
+    return {"out": out, "ms": ms, "launches": launches, "peak GiB": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def model_parallel_reference(torch, dev, problems):
+    """The unsharded port on the same inputs, in this process: the
+    SuperGlue forward, one training step (its state and gradients after),
+    the pose graph and bundle adjustment."""
+    from image_matching_tpu_torch.models import SuperGlue
+    from image_matching_tpu_torch.slam import bundle_adjustment as ba
+    from image_matching_tpu_torch.slam import pose_graph as pg
+    from image_matching_tpu_torch.train.state import TrainState
+    from image_matching_tpu_torch.train.superglue_trainer import make_superglue_train_step
+
+    sg = SuperGlue(**MP_SG, device=dev, seed=3).eval()
+    kp0, kp1 = model_parallel_keypoints(torch, dev)
+    with torch.no_grad():
+        res = sg(kp0, kp1, MP_SHAPE, MP_SHAPE)
+    fwd = [res[k].cpu() for k in ("matches0", "matches1", "matching_scores0", "matching_scores1")]
+    sp, tsg, images, gen, cfg = model_parallel_training(torch, dev)
+    state = TrainState.create(tsg, 1e-4)
+    metrics = make_superglue_train_step(tsg, sp, cfg)(state, images, gen)
+    train = {"metrics": {k: float(v) for k, v in metrics.items()},
+             "state": {k: t.cpu() for k, t in tsg.state_dict().items()},
+             "grads": {k: p.grad.cpu() for k, p in tsg.named_parameters()}, "lr": 1e-4}
+    graph, bap, traj = (problems[k] for k in ("pose graph", "bundle adjustment", "trajectory"))
+    g = pg.PoseGraph(*(graph[k].to(dev) for k in ("src", "dst", "rel", "weight")), graph["num_frames"])
+    p = ba.BAProblem(*(bap[k].to(dev) for k in ("frame", "landmark", "uv", "weight")), bap["num_frames"],
+                     bap["num_landmarks"])
+    # float64 solves (converged: 96 unknowns) that both solvers' float32 results are held to
+    g64 = pg.PoseGraph(g.src, g.dst, g.rel.double(), g.weight.double(), g.num_frames)
+    p64 = p.replace(obs_uv=p.obs_uv.double(), obs_weight=p.obs_weight.double())
+    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float64, device=dev).repeat(g.num_frames, 1)
+    return {"context parallel": fwd, "pipeline": fwd, "tensor parallel": train,
+            "pose graph": {"f32": [pg.optimize_pose_graph(g, iters=graph["iters"]).cpu()],
+                           "f64": [pg.optimize_pose_graph(g64, init=ident, iters=graph["iters"]).cpu()]},
+            "bundle adjustment": {
+                "f32": [t.cpu() for t in ba.bundle_adjust(p, init=traj.to(dev), iters=bap["iters"])],
+                "f64": [t.cpu() for t in ba.bundle_adjust(p64, init=traj.to(dev).double(), iters=bap["iters"])]}}
+
+
+def sequence_problems(torch, captured: dict) -> dict:
+    """The sequence CLI's pose graph and its bundle-adjustment problem
+    (the tracks that `refine_trajectory_with_tracks` keeps, weight 1), on
+    the host, padded with weight-0 edges and observations to a multiple of
+    `MP_WORLD`, and the pose-graph trajectory that seeds the BA."""
+    from image_matching_tpu_torch.slam.bundle_adjustment import tracks_to_ba_problem
+
+    (graph,), gkw = captured["pose graph"]
+    (tracks, traj, n), bkw = captured["bundle adjustment"]
+    tracks = [t for t in tracks if len(t[1]) >= bkw["min_track_length"]]
+    n_obs = sum(len(t[1]) for t in tracks)
+    prob = tracks_to_ba_problem(tracks, n, -(-n_obs // MP_WORLD) * MP_WORLD, device="cpu")
+    e = graph.src.shape[0]
+    pad = lambda t: torch.cat([t.cpu(), t.new_zeros((-e % MP_WORLD, *t.shape[1:])).cpu()])  # noqa: E731
+    return {"pose graph": {"src": pad(graph.src), "dst": pad(graph.dst), "rel": pad(graph.rel),
+                           "weight": pad(graph.weight), "num_frames": graph.num_frames, "iters": gkw["iters"]},
+            "bundle adjustment": {"frame": prob.obs_frame, "landmark": prob.obs_landmark, "uv": prob.obs_uv,
+                                  "weight": prob.obs_weight, "num_frames": n, "num_landmarks": prob.num_landmarks,
+                                  "iters": bkw["iters"]},
+            "trajectory": traj.cpu()}
+
+
+def _model_parallel_rank(rank: int, world: int, port: int, root: str, backend: str):
+    """One rank of a model-parallel world: its paths' results to
+    `root/rank<r>.pt`. "gloo": every rank on card 0, then ranks 0 and 1 ask
+    NCCL for a group of two ranks on one card and write its answer to
+    `root/nccl<r>.txt`; "nccl": rank r on card r."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    card = 0 if backend == "gloo" else rank
+    torch.cuda.set_device(card)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    problems = torch.load(os.path.join(root, "problems.pt"), weights_only=False)  # written by the phase
+    result = model_parallel_paths(torch, torch.device("cuda", card), problems, world)
+    torch.save(result, os.path.join(root, f"rank{rank}.pt"))
+    if backend == "gloo":
+        nccl = dist.new_group([0, 1], backend="nccl")
+        if rank < 2:
+            try:
+                x = torch.ones(1, device="cuda")
+                dist.all_reduce(x, group=nccl)
+                torch.cuda.synchronize()
+                msg = f"an all_reduce over two NCCL ranks on one card returned {float(x)}"
+            except Exception as e:  # the answer is the point: record it, whatever it is
+                msg = f"{type(e).__name__}: {' '.join(str(e).split())[:400]}"
+            with open(os.path.join(root, f"nccl{rank}.txt"), "w") as f:
+                f.write(msg)
+    sys.stdout.flush()
+    os._exit(0)  # no teardown of a group whose communicator may have failed
+
+
+def _spawn_model_parallel(torch, root, backend: str) -> list:
+    """`MP_WORLD` ranks of `_model_parallel_rank`, spawned; waits at most
+    `MP_TIMEOUT` s, stops any rank still running, returns their results."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(_model_parallel_rank, args=(MP_WORLD, free_port(), str(root), backend),
+                             nprocs=MP_WORLD, join=False, start_method="spawn")
+    deadline = time.perf_counter() + MP_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                break
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    ranks = []
+    for r in range(MP_WORLD):
+        f = root / f"rank{r}.pt"
+        check(f.exists(), f"model parallel: {backend} rank {r} wrote no result in {MP_TIMEOUT:.0f} s")
+        ranks.append(torch.load(f, weights_only=False))
+    return ranks
+
+
+def _held_world(torch, label, ranks, ref, smi) -> None:
+    """Print and check every rank of a world of `MP_WORLD` against the unsharded port."""
+    for r, result in enumerate(ranks):
+        _report_rank(label, r, result, MP_WORLD, smi)
+    joined = {  # the context-parallel ranks' slices of K, in axis order; the rest from rank 0 (replicated)
+        "context parallel": [torch.cat([rk["out"]["context parallel"][i] for rk in ranks], 1) for i in range(4)]}
+    for path in ("pipeline", "tensor parallel", "pose graph", "bundle adjustment"):
+        joined[path] = ranks[0]["out"][path]
+    for path, got in joined.items():
+        _held(torch, label, path, got, ref[path], smi)
+    for r in range(MP_WORLD):
+        for path in ("pipeline", "pose graph", "bundle adjustment"):
+            check(all(torch.equal(a, b) for a, b in zip(ranks[r]["out"][path], ranks[0]["out"][path])),
+                  f"model parallel ({label}): rank {r}'s {path} differs from rank 0's")
+        check(ranks[r]["out"]["tensor parallel"]["replicated differ"] == [],
+              f"model parallel ({label}): rank {r}'s replicated tensors differ across the model axis")
+
+
+def _model_parallel_setup(torch, dev, root, captured):
+    """The solver problems written for the ranks, and the unsharded references on `dev`."""
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    problems = sequence_problems(torch, captured)
+    torch.save(problems, root / "problems.pt")
+    return problems, model_parallel_reference(torch, dev, problems)
+
+
+def _held(torch, label, path, got, ref, smi) -> None:
+    """Print and check one path's outputs against the unsharded port's."""
+    if path in ("context parallel", "pipeline"):
+        shares, dscore = [], 0.0
+        for m, r, sc, q in ((got[0], ref[0], got[2], ref[2]), (got[1], ref[1], got[3], ref[3])):
+            matched = (m >= 0) | (r >= 0)
+            shares.append(float((m == r)[matched].double().mean()) if bool(matched.any()) else 1.0)
+            shares.append(float(((sc > 0) == (q > 0)).double().mean()))  # mutual nearest neighbours
+            same = (m == r) & (m >= 0)
+            if bool(same.any()):
+                dscore = max(dscore, float((sc - q)[same].abs().max()))
+        n, nref = int((got[0] >= 0).sum()), int((ref[0] >= 0).sum())
+        print(f"model parallel ({label}), {path}: against the unsharded forward, matches0 / matches1 equal on "
+              f"{shares[0]:.5f} / {shares[2]:.5f} of the slots matched on either path, mutual nearest neighbours on "
+              f"{shares[1]:.5f} / {shares[3]:.5f} of all slots; {n} matches ({nref} unsharded); largest difference "
+              f"of the scores of equal matches {dscore:.3e}; {smi}")
+        check(min(shares) >= MP_MIN_AGREE and dscore <= MP_SCORE_TOL and nref > 0,
+              f"model parallel ({label}), {path}: agreement {shares}, score difference {dscore}, {nref} matches")
+    elif path == "tensor parallel":
+        metrics = {k: abs(got["metrics"][k] - v) / max(abs(v), 1e-30) for k, v in ref["metrics"].items()}
+        moved = noise = 0.0
+        gscale = max(float(g.abs().max()) for g in ref["grads"].values())
+        for k, g in ref["grads"].items():
+            d = (got["state"][k] - ref["state"][k]).abs()
+            big = g.abs() > 1e-3 * gscale
+            moved = max(moved, float(torch.where(big, d, 0.0).max()) / ref["lr"])
+            noise = max(noise, float(torch.where(big, 0.0, d).max()) / ref["lr"])
+        stats = max(float((got["state"][k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+                    for k, v in ref["state"].items() if k.endswith(("running_mean", "running_var")))
+        print(f"model parallel ({label}), tensor parallel step: {got['split']} tensors split; metrics' relative "
+              f"differences {json.dumps({k: float(f'{v:.3e}') for k, v in metrics.items()})}; running statistics "
+              f"{stats:.3e}; parameters {moved:.3e} lr where the gradient is above 1e-3 of the largest, {noise:.3e} lr "
+              f"elsewhere; replicated tensors that differ across the model axis: {got['replicated differ']}; {smi}")
+        # Adam's first step moves an entry by about lr either way: elsewhere two runs lie up to 2 lr apart,
+        # plus the float32 rounding of p + lr
+        check(max(metrics.values()) <= 1e-5 and stats <= 1e-5 and moved <= 1e-2 and noise <= 2.0 + 1e-3
+              and not got["replicated differ"], f"model parallel ({label}): tensor parallel step off the one process's")
+    else:
+        def dist(z):  # from the float64 solution, of max(|value|, 1)
+            return max(float((a.double() - b).abs().max() / b.abs().max().clamp_min(1.0)) for a, b in
+                       zip(z, ref["f64"]))
+
+        d, d_ref = dist(got), dist(ref["f32"])
+        print(f"model parallel ({label}), sharded {path}: {d:.3e} from the float64 solution (of the largest |value|; "
+              f"poses{' and landmarks' if len(got) > 1 else ''}), the unsharded float32 solver {d_ref:.3e}; {smi}")
+        check(d <= 2 * d_ref + MP_SOLVER_TOL, f"model parallel ({label}): sharded {path} {d} from the float64 "
+                                              f"solution, the unsharded solver {d_ref}")
+
+
+def _expected_launches(path: str, world: int) -> dict:
+    """The port's kernels' launches of one call of each path on one rank."""
+    layers = MP_SG["gnn_layers"]
+    stages = 2 if world > 1 else 1
+    return {"context parallel": {"attention_lse": 2 * layers * world},
+            "pipeline": {"attention": 2 * layers // stages * MP_MICROBATCHES, "sinkhorn": 1},
+            "tensor parallel": {"entry_conv": 1, "attention_lse": 2 * layers, "attention_dq": 2 * layers,
+                                "attention_dkdv": 2 * layers},
+            "pose graph": {}, "bundle adjustment": {}}[path]
+
+
+def _report_rank(label, rank, result, world, smi) -> None:
+    for path, ms in result["ms"].items():
+        got = result["launches"][path]
+        print(f"model parallel ({label}, rank {rank}), {path}: {ms:.1f} ms wall a call"
+              f"{' (the first step)' if path == 'tensor parallel' else ''}, launches {got}; {smi}")
+        check(got == _expected_launches(path, world), f"model parallel ({label}, rank {rank}): {path} launched "
+                                                        f"{got}, expected {_expected_launches(path, world)}")
+    print(f"model parallel ({label}, rank {rank}): peak memory {result['peak GiB']:.3f} GiB")
+
+
+def run_model_parallel(torch, dev, smi: str, captured: dict):
+    """The JAX package's sharded paths, ported: context-parallel and
+    pipelined SuperGlue at the headline's width (f32), a tensor-parallel
+    training step at the training CLI's defaults (f32), and the sharded
+    pose graph and bundle adjustment on the sequence CLI's problem
+    (`captured`, from `run_sequence_cli`), each held to the unsharded port
+    on the card: in a world of one NCCL rank (made here), then in a world
+    of `MP_WORLD` gloo ranks all on this card (spawned; gloo's exchanges go
+    through host memory, so this world checks correctness, not collective
+    speed). Prints per path the agreement, wall ms and launches a call, peak
+    memory, and what NCCL says to two ranks on one card."""
+    import torch.distributed as dist
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "model_parallel"
+    try:
+        problems, ref = _model_parallel_setup(torch, dev, root, captured)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+        try:
+            one = model_parallel_paths(torch, dev, problems, 1)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.use_deterministic_algorithms(False)
+    _report_rank("NCCL, world 1", 0, one, 1, smi)
+    for path, got in one["out"].items():
+        _held(torch, "NCCL, world 1", path, got, ref[path], smi)
+    t1 = time.perf_counter()
+    _held_world(torch, f"gloo, world {MP_WORLD} on one card", _spawn_model_parallel(torch, root, "gloo"), ref, smi)
+    for r in range(2):
+        f = root / f"nccl{r}.txt"
+        print(f"model parallel: NCCL with two ranks on one card (rank {r}): "
+              + (f.read_text() if f.exists() else f"no answer within {MP_TIMEOUT:.0f} s"))
+    print(f"model parallel: {t1 - t0:.1f} s in this process (unsharded references and the NCCL world of one), "
+          f"{time.perf_counter() - t1:.1f} s for the gloo world of {MP_WORLD} (its start included); more than one "
+          f"card: `scripts/model_parallel_cards.py`; {smi}")
+
+
+def run_model_parallel_cards(torch, smi: str, captured: dict):
+    """`run_model_parallel`'s paths over NCCL across `MP_WORLD` cards of
+    one host, one rank a card (spawned), against the unsharded port on
+    card 0 (`scripts/model_parallel_cards.py` runs it)."""
+    check(torch.cuda.device_count() >= MP_WORLD, f"model parallel across cards: needs {MP_WORLD} cards, have "
+                                                 f"{torch.cuda.device_count()}")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "model_parallel_cards"
+    try:
+        _, ref = _model_parallel_setup(torch, torch.device("cuda", 0), root, captured)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.use_deterministic_algorithms(False)
+    t1 = time.perf_counter()
+    _held_world(torch, f"NCCL, world {MP_WORLD} across {MP_WORLD} cards", _spawn_model_parallel(torch, root, "nccl"),
+                ref, smi)
+    print(f"model parallel across cards: {t1 - t0:.1f} s for the unsharded references on card 0, "
+          f"{time.perf_counter() - t1:.1f} s for the NCCL world of {MP_WORLD} (its start included); {smi}")
 
 
 def main() -> int:
@@ -3721,10 +4179,11 @@ def main() -> int:
     run_retrain_superpoint_cli(torch, dev, smi, data_root, labels)
     run_classical_evaluation(torch, dev, smi)
     run_traditional_cli(torch, dev, smi)
-    run_sequence_cli(torch, dev, smi)
+    captured = run_sequence_cli(torch, dev, smi)
     run_native_loader(torch, dev, smi)
     run_chunked_export(torch, dev, smi)
     run_data_parallel(torch, dev, smi)
+    run_model_parallel(torch, dev, smi, captured)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

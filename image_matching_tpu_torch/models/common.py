@@ -25,6 +25,7 @@ from torch import nn
 from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_h, fold_bn
 from image_matching_tpu_torch.ops.s2d_conv import conv3x3_s2d_raw, conv3x3_s2dh_entry, conv3x3_s2dh_raw
 from image_matching_tpu_torch.ops.s2d_entry import s2d_entry_conv
+from image_matching_tpu_torch.parallel.collectives import from_model_axis, to_model_axis
 from image_matching_tpu_torch.parallel.mesh import all_sum, current_mesh
 
 EPS = 1e-5
@@ -288,7 +289,12 @@ def split_dense(x, x2, linear: nn.Linear, x2_fold, dtype):
 
 class SeqMLP(nn.Module):
     """1x1-conv MLP over (B, N, C): Dense + (BN + ReLU) between layers,
-    plain Dense at the end. `channels` includes the input width."""
+    plain Dense at the end. `channels` includes the input width. `tp`: the
+    model axis when `parallel/sharding.apply_param_sharding` has split a
+    two-layer MLP over it (None unsharded): `Dense_0` column-parallel, its
+    batch norm on this rank's channels, `Dense_1` row-parallel."""
+
+    tp = None
 
     def __init__(self, channels):
         super().__init__()
@@ -303,10 +309,16 @@ class SeqMLP(nn.Module):
         concatenated onto x, after the projection `x2_fold` if one is given
         (`split_dense`). `mask`, `train`: the batch norms' (B, N) validity
         mask and training switch."""
+        tp = self.tp
+        if tp is not None:  # the column-parallel layer's inputs
+            x = to_model_axis(x, tp)
+            x2 = None if x2 is None else to_model_axis(x2, tp)
         for i in range(self.n):
             lin = getattr(self, f"Dense_{i}")
             if i == 0 and x2 is not None:
                 x = split_dense(x, x2, lin, x2_fold, dtype)
+            elif tp is not None and i == self.n - 1:  # row-parallel: the ranks' partial products summed
+                x = from_model_axis(x.to(dtype) @ lin.weight.t().to(dtype), tp) + lin.bias.to(dtype)
             else:
                 x = dense(x, lin, dtype)
             if i < self.n - 1:

@@ -21,6 +21,13 @@ two calls per layer, as flax does when one module is applied twice),
 attention through `ops/attention.AttentionFunction` (forward with LSE,
 then the dK/dV and dQ kernels on the card) and the differentiable
 Sinkhorn loop.
+
+The sharded forwards of `parallel/` reuse these modules: the
+context-parallel one runs `encode`, the GNN with ring attention as its
+`attend` and its own sharded Sinkhorn; the pipelined one runs `encode`,
+each stage's `names` of the GNN and `assign`; tensor parallelism
+(`parallel/sharding.py`) marks the attention and the GNN's MLPs with the
+model axis (`tp`), whose forwards then run Megatron's collectives.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from image_matching_tpu_torch.ops.sinkhorn import (
     extract_matches_from_transport,
     log_optimal_transport,
 )
+from image_matching_tpu_torch.parallel.collectives import from_model_axis, to_model_axis
 from image_matching_tpu_torch.structs import Keypoints, MatchResult
 
 
@@ -46,6 +54,12 @@ def normalize_keypoints(xy, height: int, width: int):
 
 
 class MultiHeadedAttention(nn.Module):
+    """4-head attention over packed heads. `tp`: the model axis when
+    `parallel/sharding.apply_param_sharding` has split the projections
+    over it (this rank's heads; None unsharded)."""
+
+    tp = None
+
     def __init__(self, num_heads: int, dim: int):
         super().__init__()
         self.num_heads = num_heads
@@ -54,43 +68,62 @@ class MultiHeadedAttention(nn.Module):
         self.proj_v = nn.Linear(dim, dim)
         self.merge = nn.Linear(dim, dim)
 
-    def forward(self, query, source, source_mask, dtype, logits_dtype, train: bool = False):
-        """The attention output before `merge` (the JAX package's
-        `return_premerge=True`, its inference form): the caller folds
-        `merge` into its next matmul. With `train`, after `merge`. One fused projection for Q, K, V when
-        `source is query` (self layers), Q plus a fused K/V projection
-        otherwise; q/k/v stay views of the fused result, which the kernel
-        reads by row stride."""
-        d = query.shape[-1]
+    def project(self, query, source, dtype):
+        """q, k, v: one fused projection for Q, K, V when `source is query`
+        (self layers), Q plus a fused K/V projection otherwise; q/k/v stay
+        views of the fused result, which the kernel reads by row stride."""
+        d = self.proj_q.weight.shape[0]  # D, or this rank's D / P under tensor parallelism
         w = lambda lin: lin.weight.t()
         if source is query:
             kernel = torch.cat([w(self.proj_q), w(self.proj_k), w(self.proj_v)], 1).to(dtype)
             bias = torch.cat([self.proj_q.bias, self.proj_k.bias, self.proj_v.bias]).to(dtype)
             qkv = query.to(dtype) @ kernel + bias
-            q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
-        else:
-            q = dense(query, self.proj_q, dtype)
-            kernel = torch.cat([w(self.proj_k), w(self.proj_v)], 1).to(dtype)
-            bias = torch.cat([self.proj_k.bias, self.proj_v.bias]).to(dtype)
-            kv = source.to(dtype) @ kernel + bias
-            k, v = kv[..., :d], kv[..., d:]
-        out = attention(q, k, v, source_mask, self.num_heads, logits_dtype)
+            return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        q = dense(query, self.proj_q, dtype)
+        kernel = torch.cat([w(self.proj_k), w(self.proj_v)], 1).to(dtype)
+        bias = torch.cat([self.proj_k.bias, self.proj_v.bias]).to(dtype)
+        kv = source.to(dtype) @ kernel + bias
+        return q, kv[..., :d], kv[..., d:]
+
+    def forward(self, query, source, source_mask, dtype, logits_dtype, train: bool = False, attend=None):
+        """The attention output before `merge` (the JAX package's
+        `return_premerge=True`, its inference form): the caller folds
+        `merge` into its next matmul. With `train`, or under tensor
+        parallelism, after `merge`. `attend(q, k, v, mask, heads,
+        logits_dtype)` computes the heads (None: `ops.attention.attention`,
+        looked up at the call; the context-parallel forward passes its
+        ring). Under tensor parallelism
+        this rank's heads are a column-parallel Q/K/V and `merge` is
+        row-parallel: its partial products are summed over the model axis,
+        then its bias is added."""
+        tp = self.tp
+        if tp is not None:
+            same = source is query
+            query = to_model_axis(query, tp)
+            source = query if same else to_model_axis(source, tp)
+        q, k, v = self.project(query, source, dtype)
+        heads = self.num_heads // (tp.size if tp is not None else 1)
+        out = (attention if attend is None else attend)(q, k, v, source_mask, heads, logits_dtype)
+        if tp is not None:
+            partial = out.to(dtype) @ self.merge.weight.t().to(dtype)
+            return from_model_axis(partial, tp) + self.merge.bias.to(dtype)
         return dense(out, self.merge, dtype) if train else out
 
 
 class AttentionalPropagation(nn.Module):
     """Attention + MLP([2D, 2D, D]) residual message; at inference the
-    merge projection is folded into the MLP's first kernel."""
+    merge projection is folded into the MLP's first kernel (not under
+    tensor parallelism, where `merge` ends in the model axis's sum)."""
 
     def __init__(self, dim: int, num_heads: int = 4):
         super().__init__()
         self.attn = MultiHeadedAttention(num_heads, dim)
         self.mlp = SeqMLP([dim * 2, dim * 2, dim])
 
-    def forward(self, x, source, x_mask, source_mask, dtype, logits_dtype, train: bool = False):
-        message = self.attn(x, source, source_mask, dtype, logits_dtype, train)
-        if train:
-            return self.mlp(x, dtype, x2=message, mask=x_mask, train=True)
+    def forward(self, x, source, x_mask, source_mask, dtype, logits_dtype, train: bool = False, attend=None):
+        message = self.attn(x, source, source_mask, dtype, logits_dtype, train, attend)
+        if train or self.attn.tp is not None:
+            return self.mlp(x, dtype, x2=message, mask=x_mask, train=train)
         return self.mlp(x, dtype, x2=message, x2_fold=self.attn.merge)
 
 
@@ -104,15 +137,18 @@ class AttentionalGNN(nn.Module):
         for name in self.names:
             setattr(self, name, AttentionalPropagation(dim))
 
-    def forward(self, desc0, desc1, mask0, mask1, dtype, logits_dtype, train: bool = False):
-        for name in self.names:
+    def forward(self, desc0, desc1, mask0, mask1, dtype, logits_dtype, train: bool = False, names=None,
+                attend=None):
+        """`names`: the layers to run, in order (all by default; a pipeline
+        stage runs its own); `attend`: as `MultiHeadedAttention.forward`'s."""
+        for name in self.names if names is None else names:
             layer = getattr(self, name)
             if name.endswith("cross"):
                 src0, sm0, src1, sm1 = desc1, mask1, desc0, mask0
             else:
                 src0, sm0, src1, sm1 = desc0, mask0, desc1, mask1
-            delta0 = layer(desc0, src0, mask0, sm0, dtype, logits_dtype, train)
-            delta1 = layer(desc1, src1, mask1, sm1, dtype, logits_dtype, train)
+            delta0 = layer(desc0, src0, mask0, sm0, dtype, logits_dtype, train, attend)
+            delta1 = layer(desc1, src1, mask1, sm1, dtype, logits_dtype, train, attend)
             desc0, desc1 = desc0 + delta0, desc1 + delta1
         return desc0, desc1
 
@@ -140,29 +176,23 @@ class SuperGlue(nn.Module):
         init_weights(self, seed)
         self.to(resolve_device(device))
 
-    def forward(self, kpts0: Keypoints, kpts1: Keypoints, image_shape0, image_shape1,
-                train: bool = False) -> dict:
-        """`train`: the training path (batch statistics, differentiable
-        attention and Sinkhorn); otherwise inference."""
-        dt, d = self.dtype, self.descriptor_dim
-        mask0, mask1 = kpts0.mask, kpts1.mask
-        n0 = normalize_keypoints(kpts0.xy, *image_shape0)
-        n1 = normalize_keypoints(kpts1.xy, *image_shape1)
-        enc0 = torch.cat([n0, kpts0.score[..., None]], -1).to(dt)
-        enc1 = torch.cat([n1, kpts1.score[..., None]], -1).to(dt)
-        desc0 = kpts0.desc.to(dt) + self.kenc(enc0, dt, mask=mask0, train=train)
-        desc1 = kpts1.desc.to(dt) + self.kenc(enc1, dt, mask=mask1, train=train)
+    def encode(self, kpts: Keypoints, image_shape, dtype, train: bool = False):
+        """The descriptors plus the keypoint encoder's message."""
+        n = normalize_keypoints(kpts.xy, *image_shape)
+        enc = torch.cat([n, kpts.score[..., None]], -1).to(dtype)
+        return kpts.desc.to(dtype) + self.kenc(enc, dtype, mask=kpts.mask, train=train)
 
-        desc0, desc1 = self.gnn(desc0, desc1, mask0, mask1, dt, self.logits_dtype, train)
-        mdesc0 = dense(desc0, self.final_proj, dt)
-        mdesc1 = dense(desc1, self.final_proj, dt)
+    def assign(self, desc0, desc1, mask0, mask1, dtype, iters: int, match_threshold: float,
+               train: bool = False) -> dict:
+        """Final projection, scores / sqrt(D), dustbin Sinkhorn of `iters`
+        iterations and mutual-max extraction at `match_threshold`."""
+        mdesc0 = dense(desc0, self.final_proj, dtype)
+        mdesc1 = dense(desc1, self.final_proj, dtype)
         # f32 products of the compute-dtype values (TF32 must be off)
-        scores = mdesc0.float() @ mdesc1.float().transpose(1, 2) / math.sqrt(d)
-
-        z = log_optimal_transport(scores, self.bin_score, self.sinkhorn_iterations,
-                                  mask0=mask0, mask1=mask1, train=train)
+        scores = mdesc0.float() @ mdesc1.float().transpose(1, 2) / math.sqrt(self.descriptor_dim)
+        z = log_optimal_transport(scores, self.bin_score, iters, mask0=mask0, mask1=mask1, train=train)
         matches0, matches1, mscores0, mscores1 = extract_matches_from_transport(
-            z, self.match_threshold, mask0=mask0, mask1=mask1)
+            z, match_threshold, mask0=mask0, mask1=mask1)
         return {
             "matches0": matches0,
             "matches1": matches1,
@@ -170,6 +200,17 @@ class SuperGlue(nn.Module):
             "matching_scores1": mscores1,
             "log_coupling": z,
         }
+
+    def forward(self, kpts0: Keypoints, kpts1: Keypoints, image_shape0, image_shape1,
+                train: bool = False) -> dict:
+        """`train`: the training path (batch statistics, differentiable
+        attention and Sinkhorn); otherwise inference."""
+        dt = self.dtype
+        desc0 = self.encode(kpts0, image_shape0, dt, train)
+        desc1 = self.encode(kpts1, image_shape1, dt, train)
+        desc0, desc1 = self.gnn(desc0, desc1, kpts0.mask, kpts1.mask, dt, self.logits_dtype, train)
+        return self.assign(desc0, desc1, kpts0.mask, kpts1.mask, dt, self.sinkhorn_iterations,
+                           self.match_threshold, train)
 
 
 def match_result_from_outputs(outputs: dict) -> MatchResult:

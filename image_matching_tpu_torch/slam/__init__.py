@@ -1,5 +1,5 @@
-"""Pose graph, bundle adjustment and sequence registration (one device;
-the JAX package's sharded solvers are not ported)."""
+"""Pose graph, bundle adjustment (each also with its edges or observations
+sharded over a mesh axis) and sequence registration."""
 from image_matching_tpu_torch.slam.bundle_adjustment import (
     BAProblem,
     apply_similarity,
@@ -7,6 +7,7 @@ from image_matching_tpu_torch.slam.bundle_adjustment import (
     bundle_adjust,
     bundle_adjust_robust,
     invert_similarity,
+    make_sharded_bundle_adjuster,
     solve_landmarks,
     tracks_to_ba_problem,
 )
@@ -14,6 +15,7 @@ from image_matching_tpu_torch.slam.pose_graph import (
     PoseGraph,
     absolute_trajectory_error,
     compose_similarity,
+    make_sharded_pose_graph_solver,
     matrix_to_similarity_params,
     optimize_pose_graph,
     similarity_params_to_matrix,
@@ -25,12 +27,14 @@ __all__ = [
     "matrix_to_similarity_params",
     "compose_similarity",
     "optimize_pose_graph",
+    "make_sharded_pose_graph_solver",
     "absolute_trajectory_error",
     "BAProblem",
     "apply_similarity",
     "invert_similarity",
     "bundle_adjust",
     "bundle_adjust_robust",
+    "make_sharded_bundle_adjuster",
     "solve_landmarks",
     "ba_residuals",
     "tracks_to_ba_problem",

@@ -1,6 +1,7 @@
 """Bundle adjustment over similarity poses and 2D landmarks, by a Schur
-solve — the counterpart of `image_matching_tpu/slam/bundle_adjustment.py`
-(its one-device solvers).
+solve — the counterpart of `image_matching_tpu/slam/bundle_adjustment.py`:
+the one-device solvers and the solver with the observations sharded over a
+mesh axis (`make_sharded_bundle_adjuster`).
 
 Pose z_i = (a, b, tx, ty) maps frame pixels u to the world by
 S_i(u) = [[a, -b], [b, a]] u + t, linear in z_i. An observation m of
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from image_matching_tpu_torch.device import resolve_device
+from image_matching_tpu_torch.parallel.collectives import all_reduce
 from image_matching_tpu_torch.slam.cg import cg
 
 
@@ -71,26 +73,31 @@ def _obs_matrix(uv):
     return torch.stack([torch.stack([x, -y, o, zr], -1), torch.stack([y, x, zr, o], -1)], -2)
 
 
+def _same(t):
+    return t
+
+
 def _segment_sum(n: int, index, values):
     """(n, ...) sums of `values` (M, ...) by row `index` (M,)."""
     return torch.zeros((n, *values.shape[1:]), dtype=values.dtype, device=values.device).index_add_(0, index, values)
 
 
-def _landmark_weight(problem: BAProblem):
+def _landmark_weight(problem: BAProblem, reduce=_same):
     """(L,) c_l = sum of w^2 over each landmark's observations."""
-    return _segment_sum(problem.num_landmarks, problem.obs_landmark, problem.obs_weight ** 2)
+    return reduce(_segment_sum(problem.num_landmarks, problem.obs_landmark, problem.obs_weight ** 2))
 
 
 def _predicted(problem: BAProblem, z):
     return apply_similarity(z[problem.obs_frame], problem.obs_uv)
 
 
-def solve_landmarks(problem: BAProblem, z):
+def solve_landmarks(problem: BAProblem, z, reduce=_same):
     """Closed-form back-substitution: (L, 2) weighted mean of S_f(u_m) over
-    each landmark's observations (zero for unobserved landmarks)."""
+    each landmark's observations (zero for unobserved landmarks). `reduce`
+    sums over the ranks that share the observations."""
     w2 = (problem.obs_weight ** 2)[:, None]
-    num = _segment_sum(problem.num_landmarks, problem.obs_landmark, w2 * _predicted(problem, z))
-    return num / _landmark_weight(problem)[:, None].clamp_min(1e-12)
+    num = reduce(_segment_sum(problem.num_landmarks, problem.obs_landmark, w2 * _predicted(problem, z)))
+    return num / _landmark_weight(problem, reduce)[:, None].clamp_min(1e-12)
 
 
 def robust_landmarks(problem: BAProblem, z, weiszfeld_iters: int = 8):
@@ -116,46 +123,51 @@ def ba_residuals(problem: BAProblem, z, landmarks):
     return (_predicted(problem, z) - landmarks[problem.obs_landmark]) * problem.obs_weight[:, None]
 
 
-def _schur_matvec(v, problem: BAProblem, amat, inv_c, anchor_weight: float):
-    """(H_zz - H_zp H_pp^-1 H_pz) v plus the anchor prior, matrix-free."""
+def _schur_matvec(v, problem: BAProblem, amat, inv_c, anchor_weight: float, reduce=_same):
+    """(H_zz - H_zp H_pp^-1 H_pz) v plus the anchor prior, matrix-free.
+    `reduce` sums the landmark sums and the pose scatter over the ranks
+    that share the observations."""
     w2 = (problem.obs_weight ** 2)[:, None]
     y = (amat * v[problem.obs_frame][:, None, :]).sum(-1)  # A v (M, 2)
     # H_zz v: w^2 A^T (A v) scattered to frames
     out = _segment_sum(v.shape[0], problem.obs_frame, (amat * (w2 * y)[:, :, None]).sum(1))
     # the Schur correction: with q_l = c_l^-1 sum_{m in l} w^2 y_m, -sum w^2 A^T q_{l_m}
-    q = _segment_sum(inv_c.shape[0], problem.obs_landmark, w2 * y) * inv_c[:, None]
-    out = out.index_add_(0, problem.obs_frame, (amat * (-w2 * q[problem.obs_landmark])[:, :, None]).sum(1))
+    q = reduce(_segment_sum(inv_c.shape[0], problem.obs_landmark, w2 * y)) * inv_c[:, None]
+    out = reduce(out.index_add_(0, problem.obs_frame, (amat * (-w2 * q[problem.obs_landmark])[:, :, None]).sum(1)))
     return out + torch.cat([anchor_weight * v[:1], torch.zeros_like(v[1:])])
 
 
-def _schur_diag(problem: BAProblem, num_frames: int, anchor_weight: float):
+def _schur_diag(problem: BAProblem, num_frames: int, anchor_weight: float, reduce=_same):
     """Jacobi preconditioner ~ diag(H_zz): per observation w^2 (|u|^2, |u|^2, 1, 1)."""
     u2 = (problem.obs_uv ** 2).sum(-1)
     w2 = problem.obs_weight ** 2
     one = torch.ones_like(u2)
-    diag = _segment_sum(num_frames, problem.obs_frame, w2[:, None] * torch.stack([u2, u2, one, one], -1))
+    diag = reduce(_segment_sum(num_frames, problem.obs_frame, w2[:, None] * torch.stack([u2, u2, one, one], -1)))
     diag[0] += anchor_weight
     return diag.clamp_min(1e-8)
 
 
-def _solve_linear(problem: BAProblem, z0, iters: int, anchor_weight: float):
+def _solve_linear(problem: BAProblem, z0, iters: int, anchor_weight: float, reduce=_same):
     """One exact solve of the reduced camera system (poses only), in
     normalised coordinates: raw pixel magnitudes make its condition number
     ~|u|^4 and stall float32 CG; u' = u / s with z' = (a, b, t / s) is an
-    exact reparameterisation, and the translations are unscaled after."""
+    exact reparameterisation, and the translations are unscaled after.
+    `reduce` sums over the ranks that share the observations (the sharded
+    solver's all_reduce; the identity on one device)."""
     n = problem.num_frames
     w2 = problem.obs_weight ** 2
-    scale = torch.sqrt((w2 * (problem.obs_uv ** 2).sum(-1)).sum() / w2.sum().clamp_min(1e-12)).clamp_min(1e-6)
+    sums = reduce(torch.stack([(w2 * (problem.obs_uv ** 2).sum(-1)).sum(), w2.sum()]))
+    scale = torch.sqrt(sums[0] / sums[1].clamp_min(1e-12)).clamp_min(1e-6)
     sp = problem.replace(obs_uv=problem.obs_uv / scale)
     tscale = torch.stack([torch.ones_like(scale), torch.ones_like(scale), scale, scale])
     z0s = z0 / tscale
-    inv_c = 1.0 / _landmark_weight(sp).clamp_min(1e-12)
+    inv_c = 1.0 / _landmark_weight(sp, reduce).clamp_min(1e-12)
     amat = _obs_matrix(sp.obs_uv)
-    rhs = torch.zeros((n, 4), device=z0.device)
+    rhs = torch.zeros((n, 4), dtype=z0s.dtype, device=z0.device)
     rhs[0] += anchor_weight * z0s[0]
-    diag = _schur_diag(sp, n, anchor_weight)
-    zs = cg(lambda v: _schur_matvec(v, sp, amat, inv_c, anchor_weight), rhs, x0=z0s, maxiter=iters, tol=1e-12,
-            M=lambda v: v / diag)
+    diag = _schur_diag(sp, n, anchor_weight, reduce)
+    zs = cg(lambda v: _schur_matvec(v, sp, amat, inv_c, anchor_weight, reduce), rhs, x0=z0s, maxiter=iters,
+            tol=1e-12, M=lambda v: v / diag)
     return zs * tscale
 
 
@@ -171,6 +183,30 @@ def bundle_adjust(problem: BAProblem, init: Optional[torch.Tensor] = None, iters
     z0 = init if init is not None else _identity_poses(problem.num_frames, problem.obs_uv.device)
     z = _solve_linear(problem, z0, iters, anchor_weight)
     return z, solve_landmarks(problem, z)
+
+
+def make_sharded_bundle_adjuster(mesh, num_frames: int, num_landmarks: int, iters: int = 200,
+                                 axis_name: str = "data", anchor_weight: float = 10.0):
+    """Bundle adjustment with the observations sharded over `axis_name` of
+    a `parallel/mesh.Mesh`: `solve(obs_frame, obs_landmark, obs_uv,
+    obs_weight, z0)` takes this rank's observations (padding of weight 0
+    adds nothing) and the replicated init, and returns the replicated
+    (poses (N, 4), landmarks (L, 2)). Each CG matvec all_reduces the
+    landmark sums (L, 2) and the pose scatter (N, 4), as do the coordinate
+    scale, the landmark weights, the Jacobi diagonal and the landmarks'
+    back-substitution; the reduced vectors are the same on every rank, so
+    the CG's done mask stays in step."""
+    axis = mesh.axis(axis_name)
+
+    def reduce(t):
+        return all_reduce(t, axis)
+
+    def solve(obs_frame, obs_landmark, obs_uv, obs_weight, z0):
+        problem = BAProblem(obs_frame, obs_landmark, obs_uv, obs_weight, num_frames, num_landmarks)
+        z = _solve_linear(problem, z0, iters, anchor_weight, reduce)
+        return z, solve_landmarks(problem, z, reduce)
+
+    return solve
 
 
 def _nanmedian(x):

@@ -1,5 +1,6 @@
 """Pose-graph optimisation over 2D similarities — the counterpart of
-`image_matching_tpu/slam/pose_graph.py` (its one-device solver).
+`image_matching_tpu/slam/pose_graph.py`: the one-device solver and the
+solver with the edges sharded over a mesh axis.
 
 Each frame i carries a similarity S_i, params z_i = (a, b, tx, ty) and
 matrix [[a, -b, tx], [b, a, ty]], mapping frame-i pixels into a common
@@ -19,6 +20,7 @@ from typing import Optional
 import torch
 
 from image_matching_tpu_torch.ops.ransac import fit_similarity_lsq
+from image_matching_tpu_torch.parallel.collectives import all_reduce
 from image_matching_tpu_torch.slam.cg import cg
 
 
@@ -63,23 +65,49 @@ def _edge_operator(rel):
                         torch.stack([t1x, -t1y, o, z], -1), torch.stack([t1y, t1x, z, o], -1)], -2)
 
 
-def _normal_matvec(z, graph: PoseGraph, l_op, anchor_weight: float):
-    """A^T W A z for the stacked edge system plus the anchor prior on frame 0."""
+def _edge_matvec(z, graph: PoseGraph, l_op):
+    """The edges' part of A^T W A z: two gathers and two scatter-adds."""
     w = graph.weight[:, None]
     r = (z[graph.src] - (l_op * z[graph.dst][:, None, :]).sum(-1)) * w
     out = torch.zeros_like(z).index_add_(0, graph.src, r * w)
-    out = out.index_add_(0, graph.dst, -(l_op * (r * w)[:, :, None]).sum(1))
+    return out.index_add_(0, graph.dst, -(l_op * (r * w)[:, :, None]).sum(1))
+
+
+def _anchored(out, z, anchor_weight: float):
+    """`out` plus the anchor prior's anchor_weight * z on frame 0."""
     return out + torch.cat([anchor_weight * z[:1], torch.zeros_like(z[1:])])
 
 
-def _jacobi_diag(graph: PoseGraph, l_op, num_frames: int, anchor_weight: float):
-    """diag(A^T W^2 A): w^2 at source blocks, w^2 colnorm(L)^2 at dest blocks."""
+def _normal_matvec(z, graph: PoseGraph, l_op, anchor_weight: float):
+    """A^T W A z for the stacked edge system plus the anchor prior on frame 0."""
+    return _anchored(_edge_matvec(z, graph, l_op), z, anchor_weight)
+
+
+def _edge_diag(graph: PoseGraph, l_op, num_frames: int):
+    """The edges' part of diag(A^T W^2 A): w^2 at source blocks, w^2 colnorm(L)^2 at dest blocks."""
     w2 = (graph.weight ** 2)[:, None]
-    diag = torch.zeros((num_frames, 4), device=l_op.device)
-    diag = diag.index_add_(0, graph.src, w2 * torch.ones((1, 4), device=l_op.device))
-    diag = diag.index_add_(0, graph.dst, w2 * (l_op ** 2).sum(1))
+    diag = torch.zeros((num_frames, 4), dtype=l_op.dtype, device=l_op.device)
+    diag = diag.index_add_(0, graph.src, w2 * torch.ones((1, 4), dtype=l_op.dtype, device=l_op.device))
+    return diag.index_add_(0, graph.dst, w2 * (l_op ** 2).sum(1))
+
+
+def _solve(graph: PoseGraph, z0, iters: int, anchor_weight: float, reduce=lambda t: t):
+    """CG on the normal equations from z0, frame 0 anchored to z0[0].
+    `reduce` sums the edges' parts over the ranks that share the edges
+    (the sharded solver's all_reduce)."""
+    n = graph.num_frames
+    l_op = _edge_operator(graph.rel)
+    rhs = torch.zeros((n, 4), dtype=z0.dtype, device=z0.device)
+    rhs[0] += anchor_weight * z0[0]
+    diag = reduce(_edge_diag(graph, l_op, n))
     diag[0] += anchor_weight
-    return diag.clamp_min(1e-8)
+    diag = diag.clamp_min(1e-8)
+    return cg(lambda v: _anchored(reduce(_edge_matvec(v, graph, l_op)), v, anchor_weight), rhs, x0=z0,
+              maxiter=iters, tol=1e-10, M=lambda v: v / diag)
+
+
+def _identity_poses(n: int, device):
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], device=device).repeat(n, 1)
 
 
 def optimize_pose_graph(graph: PoseGraph, init: Optional[torch.Tensor] = None, iters: int = 100,
@@ -88,15 +116,26 @@ def optimize_pose_graph(graph: PoseGraph, init: Optional[torch.Tensor] = None, i
     graph's device. Frame 0 is anchored to the identity (or to init[0]).
     The system is linear, so this is exact global optimisation; init only
     seeds CG."""
-    n = graph.num_frames
-    dev = graph.rel.device
-    z0 = init if init is not None else torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).repeat(n, 1)
-    l_op = _edge_operator(graph.rel)
-    rhs = torch.zeros((n, 4), device=dev)
-    rhs[0] += anchor_weight * z0[0]
-    diag = _jacobi_diag(graph, l_op, n, anchor_weight)
-    return cg(lambda v: _normal_matvec(v, graph, l_op, anchor_weight), rhs, x0=z0, maxiter=iters, tol=1e-10,
-              M=lambda v: v / diag)
+    z0 = init if init is not None else _identity_poses(graph.num_frames, graph.rel.device)
+    return _solve(graph, z0, iters, anchor_weight)
+
+
+def make_sharded_pose_graph_solver(mesh, num_frames: int, iters: int = 100, axis_name: str = "data",
+                                   anchor_weight: float = 10.0):
+    """The pose-graph solver with the edges sharded over `axis_name` of a
+    `parallel/mesh.Mesh`: `solve(src, dst, rel, weight, z0)` takes this
+    rank's edges (padding edges of weight 0 add nothing) and the
+    replicated init, and returns the replicated (N, 4) solution. Each CG
+    matvec and the Jacobi diagonal sum the ranks' partial scatters with an
+    all_reduce; the reduced vectors are the same on every rank, so the
+    CG's done mask stays in step."""
+    axis = mesh.axis(axis_name)
+
+    def solve(src, dst, rel, weight, z0):
+        graph = PoseGraph(src, dst, rel, weight, num_frames)
+        return _solve(graph, z0, iters, anchor_weight, reduce=lambda t: all_reduce(t, axis))
+
+    return solve
 
 
 def absolute_trajectory_error(est, gt, align: bool = True):

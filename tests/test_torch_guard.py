@@ -40,6 +40,8 @@ def test_port_imports_no_jax():
             "models/tracker.py", "slam/__init__.py", "slam/cg.py", "slam/pose_graph.py",
             "slam/bundle_adjustment.py", "slam/sequence.py", "cli/traditional.py", "cli/sequence.py",
             "data/native_loader.py", "native_imloader.py", "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py",
+            "parallel/collectives.py", "parallel/sharding.py", "parallel/ring_attention.py",
+            "parallel/sharded_sinkhorn.py", "parallel/context_parallel.py", "parallel/pipeline.py",
             "utils/config.py", "utils/profiler.py"} <= names
     for path in sources + [CHIP_SMOKE]:
         for mod in _imported_modules(ast.parse(path.read_text(), str(path))):

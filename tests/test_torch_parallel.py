@@ -344,7 +344,10 @@ def test_without_torchrun_the_runtime_is_one_process(monkeypatch):
     x = torch.ones(3, requires_grad=True)
     with pmesh.use_mesh(mesh):  # no process group: nothing to sum over
         assert pmesh.all_sum(x) is x and pmesh.global_count(5) == 5
-    with pytest.raises(NotImplementedError, match="data axis"):
-        pmesh.make_mesh({"data": 1, "model": 1}, "cpu")
+    two = pmesh.make_mesh({"data": 1, "model": 1}, "cpu")  # two axes of one process: no group to reduce over
+    assert two.shape == {"data": 1, "model": 1} and (two.size, two.rank, two.group, two.axis("model").group) == (
+        1, 0, None, None)
+    with pytest.raises(ValueError, match="need 2 processes"):
+        pmesh.make_mesh({"data": 1, "model": 2}, "cpu")
     with pytest.raises(ValueError, match="does not split"):
         pmesh.Mesh(2, 0, torch.device("cpu")).shard(5)
