@@ -27,8 +27,13 @@ In order, it:
      forward's five timed shapes, and prints whether it gives this
      build's bits; it runs the attention kernels at head dims they
      are not built for (8, 24, 48: zero-padded to 16, 32, 64), forward,
-     forward with LSE and backward, against the plain versions, and
-     checks that a head dim of 128 raises;
+     forward with LSE and backward, against the plain versions; then the
+     kernels at head width 128 (bf16 and f32: forward, forward with LSE,
+     dQ, dK/dV) at heads of 80, 96 and 128 with masked keys and a dead
+     batch element, against the plain versions and, in f32, a float64
+     run, and times each at D = 512's shapes ((4, 1024, 4x128) forward,
+     (4, 512, 4x128) training) beside `scaled_dot_product_attention` and
+     its bound; and checks that a head dim of 256 raises;
   4. runs the headline configuration through `Matching` (480x640, batch
      4, K=1024, D=256, 18 GNN layers, 30 Sinkhorn iterations, bf16,
      seeded random weights, seeded uniform images), checks that the path
@@ -116,13 +121,23 @@ In order, it:
      mean under 1 px), per-pair wall time, launches; then its official
      variant (--backbone vgg --descriptor_dim 256, SuperGlue loaded from a
      seeded synthetic official state dict) on 2 pairs;
- 15. runs the training CLI (`cli/train_superglue.py`) in-process at its
+ 15. runs SuperGlue at descriptor_dim 512 (4 heads of 128 values, seeded
+     weights: no banked ones exist at that width): the headline's
+     `Matching` with D = 512 in bf16 and f32 (launches, pairs/s, peak
+     memory, agreement with the all-plain path, the profile), training at
+     the training CLI's defaults with D = 512 in bf16 and f32 through the
+     trainer's step (launches, steps/s, peak memory, finite metrics,
+     every attention backward call of two steps against the plain version
+     and, in f32, float64), the training CLI with --descriptor_dim 512 for
+     one epoch of 6 steps, and match_pair --matcher superglue
+     --descriptor_dim 512 on 2 of its sources (a run check);
+ 16. runs the training CLI (`cli/train_superglue.py`) in-process at its
      defaults with --synthetic, the banked SuperPoint, --photometric
      --subpixel --warmup_steps 5 --grad_clip 1.0: 2 epochs of 10 steps, then
      --resume for one more; finite losses, checkpoints, the step count
      continued, the training kernels' launches a step, steps/s, peak memory
      and the busy share of a step;
- 16. runs the self-supervised cycle's SuperPoint stages in-process: stage 1,
+ 17. runs the self-supervised cycle's SuperPoint stages in-process: stage 1,
      `cli/train_superpoint.py --synthetic` at its defaults (240x320, batch 8,
      D = 128, bf16, synthetic shapes made on the card) for 30 steps with
      diagnostics, evaluation steps and checkpoints, then --resume to step
@@ -135,23 +150,23 @@ In order, it:
      the all-plain path with the same homographies (keypoint-set IoU >= 0.9);
      stage 3, `train_superpoint --data_root --labels --init_weights
      weights/sp_synth.npz` on those files and labels for 20 steps;
- 17. runs the classical configs of the evaluation CLI (`cli/evaluate.py
+ 18. runs the classical configs of the evaluation CLI (`cli/evaluate.py
      --configs sift orb`) at its defaults (50 pairs at 480x640) and in the
      regime of the JAX package's `EVAL_classical_photo.json` (40 pairs at
      240x320, each method held to a success rate of 0.9): metrics, ms a
      pair, peak memory, a pair's profile and busy share, where a pair's time
      goes by stage, and one pair a method held to the port's CPU path with
      the same sample indices (fits within 1e-3 px of corner error);
- 18. runs `cli/traditional.py` at its defaults (--resize_scale 0.5) on
+ 19. runs `cli/traditional.py` at its defaults (--resize_scale 0.5) on
      match_pair's template and 8 sources of 1920x2560, --method sift and
      orb: corner error per source at 960x1280 (at least 7 of 8 under 5 px),
      the CLI's seconds a pair, peak memory;
- 19. runs `cli/sequence.py --synthetic --n_frames 24 --ba`: valid edges,
+ 20. runs `cli/sequence.py --synthetic --n_frames 24 --ba`: valid edges,
      both ATEs (under 0.1 px), tracks and landmarks beside the JAX
      package's `EVAL_sequence.json`, wall time, and the two solvers' wall
      time, device time and device launches. No kernel of the port runs in
-     17-19: each checks that none launched;
- 20. checks that g++ finds `jpeglib.h` and `png.h` and links `-ljpeg
+     18-20: each checks that none launched;
+ 21. checks that g++ finds `jpeglib.h` and `png.h` and links `-ljpeg
      -lpng` (and says so on a line of its own; without them the phase stops
      there), builds the C++ image loader (`native/imloader/imloader.cpp`
      into `build/imloader/`), holds `imgproc.imread_gray` of the committed
@@ -160,22 +175,22 @@ In order, it:
      `decode_image`, then trains SuperPoint on the JPEG files (labels from
      `export_pseudo`) for 20 steps with `--native_loader` and with the host
      decoder: steps/s of each;
- 21. runs `export_pseudo` at 480x640, batch 8, 50 warps on 16 seeded PNG
+ 22. runs `export_pseudo` at 480x640, batch 8, 50 warps on 16 seeded PNG
      files: the 400 views of a batch in 4 model calls (4 entry conv
      launches), s a batch, peak memory, and the first batch through the
      all-plain path with the same homographies (keypoint-set IoU >= 0.9);
- 22. runs `train_superglue` and `train_superpoint --synthetic` at their
+ 23. runs `train_superglue` and `train_superpoint --synthetic` at their
      defaults for 10 steps each, as one process, in a world of one NCCL
      rank (a process group made here) and as one process again: the
      losses, metrics and trained state bit-equal (cuDNN and PyTorch in
      their deterministic algorithms for this phase), the training kernels'
      launches a step, steps/s. More than one card is not run;
- 23. runs the JAX package's sharded paths, ported: context-parallel
+ 24. runs the JAX package's sharded paths, ported: context-parallel
      SuperGlue (ring attention, the row-sharded Sinkhorn) and pipelined
      SuperGlue (2 stages, 4 microbatches) at the headline's width in f32
      (18 layers, K = 1024, batch 4, seeded weights), a tensor-parallel
      training step at the training CLI's defaults in f32, and the sharded
-     pose graph and bundle adjustment on step 19's problem; in a world of
+     pose graph and bundle adjustment on step 20's problem; in a world of
      one NCCL rank (made here), then in a world of 4 gloo ranks all on
      this card (spawned: NCCL refuses two ranks on one card, which the
      phase asks it and prints); each path against the unsharded port on
@@ -189,7 +204,8 @@ The last two lines are the kernels' numbers as JSON (each kernel's
 launches counted on its own path: inference per forward, training per
 step, the 2x2 backbone's per registration call, its f32 route per f32
 detect, the f32 attention forward per f32 forward and, with LSE, per f32
-step, the alignedH entry conv per H-layout detect) and the run's result as JSON. Without a CUDA device, or without the package beside it, the
+step, the alignedH entry conv per H-layout detect, the kernels at head
+width 128 per D = 512 forward or step) and the run's result as JSON. Without a CUDA device, or without the package beside it, the
 script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -580,7 +596,9 @@ def check_attention_head_dims(torch, dev, rng):
     D = 32 model has 8) run zero-padded to the next width the kernels take
     (16, 32, 64), at the scale of the real dh: the forward, the forward
     with LSE and both backward kernels against their plain versions, one
-    launch each; a head dim above 64 raises."""
+    launch each; then the heads of 80, 96 and 128 values that the kernels
+    at 128 take (`check_wide_head_dims`), and a head dim above 128 raises.
+    Returns the wide kernels' worst errors (`check_wide_head_dims`)."""
     from image_matching_tpu_torch.ops import _build
     from image_matching_tpu_torch.ops import attention as A
 
@@ -614,14 +632,217 @@ def check_attention_head_dims(torch, dev, rng):
               f"attention at head dim {dh} disagrees with its plain version")
         check(launches == {"attention": 1, "attention_lse": 1, "attention_dq": 1, "attention_dkdv": 1},
               f"attention at head dim {dh}: launches {launches}")
-    q = torch.zeros(1, 8, 4 * 128, device=dev, dtype=torch.bfloat16)
+    worst = check_wide_head_dims(torch, dev, rng)
+    q = torch.zeros(1, 8, 4 * 256, device=dev, dtype=torch.bfloat16)  # D = 1024 at 4 heads
     try:
         A.attention(q, q, q, None, 4)
     except ValueError as e:
-        print(f"attention at head dim 128 raises ValueError: {e}")
-        check("64" in str(e), "the head-dim error does not name the limit")
+        print(f"attention at head dim 256 raises ValueError: {e}")
+        check("128" in str(e), "the head-dim error does not name the limit")
     else:
-        fail("attention at head dim 128 did not raise")
+        fail("attention at head dim 256 did not raise")
+    return worst
+
+
+# (B, N, M) of the wide heads' checks: ragged across the 64-row tiles, and deep (16 key
+# tiles), the last batch element dead in both; the f32 kernels are held to a float64 run
+# at the deep one, where the sums' rounding outweighs the chance of a few terms
+WIDE_CHECKS = ((3, 200, 333), (2, 1024, 1000))
+WIDE_DIMS = (80, 96, 128)  # SuperGlue's 4 heads at descriptor_dim 320, 384, 512
+
+
+def _wide_row(name: str, f32: bool) -> str:
+    """The JSON name of wrapper `name`'s kernel at head width 128:
+    attention_dq_dh128, attention_dq_f32_dh128, ..."""
+    return name + ("_f32" if f32 else "") + "_dh128"
+
+
+def check_wide_head_dims(torch, dev, rng):
+    """The kernels at head width 128 (forward, forward with LSE, dQ with
+    its delta, dK/dV; bf16 and f32) at heads of 80, 96 (zero-padded to 128,
+    the scale of the real dh) and 128 values, at `WIDE_CHECKS` with masked
+    keys and a dead batch element, against their plain versions, one launch
+    each under its own count: bf16 to the tolerances of the built widths
+    (out 3e-2, LSE 2e-4, gradients 2e-2 of the largest entry); f32 within
+    1e-4 of max(|y|, 1) (LSE 1e-5), and, at the deep shape, no further from
+    the same functions run in float64 than twice the plain f32 version;
+    the dead element's mean of V, log(M) and zero dQ, dK. Returns the
+    worst absolute error of each kernel against its plain version, keyed
+    by its JSON name."""
+    from image_matching_tpu_torch.ops import _build
+    from image_matching_tpu_torch.ops import attention as A
+
+    worst = {}
+    want = {A.launch_name(name, 128): 1 for name in ("attention", "attention_lse", "attention_dq", "attention_dkdv")}
+    for dtype in (torch.bfloat16, torch.float32):
+        f32, kind = dtype == torch.float32, str(dtype)[6:]
+        for dh in WIDE_DIMS:
+            for b, n, m in WIDE_CHECKS:
+                h = 4
+                q = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev, dtype)
+                kv = torch.from_numpy(rng.normal(size=(b, m, 2 * h * dh)).astype("float32")).to(dev, dtype)
+                k, v = kv[..., :h * dh], kv[..., h * dh:]  # views of a fused projection, as in the model
+                mask = torch.from_numpy(rng.uniform(size=(b, m)) < 0.8).to(dev)
+                mask[:, 0] = True
+                mask[-1] = False  # a batch element with no valid key
+                dout = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev, dtype)
+                _build.reset_launch_counts()
+                out = A.attention(q, k, v, mask, h)
+                out_lse, lse = A.attention_lse(q, k, v, mask, h)
+                grads = A.attention_backward(q, k, v, mask, lse, dout, h)
+                torch.cuda.synchronize()
+                launches = dict(_build.LAUNCHES)
+                ref_out, ref_lse = A.attention_lse_plain(q, k, v, mask, h)
+                plain = A.attention_backward_plain(q, k, v, mask, lse, dout, h)
+                shape = f"({b}, {n}->{m}, {h}x{dh}) {kind}"
+                check(all(tuple(t.shape) == tuple(r.shape) for t, r in zip((out, out_lse, *grads), (ref_out, ref_out, *plain))),
+                      f"attention {shape}: output shapes")
+                abs_err = {"attention": (out.float() - ref_out.float()).abs().max().item(),
+                           "attention_lse": (out_lse.float() - ref_out.float()).abs().max().item(),
+                           "attention_dq": (grads[0].float() - plain[0].float()).abs().max().item(),
+                           "attention_dkdv": max((g.float() - p.float()).abs().max().item()
+                                                 for g, p in zip(grads[1:], plain[1:]))}
+                for name, e in abs_err.items():
+                    key = _wide_row(name, f32)
+                    worst[key] = max(worst.get(key, 0.0), e)
+                e_out = max(abs_err["attention"], abs_err["attention_lse"]) / max(ref_out.float().abs().max().item(), 1.0)
+                e_lse = (lse - ref_lse).abs().max().item()
+                e_bwd = [_grad_error((g,), (p,)) for g, p in zip(grads, plain)]
+                t_out, t_lse, t_bwd = (1e-4, 1e-5, 1e-4) if f32 else (3e-2, 2e-4, 2e-2)
+                dq, dk, dv = grads
+                dead_dv = (dv[-1].float() - (dout[-1].float().sum(0) / m).expand_as(dv[-1])).abs().max().item()
+                dead = {"out - mean(V)": (out[-1].float() - v[-1].float().mean(0)).abs().max().item(),
+                        "lse - log(M)": (lse[-1] - math.log(m)).abs().max().item(),
+                        "dv - sum(dO)/M": dead_dv / max(dv[-1].float().abs().max().item(), 1e-30),
+                        "|dq|, |dk|": max(dq[-1].float().abs().max().item(), dk[-1].float().abs().max().item())}
+                line = (f"attention {shape}, kernels at 128: out {e_out:.2e} of max(|y|, 1) (tol {t_out}), lse "
+                        f"{e_lse:.2e} (tol {t_lse}), dq/dk/dv " + "/".join(f"{e:.2e}" for e in e_bwd)
+                        + f" of the largest entry (tol {t_bwd}); dead element: " + ", ".join(
+                            f"{key} {e:.1e}" for key, e in dead.items()) + f"; launches {launches}")
+                check(e_out <= t_out and e_lse <= t_lse and max(e_bwd) <= t_bwd, f"attention {shape} disagrees with "
+                                                                                  "its plain version")
+                check(launches == want, f"attention {shape}: launches {launches} != {want}")
+                # bf16: the mean of bf16 V in f32 then rounded, P = 1/M and the stored dV rounded once
+                check(dead["out - mean(V)"] <= (1e-5 if f32 else 2e-2) and dead["lse - log(M)"] <= 1e-5
+                      and dead["dv - sum(dO)/M"] <= (1e-5 if f32 else 2e-2) and dead["|dq|, |dk|"] == 0,
+                      f"attention {shape}: the dead element")
+                if f32 and m >= 1000:
+                    # how far any f32 order of these sums lies from the answer: float64
+                    q64, k64, v64, do64 = (t.double() for t in (q, k, v, dout))
+                    ex_out, ex_lse = A.attention_lse_plain(q64, k64, v64, mask, h)
+                    exact = A.attention_backward_plain(q64, k64, v64, mask, ex_lse, do64, h)
+                    to_ex = lambda a, e: (a.double() - e).abs().max().item() / e.abs().max().item()
+                    pairs = {"out": (out, ref_out, ex_out), "lse": (lse, ref_lse, ex_lse),
+                             **{g: (a, p, e) for g, a, p, e in zip(("dq", "dk", "dv"), grads, plain, exact)}}
+                    dist = {key: (to_ex(a, e), to_ex(p, e)) for key, (a, p, e) in pairs.items()}
+                    line += "; distance to float64, kernel / plain f32: " + ", ".join(
+                        f"{key} {a:.2e} / {p:.2e}" for key, (a, p) in dist.items())
+                    check(all(a <= 2 * p for a, p in dist.values()), f"attention {shape}: further from float64 "
+                                                                     "than twice the plain f32 version")
+                    del q64, k64, v64, do64, exact
+                print(line)
+    return worst
+
+
+def _attention_calls(torch, A, q, k, v, mask, dout, h):
+    """The attention functions at one shape, each a call that CUDA graphs
+    capture: the kernels' (forward, forward with LSE, dQ writing delta and
+    dK/dV reading it, each on its own), their plain versions and
+    `scaled_dot_product_attention`'s forward and forward + backward; and
+    the LSE that the backward ones take."""
+    import torch.nn.functional as F
+
+    b, n, dt = q.shape
+    dh = dt // h
+    lse = A.attention_lse(q, k, v, mask, h)[1]
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)  # written by the dQ kernel
+    dq, dk, dv = (torch.empty((b, n, dt), dtype=q.dtype, device=q.device) for _ in range(3))
+    kernel = lambda name, outs: lambda: A.attention_backward_kernel(name, q, k, v, mask, dout, lse, delta, outs, h)
+    qh, kh, vh = (t.reshape(b, n, h, dh).transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    m4, doh = mask[:, None, None, :], dout.reshape(b, n, h, dh).transpose(1, 2).contiguous()
+
+    def lib_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4)
+
+    calls = {"attention": lambda: A.attention(q, k, v, mask, h),
+             "attention_lse": lambda: A.attention_lse(q, k, v, mask, h),
+             "attention_dq": kernel("attention_dq", (dq,)), "attention_dkdv": kernel("attention_dkdv", (dk, dv)),
+             "plain": lambda: A.attention_plain(q, k, v, mask, h, "float32"),
+             "plain_lse": lambda: A.attention_lse_plain(q, k, v, mask, h),
+             "plain_bwd": lambda: A.attention_backward_plain(q, k, v, mask, lse, dout, h),
+             "lib_fwd": lib_fwd,
+             "lib_fb": lambda: torch.autograd.grad(F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4),
+                                                   (qh, kh, vh), doh)}
+    calls["attention_dq"]()  # writes the delta that dK/dV reads
+    return calls, lse
+
+
+# (B, N, H, dh) at which the kernels at 128 are timed: D = 512's inference forward
+# (the headline's K = 1024, 36 calls a forward) and its training step (K = 512, 36 calls
+# of each training kernel a step)
+WIDE_INFERENCE, WIDE_TRAINING = (4, 1024, 4, 128), (4, 512, 4, 128)
+
+
+def time_wide_attention(torch, dev, rng, worst):
+    """The kernels at head width 128, bf16 and f32, timed by CUDA graph
+    replay: the forward at `WIDE_INFERENCE`, the forward with LSE, dQ and
+    dK/dV at `WIDE_TRAINING`, each beside its plain version,
+    `scaled_dot_product_attention` (forward, or backward: forward +
+    backward less forward, which computes dq, dk and dv together) at the
+    same shape and dtype, and its bound: every input read and output
+    written once, and the products the function needs (forward 2, dQ 3,
+    dK/dV 4, of 2 B H N M dh operations each) at the tensor cores' bf16
+    rate or the FMA pipe's f32 one. Returns the 8 JSON rows, their
+    `max_abs_err` from `worst` (`check_wide_head_dims`), launches to be
+    filled in by the D = 512 phases."""
+    from image_matching_tpu_torch.ops import attention as A
+
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        f32, kind = dtype == torch.float32, str(dtype)[6:]
+        esize, rate = (4, F32_FLOPS) if f32 else (2, BF16_TENSOR_FLOPS)
+        for shape, names in ((WIDE_INFERENCE, ("attention",)),
+                             (WIDE_TRAINING, ("attention_lse", "attention_dq", "attention_dkdv"))):
+            b, n, h, dh = shape
+            qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * h * dh)).astype("float32")).to(dev, dtype)
+            q, k, v = qkv[..., :h * dh], qkv[..., h * dh:2 * h * dh], qkv[..., 2 * h * dh:]  # as the model
+            mask = torch.from_numpy(rng.uniform(size=(b, n)) < 0.8).to(dev)
+            mask[:, 0] = True
+            dout = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev, dtype)
+            calls, _ = _attention_calls(torch, A, q, k, v, mask, dout, h)
+            t = {key: graph_ms(fn, 3 if key.startswith("plain") else 20) for key, fn in calls.items()
+                 if key in names or key in ("plain", "plain_lse", "plain_bwd", "lib_fwd", "lib_fb")}
+            t["lib_bwd"] = t["lib_fb"] - t["lib_fwd"]
+            one, rows_b = b * n * h * dh * esize, b * h * n * 4  # one operand; an LSE or delta row set
+            pair = 2.0 * b * h * n * n * dh  # one (N x M x dh) product
+            needs = {"attention": (2, 4 * one + b * n), "attention_lse": (2, 4 * one + rows_b + b * n),
+                     "attention_dq": (3, 5 * one + 2 * rows_b + b * n),
+                     "attention_dkdv": (4, 6 * one + 2 * rows_b + b * n)}
+            for name in names:
+                products, nbytes = needs[name]
+                bms, by = bound(nbytes, products * pair, rate)
+                plain, lib = {"attention": ("plain", "lib_fwd"), "attention_lse": ("plain_lse", "lib_fwd")}.get(
+                    name, ("plain_bwd", "lib_bwd"))
+                key = _wide_row(name, f32)
+                source = "attention.cu" if name in ("attention", "attention_lse") else "attention_bwd.cu"
+                line = {"attention": 371, "attention_lse": 560, "attention_dq": 168, "attention_dkdv": 121}[name]
+                print(f"{key} ({b}, {n}, {h}x{dh}) {kind}: {t[name]:.4f} ms by CUDA graph replay, bound {bms:.5f} ms "
+                      f"({by}; {bms / t[name]:.3f} of it reached), plain {t[plain]:.4f} ms, "
+                      f"scaled_dot_product_attention {'backward' if lib == 'lib_bwd' else 'forward'} {t[lib]:.4f} ms "
+                      f"({t[name] / t[lib]:.3f} of it)")
+                rows.append(dict(name=key, route="cuda", source=f"image_matching_tpu_torch/csrc/{source}",
+                                 replaces=f"image_matching_tpu/ops/pallas/attention.py:{line}", max_abs_err=worst[key],
+                                 ms=t[name], plain_ms=t[plain], bound_ms=bms, bound_by=by, library_ms=t[lib],
+                                 **({"library_covers": WHOLE_BACKWARD} if lib == "lib_bwd" else {})))
+            if "attention_dq" in names:
+                both = t["attention_dq"] + t["attention_dkdv"]
+                print(f"  dQ + dK/dV {kind} at ({b}, {n}, {h}x{dh}): {both:.4f} ms, {both / t['lib_bwd']:.3f} of "
+                      f"scaled_dot_product_attention's backward; its forward + backward {t['lib_fb']:.4f} ms")
+            del calls
+    return rows
+
+
 
 
 def time_f32_kernels(torch, dev, rng, libs):
@@ -1624,7 +1845,6 @@ def time_attention_training(torch, dev, rng, b, n, h, dh, profiled):
     `scaled_dot_product_attention`: by CUDA graph replay, which is what the
     returned JSON rows hold if `profiled`, and then by the profiler's
     device time too, where it keeps its events."""
-    import torch.nn.functional as F
     from image_matching_tpu_torch.ops import attention as A
 
     q = torch.from_numpy(rng.normal(size=(b, n, 3 * h * dh)).astype("float32")).to(dev, torch.bfloat16)
@@ -1632,27 +1852,11 @@ def time_attention_training(torch, dev, rng, b, n, h, dh, profiled):
     mask = torch.from_numpy(rng.uniform(size=(b, n)) < 0.8).to(dev)
     mask[:, 0] = True
     dout = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev, torch.bfloat16)
-    out, lse = A.attention_lse(q, k, v, mask, h)
-    delta = torch.empty((b, h, n), dtype=torch.float32, device=dev)  # written by the dQ kernel
-    dq, dk, dv = (torch.empty((b, n, h * dh), dtype=torch.bfloat16, device=dev) for _ in range(3))
-    kernel = lambda name, outs: lambda: A.attention_backward_kernel(name, q, k, v, mask, dout, lse, delta, outs, h)
-    qh, kh, vh = (t.reshape(b, n, h, dh).transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-    m4 = mask[:, None, None, :]
-    doh = dout.reshape(b, n, h, dh).transpose(1, 2).contiguous()
-
-    def lib_fwd():
-        with torch.no_grad():
-            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4)
-
-    fns = {"fwd": lambda: A.attention_lse(q, k, v, mask, h),
-           "dq": kernel("attention_dq", (dq,)), "dkdv": kernel("attention_dkdv", (dk, dv)),
+    calls, lse = _attention_calls(torch, A, q, k, v, mask, dout, h)
+    fns = {"fwd": calls["attention_lse"], "dq": calls["attention_dq"], "dkdv": calls["attention_dkdv"],
            "bwd": lambda: A.attention_backward(q, k, v, mask, lse, dout, h),  # the two, with their allocations
-           "plain_fwd": lambda: A.attention_lse_plain(q, k, v, mask, h),
-           "plain_bwd": lambda: A.attention_backward_plain(q, k, v, mask, lse, dout, h),
-           "lib_fwd": lib_fwd,
-           "lib_fb": lambda: torch.autograd.grad(F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4),
-                                                 (qh, kh, vh), doh)}
-    fns["dq"]()  # writes the delta that dK/dV reads
+           "plain_fwd": calls["plain_lse"], "plain_bwd": calls["plain_bwd"], "lib_fwd": calls["lib_fwd"],
+           "lib_fb": calls["lib_fb"]}
     pair = b * h * n * n * dh  # one (N x M x dh) product is 2 * pair operations
     qkv_bytes = 3 * b * n * h * dh * 2
     one = b * n * h * dh * 2  # dO, or one gradient
@@ -4106,6 +4310,237 @@ def run_model_parallel_cards(torch, smi: str, captured: dict):
           f"{time.perf_counter() - t1:.1f} s for the NCCL world of {MP_WORLD} (its start included); {smi}")
 
 
+# ---------------------------------------------------------------- heads of 128 values: D = 512
+
+# SuperGlue at descriptor_dim 512: 4 heads of 128 values, the path of the kernels at 128.
+# No banked weights exist at that width: every phase runs seeded ones.
+WIDE_SG = dict(descriptor_dim=512, keypoint_encoder=(32, 64, 128, 256))
+WIDE_TRAIN_STEPS = 6
+WIDE_MATCH_PAIR_SOURCES = 2
+
+
+def run_wide_main_path(torch, dev, dtype: str):
+    """The headline's `Matching` (480x640, batch 4, K = 1024, 18 GNN layers,
+    30 Sinkhorn iterations, plain backbone) at descriptor_dim 512, seeded
+    weights, in `dtype`: launch counts of one forward (the forward kernel
+    at 128, 36 a forward), pairs/s by the host clock (median of 5
+    forwards), peak memory, agreement with the all-plain path, and the
+    device time and busy share of a forward (profiled). Returns the launch
+    counts."""
+    import numpy as np
+    from image_matching_tpu_torch.models import Matching, MatchingConfig
+    from image_matching_tpu_torch.ops import _build
+
+    batch, h, w, k = 4, 480, 640, 1024
+    label = f"D = 512 main path ({dtype})"
+    cfg = MatchingConfig(**WIDE_SG, max_keypoints=k, keypoint_threshold=0.005, gnn_layers=18, sinkhorn_iterations=30,
+                         match_threshold=0.1, compute_dtype=dtype)
+    model = Matching(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(8)
+    image0 = torch.from_numpy(rng.uniform(0, 1, (batch, h, w, 1)).astype("float32")).to(dev)
+    image1 = torch.from_numpy(rng.uniform(0, 1, (batch, h, w, 1)).astype("float32")).to(dev)
+    for _ in range(2):  # warm-up: cuDNN algorithm choice, allocator
+        model(image0, image1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    out = model(image0, image1)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"entry_conv": 1, "attention_dh128": 36, "sinkhorn": 1}
+    print(f"{label} launches per forward: {launches}")
+    check(launches == want, f"{label} launch counts {launches} != {want}")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        model(image0, image1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    sec = statistics.median(times)
+    print(f"{label}: {batch / sec:.2f} pairs/s (median of 5 forwards, {sec * 1e3:.2f} ms per batch of {batch}); peak "
+          f"memory {peak_gib:.3f} GiB; TF32 off")
+    z, kp0 = out["log_coupling"], out["keypoints0"]
+    check(tuple(z.shape) == (batch, k + 1, k + 1) and tuple(kp0.desc.shape) == (batch, k, 512), f"{label}: shapes")
+    valid = kp0.mask[:, :, None] & out["keypoints1"].mask[:, None, :]
+    check(bool(torch.isfinite(z[:, :k, :k][valid]).all()), f"{label}: non-finite log-coupling")
+    m0 = out["matches0"]
+    check(bool(((m0 >= -1) & (m0 < k)).all()), f"{label}: matches0 out of range")
+    print(f"{label}: keypoints per image {kp0.num_valid().tolist()}, matches {(m0 >= 0).sum(-1).tolist()}")
+    # as the headline's checks: bf16 keypoint sets identical (every one of the K far above
+    # the threshold), f32 ones within a few swaps of closely tied scores at the K-th cut
+    compare_with_plain(torch, model, image0, image1, out, label, min_kp_iou=1.0 if dtype == "bfloat16" else 0.99)
+    profile_forward(torch, model, image0, image1, sec, f"{label} profile")
+    return launches
+
+
+def train_wide(torch, dev, images, dtype: str):
+    """SuperGlue training at the training CLI's defaults (batch 4 at
+    240x320, K = 512, 18 GNN layers, 100 Sinkhorn iterations, lr 1e-4,
+    frozen SuperPoint in the same dtype) at descriptor_dim 512 with seeded
+    weights, in `dtype`, through the trainer's step
+    (`make_superglue_train_step`, which the CLI calls): launch counts of
+    one step (each training kernel at 128, 36 a step), steps/s (median of
+    `WIDE_TRAIN_STEPS`), peak memory, finite metrics; then every attention
+    backward call of each of two more steps against the plain version
+    (`check_backward_calls`; in f32 its distance to float64 moves with the
+    training state). Returns the launch counts of one step."""
+    from image_matching_tpu_torch.models import SuperGlue, SuperPointBN
+    from image_matching_tpu_torch.ops import _build
+    from image_matching_tpu_torch.train.state import TrainState
+    from image_matching_tpu_torch.train.superglue_trainer import SuperGluePairConfig, make_superglue_train_step
+
+    label = f"D = 512 training ({dtype})"
+    sp = SuperPointBN(512, compute_dtype=dtype, device=dev, seed=0)
+    sg = SuperGlue(**WIDE_SG, gnn_layers=18, sinkhorn_iterations=100, compute_dtype=dtype, device=dev, seed=0)
+    state = TrainState.create(sg, 1e-4)
+    step = make_superglue_train_step(sg, sp, SuperGluePairConfig())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):  # warm-up: cuDNN algorithm choice, allocator
+        step(state, images, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    history = [step(state, images, gen)]
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_attn = 2 * 18
+    want = {"entry_conv": 1, "attention_lse_dh128": n_attn, "attention_dq_dh128": n_attn,
+            "attention_dkdv_dh128": n_attn}
+    print(f"{label} launches per step: {launches}")
+    check(launches == want, f"{label} launch counts {launches} != {want}")
+    times = []
+    for _ in range(WIDE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        history.append(step(state, images, gen))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    sec = statistics.median(times)
+    losses = [float(mm["loss"]) for mm in history]
+    print(f"{label}: {1 / sec:.3f} steps/s ({sec * 1e3:.2f} ms per step of batch {images.shape[0]}, median of "
+          f"{WIDE_TRAIN_STEPS} after 2 warm-up steps); peak memory {peak_gib:.3f} GiB; losses " + ", ".join(
+              f"{x:.4f}" for x in losses) + "; TF32 off")
+    for i, mm in enumerate(history):
+        vals = {key: float(val) for key, val in mm.items()}
+        check(all(math.isfinite(x) for x in vals.values()) and vals["skipped_nonfinite"] == 0,
+              f"{label} step {i}: non-finite metrics or a skipped step {vals}")
+    for i in range(2):
+        calls = []
+        with recorded_backward_calls(torch, calls):
+            step(state, images, gen)
+        check_backward_calls(torch, calls, f"{label}, step {len(history) + 2 + i}", n_attn, getattr(torch, dtype))
+        del calls
+    check(all(torch.isfinite(p).all() for p in sg.parameters()), f"non-finite parameters after {label}")
+    return launches
+
+
+def run_wide_train_cli(torch, dev, smi: str):
+    """`cli/train_superglue.py` in-process at its defaults (bf16) with
+    --synthetic --descriptor_dim 512 --keypoint_encoder 32 64 128 256
+    (seeded SuperPoint and SuperGlue) for one epoch of `WIDE_TRAIN_STEPS`
+    steps: launches per step, steps/s (median over the steps after the
+    first), peak memory, finite losses, the checkpoint written."""
+    import shutil
+
+    from image_matching_tpu_torch.cli import train_superglue as cli
+    from image_matching_tpu_torch.ops import _build
+
+    run_dir = ROOT / "build" / "train_superglue_d512"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--synthetic", "--run_dir", str(run_dir), "--descriptor_dim", "512", "--keypoint_encoder", "32", "64",
+            "128", "256", "--epochs", "1", "--steps_per_epoch", str(WIDE_TRAIN_STEPS), "--log_interval", "2"]
+    times, real_factory = [], cli.make_superglue_train_step
+
+    def timed_factory(*args, **kwargs):
+        step = real_factory(*args, **kwargs)
+
+        def timed(state, images, gen):
+            t0 = time.perf_counter()
+            metrics = step(state, images, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return metrics
+        return timed
+
+    with mock.patch.object(cli, "make_superglue_train_step", timed_factory):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        out = cli.main(argv)
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sec = statistics.median(times[1:])
+    per_step = {key: val / len(times) for key, val in launches.items()}
+    print(f"train_superglue CLI --descriptor_dim 512: steps 0 -> {out['state'].step}; {1 / sec:.3f} steps/s (median "
+          f"over the {len(times) - 1} steps after the first, {sec * 1e3:.2f} ms; first step {times[0] * 1e3:.1f} ms); "
+          f"peak memory {peak:.3f} GiB; launches per step {per_step}; {smi}")
+    for rec in out["logged"]:
+        print("  " + ", ".join(f"{key} {val:.4f}" if isinstance(val, float) else f"{key} {val}"
+                               for key, val in rec.items()))
+    want = {"entry_conv": 1, "attention_lse_dh128": 36, "attention_dq_dh128": 36, "attention_dkdv_dh128": 36}
+    check(per_step == want, f"train_superglue CLI --descriptor_dim 512: launches per step {per_step} != {want}")
+    check(out["state"].step == WIDE_TRAIN_STEPS and len(times) == WIDE_TRAIN_STEPS
+          and all(math.isfinite(r["loss"]) and r["skipped_nonfinite"] == 0 for r in out["logged"])
+          and (run_dir / "checkpoints" / f"{WIDE_TRAIN_STEPS}.npz").is_file(),
+          "train_superglue CLI --descriptor_dim 512: a loss is not finite, a step was skipped or the checkpoint is "
+          "missing")
+
+
+def run_wide_match_pair(torch, dev, smi: str):
+    """`cli/match_pair.py --matcher superglue --descriptor_dim 512` on the
+    template and the first `WIDE_MATCH_PAIR_SOURCES` sources that
+    `run_match_pair_cli` wrote, with seeded SuperPoint and SuperGlue
+    weights: a run check, no quality claim. Wall s a pair (the CLI's own
+    timer), launches (the forward kernel at 128, 36 a pair), finite
+    transforms."""
+    import numpy as np
+
+    root = ROOT / "build" / "match_pair"
+    wide = root / "d512"
+    (wide / "src").mkdir(parents=True, exist_ok=True)
+    for i in range(WIDE_MATCH_PAIR_SOURCES):
+        (wide / "src" / f"s{i}.png").write_bytes((root / "src" / f"s{i}.png").read_bytes())
+    records, launches, sec = _match_pair(torch, ["--template", str(root / "template.png"), "--source_dir",
+                                                 str(wide / "src"), "--out", str(wide / "out"), "--matcher",
+                                                 "superglue", "--descriptor_dim", "512"])
+    n = WIDE_MATCH_PAIR_SOURCES
+    print(f"match_pair --matcher superglue --descriptor_dim 512 (seeded weights; a run check, no quality claim): "
+          + "; ".join(f"{r['name']} {r['wall_s']:.4f} s, {r['matches']} matches, valid {r['valid']}" for r in records)
+          + f"; wall s a pair median {statistics.median(r['wall_s'] for r in records):.4f}; whole run {sec:.1f} s; "
+          f"launches {launches}; {smi}")
+    want = {"entry_conv_h": 2 * n, "attention_dh128": 36 * n, "sinkhorn": n}
+    check(len(records) == n and launches == want and all(np.isfinite(r["transform"]).all() for r in records),
+          f"match_pair --descriptor_dim 512: {len(records)} records, launches {launches} != {want}, or a non-finite "
+          "transform")
+
+
+def run_wide_heads(torch, dev, smi: str, rows):
+    """SuperGlue at descriptor_dim 512 through its entry points: `Matching`
+    in bf16 and f32, training in bf16 and f32, the training CLI and
+    match_pair. Fills in the launches of `rows` (`time_wide_attention`):
+    each kernel's count on its own path, the forwards per D = 512 forward
+    and the training kernels per D = 512 step."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    paths = {"": run_wide_main_path(torch, dev, "bfloat16"), "_f32": run_wide_main_path(torch, dev, "float32")}
+    rng = np.random.default_rng(12)
+    images = torch.from_numpy(np.stack([texture(torch, rng, 240, 320) for _ in range(4)])[..., None]).to(dev)
+    paths["train"] = train_wide(torch, dev, images, "bfloat16")
+    paths["train_f32"] = train_wide(torch, dev, images, "float32")
+    run_wide_train_cli(torch, dev, smi)
+    run_wide_match_pair(torch, dev, smi)
+    for row in rows:  # attention_lse_f32_dh128 -> the f32 step's attention_lse_dh128
+        f32 = "_f32" in row["name"]
+        name = row["name"].replace("_f32", "")
+        on_path = paths[("train" if name != "attention_dh128" else "") + ("_f32" if f32 else "")]
+        row["launches"] = on_path.get(name, 0)
+        check(row["launches"] == 36, f"{row['name']}: {row['launches']} launches on its D = 512 path")
+    print(f"D = 512 phases: {time.perf_counter() - t0:.1f} s; {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -4139,7 +4574,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     kernels = [check_entry_conv(torch, dev, rng), check_attention(torch, dev, rng),
                check_sinkhorn(torch, dev, rng)]
-    check_attention_head_dims(torch, dev, rng)
+    wide_rows = time_wide_attention(torch, dev, rng, check_attention_head_dims(torch, dev, rng))
     if EARLIER_ATTENTION.exists():  # an earlier attention.cu, left there by hand to compare with
         compare_attention_builds(torch, dev, rng, [("before", EARLIER_ATTENTION, ())])
     launches = run_main_path(torch, dev)
@@ -4173,6 +4608,8 @@ def main() -> int:
     kernels.append(entry_h)
     run_evaluation_cli(torch, dev)
     run_match_pair_cli(torch, dev, smi)
+    run_wide_heads(torch, dev, smi, wide_rows)
+    kernels += wide_rows
     run_train_superglue_cli(torch, dev, smi)
     run_train_superpoint_cli(torch, dev, smi)
     data_root, labels, _ = run_export_pseudo_cli(torch, dev, smi)

@@ -52,11 +52,13 @@
 //     memory (K-major), O += P V with P's C layout reused as the A
 //     fragments in registers and V (row-major by key) read transposed by
 //     its descriptor.
-//   * dh <= 32, `attention_mma`: mma.sync.m16n8k16 (f32 accumulate) on one
-//     padded row-major copy of each tile (8 bf16 of padding per row, so the
-//     8 rows of an ldmatrix fall on distinct banks): Q's A fragments and
-//     K's B fragments by `ldmatrix`, V's by `ldmatrix.trans` from the same
-//     copy.
+//   * dh <= 32 and dh = 128, `attention_mma`: mma.sync.m16n8k16 (f32
+//     accumulate) on one padded row-major copy of each tile (8 bf16 of
+//     padding per row, so the 8 rows of an ldmatrix fall on distinct banks):
+//     Q's A fragments and K's B fragments by `ldmatrix`, V's by
+//     `ldmatrix.trans` from the same copy. At dh = 128 a warp's O is 16 rows
+//     x 128 (64 f32 a thread) beside Q's 32 fragment registers, and a block
+//     has 2 groups: 4 would need 296 KB of tiles, 2 take 157 KB.
 //
 // f32 (the f32 compute dtype): `attention_ffma<dh, NG, LSE>`, register-
 // tiled on plain f32 FMAs with the tiles of csrc/ffma.cuh that the f32
@@ -75,7 +77,9 @@
 // rescale is an exact power of two; P = 2^(x log2 e - shift) goes through
 // shared memory as P[key][query], O is rescaled by its rows' corrections,
 // and O += P V with 4 queries x 4 dims a thread (at dh < 64 the group's
-// threads split the tile's keys into 64 / dh runs, added at the end). Three
+// threads split the tile's keys into 64 / dh runs, added at the end; at dh =
+// 128, 4 queries x 8 dims, and one group a block: two would need 341 KB of
+// shared memory, one takes 187 KB). Three
 // group barriers a tile. Each thread keeps partial row sums, added once at
 // the end in a fixed order; the groups merge as the bf16 kernels' do; the
 // LSE, shift ln 2 + log l, is taken in double and rounded once. Measured
@@ -107,8 +111,9 @@ constexpr double LN2_D = 0.6931471805599453;
 // Warpgroups that split a block's key tiles, and tiles in a group's ring,
 // each measured on the card against its neighbours (PERF.md): at dh = 64 two
 // blocks of 2 groups on an SM (128 registers), at dh <= 32 one block of 4.
-// A third stage moved nothing.
-constexpr int STAGES = 2, WG_GROUPS = 2, MMA_GROUPS = 4;
+// A third stage moved nothing. At dh = 128 (not measured against others) 2
+// groups, what the shared memory holds.
+constexpr int STAGES = 2, WG_GROUPS = 2, MMA_GROUPS = 4, WIDE_GROUPS = 2;
 
 // ------------------------------------------------------------------ bf16, both kernels
 
@@ -332,7 +337,7 @@ attention_wg(ATTENTION_KERNEL_ARGS) {
   if (grp == 0) write_rows<DH, LSE>(out, lse, o, m, l, dead, b, N, H, h, q0 + wr + g, t);
 }
 
-// ------------------------------------------------------------------ bf16, dh <= 32: mma.sync
+// ------------------------------------------------------------------ bf16, dh <= 32 and 128: mma.sync
 
 template <int DH, int NG>
 __host__ __device__ constexpr int mma_smem_bytes() { return (1 + NG * STAGES * 2) * tile_elems<DH>() * 2; }
@@ -418,8 +423,10 @@ attention_mma(ATTENTION_KERNEL_ARGS) {
 
 // Groups of 8 warps that split a block's key tiles: two (16 warps, one
 // block an SM at 128 registers a thread), 6-12% faster than one at every
-// timed shape on the card (PERF.md).
-constexpr int FFMA_GROUPS = 2;
+// timed shape on the card (PERF.md); one at dh = 128, whose two groups'
+// rings would not fit.
+template <int DH>
+__host__ __device__ constexpr int ffma_groups() { return DH > 64 ? 1 : 2; }
 
 // A group's floats: its ring of K and V tiles, then its P tile.
 template <int DH>
@@ -450,9 +457,10 @@ __device__ __forceinline__ float pow2(float d) {
 // then O = O corr + that: chains over one tile's keys, then over the
 // tiles, not one over all keys, which lands closer to a float64 run
 // (PERF.md). Each thread keeps its own partial row sums, rescaled with the
-// row, and adds them up once at the end. O += P V gives every thread 4 x 4
-// outputs: at dh < 64 the group's threads split the tile's keys into
-// T / dh runs, whose partial sums are added at the end.
+// row, and adds them up once at the end. O += P V gives every thread 4
+// queries x OW dims (OW = 4, 8 at dh = 128): at dh < 64 the group's
+// threads split the tile's keys into T / dh runs, whose partial sums are
+// added at the end.
 template <int DH, int NG, bool LSE>
 __global__ void __launch_bounds__(NG * FG, 1)
 attention_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
@@ -461,7 +469,8 @@ attention_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
                const uint8_t* __restrict__ mask, float* __restrict__ out,
                float* __restrict__ lse, int N, int M, int H, float scale) {
   constexpr int LD = f32_ld<DH>(), TILE = T * LD, GROUP_F = ffma_group_floats<DH>();
-  constexpr int KS = T / DH, TPS = FG / KS, KR = T / KS;  // O's key splits, their threads and keys
+  constexpr int OW = DH > 64 ? DH / 16 : 4;  // O's dims a thread
+  constexpr int KS = DH > 64 ? 1 : T / DH, TPS = FG / KS, KR = T / KS;  // O's key splits, their threads and keys
   __shared__ float part[NG][4][T];  // a group's rows' partial max (per tile), then sums, per key quarter
   __shared__ __align__(16) float row_corr[NG][T];  // the rows' rescale factor of a tile
   __shared__ float row_m[NG][T];                   // the rows' final shifts
@@ -495,7 +504,7 @@ attention_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
 
   const NtLane L = nt_lane(gt);
   const int split = gt / TPS;
-  const TnLane R = tn_lane<DH, 4>(gt % TPS);
+  const TnLane R = tn_lane<DH, OW>(gt % TPS);
   const int lane = gt % 32, wq = gt / 64;  // a row's threads: lanes 8 apart, warps 2 apart (key quarter wq)
   float m[4], l[4];  // rows L.own + 8i: shift (integer, log2 units); this thread's partial sums
 #pragma unroll
@@ -503,11 +512,11 @@ attention_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
     m[i] = -INFINITY;
     l[i] = 0.f;
   }
-  float acc[4][4];  // O of rows R.own + i, dims R.dim + e, over the split's keys
+  float acc[4][OW];  // O of rows R.own + i, dims R.dim + e, over the split's keys
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    for (int e = 0; e < OW; ++e) acc[i][e] = 0.f;
 
   cp_async_wait<0>();  // Q (and the first key tile) have landed
   __syncthreads();
@@ -567,16 +576,16 @@ attention_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
     ffma_group_sync(grp);
     const float4 c4 = *reinterpret_cast<const float4*>(&row_corr[grp][R.own]);
     const float corr[4] = {c4.x, c4.y, c4.z, c4.w};
-    float tile[4][4];  // the tile's own sums, then added to O's: two short chains for one long one
+    float tile[4][OW];  // the tile's own sums, then added to O's: two short chains for one long one
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) tile[i][e] = 0.f;
-    tn_product<DH, 4, KR>(tile, xp + split * KR * XLD + R.own, ks + TILE + split * KR * LD + R.dim);  // P V
+      for (int e = 0; e < OW; ++e) tile[i][e] = 0.f;
+    tn_product<DH, OW, KR>(tile, xp + split * KR * XLD + R.own, ks + TILE + split * KR * LD + R.dim);  // P V
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(acc[i][e], corr[i], tile[i][e]);
+      for (int e = 0; e < OW; ++e) acc[i][e] = fmaf(acc[i][e], corr[i], tile[i][e]);
   }
   cp_async_wait<0>();
 
@@ -606,7 +615,7 @@ attention_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
     m_row[i] = mx;
     l_row[i] = sum;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) rings[((grp * KS + split) * 16 + 4 * i + e) * TPS + gt % TPS] = acc[i][e] * own;
+    for (int e = 0; e < OW; ++e) rings[((grp * KS + split) * 4 * OW + OW * i + e) * TPS + gt % TPS] = acc[i][e] * own;
   }
   __syncthreads();
   if (gt >= TPS || grp > 0) return;  // group 0's first split: the block's output
@@ -614,15 +623,15 @@ attention_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
   for (int i = 0; i < 4; ++i) {
     const float inv = 1.f / l_row[i];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < OW; ++e) {
       float sum = 0.f;
 #pragma unroll
-      for (int p = 0; p < NG * KS; ++p) sum += rings[(p * 16 + 4 * i + e) * TPS + gt];
+      for (int p = 0; p < NG * KS; ++p) sum += rings[(p * 4 * OW + OW * i + e) * TPS + gt];
       acc[i][e] = sum * inv;
     }
   }
-  if constexpr (LSE) {  // the threads of dims 0, 4, 8, 12 take one of their rows each: one log a lane
-    const int i = R.dim / 4;
+  if constexpr (LSE) {  // the threads of the first 4 dim groups take one of their rows each: one log a lane
+    const int i = R.dim / OW;
     float m_i = m_row[0], l_i = l_row[0];
 #pragma unroll
     for (int r = 1; r < 4; ++r) {
@@ -634,7 +643,7 @@ attention_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
           dead ? static_cast<float>(log(static_cast<double>(M)))
                : static_cast<float>(m_i * LN2_D + log(static_cast<double>(l_i)));
   }
-  store_out<4>(out + (int64_t)b * N * H * DH + h * DH, q0, N, (int64_t)H * DH, acc, R);
+  store_out<OW>(out + (int64_t)b * N * H * DH + h * DH, q0, N, (int64_t)H * DH, acc, R);
 }
 
 // ------------------------------------------------------------------ launch
@@ -684,6 +693,9 @@ int launch_bf16(ATTENTION_ARGS(__nv_bfloat16)) {
                                                               MMA_GROUPS * GROUP, TILED_PASS);
     case 64:
       return launch_tiled<attention_wg<WG_GROUPS, LSE>>(wg_smem_bytes<WG_GROUPS>(), WG_GROUPS * GROUP, TILED_PASS);
+    case 128:
+      return launch_tiled<attention_mma<128, WIDE_GROUPS, LSE>>(mma_smem_bytes<128, WIDE_GROUPS>(),
+                                                                WIDE_GROUPS * GROUP, TILED_PASS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef TILED_PASS
@@ -693,7 +705,7 @@ int launch_bf16(ATTENTION_ARGS(__nv_bfloat16)) {
 // memory limit is raised once per kernel.
 template <int D, bool LSE>
 int run_f32(ATTENTION_ARGS(float)) {
-  constexpr int NG = FFMA_GROUPS, BYTES = ffma_smem_bytes<D, NG>();
+  constexpr int NG = ffma_groups<D>(), BYTES = ffma_smem_bytes<D, NG>();
   static const cudaError_t attr = allow_smem(attention_ffma<D, NG, LSE>, BYTES);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   attention_ffma<D, NG, LSE><<<dim3((N + T - 1) / T, H, B), NG * FG, BYTES, stream>>>(ATTENTION_PASS);
@@ -707,6 +719,7 @@ int launch_f32(ATTENTION_ARGS(float)) {
     case 16: return run_f32<16, LSE>(F32_PASS);
     case 32: return run_f32<32, LSE>(F32_PASS);
     case 64: return run_f32<64, LSE>(F32_PASS);
+    case 128: return run_f32<128, LSE>(F32_PASS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef F32_PASS

@@ -52,13 +52,17 @@
 //    zero-filled by a source size of 0) while tile i is multiplied, and
 //    meet at a named barrier of their own, so the groups drift apart and
 //    one's exponentials overlap another's products.
-//  - Up to dh = 32: mma.sync.m16n8k16 (f32 accumulate), as the forward,
-//    from one row-major copy of each tile, rows padded by
+//  - Up to dh = 32, and at dh = 128: mma.sync.m16n8k16 (f32 accumulate),
+//    as the forward, from one row-major copy of each tile, rows padded by
 //    8 bf16 so that the 8 rows of an `ldmatrix` fall on distinct banks. B
 //    fragments of S and dP come by `ldmatrix`, those of the products that
 //    contract over the tile's rows (P^T dO, dS^T Q, dS K) by
 //    `ldmatrix.trans` from the same copy; the block's own rows are staged
 //    once and read as A fragments. NG = 4: one block of 16 warps on an SM.
+//    At dh = 128, NG = 2 (4 would need 317 KB of shared memory in dK/dV,
+//    313 KB in dQ), and dK/dV reads its own rows' A fragments from shared
+//    memory at each use: dK and dV's accumulators alone take 128 registers
+//    a thread there.
 //  - At dh = 64: wgmma (m64n64k16) on whole 64 x 64 tiles straight from
 //    shared memory in the 128-byte swizzle, S and dP with both operands in
 //    shared memory, the three products that contract over the tile's rows
@@ -109,7 +113,9 @@
 //    ring and named barrier; their partial sums are added through shared
 //    memory in the groups' order. dK/dV at dh = 64 keeps one group (two
 //    would need 244 KB of shared memory), and so does dQ at dh = 16 (two
-//    spill at 128 registers a thread).
+//    spill at 128 registers a thread). At dh = 128 both keep one group, and
+//    dK/dV a ring of one stage (two would need 241 KB): it loads the next
+//    query tile once the group is done with this one.
 //  - dQ's first pass keeps each thread's partial rowsum(P dP) and
 //    rowsum(P), reduced once after it (the row's 4 lanes by shuffles, then
 //    its 4 warps and the groups through shared memory, in a fixed order);
@@ -133,6 +139,8 @@ constexpr int STAGES = 2;    // tiles of the looped side in a group's ring
 // (PERF.md): the mma.sync kernels; the wgmma kernels, which registers cap
 // (128 a thread for dQ at 4 groups, 168 for dK/dV at 3).
 constexpr int MMA_GROUPS = 4, WG_GROUPS_DQ = 4, WG_GROUPS_DKDV = 3;
+// at dh = 128 (not measured against others): what the shared memory holds
+constexpr int WIDE_GROUPS = 2;
 
 // key state: 0 valid, 1 masked in a dead batch element (logit 0), 2 masked
 // in a live element or past M (P = 0)
@@ -258,9 +266,15 @@ dkdv_mma(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
 
   cp_async_wait<1>();  // the own tiles have landed
   __syncthreads();
-  uint32_t ka[KS][4], va[KS][4];
-  load_a<DH>(ka, own_k, wr, lane);
-  load_a<DH>(va, own_v, wr, lane);
+  // the own rows' A fragments in registers up to dh = 64; at dh = 128 they
+  // would take 64 registers beside dK and dV's 128, and are read at each use
+  constexpr bool A_IN_REGS = DH <= 64;
+  uint32_t ka[A_IN_REGS ? KS : 1][4], va[A_IN_REGS ? KS : 1][4];
+  if constexpr (A_IN_REGS) {
+    load_a<DH>(ka, own_k, wr, lane);
+    load_a<DH>(va, own_v, wr, lane);
+  }
+  const uint32_t ka_addr = a_lane_addr<DH>(own_k, wr, lane), va_addr = a_lane_addr<DH>(own_v, wr, lane);
   float dkc[DT][4], dvc[DT][4];
   zero<DT>(dkc);
   zero<DT>(dvc);
@@ -286,8 +300,13 @@ dkdv_mma(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
       float p[2][4], ds[2][4];
       zero<2>(p);
       zero<2>(ds);
-      mma_nt<DH>(p, ka, qs + rows_nt);
-      mma_nt<DH>(ds, va, dos + rows_nt);
+      if constexpr (A_IN_REGS) {
+        mma_nt<DH>(p, ka, qs + rows_nt);
+        mma_nt<DH>(ds, va, dos + rows_nt);
+      } else {
+        mma_nt_smem_a<DH>(p, ka_addr, qs + rows_nt);
+        mma_nt_smem_a<DH>(ds, va_addr, dos + rows_nt);
+      }
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         const float2 l2 = *reinterpret_cast<const float2*>(lse_s + kk * 16 + n * 8 + 2 * t);
@@ -789,11 +808,17 @@ constexpr float LOG2E = 1.4426950408889634f;
 // Groups of a block, each count measured on the card against one group
 // (PERF.md): two where their shared memory fits and their registers (128 a
 // thread at 512 threads) do not spill; one for dK/dV at dh = 64 (two would
-// need 244 KB) and for dQ at dh = 16 (two spill).
+// need 244 KB) and for dQ at dh = 16 (two spill). At dh = 128 one each:
+// two groups' rings do not fit.
 template <int DH>
-__host__ __device__ constexpr int dkdv_ffma_groups() { return DH == 64 ? 1 : 2; }
+__host__ __device__ constexpr int dkdv_ffma_groups() { return DH >= 64 ? 1 : 2; }
 template <int DH>
-__host__ __device__ constexpr int dq_ffma_groups() { return DH == 16 ? 1 : 2; }
+__host__ __device__ constexpr int dq_ffma_groups() { return DH == 16 || DH > 64 ? 1 : 2; }
+
+// Stages of a dK/dV group's ring: one at dh = 128, where two would need
+// 241 KB of shared memory.
+template <int DH>
+__host__ __device__ constexpr int dkdv_ffma_stages() { return DH > 64 ? 1 : STAGES; }
 
 // One dK/dV group's ring stage: Q and dO tiles, then the lse and delta rows.
 template <int DH>
@@ -801,7 +826,9 @@ __host__ __device__ constexpr int dkdv_ffma_stage() { return 2 * T * f32_ld<DH>(
 
 // A group's floats: its ring, then the P and dS tiles.
 template <int DH>
-__host__ __device__ constexpr int dkdv_ffma_group() { return STAGES * dkdv_ffma_stage<DH>() + 2 * T * XLD; }
+__host__ __device__ constexpr int dkdv_ffma_group() {
+  return dkdv_ffma_stages<DH>() * dkdv_ffma_stage<DH>() + 2 * T * XLD;
+}
 
 template <int DH, int NG>
 __host__ __device__ constexpr int dkdv_ffma_smem_bytes() { return (2 * T * f32_ld<DH>() + NG * dkdv_ffma_group<DH>()) * 4; }
@@ -819,13 +846,14 @@ dkdv_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
           const float* __restrict__ lse, const float* __restrict__ delta,
           float* __restrict__ dk, float* __restrict__ dv, int N, int M, int H, float scale) {
   constexpr int LD = f32_ld<DH>(), DW = DH / 8, STAGE = dkdv_ffma_stage<DH>(), GROUP_F = dkdv_ffma_group<DH>();
+  constexpr int ST = dkdv_ffma_stages<DH>();
   extern __shared__ __align__(16) float fsm[];
   float* own_k = fsm;
   float* own_v = own_k + T * LD;
   float* rings = own_v + T * LD;
   const int tid = threadIdx.x, grp = tid / FG, gt = tid % FG;
   float* ring = rings + grp * GROUP_F;
-  float* xp = ring + STAGES * STAGE;  // P[query][key]
+  float* xp = ring + ST * STAGE;  // P[query][key]
   float* xs = xp + T * XLD;           // dS[query][key]
 
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * T;
@@ -840,7 +868,7 @@ dkdv_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
   // the group's `it`-th query tile into its stage; rows past N are zeros
   // (lse = delta = 0 beside dO = 0: P finite, dS = 0, no dV)
   auto stage = [&](int it) {
-    float* s = ring + (it % STAGES) * STAGE;
+    float* s = ring + (it % ST) * STAGE;
     const int r0 = (grp + it * NG) * T;
     stage_f32<DH, FG>(s, q_b, q_rs, r0, N, gt);
     stage_f32<DH, FG>(s + T * LD, do_b, do_rs, r0, N, gt);
@@ -884,9 +912,9 @@ dkdv_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
   for (int it = 0; it < cnt; ++it) {
     cp_async_wait<0>();  // tile it has landed; the group is done with tile it - 1
     ffma_group_sync(grp);
-    if (it + 1 < cnt) stage(it + 1);
+    if (ST > 1 && it + 1 < cnt) stage(it + 1);
     cp_async_commit();
-    const float* cur = ring + (it % STAGES) * STAGE;
+    const float* cur = ring + (it % ST) * STAGE;
     const float* qs = cur;
     const float* dos = cur + T * LD;
     const float* rows = cur + 2 * T * LD;  // lse, then delta
@@ -911,6 +939,11 @@ dkdv_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
     store_x(xs, dp, L);
     ffma_group_sync(grp);
     tn_product<DH, DW>(acc, (role ? xs : xp) + R.own, (role ? qs : dos) + R.dim);
+    if (ST == 1 && it + 1 < cnt) {  // one stage: the next tile once the group is done with this one
+      ffma_group_sync(grp);
+      stage(it + 1);
+      cp_async_commit();
+    }
   }
 
   add_groups<NG, 4 * DW>(&acc[0][0], rings, GROUP_F, grp, gt);
@@ -1085,10 +1118,10 @@ dq_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
       const float *lse
 #define BWD_IN_PASS q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, dout, lse
 
-template <int DH>
+template <int DH, int NG>
 int run_dkdv_bf16(BWD_IN(__nv_bfloat16), const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv,
                   int B, int N, int M, int H, float scale, cudaStream_t stream) {
-  constexpr int NG = MMA_GROUPS, BYTES = dkdv_smem_bytes<DH, NG>();
+  constexpr int BYTES = dkdv_smem_bytes<DH, NG>();
   const cudaError_t err = allow_smem(dkdv_mma<DH, NG>, BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   dkdv_mma<DH, NG><<<dim3((M + T - 1) / T, H, B), NG * GROUP, BYTES, stream>>>(
@@ -1096,10 +1129,9 @@ int run_dkdv_bf16(BWD_IN(__nv_bfloat16), const float* delta, __nv_bfloat16* dk, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
+template <int DH, int NG>
 int run_dq_bf16(BWD_IN(__nv_bfloat16), float* delta, __nv_bfloat16* dq, int B, int N, int M, int H,
                 float scale, cudaStream_t stream) {
-  constexpr int NG = MMA_GROUPS;
   const int bytes = dq_smem_bytes<DH, NG>((M + T - 1) / T);
   const cudaError_t err = allow_smem(dq_mma<DH, NG>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1132,9 +1164,10 @@ int run_dq_wg(BWD_IN(__nv_bfloat16), float* delta, __nv_bfloat16* dq, int B, int
 int launch_dkdv_bf16(BWD_IN(__nv_bfloat16), const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv,
                      int B, int N, int M, int H, int DH, float scale, cudaStream_t stream) {
   switch (DH) {
-    case 16: return run_dkdv_bf16<16>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
-    case 32: return run_dkdv_bf16<32>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
+    case 16: return run_dkdv_bf16<16, MMA_GROUPS>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
+    case 32: return run_dkdv_bf16<32, MMA_GROUPS>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
     case 64: return run_dkdv_wg(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
+    case 128: return run_dkdv_bf16<128, WIDE_GROUPS>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1142,9 +1175,10 @@ int launch_dkdv_bf16(BWD_IN(__nv_bfloat16), const float* delta, __nv_bfloat16* d
 int launch_dq_bf16(BWD_IN(__nv_bfloat16), float* delta, __nv_bfloat16* dq, int B, int N, int M, int H,
                    int DH, float scale, cudaStream_t stream) {
   switch (DH) {
-    case 16: return run_dq_bf16<16>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
-    case 32: return run_dq_bf16<32>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
+    case 16: return run_dq_bf16<16, MMA_GROUPS>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
+    case 32: return run_dq_bf16<32, MMA_GROUPS>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
     case 64: return run_dq_wg(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
+    case 128: return run_dq_bf16<128, WIDE_GROUPS>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1177,6 +1211,7 @@ int launch_dkdv_f32(BWD_IN(float), const float* delta, float* dk, float* dv, int
     case 16: return run_dkdv_f32<16>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
     case 32: return run_dkdv_f32<32>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
     case 64: return run_dkdv_f32<64>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
+    case 128: return run_dkdv_f32<128>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1187,6 +1222,7 @@ int launch_dq_f32(BWD_IN(float), float* delta, float* dq, int B, int N, int M, i
     case 16: return run_dq_f32<16>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
     case 32: return run_dq_f32<32>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
     case 64: return run_dq_f32<64>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
+    case 128: return run_dq_f32<128>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -100,13 +100,21 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* tile, const __nv_bfloa
   }
 }
 
+// This lane's ldmatrix address for the A fragments of the warp's 16 rows
+// (from `wr`) of a staged tile, at k-step 0; k-step ks is 32 bytes on.
+template <int DH>
+__device__ __forceinline__ uint32_t a_lane_addr(const __nv_bfloat16* tile, int wr, int lane) {
+  const int row = wr + (lane % 8) + ((lane / 8) % 2) * 8, col = (lane / 16) * 8;
+  return smem_addr(tile + row * (DH + PAD) + col);
+}
+
 // A fragments of the warp's 16 rows (from `wr`) of a staged tile, per
 // k-step: a0 (g, 2t), a1 (g+8, 2t), a2 (g, 2t+8), a3 (g+8, 2t+8).
 template <int DH>
 __device__ __forceinline__ void load_a(uint32_t (*a)[4], const __nv_bfloat16* tile, int wr, int lane) {
-  const int row = wr + (lane % 8) + ((lane / 8) % 2) * 8, col = (lane / 16) * 8;
+  const uint32_t addr = a_lane_addr<DH>(tile, wr, lane);
 #pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks) ldsm_x4(a[ks], smem_addr(tile + row * (DH + PAD) + ks * 16 + col));
+  for (int ks = 0; ks < DH / 16; ++ks) ldsm_x4(a[ks], addr + ks * 32);
 }
 
 // Byte offsets of this lane's row address in a padded tile, for the two
@@ -134,6 +142,21 @@ __device__ __forceinline__ void mma_nt(float (*c)[4], const uint32_t (*a)[4], ui
     ldsm_x4(r, tile_nt + ks * 32);
     mma_bf16(c[0], a[ks], r[0], r[1]);
     mma_bf16(c[1], a[ks], r[2], r[3]);
+  }
+}
+
+// mma_nt with A's fragments read from shared memory a k-step at a time, at
+// `a_addr` (`a_lane_addr`), where holding them all in registers would cost
+// 4 DH / 16 registers a thread.
+template <int DH>
+__device__ __forceinline__ void mma_nt_smem_a(float (*c)[4], uint32_t a_addr, uint32_t tile_nt) {
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) {
+    uint32_t a[4], r[4];
+    ldsm_x4(a, a_addr + ks * 32);
+    ldsm_x4(r, tile_nt + ks * 32);
+    mma_bf16(c[0], a, r[0], r[1]);
+    mma_bf16(c[1], a, r[2], r[3]);
   }
 }
 

@@ -7,11 +7,14 @@ The counterpart of the forward kernels of
 `models/superglue.MultiHeadedAttention`. On the card one hand-written
 kernel (`csrc/attention.cu`) serves every key count, K=1024 included;
 its logits and softmax are f32 on chip, which is the JAX semantics at
-`logits_dtype="float32"`. The kernels take heads of 16, 32 and 64
-values; a narrower head (any dh up to 64) is zero-padded to the next of
+`logits_dtype="float32"`. The kernels take heads of 16, 32, 64 and 128
+values; a narrower head (any dh up to 128: SuperGlue's 4 heads at
+descriptor_dim 320 and 384 have 80 and 96) is zero-padded to the next of
 those widths on its way in and cut back on its way out, which is exact:
 zero columns add nothing to a score and give zero output columns, and
-the scale stays 1/sqrt(dh) of the real head. Wider heads raise. The JAX
+the scale stays 1/sqrt(dh) of the real head. Wider heads raise. The
+kernels at 128 count their launches under their own names
+(`launch_name`), so that a run shows which width it went through. The JAX
 package's `logits_dtype="bfloat16"` only narrows how the einsum path
 stores logits in device memory, which the kernel never does, so the
 kernel ignores it. The plain version, used
@@ -29,7 +32,8 @@ import torch
 from image_matching_tpu_torch.ops import _build
 
 NEG_INF = -1e9
-HEAD_DIMS = (16, 32, 64)  # the head widths the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernels are built for
+WIDE = 128  # the width whose kernels count their launches apart
 
 
 def padded_head_dim(dh: int) -> int:
@@ -39,6 +43,14 @@ def padded_head_dim(dh: int) -> int:
         if dh <= width:
             return width
     raise ValueError(f"attention: head dim {dh} is above {HEAD_DIMS[-1]}, the widest head the kernels take")
+
+
+def launch_name(name: str, width: int) -> str:
+    """The key of `_build.LAUNCHES` that a kernel of wrapper `name`
+    ("attention", "attention_lse", "attention_dq", "attention_dkdv") at head
+    width `width` counts its launches under: `name`, or `name` + "_dh128"
+    for the kernels at 128."""
+    return f"{name}_dh{width}" if width == WIDE else name
 
 
 def pad_heads(t, num_heads: int, width: int):
@@ -312,7 +324,7 @@ def _attention_cuda(q, k, v, key_mask, num_heads, with_lse=False):
         args.append(_build.ptr(lse))
     fn = _launcher("attention", f"{name}_{_suffix(q.dtype)}", 2 if with_lse else 1)
     _build.check(fn(*args, b, n, m, num_heads, dh, 1.0 / math.sqrt(real_dh), _build.stream_ptr(q.device)), name)
-    _build.LAUNCHES[name] += 1
+    _build.LAUNCHES[launch_name(name, dh)] += 1
     if width != real_dh:
         out = unpad_heads(out, num_heads, real_dh)
     return (out, lse) if with_lse else out
@@ -365,4 +377,4 @@ def attention_backward_kernel(name, q, k, v, key_mask, dout, lse, delta, outs, n
     args = _qkv_args(q, k, v, key_mask) + [_build.ptr(t) for t in (dout, lse, delta, *outs)]
     scale = 1.0 / math.sqrt(dh) if scale is None else scale
     _build.check(fn(*args, b, n, m, num_heads, dh, scale, _build.stream_ptr(q.device)), name)
-    _build.LAUNCHES[name] += 1
+    _build.LAUNCHES[launch_name(name, dh)] += 1

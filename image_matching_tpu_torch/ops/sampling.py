@@ -1,7 +1,7 @@
 """Bilinear descriptor sampling at keypoints, patch extraction and the
 soft-argmax subpixel refinement — the counterpart of
 `image_matching_tpu/ops/sampling.py` (`sample_descriptors`,
-`extract_patches`, `soft_argmax_2d`, `refine_keypoints_subpixel`) and
+`describe_keypoints`, `extract_patches`, `soft_argmax_2d`, `refine_keypoints_subpixel`) and
 `geometry/warp.py` (`bilinear_sample`)."""
 from __future__ import annotations
 
@@ -46,6 +46,13 @@ def sample_descriptors(xy, desc_map, cell: int = 8):
     desc = bilinear_sample(desc_map, pc)
     norm = torch.linalg.vector_norm(desc, dim=-1, keepdim=True)
     return desc / norm.clamp_min(1e-12)
+
+
+def describe_keypoints(kpts, desc_map, cell: int = 8):
+    """`kpts` (a `Keypoints`) with its descriptors sampled from desc_map
+    (B, Hc, Wc, D) by `sample_descriptors`, invalid slots zeroed."""
+    desc = sample_descriptors(kpts.xy, desc_map, cell)
+    return kpts.replace(desc=desc * kpts.mask[..., None].to(desc.dtype))
 
 
 def extract_patches(image, xy, patch_size: int = 5):

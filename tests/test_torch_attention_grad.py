@@ -3,7 +3,8 @@ LSE, FA2 backward; plain versions on the CPU) against the JAX package:
 the Pallas forward-with-LSE and flash backward (interpreted on the CPU),
 and `jax.vjp` of the einsum oracle `attention_reference_heads`.
 
-All in f32. The two sides differ in summation order (and the Pallas
+All in f32, at heads of 16 to 128 values (96: the width the card pads to
+128). The two sides differ in summation order (and the Pallas
 backward takes delta = rowsum(dO * O) where the port takes
 rowsum(P * dP) / rowsum(P), equal in exact arithmetic): 2e-5 on outputs,
 LSE and gradients of O(1) inputs.
@@ -72,7 +73,7 @@ def _port_grads(q, k, v, mask, g):
 RAGGED_FORWARD = [(129, 257), (65, 450)]
 
 
-@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dh", [16, 32, 64, 96, 128])
 @pytest.mark.parametrize("n,m", [(40, 50), (70, 33)] + RAGGED_FORWARD)
 def test_forward_lse_matches_pallas(dh, n, m):
     b = 2
@@ -88,7 +89,7 @@ def test_forward_lse_matches_pallas(dh, n, m):
 
 
 @pytest.mark.parametrize("dead", [False, True])
-@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dh", [16, 32, 64, 96, 128])
 @pytest.mark.parametrize("n,m", RAGGED_FORWARD)
 def test_forward_lse_matches_oracle_logsumexp(dh, n, m, dead):
     # the output against the einsum oracle, the LSE against the logsumexp of
@@ -108,7 +109,7 @@ def test_forward_lse_matches_oracle_logsumexp(dh, n, m, dead):
         np.testing.assert_allclose(lse.numpy()[-1], np.full((HEADS, n), np.log(m), np.float32), **TOL)
 
 
-@pytest.mark.parametrize("dh", [16, 32])
+@pytest.mark.parametrize("dh", [16, 32, 96, 128])
 @pytest.mark.parametrize("n,m", [(40, 50), (70, 33)])
 def test_gradients_match_pallas_flash_on_live_elements(dh, n, m):
     b = 2
@@ -140,7 +141,7 @@ def test_plain_backward_with_fa2_delta_matches_pallas(dh):
         np.testing.assert_allclose(have.numpy(), _unfold(np.asarray(ref), b, dh), **TOL)
 
 
-@pytest.mark.parametrize("dh", [16, 32])
+@pytest.mark.parametrize("dh", [16, 32, 96, 128])
 @pytest.mark.parametrize("n,m", [(40, 50), (70, 33)])
 def test_gradients_match_einsum_oracle_with_a_dead_element(dh, n, m):
     b = 3

@@ -1,7 +1,8 @@
 """Heads narrower than the kernels' widths, on the CPU.
 
-The attention kernels are built for heads of 16, 32 and 64 values. The
-card's wrappers zero-pad any narrower head to the next of those widths,
+The attention kernels are built for heads of 16, 32, 64 and 128 values.
+The card's wrappers zero-pad any narrower head to the next of those widths
+(SuperGlue's 4 heads at descriptor_dim 320 and 384 have 80 and 96),
 launch with the scale of the real head, and cut the results back. These
 tests show on the plain versions, which take the kernels' scale
 argument, that the padding changes nothing: the same logits, LSE,
@@ -38,12 +39,14 @@ def _inputs(dh, b=3, n=37, m=45, seed=0):
 
 def test_padded_head_dim():
     assert [padded_head_dim(d) for d in (1, 8, 16, 17, 24, 32, 33, 48, 64)] == [16, 16, 16, 32, 32, 32, 64, 64, 64]
-    assert padded_head_dim(HEAD_DIMS[-1]) == HEAD_DIMS[-1]
-    with pytest.raises(ValueError, match="above 64"):
-        padded_head_dim(128)
+    assert [padded_head_dim(d) for d in (65, 80, 96, 127, 128)] == [128] * 5
+    assert padded_head_dim(HEAD_DIMS[-1]) == HEAD_DIMS[-1] == 128
+    for dh in (129, 256):  # D > 512 at 4 heads
+        with pytest.raises(ValueError, match="above 128"):
+            padded_head_dim(dh)
 
 
-@pytest.mark.parametrize("dh", [8, 24, 48])
+@pytest.mark.parametrize("dh", [8, 24, 48, 80, 96])
 def test_zero_padded_heads_give_the_same_attention_and_gradients(dh):
     q, k, v, mask, dout = _inputs(dh)
     width = padded_head_dim(dh)

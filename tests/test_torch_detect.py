@@ -15,11 +15,14 @@ import torch
 from image_matching_tpu.geometry.labels import flatten_detection as jax_flatten
 from image_matching_tpu.ops.detect import detect_keypoints as jax_detect
 from image_matching_tpu.ops.nms import simple_nms as jax_nms
+from image_matching_tpu.ops.sampling import describe_keypoints as jax_describe
 from image_matching_tpu.ops.sampling import sample_descriptors as jax_sample
+from image_matching_tpu.structs import Keypoints as JaxKeypoints
 from image_matching_tpu_torch.geometry.labels import flatten_detection
 from image_matching_tpu_torch.ops.detect import detect_keypoints
 from image_matching_tpu_torch.ops.nms import simple_nms
-from image_matching_tpu_torch.ops.sampling import sample_descriptors
+from image_matching_tpu_torch.ops.sampling import describe_keypoints, sample_descriptors
+from image_matching_tpu_torch.structs import Keypoints
 
 
 def _heatmap(seed, b=2, hc=8, wc=12):
@@ -78,3 +81,20 @@ def test_sample_descriptors_matches():
     got = sample_descriptors(torch.from_numpy(xy), torch.from_numpy(desc_map), 8).numpy()
     ref = np.asarray(jax_sample(jnp.asarray(xy), jnp.asarray(desc_map), 8))
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_describe_keypoints_matches():
+    # sampled descriptors attached to a keypoint set, masked slots zeroed
+    rng = np.random.default_rng(4)
+    desc_map = rng.normal(size=(2, 6, 9, 16)).astype(np.float32)
+    arrays = dict(xy=rng.uniform(0, (72, 48), (2, 30, 2)).astype(np.float32),  # inside the 48 x 72 image
+                  score=rng.uniform(size=(2, 30)).astype(np.float32),
+                  mask=np.arange(30)[None] < np.array([[30], [19]]),
+                  desc=np.zeros((2, 30, 16), np.float32))
+    got = describe_keypoints(Keypoints(**{n: torch.from_numpy(a) for n, a in arrays.items()}),
+                             torch.from_numpy(desc_map), 8)
+    ref = jax_describe(JaxKeypoints(**{n: jnp.asarray(a) for n, a in arrays.items()}), jnp.asarray(desc_map), 8)
+    np.testing.assert_allclose(got.desc.numpy(), np.asarray(ref.desc), rtol=1e-5, atol=1e-6)
+    assert not got.desc[1, 19:].any() and got.desc[1, :19].abs().sum(-1).min() > 0
+    for name in ("xy", "score", "mask"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)))

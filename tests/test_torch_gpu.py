@@ -23,6 +23,8 @@ from image_matching_tpu_torch.ops.attention import (
     attention_lse,
     attention_lse_plain,
     attention_plain,
+    launch_name,
+    padded_head_dim,
 )
 from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_h, entry_conv_h_plain, entry_conv_plain
 from image_matching_tpu_torch.ops.realign import maxpool_realign
@@ -82,16 +84,17 @@ FORWARD_SHAPES = [(70, 133), (129, 257), (65, 450), (5, 9), (64, 64), (300, 70),
 
 
 @pytest.mark.parametrize("n,m", FORWARD_SHAPES)
-@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_kernel(cuda, dh, dtype, n, m):
     # q, k, v as row-strided views of fused projections, as the model makes
     # them; one batch element with no valid key
     q, k, v, mask, _ = _attention_case(cuda, dh, dtype, n=n, m=m)
-    before = _build.LAUNCHES["attention"]
+    count = launch_name("attention", dh)  # the kernels at 128 count apart
+    before = _build.LAUNCHES[count]
     got = attention(q, k, v, mask, 4)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["attention"] == before + 1
+    assert _build.LAUNCHES[count] == before + 1
     ref = attention_plain(q, k, v, mask, 4, "float32")
     # f32 logits on both sides; bf16 also rounds the probabilities on the
     # plain side, so the bf16 tolerance is a few bf16 steps
@@ -204,8 +207,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     w = torch.zeros(3, 3, 1, 64, device=cuda)
     with pytest.raises(TypeError):
         entry_conv(img, w, torch.ones(64, device=cuda), torch.zeros(64, device=cuda))
-    q = torch.zeros(1, 4, 4 * 128, device=cuda)  # heads up to 64 are zero-padded; 128 is above them
-    with pytest.raises(ValueError, match="head dim 128 is above 64"):
+    q = torch.zeros(1, 4, 4 * 256, device=cuda)  # heads up to 128 are zero-padded; 256 is above them
+    with pytest.raises(ValueError, match="head dim 256 is above 128"):
         attention(q, q, q, None, 4)
     with pytest.raises(ValueError):
         log_sinkhorn(torch.zeros(1, 3, 3, device=cuda, dtype=torch.float64),
@@ -241,14 +244,15 @@ def _attention_case(cuda, dh, dtype, b=3, n=70, m=133, h=4):
 
 
 @pytest.mark.parametrize("n,m", FORWARD_SHAPES)
-@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_forward_with_lse_kernel(cuda, dh, dtype, n, m):
     q, k, v, mask, _ = _attention_case(cuda, dh, dtype, n=n, m=m)
-    before = _build.LAUNCHES["attention_lse"]
+    count = launch_name("attention_lse", dh)
+    before = _build.LAUNCHES[count]
     out, lse = attention_lse(q, k, v, mask, 4)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["attention_lse"] == before + 1
+    assert _build.LAUNCHES[count] == before + 1
     ref_out, ref_lse = attention_lse_plain(q, k, v, mask, 4)
     # f32 logits on both sides; the kernel's exponentials are the fast
     # approximations, and bf16 rounds the probabilities for the value
@@ -267,7 +271,7 @@ F32_DEEP_FORWARD = [(2, 2048, 2048), (2, 2048, 2000)]
 
 
 @pytest.mark.parametrize("b,n,m", F32_DEEP_FORWARD)
-@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 def test_attention_forward_f32_deep_sums(cuda, dh, b, n, m):
     """The f32 forward (`attention_ffma`), with and without LSE, over 2048
     keys: against the plain f32 version (1e-5, the LSE too) and against the
@@ -309,7 +313,7 @@ BACKWARD_SHAPES = [(70, 133), (5, 9), (64, 64), (130, 257), (300, 70), (50, 1100
 
 
 @pytest.mark.parametrize("n,m", BACKWARD_SHAPES)
-@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_backward_kernels(cuda, dh, dtype, n, m):
     q, k, v, mask, dout = _attention_case(cuda, dh, dtype, n=n, m=m)
@@ -318,7 +322,8 @@ def test_attention_backward_kernels(cuda, dh, dtype, n, m):
     got = attention_backward(q, k, v, mask, lse, dout, 4)
     torch.cuda.synchronize()
     for name in ("attention_dkdv", "attention_dq"):
-        assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+        count = launch_name(name, dh)
+        assert _build.LAUNCHES[count] == before.get(count, 0) + 1
     tol = _assert_backward_close(got, attention_backward_plain(q, k, v, mask, lse, dout, 4), dtype)
     dq, dk, dv = got
     # the dead element: dQ = dK = 0, dV = sum(dO) / M
@@ -331,8 +336,8 @@ def test_attention_backward_kernels(cuda, dh, dtype, n, m):
 
 
 # (B, N, H, dh): deep f32 cases, a D = 256 training run's heads over 1024 keys
-# (one dead batch element) and D = 128's over 2048
-F32_DEEP_BACKWARD = [(2, 1024, 4, 64), (1, 2048, 4, 32)]
+# (one dead batch element) and D = 128's over 2048; D = 512's over 1024
+F32_DEEP_BACKWARD = [(2, 1024, 4, 64), (1, 2048, 4, 32), (2, 1024, 4, 128)]
 
 
 @pytest.mark.parametrize("b,n,h,dh", F32_DEEP_BACKWARD)
@@ -386,12 +391,13 @@ def test_attention_dq_kernel_writes_delta(cuda, dtype, n, m):
     assert not delta[-1].any()  # no valid key: no row of dS to centre
 
 
-@pytest.mark.parametrize("dh", [8, 24, 48])
+@pytest.mark.parametrize("dh", [8, 24, 48, 80, 96])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_kernels_at_head_dims_they_are_not_built_for(cuda, dh, dtype):
-    """Heads of 8, 24 and 48 values run zero-padded to 16, 32 and 64 at the
-    scale of the real dh: forward, forward with LSE and both backward
-    kernels against the plain versions at the built widths' tolerances."""
+    """Heads of 8, 24, 48, 80 and 96 values run zero-padded to 16, 32, 64
+    and 128 at the scale of the real dh: forward, forward with LSE and both
+    backward kernels against the plain versions at the built widths'
+    tolerances."""
     q, k, v, mask, dout = _attention_case(cuda, dh, dtype)
     before = dict(_build.LAUNCHES)
     out = attention(q, k, v, mask, 4)
@@ -399,7 +405,8 @@ def test_attention_kernels_at_head_dims_they_are_not_built_for(cuda, dh, dtype):
     grads = attention_backward(q, k, v, mask, lse, dout, 4)
     torch.cuda.synchronize()
     for name in ("attention", "attention_lse", "attention_dq", "attention_dkdv"):
-        assert _build.LAUNCHES[name] == before.get(name, 0) + 1
+        count = launch_name(name, padded_head_dim(dh))
+        assert _build.LAUNCHES[count] == before.get(count, 0) + 1
     ref_out, ref_lse = attention_lse_plain(q, k, v, mask, 4)
     tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
     for got in (out, out_lse):

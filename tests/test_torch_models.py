@@ -25,6 +25,8 @@ import pytest
 import torch
 
 from image_matching_tpu.geometry.warp import warp_image as jax_warp_image
+from image_matching_tpu.models import MODEL_REGISTRY as JAX_MODEL_REGISTRY
+from image_matching_tpu.models import get_model as jax_get_model
 from image_matching_tpu.models.matching import Matching as JaxMatching
 from image_matching_tpu.models.matching import MatchingConfig as JaxConfig
 from image_matching_tpu.models.superglue import SuperGlue as JaxSuperGlue
@@ -32,7 +34,7 @@ from image_matching_tpu.models.superpoint import SuperPointBN as JaxSuperPointBN
 from image_matching_tpu.models.superpoint import superpoint_postprocess as jax_postprocess
 from image_matching_tpu.structs import Keypoints as JaxKeypoints
 from image_matching_tpu.utils.weights import flatten_tree, load_npz_into
-from image_matching_tpu_torch.models import Matching, MatchingConfig, SuperGlue, SuperPointBN
+from image_matching_tpu_torch.models import MODEL_REGISTRY, Matching, MatchingConfig, SuperGlue, SuperPointBN, get_model
 from image_matching_tpu_torch.models.superpoint import superpoint_postprocess
 from image_matching_tpu_torch.structs import Keypoints
 from image_matching_tpu_torch.weights import load_jax_params, load_npz
@@ -283,3 +285,20 @@ def test_bf16_forward_held_to_jax_bf16():
         assert pj[key] <= C_JAX[key] * jj[key], (key, pj[key], jj[key])
         assert pp[key] <= C_SELF[key] * jj[key], (key, pp[key], jj[key])
     assert (res["p", "bfloat16"]["m0"] >= 0).sum() > 50
+
+
+@pytest.mark.parametrize("name", ["superpoint_bn", "superpoint_vgg", "superglue"])
+def test_get_model_names_the_jax_registry_models(name):
+    # the same names; each model built by name carries the JAX model's parameters
+    assert set(MODEL_REGISTRY) == set(JAX_MODEL_REGISTRY)
+    jm = jax_get_model(name, descriptor_dim=32)
+    tm = get_model(name, descriptor_dim=32, device="cpu")
+    assert type(tm).__name__ == type(jm).__name__ == MODEL_REGISTRY[name].__name__
+    if name == "superglue":
+        jm = jax_get_model(name, descriptor_dim=32, keypoint_encoder=(8, 16), gnn_layers=2)
+        tm = get_model(name, descriptor_dim=32, keypoint_encoder=(8, 16), gnn_layers=2, device="cpu")
+        j0, _ = _keypoints(1)
+        variables = jm.init(jax.random.PRNGKey(0), j0, j0, (48, 64), (48, 64))
+    else:
+        variables = jm.init(jax.random.PRNGKey(0), jnp.asarray(_images(0)))
+    load_jax_params(tm, flatten_tree(variables))  # strict: every name and shape
