@@ -28,12 +28,13 @@ In order, it:
      build's bits; it runs the attention kernels at head dims they
      are not built for (8, 24, 48: zero-padded to 16, 32, 64), forward,
      forward with LSE and backward, against the plain versions; then the
-     kernels at head width 128 (bf16 and f32: forward, forward with LSE,
-     dQ, dK/dV) at heads of 80, 96 and 128 with masked keys and a dead
-     batch element, against the plain versions and, in f32, a float64
-     run, and times each at D = 512's shapes ((4, 1024, 4x128) forward,
-     (4, 512, 4x128) training) beside `scaled_dot_product_attention` and
-     its bound; and checks that a head dim of 256 raises;
+     kernels at head width 128 and the chunked kernels above it (bf16 and
+     f32: forward, forward with LSE, dQ, dK/dV) at heads of 80, 96, 128,
+     160, 192, 256, 320 and 512 with masked keys and a dead batch element,
+     against the plain versions and, in f32, a float64 run, and times each
+     at D = 512's and D = 1024's shapes ((4, 1024, 4x128 / 4x256) forward,
+     (4, 512, 4x128 / 4x256) training), and D = 640's heads of 160 (zero-
+     padded to 256), beside `scaled_dot_product_attention` and the bound;
   4. runs the headline configuration through `Matching` (480x640, batch
      4, K=1024, D=256, 18 GNN layers, 30 Sinkhorn iterations, bf16,
      seeded random weights, seeded uniform images), checks that the path
@@ -121,16 +122,18 @@ In order, it:
      mean under 1 px), per-pair wall time, launches; then its official
      variant (--backbone vgg --descriptor_dim 256, SuperGlue loaded from a
      seeded synthetic official state dict) on 2 pairs;
- 15. runs SuperGlue at descriptor_dim 512 (4 heads of 128 values, seeded
-     weights: no banked ones exist at that width): the headline's
-     `Matching` with D = 512 in bf16 and f32 (launches, pairs/s, peak
-     memory, agreement with the all-plain path, the profile), training at
-     the training CLI's defaults with D = 512 in bf16 and f32 through the
-     trainer's step (launches, steps/s, peak memory, finite metrics,
-     every attention backward call of two steps against the plain version
-     and, in f32, float64), the training CLI with --descriptor_dim 512 for
-     one epoch of 6 steps, and match_pair --matcher superglue
-     --descriptor_dim 512 on 2 of its sources (a run check);
+ 15. runs SuperGlue at descriptor_dim 512 and 1024 (4 heads of 128 values,
+     the kernels at 128, and of 256, the chunked kernels; seeded weights:
+     no banked ones exist at those widths): the headline's `Matching` in
+     bf16 and f32 (launches, pairs/s, peak memory, agreement with the
+     all-plain path, the log-coupling held to `WIDE_MAX_Z_ERR`, the
+     profile), training at the training CLI's defaults in bf16 and f32
+     through the trainer's step (launches, steps/s, peak memory, finite
+     metrics, every attention backward call of two steps against the plain
+     version and, in f32, float64), the training CLI with --descriptor_dim
+     D --gnn_layers 2 for one epoch of 6 steps (and at 1024 a resumed one:
+     checkpoints, the step count), and match_pair --matcher superglue
+     --descriptor_dim D on 2 of its sources (a run check);
  16. runs the training CLI (`cli/train_superglue.py`) in-process at its
      defaults with --synthetic, the banked SuperPoint, --photometric
      --subpixel --warmup_steps 5 --grad_clip 1.0: 2 epochs of 10 steps, then
@@ -205,7 +208,8 @@ launches counted on its own path: inference per forward, training per
 step, the 2x2 backbone's per registration call, its f32 route per f32
 detect, the f32 attention forward per f32 forward and, with LSE, per f32
 step, the alignedH entry conv per H-layout detect, the kernels at head
-width 128 per D = 512 forward or step) and the run's result as JSON. Without a CUDA device, or without the package beside it, the
+width 128 per D = 512 forward or step, the chunked kernels per D = 1024
+forward or step) and the run's result as JSON. Without a CUDA device, or without the package beside it, the
 script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -596,9 +600,9 @@ def check_attention_head_dims(torch, dev, rng):
     D = 32 model has 8) run zero-padded to the next width the kernels take
     (16, 32, 64), at the scale of the real dh: the forward, the forward
     with LSE and both backward kernels against their plain versions, one
-    launch each; then the heads of 80, 96 and 128 values that the kernels
-    at 128 take (`check_wide_head_dims`), and a head dim above 128 raises.
-    Returns the wide kernels' worst errors (`check_wide_head_dims`)."""
+    launch each; then the heads of 80-512 values that the kernels at 128
+    and the chunked kernels take (`check_wide_head_dims`). Returns the wide
+    kernels' worst errors (`check_wide_head_dims`)."""
     from image_matching_tpu_torch.ops import _build
     from image_matching_tpu_torch.ops import attention as A
 
@@ -632,51 +636,50 @@ def check_attention_head_dims(torch, dev, rng):
               f"attention at head dim {dh} disagrees with its plain version")
         check(launches == {"attention": 1, "attention_lse": 1, "attention_dq": 1, "attention_dkdv": 1},
               f"attention at head dim {dh}: launches {launches}")
-    worst = check_wide_head_dims(torch, dev, rng)
-    q = torch.zeros(1, 8, 4 * 256, device=dev, dtype=torch.bfloat16)  # D = 1024 at 4 heads
-    try:
-        A.attention(q, q, q, None, 4)
-    except ValueError as e:
-        print(f"attention at head dim 256 raises ValueError: {e}")
-        check("128" in str(e), "the head-dim error does not name the limit")
-    else:
-        fail("attention at head dim 256 did not raise")
-    return worst
+    return check_wide_head_dims(torch, dev, rng)
 
 
 # (B, N, M) of the wide heads' checks: ragged across the 64-row tiles, and deep (16 key
 # tiles), the last batch element dead in both; the f32 kernels are held to a float64 run
 # at the deep one, where the sums' rounding outweighs the chance of a few terms
 WIDE_CHECKS = ((3, 200, 333), (2, 1024, 1000))
-WIDE_DIMS = (80, 96, 128)  # SuperGlue's 4 heads at descriptor_dim 320, 384, 512
+# SuperGlue's 4 heads at descriptor_dim 320, 384, 512 (the kernels at 128), and at 640,
+# 768, 1024, 1280, 2048 (the chunked kernels: 2, 2, 2, 3 and 4 chunks of 128)
+WIDE_DIMS = (80, 96, 128, 160, 192, 256, 320, 512)
+CHUNKED_ROW_WIDTH = 256  # the chunked kernels' JSON rows: their launches on the D = 1024 path
 
 
-def _wide_row(name: str, f32: bool) -> str:
-    """The JSON name of wrapper `name`'s kernel at head width 128:
-    attention_dq_dh128, attention_dq_f32_dh128, ..."""
-    return name + ("_f32" if f32 else "") + "_dh128"
+def _wide_row(name: str, f32: bool, width: int) -> str:
+    """The JSON name of wrapper `name`'s kernel at head width 128, or of the
+    chunked kernel above it (named by `CHUNKED_ROW_WIDTH`): attention_dq_dh128,
+    attention_dq_f32_dh256, ..."""
+    return name + ("_f32" if f32 else "") + f"_dh{128 if width == 128 else CHUNKED_ROW_WIDTH}"
 
 
 def check_wide_head_dims(torch, dev, rng):
-    """The kernels at head width 128 (forward, forward with LSE, dQ with
-    its delta, dK/dV; bf16 and f32) at heads of 80, 96 (zero-padded to 128,
-    the scale of the real dh) and 128 values, at `WIDE_CHECKS` with masked
-    keys and a dead batch element, against their plain versions, one launch
-    each under its own count: bf16 to the tolerances of the built widths
-    (out 3e-2, LSE 2e-4, gradients 2e-2 of the largest entry); f32 within
-    1e-4 of max(|y|, 1) (LSE 1e-5), and, at the deep shape, no further from
-    the same functions run in float64 than twice the plain f32 version;
-    the dead element's mean of V, log(M) and zero dQ, dK. Returns the
-    worst absolute error of each kernel against its plain version, keyed
-    by its JSON name."""
+    """The kernels at head width 128 and the chunked kernels above it
+    (forward, forward with LSE, dQ with its delta, dK/dV; bf16 and f32) at
+    heads of `WIDE_DIMS` values (80, 96 zero-padded to 128; 160, 192 to 256
+    and 320 to 384, at the scale of the real dh), at `WIDE_CHECKS` with
+    masked keys and a dead batch element, against their plain versions, one
+    launch each under its own count (`launch_name` of the padded width):
+    bf16 to the tolerances of the built widths (out 3e-2, LSE 2e-4,
+    gradients 2e-2 of the largest entry); f32 within 1e-4 of max(|y|, 1)
+    (LSE 1e-5), and, at the deep shape, no further from the same functions
+    run in float64 than twice the plain f32 version; the dead element's
+    mean of V, log(M) and zero dQ, dK. Returns the worst absolute error of
+    each kernel against its plain version, keyed by its JSON name (the
+    chunked kernels' over every chunked width)."""
     from image_matching_tpu_torch.ops import _build
     from image_matching_tpu_torch.ops import attention as A
 
     worst = {}
-    want = {A.launch_name(name, 128): 1 for name in ("attention", "attention_lse", "attention_dq", "attention_dkdv")}
     for dtype in (torch.bfloat16, torch.float32):
         f32, kind = dtype == torch.float32, str(dtype)[6:]
         for dh in WIDE_DIMS:
+            width = A.padded_head_dim(dh)
+            want = {A.launch_name(name, width): 1 for name in ("attention", "attention_lse", "attention_dq",
+                                                               "attention_dkdv")}
             for b, n, m in WIDE_CHECKS:
                 h = 4
                 q = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev, dtype)
@@ -703,7 +706,7 @@ def check_wide_head_dims(torch, dev, rng):
                            "attention_dkdv": max((g.float() - p.float()).abs().max().item()
                                                  for g, p in zip(grads[1:], plain[1:]))}
                 for name, e in abs_err.items():
-                    key = _wide_row(name, f32)
+                    key = _wide_row(name, f32, width)
                     worst[key] = max(worst.get(key, 0.0), e)
                 e_out = max(abs_err["attention"], abs_err["attention_lse"]) / max(ref_out.float().abs().max().item(), 1.0)
                 e_lse = (lse - ref_lse).abs().max().item()
@@ -715,7 +718,7 @@ def check_wide_head_dims(torch, dev, rng):
                         "lse - log(M)": (lse[-1] - math.log(m)).abs().max().item(),
                         "dv - sum(dO)/M": dead_dv / max(dv[-1].float().abs().max().item(), 1e-30),
                         "|dq|, |dk|": max(dq[-1].float().abs().max().item(), dk[-1].float().abs().max().item())}
-                line = (f"attention {shape}, kernels at 128: out {e_out:.2e} of max(|y|, 1) (tol {t_out}), lse "
+                line = (f"attention {shape}, kernels at {width}: out {e_out:.2e} of max(|y|, 1) (tol {t_out}), lse "
                         f"{e_lse:.2e} (tol {t_lse}), dq/dk/dv " + "/".join(f"{e:.2e}" for e in e_bwd)
                         + f" of the largest entry (tol {t_bwd}); dead element: " + ", ".join(
                             f"{key} {e:.1e}" for key, e in dead.items()) + f"; launches {launches}")
@@ -746,8 +749,9 @@ def check_wide_head_dims(torch, dev, rng):
 
 def _attention_calls(torch, A, q, k, v, mask, dout, h):
     """The attention functions at one shape, each a call that CUDA graphs
-    capture: the kernels' (forward, forward with LSE, dQ writing delta and
-    dK/dV reading it, each on its own), their plain versions and
+    capture: the kernels' (forward, forward with LSE, the whole backward
+    and, at a width the kernels are built for, dQ writing delta and dK/dV
+    reading it, each on its own), their plain versions and
     `scaled_dot_product_attention`'s forward and forward + backward; and
     the LSE that the backward ones take."""
     import torch.nn.functional as F
@@ -767,82 +771,125 @@ def _attention_calls(torch, A, q, k, v, mask, dout, h):
 
     calls = {"attention": lambda: A.attention(q, k, v, mask, h),
              "attention_lse": lambda: A.attention_lse(q, k, v, mask, h),
-             "attention_dq": kernel("attention_dq", (dq,)), "attention_dkdv": kernel("attention_dkdv", (dk, dv)),
+             "attention_backward": lambda: A.attention_backward(q, k, v, mask, lse, dout, h),
              "plain": lambda: A.attention_plain(q, k, v, mask, h, "float32"),
              "plain_lse": lambda: A.attention_lse_plain(q, k, v, mask, h),
              "plain_bwd": lambda: A.attention_backward_plain(q, k, v, mask, lse, dout, h),
              "lib_fwd": lib_fwd,
              "lib_fb": lambda: torch.autograd.grad(F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4),
                                                    (qh, kh, vh), doh)}
-    calls["attention_dq"]()  # writes the delta that dK/dV reads
+    if A.kernel_width(dh):  # the kernels on their own, at a width they are built for
+        calls.update(attention_dq=kernel("attention_dq", (dq,)), attention_dkdv=kernel("attention_dkdv", (dk, dv)))
+        calls["attention_dq"]()  # writes the delta that dK/dV reads
     return calls, lse
 
 
-# (B, N, H, dh) at which the kernels at 128 are timed: D = 512's inference forward
-# (the headline's K = 1024, 36 calls a forward) and its training step (K = 512, 36 calls
-# of each training kernel a step)
-WIDE_INFERENCE, WIDE_TRAINING = (4, 1024, 4, 128), (4, 512, 4, 128)
+# (B, N, H, dh) at which the kernels at 128 and the chunked ones are timed: D = 512's and
+# D = 1024's inference forward (the headline's K = 1024, 36 calls a forward) and training
+# step (K = 512, 36 calls of each training kernel a step); D = 640's heads of 160 values,
+# zero-padded to 256, show what the padding costs (printed, no JSON rows)
+WIDE_TIMED = ((128, True), (256, True), (160, False))
+WIDE_INFERENCE, WIDE_TRAINING = (4, 1024, 4), (4, 512, 4)
+
+
+def chunked_work_factor(name: str, dh: int) -> float:
+    """The chunked kernels' operations over the function's, at a head of dh
+    values in C = ceil(dh / 128) chunks (1 at 128 and below): each of the C
+    output chunks' blocks sums S (and dP) over all C chunks. Forward (with
+    or without LSE) C (C + 1) chunk products for the function's 2 C; dQ
+    C (4 C + 1) (its delta pass: S and dP; then S, dP and dS K_c) for 3 C;
+    dK/dV C (2 C + 1) + C (C + 1) (dK and dV blocks) for 4 C; the two
+    together for the backward's 5 C."""
+    c = -(-dh // 128)
+    factors = {"attention": (c + 1) / 2, "attention_lse": (c + 1) / 2, "attention_dq": (4 * c + 1) / 3,
+               "attention_dkdv": (3 * c + 2) / 4, "attention_backward": (7 * c + 3) / 5}
+    return 1.0 if c == 1 else factors[name]
+
+
+def _graph_ms_or_refused(fn, reps: int):
+    """`graph_ms`, or None where the call raises (a shape a library call
+    refuses)."""
+    try:
+        return graph_ms(fn, reps)
+    except RuntimeError as e:
+        print(f"  refused: {str(e).splitlines()[0][:160]}")
+        return None
 
 
 def time_wide_attention(torch, dev, rng, worst):
-    """The kernels at head width 128, bf16 and f32, timed by CUDA graph
-    replay: the forward at `WIDE_INFERENCE`, the forward with LSE, dQ and
-    dK/dV at `WIDE_TRAINING`, each beside its plain version,
+    """The kernels at head width 128 and the chunked kernels, bf16 and f32,
+    timed by CUDA graph replay at heads of `WIDE_TIMED` values: the forward
+    at `WIDE_INFERENCE`, the forward with LSE, dQ and dK/dV at
+    `WIDE_TRAINING`, each beside its plain version,
     `scaled_dot_product_attention` (forward, or backward: forward +
     backward less forward, which computes dq, dk and dv together) at the
-    same shape and dtype, and its bound: every input read and output
-    written once, and the products the function needs (forward 2, dQ 3,
-    dK/dV 4, of 2 B H N M dh operations each) at the tensor cores' bf16
-    rate or the FMA pipe's f32 one. Returns the 8 JSON rows, their
-    `max_abs_err` from `worst` (`check_wide_head_dims`), launches to be
-    filled in by the D = 512 phases."""
+    same shape and dtype (or that it refused), and its bound: every input
+    read and output written once, and the products the function needs at
+    the real dh (forward 2, dQ 3, dK/dV 4, of 2 B H N M dh operations each)
+    at the tensor cores' bf16 rate or the FMA pipe's f32 one, with the
+    chunked kernels' recompute factor (`chunked_work_factor`) beside it.
+    Returns the JSON rows of 128 and 256, their `max_abs_err` from `worst`
+    (`check_wide_head_dims`), launches to be filled in by the D = 512 and
+    D = 1024 phases."""
     from image_matching_tpu_torch.ops import attention as A
 
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         f32, kind = dtype == torch.float32, str(dtype)[6:]
         esize, rate = (4, F32_FLOPS) if f32 else (2, BF16_TENSOR_FLOPS)
-        for shape, names in ((WIDE_INFERENCE, ("attention",)),
-                             (WIDE_TRAINING, ("attention_lse", "attention_dq", "attention_dkdv"))):
-            b, n, h, dh = shape
-            qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * h * dh)).astype("float32")).to(dev, dtype)
-            q, k, v = qkv[..., :h * dh], qkv[..., h * dh:2 * h * dh], qkv[..., 2 * h * dh:]  # as the model
-            mask = torch.from_numpy(rng.uniform(size=(b, n)) < 0.8).to(dev)
-            mask[:, 0] = True
-            dout = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev, dtype)
-            calls, _ = _attention_calls(torch, A, q, k, v, mask, dout, h)
-            t = {key: graph_ms(fn, 3 if key.startswith("plain") else 20) for key, fn in calls.items()
-                 if key in names or key in ("plain", "plain_lse", "plain_bwd", "lib_fwd", "lib_fb")}
-            t["lib_bwd"] = t["lib_fb"] - t["lib_fwd"]
-            one, rows_b = b * n * h * dh * esize, b * h * n * 4  # one operand; an LSE or delta row set
-            pair = 2.0 * b * h * n * n * dh  # one (N x M x dh) product
-            needs = {"attention": (2, 4 * one + b * n), "attention_lse": (2, 4 * one + rows_b + b * n),
-                     "attention_dq": (3, 5 * one + 2 * rows_b + b * n),
-                     "attention_dkdv": (4, 6 * one + 2 * rows_b + b * n)}
-            for name in names:
-                products, nbytes = needs[name]
-                bms, by = bound(nbytes, products * pair, rate)
-                plain, lib = {"attention": ("plain", "lib_fwd"), "attention_lse": ("plain_lse", "lib_fwd")}.get(
-                    name, ("plain_bwd", "lib_bwd"))
-                key = _wide_row(name, f32)
-                source = "attention.cu" if name in ("attention", "attention_lse") else "attention_bwd.cu"
-                line = {"attention": 371, "attention_lse": 560, "attention_dq": 168, "attention_dkdv": 121}[name]
-                print(f"{key} ({b}, {n}, {h}x{dh}) {kind}: {t[name]:.4f} ms by CUDA graph replay, bound {bms:.5f} ms "
-                      f"({by}; {bms / t[name]:.3f} of it reached), plain {t[plain]:.4f} ms, "
-                      f"scaled_dot_product_attention {'backward' if lib == 'lib_bwd' else 'forward'} {t[lib]:.4f} ms "
-                      f"({t[name] / t[lib]:.3f} of it)")
-                rows.append(dict(name=key, route="cuda", source=f"image_matching_tpu_torch/csrc/{source}",
-                                 replaces=f"image_matching_tpu/ops/pallas/attention.py:{line}", max_abs_err=worst[key],
-                                 ms=t[name], plain_ms=t[plain], bound_ms=bms, bound_by=by, library_ms=t[lib],
-                                 **({"library_covers": WHOLE_BACKWARD} if lib == "lib_bwd" else {})))
-            if "attention_dq" in names:
-                both = t["attention_dq"] + t["attention_dkdv"]
-                print(f"  dQ + dK/dV {kind} at ({b}, {n}, {h}x{dh}): {both:.4f} ms, {both / t['lib_bwd']:.3f} of "
-                      f"scaled_dot_product_attention's backward; its forward + backward {t['lib_fb']:.4f} ms")
-            del calls
+        for dh, with_row in WIDE_TIMED:
+            # a padded width: the backward's two kernels with the padding and the cut back
+            backward = ("attention_dq", "attention_dkdv") if with_row else ("attention_backward",)
+            for shape, names in ((WIDE_INFERENCE, ("attention",)), (WIDE_TRAINING, ("attention_lse", *backward))):
+                b, n, h = shape
+                qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * h * dh)).astype("float32")).to(dev, dtype)
+                q, k, v = qkv[..., :h * dh], qkv[..., h * dh:2 * h * dh], qkv[..., 2 * h * dh:]  # as the model
+                mask = torch.from_numpy(rng.uniform(size=(b, n)) < 0.8).to(dev)
+                mask[:, 0] = True
+                dout = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev, dtype)
+                calls, _ = _attention_calls(torch, A, q, k, v, mask, dout, h)
+                t = {key: graph_ms(fn, 3 if key.startswith("plain") else 20) for key, fn in calls.items()
+                     if key in names or key in ("plain", "plain_lse", "plain_bwd")}
+                for key in ("lib_fwd", "lib_fb"):
+                    t[key] = _graph_ms_or_refused(calls[key], 20)
+                t["lib_bwd"] = None if None in (t["lib_fwd"], t["lib_fb"]) else t["lib_fb"] - t["lib_fwd"]
+                one, rows_b = b * n * h * dh * esize, b * h * n * 4  # one operand; an LSE or delta row set
+                pair = 2.0 * b * h * n * n * dh  # one (N x M x dh) product
+                needs = {"attention": (2, 4 * one + b * n), "attention_lse": (2, 4 * one + rows_b + b * n),
+                         "attention_dq": (3, 5 * one + 2 * rows_b + b * n),
+                         "attention_dkdv": (4, 6 * one + 2 * rows_b + b * n),
+                         "attention_backward": (5, 7 * one + rows_b + b * n)}
+                for name in names:
+                    products, nbytes = needs[name]
+                    bms, by = bound(nbytes, products * pair, rate)
+                    factor = chunked_work_factor(name, dh) * A.padded_head_dim(dh) / dh  # zero columns too
+                    plain, lib = {"attention": ("plain", "lib_fwd"), "attention_lse": ("plain_lse", "lib_fwd")}.get(
+                        name, ("plain_bwd", "lib_bwd"))
+                    key = _wide_row(name, f32, A.padded_head_dim(dh)) if with_row else name
+                    lib_text = ("refused" if t[lib] is None else f"{t[lib]:.4f} ms ({t[name] / t[lib]:.3f} of it)")
+                    print(f"{key} at dh {dh} ({b}, {n}, {h}x{dh}) {kind}: {t[name]:.4f} ms by CUDA graph replay, bound "
+                          f"{bms:.5f} ms ({by}; {bms / t[name]:.3f} of it reached; the kernels do {factor:.3f}x the "
+                          f"function's operations), plain {t[plain]:.4f} ms, scaled_dot_product_attention "
+                          f"{'backward' if lib == 'lib_bwd' else 'forward'} {lib_text}")
+                    if with_row:
+                        source = ("attention.cu" if name in ("attention", "attention_lse")
+                                  else "attention_bwd.cu" if dh == 128 else "attention_bwd_chunked.cu")
+                        line = {"attention": 371, "attention_lse": 560, "attention_dq": 168,
+                                "attention_dkdv": 121}[name]
+                        rows.append(dict(name=key, route="cuda", source=f"image_matching_tpu_torch/csrc/{source}",
+                                         replaces=f"image_matching_tpu/ops/pallas/attention.py:{line}",
+                                         max_abs_err=worst[key], ms=t[name], plain_ms=t[plain], bound_ms=bms,
+                                         bound_by=by, library_ms=t[lib],
+                                         **({"work_factor": factor} if factor != 1.0 else {}),
+                                         **({"library_covers": WHOLE_BACKWARD} if lib == "lib_bwd" else {})))
+                if "attention_dq" in names:
+                    both = t["attention_dq"] + t["attention_dkdv"]
+                    vs = "" if t["lib_bwd"] is None else (f", {both / t['lib_bwd']:.3f} of scaled_dot_product_"
+                                                          f"attention's backward; its forward + backward "
+                                                          f"{t['lib_fb']:.4f} ms")
+                    print(f"  dQ + dK/dV {kind} at ({b}, {n}, {h}x{dh}): {both:.4f} ms{vs}")
+                del calls
     return rows
-
-
 
 
 def time_f32_kernels(torch, dev, rng, libs):
@@ -1476,6 +1523,7 @@ def compare_with_plain(torch, model, image0, image1, out, label, min_kp_iou):
           f"equal matches0 on {share_matched:.6f} of the {int(matched.sum())} slots matched on either path")
     check(kp_share >= min_kp_iou, f"{label}: keypoints differ between kernel and plain path ({kp_share})")
     check(share_matched >= 0.9, f"{label}: matches differ between kernel and plain path ({share_matched})")
+    return z_err
 
 
 def profile_forward(torch, model, image0, image1, sec, label: str = "profile"):
@@ -4310,30 +4358,46 @@ def run_model_parallel_cards(torch, smi: str, captured: dict):
           f"{time.perf_counter() - t1:.1f} s for the NCCL world of {MP_WORLD} (its start included); {smi}")
 
 
-# ---------------------------------------------------------------- heads of 128 values: D = 512
+# ---------------------------------------------------------------- wide heads: D = 512 and D = 1024
 
-# SuperGlue at descriptor_dim 512: 4 heads of 128 values, the path of the kernels at 128.
-# No banked weights exist at that width: every phase runs seeded ones.
-WIDE_SG = dict(descriptor_dim=512, keypoint_encoder=(32, 64, 128, 256))
+# SuperGlue at descriptor_dim 512 and 1024: 4 heads of 128 values (the kernels at 128) and
+# of 256 (the chunked kernels, 2 chunks of 128). No banked weights exist at those widths:
+# every phase runs seeded ones.
+WIDE_SG = dict(keypoint_encoder=(32, 64, 128, 256))
+WIDE_DESCRIPTOR_DIMS = (512, 1024)
 WIDE_TRAIN_STEPS = 6
+# the training CLI's wide runs at 2 GNN layers: a checkpoint of the 18 layers at D = 1024 is
+# 2.2 GB of compressed npz (weights and Adam's moments), ~2 minutes to write on the card's host
+WIDE_CLI_LAYERS = 2
 WIDE_MATCH_PAIR_SOURCES = 2
+# the kernel path's log-coupling against the all-plain path's, largest distance over the
+# valid pairs: both run the 18-layer GNN in bf16 (or f32), rounding in other orders (on an
+# H100: 0.117 at D = 256, 0.161 at D = 512, 0.083 at D = 1024 in bf16, 2.2e-4 in f32)
+WIDE_MAX_Z_ERR = {"bfloat16": 0.5, "float32": 1e-3}
 
 
-def run_wide_main_path(torch, dev, dtype: str):
+def wide_launch(name: str, d: int) -> str:
+    """The launch count of wrapper `name` on the D = `d` path (4 heads)."""
+    from image_matching_tpu_torch.ops import attention as A
+
+    return A.launch_name(name, A.padded_head_dim(d // 4))
+
+
+def run_wide_main_path(torch, dev, d: int, dtype: str):
     """The headline's `Matching` (480x640, batch 4, K = 1024, 18 GNN layers,
-    30 Sinkhorn iterations, plain backbone) at descriptor_dim 512, seeded
+    30 Sinkhorn iterations, plain backbone) at descriptor_dim `d`, seeded
     weights, in `dtype`: launch counts of one forward (the forward kernel
-    at 128, 36 a forward), pairs/s by the host clock (median of 5
-    forwards), peak memory, agreement with the all-plain path, and the
-    device time and busy share of a forward (profiled). Returns the launch
-    counts."""
+    of the heads' width, 36 a forward), pairs/s by the host clock (median
+    of 5 forwards), peak memory, agreement with the all-plain path (the
+    log-coupling within `WIDE_MAX_Z_ERR`), and the device time and busy
+    share of a forward (profiled). Returns the launch counts."""
     import numpy as np
     from image_matching_tpu_torch.models import Matching, MatchingConfig
     from image_matching_tpu_torch.ops import _build
 
     batch, h, w, k = 4, 480, 640, 1024
-    label = f"D = 512 main path ({dtype})"
-    cfg = MatchingConfig(**WIDE_SG, max_keypoints=k, keypoint_threshold=0.005, gnn_layers=18, sinkhorn_iterations=30,
+    label = f"D = {d} main path ({dtype})"
+    cfg = MatchingConfig(descriptor_dim=d, **WIDE_SG, max_keypoints=k, keypoint_threshold=0.005, gnn_layers=18, sinkhorn_iterations=30,
                          match_threshold=0.1, compute_dtype=dtype)
     model = Matching(cfg, device=dev, seed=0)
     rng = np.random.default_rng(8)
@@ -4348,7 +4412,7 @@ def run_wide_main_path(torch, dev, dtype: str):
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {"entry_conv": 1, "attention_dh128": 36, "sinkhorn": 1}
+    want = {"entry_conv": 1, wide_launch("attention", d): 36, "sinkhorn": 1}
     print(f"{label} launches per forward: {launches}")
     check(launches == want, f"{label} launch counts {launches} != {want}")
     times = []
@@ -4361,7 +4425,7 @@ def run_wide_main_path(torch, dev, dtype: str):
     print(f"{label}: {batch / sec:.2f} pairs/s (median of 5 forwards, {sec * 1e3:.2f} ms per batch of {batch}); peak "
           f"memory {peak_gib:.3f} GiB; TF32 off")
     z, kp0 = out["log_coupling"], out["keypoints0"]
-    check(tuple(z.shape) == (batch, k + 1, k + 1) and tuple(kp0.desc.shape) == (batch, k, 512), f"{label}: shapes")
+    check(tuple(z.shape) == (batch, k + 1, k + 1) and tuple(kp0.desc.shape) == (batch, k, d), f"{label}: shapes")
     valid = kp0.mask[:, :, None] & out["keypoints1"].mask[:, None, :]
     check(bool(torch.isfinite(z[:, :k, :k][valid]).all()), f"{label}: non-finite log-coupling")
     m0 = out["matches0"]
@@ -4369,18 +4433,20 @@ def run_wide_main_path(torch, dev, dtype: str):
     print(f"{label}: keypoints per image {kp0.num_valid().tolist()}, matches {(m0 >= 0).sum(-1).tolist()}")
     # as the headline's checks: bf16 keypoint sets identical (every one of the K far above
     # the threshold), f32 ones within a few swaps of closely tied scores at the K-th cut
-    compare_with_plain(torch, model, image0, image1, out, label, min_kp_iou=1.0 if dtype == "bfloat16" else 0.99)
+    z_err = compare_with_plain(torch, model, image0, image1, out, label,
+                               min_kp_iou=1.0 if dtype == "bfloat16" else 0.99)
+    check(z_err <= WIDE_MAX_Z_ERR[dtype], f"{label}: log-coupling {z_err} from the all-plain path's")
     profile_forward(torch, model, image0, image1, sec, f"{label} profile")
     return launches
 
 
-def train_wide(torch, dev, images, dtype: str):
+def train_wide(torch, dev, images, d: int, dtype: str):
     """SuperGlue training at the training CLI's defaults (batch 4 at
     240x320, K = 512, 18 GNN layers, 100 Sinkhorn iterations, lr 1e-4,
-    frozen SuperPoint in the same dtype) at descriptor_dim 512 with seeded
+    frozen SuperPoint in the same dtype) at descriptor_dim `d` with seeded
     weights, in `dtype`, through the trainer's step
     (`make_superglue_train_step`, which the CLI calls): launch counts of
-    one step (each training kernel at 128, 36 a step), steps/s (median of
+    one step (each training kernel of the heads' width, 36 a step), steps/s (median of
     `WIDE_TRAIN_STEPS`), peak memory, finite metrics; then every attention
     backward call of each of two more steps against the plain version
     (`check_backward_calls`; in f32 its distance to float64 moves with the
@@ -4390,9 +4456,9 @@ def train_wide(torch, dev, images, dtype: str):
     from image_matching_tpu_torch.train.state import TrainState
     from image_matching_tpu_torch.train.superglue_trainer import SuperGluePairConfig, make_superglue_train_step
 
-    label = f"D = 512 training ({dtype})"
-    sp = SuperPointBN(512, compute_dtype=dtype, device=dev, seed=0)
-    sg = SuperGlue(**WIDE_SG, gnn_layers=18, sinkhorn_iterations=100, compute_dtype=dtype, device=dev, seed=0)
+    label = f"D = {d} training ({dtype})"
+    sp = SuperPointBN(d, compute_dtype=dtype, device=dev, seed=0)
+    sg = SuperGlue(descriptor_dim=d, **WIDE_SG, gnn_layers=18, sinkhorn_iterations=100, compute_dtype=dtype, device=dev, seed=0)
     state = TrainState.create(sg, 1e-4)
     step = make_superglue_train_step(sg, sp, SuperGluePairConfig())
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4406,8 +4472,8 @@ def train_wide(torch, dev, images, dtype: str):
     launches = dict(_build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n_attn = 2 * 18
-    want = {"entry_conv": 1, "attention_lse_dh128": n_attn, "attention_dq_dh128": n_attn,
-            "attention_dkdv_dh128": n_attn}
+    want = {"entry_conv": 1, **{wide_launch(name, d): n_attn for name in ("attention_lse", "attention_dq",
+                                                                             "attention_dkdv")}}
     print(f"{label} launches per step: {launches}")
     check(launches == want, f"{label} launch counts {launches} != {want}")
     times = []
@@ -4435,21 +4501,24 @@ def train_wide(torch, dev, images, dtype: str):
     return launches
 
 
-def run_wide_train_cli(torch, dev, smi: str):
+def run_wide_train_cli(torch, dev, smi: str, d: int, resume: bool):
     """`cli/train_superglue.py` in-process at its defaults (bf16) with
-    --synthetic --descriptor_dim 512 --keypoint_encoder 32 64 128 256
-    (seeded SuperPoint and SuperGlue) for one epoch of `WIDE_TRAIN_STEPS`
-    steps: launches per step, steps/s (median over the steps after the
-    first), peak memory, finite losses, the checkpoint written."""
+    --synthetic --descriptor_dim `d` --keypoint_encoder 32 64 128 256
+    --gnn_layers `WIDE_CLI_LAYERS` (seeded SuperPoint and SuperGlue) for
+    one epoch of `WIDE_TRAIN_STEPS` steps and, with `resume`, --resume for
+    one more: launches per step, steps/s (median over the steps after the
+    first), peak memory, finite losses, the checkpoints written and the
+    step count continued."""
     import shutil
 
     from image_matching_tpu_torch.cli import train_superglue as cli
     from image_matching_tpu_torch.ops import _build
 
-    run_dir = ROOT / "build" / "train_superglue_d512"
+    run_dir = ROOT / "build" / f"train_superglue_d{d}"
     shutil.rmtree(run_dir, ignore_errors=True)
-    argv = ["--synthetic", "--run_dir", str(run_dir), "--descriptor_dim", "512", "--keypoint_encoder", "32", "64",
-            "128", "256", "--epochs", "1", "--steps_per_epoch", str(WIDE_TRAIN_STEPS), "--log_interval", "2"]
+    argv = ["--synthetic", "--run_dir", str(run_dir), "--descriptor_dim", str(d), "--keypoint_encoder", "32", "64",
+            "128", "256", "--gnn_layers", str(WIDE_CLI_LAYERS), "--epochs", "1", "--steps_per_epoch",
+            str(WIDE_TRAIN_STEPS), "--log_interval", "2"]
     times, real_factory = [], cli.make_superglue_train_step
 
     def timed_factory(*args, **kwargs):
@@ -4463,82 +4532,99 @@ def run_wide_train_cli(torch, dev, smi: str):
             return metrics
         return timed
 
+    label = f"train_superglue CLI --descriptor_dim {d} --gnn_layers {WIDE_CLI_LAYERS}"
+    want = {"entry_conv": 1, **{wide_launch(name, d): 2 * WIDE_CLI_LAYERS for name in ("attention_lse", "attention_dq",
+                                                                                        "attention_dkdv")}}
+    runs = {}
     with mock.patch.object(cli, "make_superglue_train_step", timed_factory):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_launch_counts()
-        out = cli.main(argv)
-        torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    sec = statistics.median(times[1:])
-    per_step = {key: val / len(times) for key, val in launches.items()}
-    print(f"train_superglue CLI --descriptor_dim 512: steps 0 -> {out['state'].step}; {1 / sec:.3f} steps/s (median "
-          f"over the {len(times) - 1} steps after the first, {sec * 1e3:.2f} ms; first step {times[0] * 1e3:.1f} ms); "
-          f"peak memory {peak:.3f} GiB; launches per step {per_step}; {smi}")
-    for rec in out["logged"]:
-        print("  " + ", ".join(f"{key} {val:.4f}" if isinstance(val, float) else f"{key} {val}"
-                               for key, val in rec.items()))
-    want = {"entry_conv": 1, "attention_lse_dh128": 36, "attention_dq_dh128": 36, "attention_dkdv_dh128": 36}
-    check(per_step == want, f"train_superglue CLI --descriptor_dim 512: launches per step {per_step} != {want}")
-    check(out["state"].step == WIDE_TRAIN_STEPS and len(times) == WIDE_TRAIN_STEPS
-          and all(math.isfinite(r["loss"]) and r["skipped_nonfinite"] == 0 for r in out["logged"])
-          and (run_dir / "checkpoints" / f"{WIDE_TRAIN_STEPS}.npz").is_file(),
-          "train_superglue CLI --descriptor_dim 512: a loss is not finite, a step was skipped or the checkpoint is "
-          "missing")
+        for run, extra in (("1 epoch", []), ("--resume, 1 epoch", ["--resume"]))[:2 if resume else 1]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            first = len(times)
+            runs[run] = out = cli.main(argv + extra)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            steps = len(times) - first
+            sec = statistics.median(times[first + 1:])
+            per_step = {key: val / steps for key, val in launches.items()}
+            print(f"{label} ({run}): steps {out['history'][0]['first_step']} -> {out['state'].step}; {1 / sec:.3f} "
+                  f"steps/s (median over the {steps - 1} steps after the first, {sec * 1e3:.2f} ms; first step "
+                  f"{times[first] * 1e3:.1f} ms); peak memory {peak:.3f} GiB; launches per step {per_step}; {smi}")
+            for rec in out["logged"]:
+                print("  " + ", ".join(f"{key} {val:.4f}" if isinstance(val, float) else f"{key} {val}"
+                                       for key, val in rec.items()))
+            check(per_step == want, f"{label} ({run}): launches per step {per_step} != {want}")
+            check(steps == WIDE_TRAIN_STEPS and all(math.isfinite(r["loss"]) and r["skipped_nonfinite"] == 0
+                                                    for r in out["logged"]),
+                  f"{label} ({run}): {steps} steps, or a loss is not finite or a step was skipped")
+    ckpts = sorted((p.name for p in (run_dir / "checkpoints").iterdir()), key=lambda name: int(name.split(".")[0]))
+    print(f"{label}: checkpoints {ckpts}")
+    resumed = runs.get("--resume, 1 epoch")
+    check(runs["1 epoch"]["state"].step == WIDE_TRAIN_STEPS
+          and (resumed is None or (resumed["history"][0]["first_step"] == WIDE_TRAIN_STEPS
+                                   and resumed["state"].step == 2 * WIDE_TRAIN_STEPS))
+          and ckpts == [f"{k * WIDE_TRAIN_STEPS}.npz" for k in (1, 2)[:len(runs)]],
+          f"{label}: the checkpoints or the resumed step count are wrong")
 
 
-def run_wide_match_pair(torch, dev, smi: str):
-    """`cli/match_pair.py --matcher superglue --descriptor_dim 512` on the
+def run_wide_match_pair(torch, dev, smi: str, d: int):
+    """`cli/match_pair.py --matcher superglue --descriptor_dim d` on the
     template and the first `WIDE_MATCH_PAIR_SOURCES` sources that
     `run_match_pair_cli` wrote, with seeded SuperPoint and SuperGlue
     weights: a run check, no quality claim. Wall s a pair (the CLI's own
-    timer), launches (the forward kernel at 128, 36 a pair), finite
-    transforms."""
+    timer), launches (the forward kernel of the heads' width, 36 a pair),
+    finite transforms."""
     import numpy as np
 
     root = ROOT / "build" / "match_pair"
-    wide = root / "d512"
+    wide = root / f"d{d}"
     (wide / "src").mkdir(parents=True, exist_ok=True)
     for i in range(WIDE_MATCH_PAIR_SOURCES):
         (wide / "src" / f"s{i}.png").write_bytes((root / "src" / f"s{i}.png").read_bytes())
     records, launches, sec = _match_pair(torch, ["--template", str(root / "template.png"), "--source_dir",
                                                  str(wide / "src"), "--out", str(wide / "out"), "--matcher",
-                                                 "superglue", "--descriptor_dim", "512"])
+                                                 "superglue", "--descriptor_dim", str(d)])
     n = WIDE_MATCH_PAIR_SOURCES
-    print(f"match_pair --matcher superglue --descriptor_dim 512 (seeded weights; a run check, no quality claim): "
+    print(f"match_pair --matcher superglue --descriptor_dim {d} (seeded weights; a run check, no quality claim): "
           + "; ".join(f"{r['name']} {r['wall_s']:.4f} s, {r['matches']} matches, valid {r['valid']}" for r in records)
           + f"; wall s a pair median {statistics.median(r['wall_s'] for r in records):.4f}; whole run {sec:.1f} s; "
           f"launches {launches}; {smi}")
-    want = {"entry_conv_h": 2 * n, "attention_dh128": 36 * n, "sinkhorn": n}
+    want = {"entry_conv_h": 2 * n, wide_launch("attention", d): 36 * n, "sinkhorn": n}
     check(len(records) == n and launches == want and all(np.isfinite(r["transform"]).all() for r in records),
-          f"match_pair --descriptor_dim 512: {len(records)} records, launches {launches} != {want}, or a non-finite "
+          f"match_pair --descriptor_dim {d}: {len(records)} records, launches {launches} != {want}, or a non-finite "
           "transform")
 
 
 def run_wide_heads(torch, dev, smi: str, rows):
-    """SuperGlue at descriptor_dim 512 through its entry points: `Matching`
-    in bf16 and f32, training in bf16 and f32, the training CLI and
-    match_pair. Fills in the launches of `rows` (`time_wide_attention`):
-    each kernel's count on its own path, the forwards per D = 512 forward
-    and the training kernels per D = 512 step."""
+    """SuperGlue at descriptor_dim 512 and 1024 (`WIDE_DESCRIPTOR_DIMS`)
+    through its entry points: `Matching` in bf16 and f32, training in bf16
+    and f32, the training CLI (with a resume at 1024), and match_pair. Fills in the
+    launches of `rows` (`time_wide_attention`): each kernel's count on its
+    own path, the forwards per forward and the training kernels per step
+    at the D whose heads are the row's width (128: D = 512, 256: D = 1024)."""
     import numpy as np
 
-    t0 = time.perf_counter()
-    paths = {"": run_wide_main_path(torch, dev, "bfloat16"), "_f32": run_wide_main_path(torch, dev, "float32")}
     rng = np.random.default_rng(12)
     images = torch.from_numpy(np.stack([texture(torch, rng, 240, 320) for _ in range(4)])[..., None]).to(dev)
-    paths["train"] = train_wide(torch, dev, images, "bfloat16")
-    paths["train_f32"] = train_wide(torch, dev, images, "float32")
-    run_wide_train_cli(torch, dev, smi)
-    run_wide_match_pair(torch, dev, smi)
-    for row in rows:  # attention_lse_f32_dh128 -> the f32 step's attention_lse_dh128
+    paths = {}
+    for d in WIDE_DESCRIPTOR_DIMS:
+        t0 = time.perf_counter()
+        paths[d, ""] = run_wide_main_path(torch, dev, d, "bfloat16")
+        paths[d, "_f32"] = run_wide_main_path(torch, dev, d, "float32")
+        paths[d, "train"] = train_wide(torch, dev, images, d, "bfloat16")
+        paths[d, "train_f32"] = train_wide(torch, dev, images, d, "float32")
+        run_wide_train_cli(torch, dev, smi, d, resume=d == WIDE_DESCRIPTOR_DIMS[-1])
+        run_wide_match_pair(torch, dev, smi, d)
+        print(f"D = {d} phases: {time.perf_counter() - t0:.1f} s; {smi}")
+    for row in rows:  # attention_lse_f32_dh256 -> the D = 1024 f32 step's attention_lse_dh256
         f32 = "_f32" in row["name"]
         name = row["name"].replace("_f32", "")
-        on_path = paths[("train" if name != "attention_dh128" else "") + ("_f32" if f32 else "")]
+        d = 4 * int(name.rsplit("_dh", 1)[1])
+        on_path = paths[d, ("train" if not name.startswith("attention_dh") else "") + ("_f32" if f32 else "")]
         row["launches"] = on_path.get(name, 0)
-        check(row["launches"] == 36, f"{row['name']}: {row['launches']} launches on its D = 512 path")
-    print(f"D = 512 phases: {time.perf_counter() - t0:.1f} s; {smi}")
+        check(row["launches"] == 36, f"{row['name']}: {row['launches']} launches on its D = {d} path")
 
 
 def main() -> int:

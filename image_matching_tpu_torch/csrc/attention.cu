@@ -86,6 +86,29 @@
 // (PERF.md): 41% of the FMA pipe at the headline's shape, 0.89x f32 SDPA's
 // time; the tiles' shared-memory loads (csrc/lds_probe.cu) allow two thirds.
 //
+// Heads wider than 128 (dh = C * 128, C >= 2; the wrapper zero-pads any
+// other width above 128 to the next multiple): `attention_chunked<LSE>`
+// (bf16) and `attention_ffma_chunked<LSE>` (f32). These replace
+// _onepass_forward and _flash_forward(_with_lse) at those widths, which keep
+// a whole head in VMEM; a 64-row tile of 256 values is 33 KB in bf16, 66 KB
+// in f32, and the kernels at 128 already fill a block's shared memory and
+// registers. So a block owns 64 queries of one (b, head) and ONE 128-value
+// chunk c of the output (blockIdx.y = head * C + c), and walks the key
+// tiles in steps through a 2-slot ring of padded 64 x 128 tiles: per key
+// tile, C steps that each stage Q_c' and K_c' together and add Q_c' K_c'^T
+// to S (bf16: mma.sync with Q's A fragments read from the slot, a k-step's
+// fragments once for the tile's 8 n-tiles, `mma_nt_tile`; f32: the 4 x 4
+// `nt_product`), then one step with V_c alone for the online softmax and
+// O += P V_c, as the kernels at 128 do them. The accumulators are those of
+// width 128; S, the softmax statistics and P are the whole head's, and each
+// chunk block computes them again: C (C + 1) chunk products for the
+// function's 2 C, 1.5x at 256. One warpgroup a block in bf16 (68 KB of ring
+// plus the key table: 2 blocks an SM at K = 1024), one group of 8 warps in
+// f32 (150 KB). Chunk 0 writes the LSE. Bound: at D = 1024's (4, 1024,
+// 4 x 256) the tensor cores' rate (bf16) or the FMA pipe's (f32); each
+// chunk step brings 34 KB (68 KB in f32) through L2 with one step in flight,
+// and which of the two holds the kernels is not measured (PERF.md).
+//
 // Forward with LSE (training): the same kernels with LSE = true also
 // write the f32 log-sum-exp of every query row, (B, H, N), for the backward
 // kernels of csrc/attention_bwd.cu. This replaces _flash_forward_with_lse
@@ -419,6 +442,100 @@ attention_mma(ATTENTION_KERNEL_ARGS) {
   if (grp == 0) write_rows<DH, LSE>(out, lse, &o[0][0], m, l, dead, b, N, H, h, q0 + wr + g, t);
 }
 
+// ------------------------------------------------------------------ bf16, heads wider than 128: chunks
+
+// A block of the chunked kernels owns 64 queries of one (b, head) and one
+// 128-value chunk c of the output (blockIdx.y = head * C + c); its ring
+// slots hold two padded 64 x 128 tiles.
+constexpr int CW = 128;
+constexpr int CHUNK_TILE = tile_elems<CW>();
+constexpr int CHUNK_SLOT_BYTES = 2 * CHUNK_TILE * 2;
+
+// softmax(Q K^T scale) V_c of the block's 64 queries for a head of C
+// chunks. Per key tile, C steps S += Q_c' K_c'^T (Q_c' and K_c' staged
+// together in a slot, Q's A fragments read from it), then one step with V_c
+// alone: the online softmax and O += P V_c as `attention_mma`'s.
+template <bool LSE>
+__global__ void __launch_bounds__(GROUP)
+attention_chunked(ATTENTION_KERNEL_ARGS, int C) {
+  constexpr int LD = CW + PAD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* slots = reinterpret_cast<__nv_bfloat16*>(smem);           // STAGES x (A, B tiles)
+  float2* keys = reinterpret_cast<float2*>(smem + STAGES * CHUNK_SLOT_BYTES);  // [ntiles * T]
+
+  const int b = blockIdx.z, h = blockIdx.y / C, c = blockIdx.y % C, tid = threadIdx.x;
+  const int lane = tid % 32, wr = (tid / 32) * 16, g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * T, DH = C * CW;
+  const int ntiles = (M + T - 1) / T, steps = ntiles * (C + 1);
+  const __nv_bfloat16* q_h = q + b * q_bs + h * DH;
+  const __nv_bfloat16* k_h = k + b * k_bs + h * DH;
+  const __nv_bfloat16* v_c = v + b * v_bs + h * DH + c * CW;
+
+  // step u of key tile u / (C + 1): Q and K of chunk u % (C + 1), the last V_c
+  auto stage = [&](int u) {
+    __nv_bfloat16* slot = slots + (u % STAGES) * 2 * CHUNK_TILE;
+    const int j0 = u / (C + 1) * T, sub = u % (C + 1);
+    if (sub < C) {
+      stage_tile<CW, GROUP>(slot, q_h + sub * CW, q_rs, q0, N, tid);
+      stage_tile<CW, GROUP>(slot + CHUNK_TILE, k_h + sub * CW, k_rs, j0, M, tid);
+    } else {
+      stage_tile<CW, GROUP>(slot, v_c, v_rs, j0, M, tid);
+    }
+  };
+
+  stage(0);
+  cp_async_commit();
+  const bool dead = stage_key_table(keys, mask, b, M, ntiles, scale * LOG2E);
+  const uint32_t lane_nt = nt_lane_offset<CW>(lane), lane_tn = tn_lane_offset<CW>(lane);
+  float o[CW / 8][4], s[8][4];
+  zero<CW / 8>(o);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int u = 0; u < steps; ++u) {
+    cp_async_wait<0>();
+    __syncthreads();  // step u's tiles have landed; step u - 1's slot is read no more
+    if (u + 1 < steps) stage(u + 1);
+    cp_async_commit();
+    const __nv_bfloat16* slot = slots + (u % STAGES) * 2 * CHUNK_TILE;
+    const int sub = u % (C + 1);
+    if (sub < C) {
+      if (sub == 0) zero<8>(s);
+      mma_nt_tile<CW>(s, a_lane_addr<CW>(slot, wr, lane), smem_addr(slot + CHUNK_TILE) + lane_nt);  // S += Q K^T
+      continue;
+    }
+    float corr[2];
+    online_softmax(&s[0][0], m, l, corr, keys + u / (C + 1) * T + 2 * t);
+#pragma unroll
+    for (int n = 0; n < CW / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+    const uint32_t vs = smem_addr(slot) + lane_tn;
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) {  // O += P V_c, P's C layout reused as A fragments
+      uint32_t pa[4];
+      c_to_a(pa, s + 2 * kk);
+      mma_tn<CW>(o, pa, vs + kk * 16 * LD * 2);
+    }
+  }
+  cp_async_wait<0>();
+
+  // the rows' sums over their 4 threads, O / l, and (chunk 0) the LSE
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + wr + g + 8 * r;
+    if (LSE && c == 0 && t == 0 && row < N)
+      lse[((int64_t)b * H + h) * N + row] = dead ? logf(l[r]) : m[r] * LN2 + logf(l[r]);
+    const float inv = 1.f / l[r];
+#pragma unroll
+    for (int n = 0; n < CW / 8; ++n) {
+      o[n][2 * r] *= inv;
+      o[n][2 * r + 1] *= inv;
+    }
+  }
+  store_rows<CW>(out, b, N, H * C, h * C + c, q0 + wr + g, t, o);  // chunk c of head h: "head" h C + c of 128
+}
+
 // ------------------------------------------------------------------ f32: register-tiled FFMA
 
 // Groups of 8 warps that split a block's key tiles: two (16 warps, one
@@ -646,6 +763,173 @@ attention_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
   store_out<OW>(out + (int64_t)b * N * H * DH + h * DH, q0, N, (int64_t)H * DH, acc, R);
 }
 
+// f32, heads wider than 128: a block (one group of 8 warps) owns 64 queries
+// of one (b, head) and one 128-value chunk c of the output. Its ring slots
+// hold two 64 x 128 f32 tiles: per key tile, C steps S += Q_c' K_c'^T
+// (`nt_product` over each chunk in turn), then one step with V_c alone:
+// `attention_ffma`'s softmax of a tile (one group) and O += P V_c.
+constexpr int CHUNK_F32_TILE = T * f32_ld<CW>();  // floats
+
+__host__ __device__ constexpr int ffma_chunked_smem_bytes() { return (STAGES * 2 * CHUNK_F32_TILE + T * XLD) * 4; }
+
+template <bool LSE>
+__global__ void __launch_bounds__(FG, 1)
+attention_ffma_chunked(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
+                       const float* __restrict__ k, int64_t k_bs, int64_t k_rs,
+                       const float* __restrict__ v, int64_t v_bs, int64_t v_rs,
+                       const uint8_t* __restrict__ mask, float* __restrict__ out,
+                       float* __restrict__ lse, int N, int M, int H, float scale, int C) {
+  constexpr int LD = f32_ld<CW>(), OW = CW / 16;
+  __shared__ float part[4][T];                // the rows' partial max (per tile), then sums, per key quarter
+  __shared__ __align__(16) float row_corr[T];  // the rows' rescale factor of a tile
+  __shared__ float row_m[T];                   // the rows' final shifts
+  extern __shared__ __align__(16) float fsm[];
+  float* xp = fsm + STAGES * 2 * CHUNK_F32_TILE;  // P[key][query]
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z, h = blockIdx.y / C, c = blockIdx.y % C, q0 = blockIdx.x * T, DH = C * CW;
+  const int ntiles = (M + T - 1) / T, steps = ntiles * (C + 1);
+  const float* q_h = q + b * q_bs + h * DH;
+  const float* k_h = k + b * k_bs + h * DH;
+  const float* v_c = v + b * v_bs + h * DH + c * CW;
+
+  // step u of key tile u / (C + 1): Q and K of chunk u % (C + 1), the last V_c
+  auto stage = [&](int u) {
+    float* slot = fsm + (u % STAGES) * 2 * CHUNK_F32_TILE;
+    const int j0 = u / (C + 1) * T, sub = u % (C + 1);
+    if (sub < C) {
+      stage_f32<CW, FG>(slot, q_h + sub * CW, q_rs, q0, N, tid);
+      stage_f32<CW, FG>(slot + CHUNK_F32_TILE, k_h + sub * CW, k_rs, j0, M, tid);
+    } else {
+      stage_f32<CW, FG>(slot, v_c, v_rs, j0, M, tid);
+    }
+  };
+
+  stage(0);
+  cp_async_commit();
+  bool dead = false;
+  if constexpr (LSE) dead = dead_batch(mask, b, M);
+
+  const NtLane L = nt_lane(tid);
+  const TnLane R = tn_lane<CW, OW>(tid);
+  const int lane = tid % 32, wq = tid / 64;  // a row's threads: lanes 8 apart, warps 2 apart (key quarter wq)
+  float m[4], l[4], s[4][4], acc[4][OW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < OW; ++e) acc[i][e] = 0.f;
+  }
+  uint32_t state = 0;
+  for (int u = 0; u < steps; ++u) {
+    cp_async_wait<0>();
+    __syncthreads();  // step u's tiles have landed; step u - 1's slot is read no more
+    if (u + 1 < steps) stage(u + 1);
+    cp_async_commit();
+    const float* slot = fsm + (u % STAGES) * 2 * CHUNK_F32_TILE;
+    const int sub = u % (C + 1);
+    if (sub < C) {
+      if (sub == 0) {
+        // the keys' states, two bits each (valid; in range), asked for ahead of the products
+        const int key0 = u / (C + 1) * T + L.loop;
+        state = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = key0 + 4 * j;
+          const bool valid = key < M && (mask == nullptr || mask[(int64_t)b * M + key]);
+          state |= (valid ? 1u << j : 0u) | (key < M ? 16u << j : 0u);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      }
+      nt_product<CW>(s, slot + L.own * LD, slot + CHUNK_F32_TILE + L.loop * LD);  // S += Q K^T
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // the logit: s scale, -1e9 masked, -inf past M
+        s[i][j] = state & (1u << j) ? s[i][j] * scale : (state & (16u << j) ? MASKED : -INFINITY);
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      if (lane < 8) part[wq][L.own + 8 * i] = mx;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = L.own + 8 * i;
+      // finite: key 0 of a tile is in range
+      const float mx = fmaxf(fmaxf(part[0][row], part[1][row]), fmaxf(part[2][row], part[3][row]));
+      const float m_new = fmaxf(m[i], ceilf(mx * LOG2E));
+      const float corr = pow2(m[i] - m_new);  // 0 at the first tile (m = -inf)
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = ex2(fmaf(s[i][j], LOG2E, -m_new));
+        sum += s[i][j];
+      }
+      l[i] = l[i] * corr + sum;
+      if (wq == 0 && lane < 8) row_corr[row] = corr;
+    }
+    store_x(xp, s, L);
+    __syncthreads();
+    const float4 c4 = *reinterpret_cast<const float4*>(&row_corr[R.own]);
+    const float corr[4] = {c4.x, c4.y, c4.z, c4.w};
+    float tile[4][OW];  // the tile's own sums, then added to O's
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < OW; ++e) tile[i][e] = 0.f;
+    tn_product<CW, OW>(tile, xp + R.own, slot + R.dim);  // P V_c
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < OW; ++e) acc[i][e] = fmaf(acc[i][e], corr[i], tile[i][e]);
+  }
+  cp_async_wait<0>();
+
+  // each row's sum over its 16 threads (lanes, then key quarters); the last
+  // tile read part before its last barrier
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 8);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 16);
+    if (lane < 8) part[wq][L.own + 8 * i] = l[i];
+    if (wq == 0 && lane < 8) row_m[L.own + 8 * i] = m[i];
+  }
+  __syncthreads();
+  float m_row[4], l_row[4];  // rows R.own + i
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = R.own + i;
+    m_row[i] = row_m[row];
+    l_row[i] = (part[0][row] + part[1][row]) + (part[2][row] + part[3][row]);
+    const float inv = 1.f / l_row[i];
+#pragma unroll
+    for (int e = 0; e < OW; ++e) acc[i][e] *= inv;
+  }
+  if constexpr (LSE) {  // chunk 0: the threads of the first 4 dim groups take one of their rows each
+    const int i = R.dim / OW;
+    float m_i = m_row[0], l_i = l_row[0];
+#pragma unroll
+    for (int r = 1; r < 4; ++r) {
+      m_i = i == r ? m_row[r] : m_i;
+      l_i = i == r ? l_row[r] : l_i;
+    }
+    if (c == 0 && i < 4 && q0 + R.own + i < N)
+      lse[((int64_t)b * H + h) * N + q0 + R.own + i] =
+          dead ? static_cast<float>(log(static_cast<double>(M)))
+               : static_cast<float>(m_i * LN2_D + log(static_cast<double>(l_i)));
+  }
+  store_out<OW>(out + (int64_t)b * N * H * DH + h * DH + c * CW, q0, N, (int64_t)H * DH, acc, R);
+}
+
 // ------------------------------------------------------------------ launch
 
 #define ATTENTION_ARGS(T_)                                                              \
@@ -681,9 +965,35 @@ int launch_tiled(int fixed, int threads, ATTENTION_ARGS(__nv_bfloat16)) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Heads of DH = C * 128 values, C >= 2: a block per 64 query rows and
+// 128-value chunk of the output, with the padded key row's table.
+template <bool LSE>
+int launch_chunked_bf16(ATTENTION_ARGS(__nv_bfloat16)) {
+  static const cudaError_t attr = allow_smem(attention_chunked<LSE>, smem_optin(attention_chunked<LSE>));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int C = DH / CW;
+  const int bytes = STAGES * CHUNK_SLOT_BYTES + (M + T - 1) / T * T * static_cast<int>(sizeof(float2));
+  attention_chunked<LSE><<<dim3((N + T - 1) / T, H * C, B), GROUP, bytes, stream>>>(ATTENTION_PASS, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool LSE>
+int launch_chunked_f32(ATTENTION_ARGS(float)) {
+  constexpr int BYTES = ffma_chunked_smem_bytes();
+  static const cudaError_t attr = allow_smem(attention_ffma_chunked<LSE>, BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int C = DH / CW;
+  attention_ffma_chunked<LSE><<<dim3((N + T - 1) / T, H * C, B), FG, BYTES, stream>>>(ATTENTION_PASS, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a head width the chunked kernels take: a multiple of 128 above it
+__host__ __device__ constexpr bool chunked_width(int DH) { return DH > CW && DH % CW == 0; }
+
 template <bool LSE>
 int launch_bf16(ATTENTION_ARGS(__nv_bfloat16)) {
 #define TILED_PASS q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, out, lse, B, N, M, H, DH, scale, stream
+  if (chunked_width(DH)) return launch_chunked_bf16<LSE>(TILED_PASS);
   switch (DH) {
     case 16:
       return launch_tiled<attention_mma<16, MMA_GROUPS, LSE>>(mma_smem_bytes<16, MMA_GROUPS>(),
@@ -715,6 +1025,7 @@ int run_f32(ATTENTION_ARGS(float)) {
 template <bool LSE>
 int launch_f32(ATTENTION_ARGS(float)) {
 #define F32_PASS q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, out, lse, B, N, M, H, DH, scale, stream
+  if (chunked_width(DH)) return launch_chunked_f32<LSE>(F32_PASS);
   switch (DH) {
     case 16: return run_f32<16, LSE>(F32_PASS);
     case 32: return run_f32<32, LSE>(F32_PASS);

@@ -91,6 +91,9 @@
 // 5 times smaller errors, the same cosines, and cost a tenth of the time
 // (PERF.md).
 //
+// Heads wider than 128 run in csrc/attention_bwd_chunked.cu, in chunks of
+// 128 values.
+//
 // f32 (compute_dtype="float32"): `dq_ffma` and `dkdv_ffma`, register-tiled
 // SIMT kernels on plain f32 FMAs; products and exponentials in full f32
 // (the tensor cores would round the products to TF32). Bound: the FMA pipe,
@@ -131,78 +134,16 @@
 
 #include "hopper.cuh"
 #include "ffma.cuh"
+#include "attention_bwd.cuh"
 
 namespace {
 
-constexpr int STAGES = 2;    // tiles of the looped side in a group's ring
 // Warpgroups of a block, each measured on the card against its neighbours
 // (PERF.md): the mma.sync kernels; the wgmma kernels, which registers cap
 // (128 a thread for dQ at 4 groups, 168 for dK/dV at 3).
 constexpr int MMA_GROUPS = 4, WG_GROUPS_DQ = 4, WG_GROUPS_DKDV = 3;
 // at dh = 128 (not measured against others): what the shared memory holds
 constexpr int WIDE_GROUPS = 2;
-
-// key state: 0 valid, 1 masked in a dead batch element (logit 0), 2 masked
-// in a live element or past M (P = 0)
-constexpr uint8_t VALID = 0, DEAD_KEY = 1, NO_KEY = 2;
-
-__device__ __forceinline__ uint8_t key_state(const uint8_t* mask, int b, int M, int key, bool dead) {
-  if (key >= M) return NO_KEY;
-  if (mask == nullptr || mask[(int64_t)b * M + key]) return VALID;
-  return dead ? DEAD_KEY : NO_KEY;
-}
-
-// c (16 x DH) += dS (16 x 16, f32 in the C layout, rounded to bf16) . tile
-// rows at `tile_tn`
-template <int DH>
-__device__ __forceinline__ void mma_ds(float (*c)[4], const float (*ds)[4], uint32_t tile_tn) {
-  uint32_t a[4];
-  c_to_a(a, ds);
-  mma_tn<DH>(c, a, tile_tn);
-}
-
-// A key's part in P and dS, as factors, so that the inner loops run without
-// a branch (a conditional around the exponential compiles to one, and with
-// one warp on a scheduler nothing hides it): P = exp(S * s_scale - lse) for
-// a key that counts (s_scale = scale if valid, 0 in a dead batch element:
-// exp(-lse) = 1/M), else 0; dS = P (dP - delta) * ds_scale, ds_scale = scale
-// for a valid key, else 0.
-struct KeyRow {
-  float s_scale, ds_scale;
-  bool counts;
-};
-
-__device__ __forceinline__ KeyRow key_row(uint8_t state, float scale) {
-  const float s = state == VALID ? scale : 0.f;
-  return {s, s, state != NO_KEY};
-}
-
-// The rows of this thread's two own keys, `first` and `first` + 8. The
-// keys' own mask bytes are asked for ahead of the block's reduction over
-// the whole mask row, so that the two trips to device memory overlap.
-__device__ __forceinline__ void own_key_rows(KeyRow* key, const uint8_t* mask, int b, int M, int first,
-                                             float scale) {
-  bool valid[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    valid[r] = first + 8 * r < M && (mask == nullptr || mask[(int64_t)b * M + first + 8 * r]);
-  const bool dead = dead_batch(mask, b, M);
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    key[r] = key_row(valid[r] ? VALID : (dead && first + 8 * r < M ? DEAD_KEY : NO_KEY), scale);
-}
-
-// P of one (key, query) entry from its S
-__device__ __forceinline__ float p_of(float s, const KeyRow& key, float lse) {
-  const float e = __expf(fmaf(s, key.s_scale, -lse));
-  return key.counts ? e : 0.f;
-}
-
-// s -> P and dp -> dS in place, for one (key, query) entry
-__device__ __forceinline__ void p_ds(float& s, float& dp, const KeyRow& key, float lse, float delta) {
-  s = p_of(s, key, lse);
-  dp = s * (dp - delta) * key.ds_scale;
-}
 
 // ------------------------------------------------------------------ bf16 dK/dV
 
@@ -802,8 +743,6 @@ dq_wg(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
 }
 
 // ------------------------------------------------------------------ f32: register-tiled FFMA
-
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Groups of a block, each count measured on the card against one group
 // (PERF.md): two where their shared memory fits and their registers (128 a

@@ -130,6 +130,26 @@ __device__ __forceinline__ uint32_t tn_lane_offset(int lane) {
   return (((lane % 8) + ((lane / 8) % 2) * 8) * (DH + PAD) + (lane / 16) * 8) * 2;
 }
 
+// c (16 own rows x all 64 tile rows) += A (16 x DH, read from shared memory at
+// `a_addr`, `a_lane_addr`) . tile^T, the tile at `tile_nt` (its address plus
+// the lane's offset): each k-step's A fragments are read once for the
+// tile's 8 n-tiles, c[2 kk] and c[2 kk + 1] holding tile rows 16 kk ..
+template <int DH>
+__device__ __forceinline__ void mma_nt_tile(float (*c)[4], uint32_t a_addr, uint32_t tile_nt) {
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) {
+    uint32_t a[4];
+    ldsm_x4(a, a_addr + ks * 32);
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) {
+      uint32_t r[4];
+      ldsm_x4(r, tile_nt + kk * 16 * (DH + PAD) * 2 + ks * 32);
+      mma_bf16(c[2 * kk], a, r[0], r[1]);
+      mma_bf16(c[2 * kk + 1], a, r[2], r[3]);
+    }
+  }
+}
+
 // c (16 own rows x 16 tile rows) += A (16 x DH, fragments) . tile^T, for the
 // 16 tile rows at `tile_nt`: the tile's address in shared memory plus the
 // lane's and the rows' offsets. One ldmatrix brings both 8-row halves'

@@ -27,7 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("entry_conv", "attention", "attention_bwd", "sinkhorn", "s2d_entry_conv", "realign", "lds_probe")
+KERNELS = ("entry_conv", "attention", "attention_bwd", "attention_bwd_chunked", "sinkhorn", "s2d_entry_conv", "realign",
+           "lds_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -8,13 +8,15 @@ The counterpart of the forward kernels of
 kernel (`csrc/attention.cu`) serves every key count, K=1024 included;
 its logits and softmax are f32 on chip, which is the JAX semantics at
 `logits_dtype="float32"`. The kernels take heads of 16, 32, 64 and 128
-values; a narrower head (any dh up to 128: SuperGlue's 4 heads at
-descriptor_dim 320 and 384 have 80 and 96) is zero-padded to the next of
-those widths on its way in and cut back on its way out, which is exact:
-zero columns add nothing to a score and give zero output columns, and
-the scale stays 1/sqrt(dh) of the real head. Wider heads raise. The
-kernels at 128 count their launches under their own names
-(`launch_name`), so that a run shows which width it went through. The JAX
+values, and every multiple of 128 above it, which the chunked kernels
+take in chunks of 128 values (SuperGlue's 4 heads above descriptor_dim
+512). Any other head is zero-padded to the next of those widths on its
+way in (80 and 96 to 128, 160 and 200 to 256, 320 to 384) and cut back on
+its way out, which is exact: zero columns add nothing to a score and give
+zero output columns, and the scale stays 1/sqrt(dh) of the real head. The
+kernels at 128 and above count their launches under their own names
+(`launch_name`: `_dh128`, `_dh256`, ...), so that a run shows which width
+it went through. The JAX
 package's `logits_dtype="bfloat16"` only narrows how the einsum path
 stores logits in device memory, which the kernel never does, so the
 kernel ignores it. The plain version, used
@@ -32,25 +34,32 @@ import torch
 from image_matching_tpu_torch.ops import _build
 
 NEG_INF = -1e9
-HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernels are built for
-WIDE = 128  # the width whose kernels count their launches apart
+# The head widths the kernels take: HEAD_DIMS, and every multiple of CHUNK
+# above them (the chunked kernels); those from 128 up count their launches apart
+HEAD_DIMS = (16, 32, 64, 128)
+CHUNK = 128
+
+
+def kernel_width(dh: int) -> bool:
+    """True when a kernel takes heads of exactly `dh` values."""
+    return dh in HEAD_DIMS or (dh > CHUNK and dh % CHUNK == 0)
 
 
 def padded_head_dim(dh: int) -> int:
     """The kernels' head width for heads of `dh` values: the narrowest of
-    `HEAD_DIMS` that holds them; raises above the widest."""
+    `HEAD_DIMS` that holds them, and above 128 the next multiple of 128."""
     for width in HEAD_DIMS:
         if dh <= width:
             return width
-    raise ValueError(f"attention: head dim {dh} is above {HEAD_DIMS[-1]}, the widest head the kernels take")
+    return -(-dh // CHUNK) * CHUNK
 
 
 def launch_name(name: str, width: int) -> str:
     """The key of `_build.LAUNCHES` that a kernel of wrapper `name`
     ("attention", "attention_lse", "attention_dq", "attention_dkdv") at head
-    width `width` counts its launches under: `name`, or `name` + "_dh128"
-    for the kernels at 128."""
-    return f"{name}_dh{width}" if width == WIDE else name
+    width `width` counts its launches under: `name`, or `name` + "_dh<width>"
+    for the kernels at 128 and the chunked ones above it."""
+    return f"{name}_dh{width}" if width >= CHUNK else name
 
 
 def pad_heads(t, num_heads: int, width: int):
@@ -189,7 +198,8 @@ def attention_lse(q, k, v, key_mask=None, num_heads: int = 4):
 
 def attention_backward(q, k, v, key_mask, lse, dout, num_heads: int = 4):
     """(dq, dk, dv) of attention, dispatched on the device: the dQ and
-    dK/dV kernels of `csrc/attention_bwd.cu` on the card (bf16: tensor
+    dK/dV kernels of `csrc/attention_bwd.cu` (heads above 128:
+    `csrc/attention_bwd_chunked.cu`) on the card (bf16: tensor
     cores; f32: `dq_ffma` and `dkdv_ffma`, register-tiled on plain f32
     FMAs, full f32 throughout), `attention_backward_plain` on the CPU.
     Both take delta as
@@ -269,8 +279,9 @@ def _check_call(q, k, v, key_mask, num_heads):
     vec = 16 // q.element_size()
     b, n, dt = q.shape
     m = k.shape[1]
-    if dt % num_heads or dt // num_heads not in HEAD_DIMS:
-        raise ValueError(f"attention: head dim {dt}/{num_heads} not in {HEAD_DIMS}")
+    if dt % num_heads or not kernel_width(dt // num_heads):
+        raise ValueError(f"attention: head dim {dt}/{num_heads} is neither in {HEAD_DIMS} nor a multiple of "
+                         f"{CHUNK} above it")
     if n == 0 or m == 0:
         raise ValueError("attention: empty query or key set")
     _check_operand("q", q, q, None, vec)
@@ -355,7 +366,8 @@ def _attention_backward_cuda(q, k, v, key_mask, lse, dout, num_heads):
 
 
 def attention_backward_kernel(name, q, k, v, key_mask, dout, lse, delta, outs, num_heads, scale=None):
-    """Launch one backward kernel of `csrc/attention_bwd.cu` on the card:
+    """Launch one backward kernel of `csrc/attention_bwd.cu` (heads above
+    128: `csrc/attention_bwd_chunked.cu`) on the card:
     "attention_dq" into outs = (dq,), which also writes delta, or
     "attention_dkdv" into (dk, dv), which reads the delta that the dQ
     kernel wrote. dout (B, N, H*dh) is contiguous in q's dtype; lse and
@@ -373,7 +385,8 @@ def attention_backward_kernel(name, q, k, v, key_mask, dout, lse, delta, outs, n
     for t, r in zip(outs, rows, strict=True):
         if t.dtype != q.dtype or tuple(t.shape) != (b, r, dt) or not t.is_contiguous():
             raise ValueError(f"{name}: outputs must be contiguous {q.dtype} {(b, r, dt)}")
-    fn = _launcher("attention_bwd", f"{name}_{_suffix(q.dtype)}", 3 + len(outs))
+    library = "attention_bwd" if dh <= CHUNK else "attention_bwd_chunked"  # the chunked kernels build apart
+    fn = _launcher(library, f"{name}_{_suffix(q.dtype)}", 3 + len(outs))
     args = _qkv_args(q, k, v, key_mask) + [_build.ptr(t) for t in (dout, lse, delta, *outs)]
     scale = 1.0 / math.sqrt(dh) if scale is None else scale
     _build.check(fn(*args, b, n, m, num_heads, dh, scale, _build.stream_ptr(q.device)), name)

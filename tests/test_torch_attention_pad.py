@@ -1,9 +1,11 @@
 """Heads narrower than the kernels' widths, on the CPU.
 
-The attention kernels are built for heads of 16, 32, 64 and 128 values.
-The card's wrappers zero-pad any narrower head to the next of those widths
-(SuperGlue's 4 heads at descriptor_dim 320 and 384 have 80 and 96),
-launch with the scale of the real head, and cut the results back. These
+The attention kernels are built for heads of 16, 32, 64 and 128 values,
+and the chunked ones for every multiple of 128 above it. The card's
+wrappers zero-pad any other head to the next of those widths (SuperGlue's
+4 heads at descriptor_dim 320 and 384 have 80 and 96, at 640 and 1280
+160 and 320, padded to 256 and 384), launch with the scale of the real
+head, and cut the results back. These
 tests show on the plain versions, which take the kernels' scale
 argument, that the padding changes nothing: the same logits, LSE,
 output and gradients, and zeros in the padded columns.
@@ -19,6 +21,7 @@ from image_matching_tpu_torch.ops.attention import (
     attention_backward_plain,
     attention_lse_plain,
     attention_plain,
+    launch_name,
     pad_heads,
     padded_head_dim,
     unpad_heads,
@@ -41,12 +44,14 @@ def test_padded_head_dim():
     assert [padded_head_dim(d) for d in (1, 8, 16, 17, 24, 32, 33, 48, 64)] == [16, 16, 16, 32, 32, 32, 64, 64, 64]
     assert [padded_head_dim(d) for d in (65, 80, 96, 127, 128)] == [128] * 5
     assert padded_head_dim(HEAD_DIMS[-1]) == HEAD_DIMS[-1] == 128
-    for dh in (129, 256):  # D > 512 at 4 heads
-        with pytest.raises(ValueError, match="above 128"):
-            padded_head_dim(dh)
+    # D > 512 at 4 heads: C chunks of 128 values, C = ceil(dh / 128)
+    assert [padded_head_dim(d) for d in (129, 160, 200, 256)] == [256] * 4
+    assert [padded_head_dim(d) for d in (257, 320, 384, 385, 512, 1000)] == [384, 384, 384, 512, 512, 1024]
+    assert [launch_name("attention_dq", w) for w in (64, 128, 256, 384)] == [
+        "attention_dq", "attention_dq_dh128", "attention_dq_dh256", "attention_dq_dh384"]
 
 
-@pytest.mark.parametrize("dh", [8, 24, 48, 80, 96])
+@pytest.mark.parametrize("dh", [8, 24, 48, 80, 96, 160, 200, 320])
 def test_zero_padded_heads_give_the_same_attention_and_gradients(dh):
     q, k, v, mask, dout = _inputs(dh)
     width = padded_head_dim(dh)

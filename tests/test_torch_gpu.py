@@ -207,9 +207,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     w = torch.zeros(3, 3, 1, 64, device=cuda)
     with pytest.raises(TypeError):
         entry_conv(img, w, torch.ones(64, device=cuda), torch.zeros(64, device=cuda))
-    q = torch.zeros(1, 4, 4 * 256, device=cuda)  # heads up to 128 are zero-padded; 256 is above them
-    with pytest.raises(ValueError, match="head dim 256 is above 128"):
-        attention(q, q, q, None, 4)
+    # every head width runs, zero-padded to one the kernels take; their own launcher takes only
+    # those (a head of 200 is not one), and in bf16 only rows that start on 16 bytes
+    q = torch.zeros(1, 4, 4 * 256, device=cuda, dtype=torch.bfloat16)
+    lse, delta = torch.zeros(1, 4, 4, device=cuda), torch.zeros(1, 4, 4, device=cuda)
+    narrow = q[..., :4 * 200]
+    with pytest.raises(ValueError, match="head dim 800/4 is neither"):
+        attention_ops.attention_backward_kernel("attention_dq", narrow, narrow, narrow, None, narrow.contiguous(), lse,
+                                                delta, (torch.empty_like(narrow.contiguous()),), 4)
+    wide = torch.zeros(1, 4, 4 * 256 + 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="8-element-aligned"):
+        attention(q, wide[..., 4:-4], q, None, 4)
     with pytest.raises(ValueError):
         log_sinkhorn(torch.zeros(1, 3, 3, device=cuda, dtype=torch.float64),
                      torch.zeros(1, 3, device=cuda), torch.zeros(1, 3, device=cuda), 2)
@@ -414,6 +422,47 @@ def test_attention_kernels_at_head_dims_they_are_not_built_for(cuda, dh, dtype):
         torch.testing.assert_close(got.float(), ref_out.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=2e-4 if dtype == torch.bfloat16 else 1e-5)
     _assert_backward_close(grads, attention_backward_plain(q, k, v, mask, lse, dout, 4), dtype)
+
+
+# (N, M): ragged across the 64-row tiles; both under one tile; 18 key tiles for one query tile
+CHUNKED_SHAPES = [(70, 133), (5, 9), (50, 1100)]
+
+
+@pytest.mark.parametrize("n,m", CHUNKED_SHAPES)
+@pytest.mark.parametrize("dh", [160, 256, 384, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_kernels_in_chunks_of_128(cuda, dh, dtype, n, m):
+    """Heads above 128 values run through the chunked kernels (160 zero-
+    padded to 256): the forward, the forward with LSE and the backward
+    against the plain versions at the tolerances of the widths up to 128,
+    one launch each under the padded width's name; the dead element's dQ =
+    dK = 0; the delta the dQ kernel writes; two runs bit-identical."""
+    q, k, v, mask, dout = _attention_case(cuda, dh, dtype, n=n, m=m)
+    before = dict(_build.LAUNCHES)
+    out = attention(q, k, v, mask, 4)
+    out_lse, lse = attention_lse(q, k, v, mask, 4)
+    grads = attention_backward(q, k, v, mask, lse, dout, 4)
+    torch.cuda.synchronize()
+    for name in ("attention", "attention_lse", "attention_dq", "attention_dkdv"):
+        count = launch_name(name, padded_head_dim(dh))
+        assert _build.LAUNCHES[count] == before.get(count, 0) + 1
+    ref_out, ref_lse = attention_lse_plain(q, k, v, mask, 4)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
+    for got in (out, out_lse):
+        assert got.shape == q.shape and got.is_contiguous()
+        torch.testing.assert_close(got.float(), ref_out.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=2e-4 if dtype == torch.bfloat16 else 1e-5)
+    _assert_backward_close(grads, attention_backward_plain(q, k, v, mask, lse, dout, 4), dtype)
+    assert not grads[0][-1].float().any() and not grads[1][-1].float().any()
+    if dh % 128 == 0:  # the kernels' own width: delta as the dK/dV kernel reads it
+        delta = torch.full((q.shape[0], 4, n), float("nan"), device=cuda)
+        attention_ops.attention_backward_kernel("attention_dq", q, k, v, mask, dout, lse, delta,
+                                                (torch.empty_like(dout),), 4)
+        ref = attention_delta_plain(q, k, v, mask, lse, dout, 4)
+        assert ((delta - ref).abs().max() / ref.abs().max()) <= 1e-4
+    again = (attention(q, k, v, mask, 4), *attention_lse(q, k, v, mask, 4), *attention_backward(q, k, v, mask, lse,
+                                                                                                dout, 4))
+    assert all(torch.equal(a, b) for a, b in zip((out, out_lse, lse, *grads), again, strict=True))
 
 
 @pytest.mark.parametrize("dh", [32, 64])

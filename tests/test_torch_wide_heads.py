@@ -2,11 +2,13 @@
 package on the same parameters (`load_jax_params`, which maps them with
 `params_from_jax`), on the CPU.
 
-SuperGlue has 4 heads, so descriptor_dim 384 and 512 give heads of 96 and
-128: on the card 128 has kernels of its own and 96 is zero-padded to them;
-on the CPU the port runs its plain attention at every width. The JAX side
-runs its Pallas one-pass kernel interpreted (128 packs into its 128 lanes,
-96 folds to single heads) in f32, and its einsum path in bf16 and under
+SuperGlue has 4 heads, so descriptor_dim 384, 512, 640 and 1024 give heads
+of 96, 128, 160 and 256: on the card 128 has kernels of its own and 96 is
+zero-padded to them, 256 runs through the chunked kernels (2 chunks of 128)
+and 160 is zero-padded to them; on the CPU the port runs its plain
+attention at every width. The JAX side runs its Pallas one-pass kernel
+interpreted (128 packs into its 128 lanes; 96, 160 and 256 fold to single
+heads, `_onepass_forward`) in f32, and its einsum path in bf16 and under
 grad. 2 GNN layers, 64 keypoint slots, a 20-iteration Sinkhorn.
 
 Tolerances: f32 forwards differ only in summation order: the log-coupling
@@ -20,6 +22,21 @@ gradients of the same step run in float64 (its exact values), within
 of the largest entry from those exact values on the CPU, the port's f32
 ones 1.7e-6, so the two f32 runs are not held to each other; the port is
 also held to lie no further from the exact values than JAX's f32 run.
+
+The keypoints come from seed 1, except at D = 640 (`KEYPOINT_SEED`): the
+gradient there is held to a reference that f32 rounding does not decide.
+With seeds 1, 2 and 4 at D = 640 one input of a GNN ReLU lies within about
+1e-6 of 0 (seed 1: layer 0's MLP, point 25, channel 1097, -1.2e-6 in a
+float64 run of the port), where the loss has a kink: its one-sided
+derivatives differ by up to 2.2e-3 of the largest gradient entry, and each
+package's f32 rounding picks a side (seed 1: the port's f32 gradients lie
+2.2e-3 from JAX's float64 ones and JAX's f32 ones 1.1e-6; seed 2: both
+1.6e-3; seed 4: the port 6.8e-4, JAX 1.9e-6). The port run in float64 is
+its own function's derivative there (central differences along the gap
+converge to the mean of the two sides' values, and along random directions
+to its gradient within 1e-9). Seed 3 has no such unit (the port 1.4e-6,
+JAX's f32 1.6e-6), and its forward matches 12 slots (seed 1's matches 10,
+and the forward test asks for more than 10).
 """
 import jax
 import jax.numpy as jnp
@@ -42,6 +59,7 @@ K = 64
 # XLA would keep results the JAX code rounds to bf16 in f32 where the next op
 # reads f32; the bf16 reference is compiled to round where the code says
 STRICT_BF16 = {"xla_allow_excess_precision": False}
+KEYPOINT_SEED = {640: 3}  # the keypoints' seed by descriptor_dim, 1 elsewhere (see above)
 
 
 def _perturb(variables, seed):
@@ -96,9 +114,9 @@ def _port(d, variables, dtype):
     return tm
 
 
-@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("d", [384, 512, 640, 1024])
 def test_f32_forward_matches_jax_pallas(d):
-    (j0, t0), (j1, t1) = _keypoint_pair(1, d)
+    (j0, t0), (j1, t1) = _keypoint_pair(KEYPOINT_SEED.get(d, 1), d)
     jm, v = _models(d)
     ref = jax.jit(lambda v, a, b: jm.apply(v, a, b, SHAPE, SHAPE))(v, j0, j1)
     with torch.no_grad():
@@ -116,8 +134,7 @@ def _distance(a, b, valid):
     return z, (a[1] != b[1])[both].mean()
 
 
-def test_bf16_forward_held_to_jax_bf16():
-    d = 512
+def _bf16_forward_held_to_jax_bf16(d):
     (j0, t0), (j1, t1) = _keypoint_pair(1, d)
     res = {}
     for dtype in ("float32", "bfloat16"):
@@ -134,6 +151,14 @@ def test_bf16_forward_held_to_jax_bf16():
     assert moved[0] > 0 and moved[1] > 0  # bf16 moved JAX: the bound is not vacuous
     assert apart[0] <= moved[0] and apart[1] <= moved[1], (apart, moved)
     assert (res["port", "bfloat16"][1] >= 0).sum() > 10
+
+
+def test_bf16_forward_held_to_jax_bf16():
+    _bf16_forward_held_to_jax_bf16(512)
+
+
+def test_bf16_forward_held_to_jax_bf16_d1024():
+    _bf16_forward_held_to_jax_bf16(1024)  # heads of 256 values: the chunked kernels' width on the card
 
 
 def _jax_step_gradients(d, j0, j1, gt0, gt1, dtype):
@@ -154,9 +179,8 @@ def _jax_step_gradients(d, j0, j1, gt0, gt1, dtype):
     return float(loss), {k: np.asarray(g, np.float64) for k, g in flatten_tree({"params": grads}).items()}
 
 
-def test_f32_training_gradients_match_jax():
-    d = 512
-    (j0, t0), (j1, t1) = _keypoint_pair(1, d)
+def _f32_training_gradients_match_jax(d):
+    (j0, t0), (j1, t1) = _keypoint_pair(KEYPOINT_SEED.get(d, 1), d)
     gt0, gt1 = jl.make_gt_matches(j0.xy, j1.xy, j0.mask, j1.mask, 3.0)
     assert int(jnp.sum(gt0 < K)) > 20
     _, v = _models(d, impl="einsum")
@@ -179,3 +203,11 @@ def test_f32_training_gradients_match_jax():
     for key in exact:
         np.testing.assert_allclose(have[key] / scale, exact[key] / scale, atol=1e-5, err_msg=key)
     assert dist(have) <= dist(jax32)
+
+
+def test_f32_training_gradients_match_jax():
+    _f32_training_gradients_match_jax(512)
+
+
+def test_f32_training_gradients_match_jax_d640():
+    _f32_training_gradients_match_jax(640)  # heads of 160 values: zero-padded to 256 on the card
