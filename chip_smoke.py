@@ -79,7 +79,11 @@ In order, it:
      training step's shape and D = 256's, two runs bit-identical, and
      times each beside f32 SDPA's backward and two bounds, interleaved
      with `build/attention_bwd_before.cu`'s build where that file is
-     there; and holds the f32 s2d entry conv
+     there; the same for the chunked f32 pair (`dq_3xtf32_chunked`,
+     `dkdv_3xtf32_chunked`) at D = 1024's training shape, interleaved with
+     `build/attention_bwd_chunked_before.cu`'s build where that file is
+     there, which also times what held that earlier pair (its recompute
+     against its restaging, once); and holds the f32 s2d entry conv
      (`s2d_entry_ffma`, the image conv `s2d_entry_simt_image`) against its
      plain version at the four shapes of one detect, two runs bit-identical,
      timed per shape beside f32 cuDNN conv + `space_to_depth` and
@@ -129,8 +133,10 @@ In order, it:
      all-plain path, the log-coupling held to `WIDE_MAX_Z_ERR`, the
      profile), training at the training CLI's defaults in bf16 and f32
      through the trainer's step (launches, steps/s, peak memory, finite
-     metrics, every attention backward call of two steps against the plain
-     version and, in f32, float64), the training CLI with --descriptor_dim
+     metrics, in f32 the step's device time, at 1024 on
+     `build/attention_bwd_chunked_before.cu`'s build too where that file
+     is there, every attention backward call of two steps against the
+     plain version and, in f32, float64), the training CLI with --descriptor_dim
      D --gnn_layers 2 for one epoch of 6 steps (and at 1024 a resumed one:
      checkpoints, the step count), and match_pair --matcher superglue
      --descriptor_dim D on 2 of its sources (a run check);
@@ -218,6 +224,7 @@ import contextlib
 import importlib.util
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -792,18 +799,36 @@ WIDE_TIMED = ((128, True), (256, True), (160, False))
 WIDE_INFERENCE, WIDE_TRAINING = (4, 1024, 4), (4, 512, 4)
 
 
-def chunked_work_factor(name: str, dh: int) -> float:
+def cluster_blocks(c: int) -> int:
+    """Blocks of a cluster of the f32 chunked backward at c chunks: the
+    largest divisor of c up to 8 (`cluster_blocks` of
+    csrc/attention_bwd_chunked.cu)."""
+    return max(g for g in range(1, min(c, 8) + 1) if c % g == 0)
+
+
+def chunked_work_factor(name: str, dh: int, kind: str = "bfloat16") -> float:
     """The chunked kernels' operations over the function's, at a head of dh
-    values in C = ceil(dh / 128) chunks (1 at 128 and below): each of the C
-    output chunks' blocks sums S (and dP) over all C chunks. Forward (with
-    or without LSE) C (C + 1) chunk products for the function's 2 C; dQ
-    C (4 C + 1) (its delta pass: S and dP; then S, dP and dS K_c) for 3 C;
-    dK/dV C (2 C + 1) + C (C + 1) (dK and dV blocks) for 4 C; the two
-    together for the backward's 5 C."""
+    values in C = ceil(dh / 128) chunks (1 at 128 and below), for `kind`
+    "bfloat16" or "float32". The forwards and the bf16 backward: each of
+    the C output chunks' blocks sums S (and dP) over all C chunks. Forward
+    (with or without LSE) C (C + 1) chunk products for the function's 2 C;
+    dQ C (4 C + 1) (its delta pass: S and dP; then S, dP and dS K_c) for
+    3 C; dK/dV C (2 C + 1) + C (C + 1) (dK and dV blocks) for 4 C. The f32
+    backward: a cluster's G blocks own P = C / G chunks each and add their
+    partial S and dP; dQ a delta pass (2 C) and P output passes (2 C
+    partials and C / P output products each), C (3 + 2 P) for 3 C; dK/dV
+    P passes of 2 C + 2 C / P, C (2 P + 2) for 4 C (5/3 and 1 up to 8
+    chunks). The backward: the two together over its 5 C."""
     c = -(-dh // 128)
+    if c == 1:
+        return 1.0
+    if kind == "float32" and name in ("attention_dq", "attention_dkdv", "attention_backward"):
+        p = c // cluster_blocks(c)
+        return {"attention_dq": (3 + 2 * p) / 3, "attention_dkdv": (2 * p + 2) / 4,
+                "attention_backward": (4 * p + 5) / 5}[name]
     factors = {"attention": (c + 1) / 2, "attention_lse": (c + 1) / 2, "attention_dq": (4 * c + 1) / 3,
                "attention_dkdv": (3 * c + 2) / 4, "attention_backward": (7 * c + 3) / 5}
-    return 1.0 if c == 1 else factors[name]
+    return factors[name]
 
 
 def _graph_ms_or_refused(fn, reps: int):
@@ -827,8 +852,10 @@ def time_wide_attention(torch, dev, rng, worst):
     read and output written once, and the products the function needs at
     the real dh (forward 2, dQ 3, dK/dV 4, of 2 B H N M dh operations each)
     at the tensor cores' bf16 rate or the FMA pipe's f32 one, with the
-    chunked kernels' recompute factor (`chunked_work_factor`) beside it.
-    Returns the JSON rows of 128 and 256, their `max_abs_err` from `worst`
+    chunked kernels' recompute factor (`chunked_work_factor`) beside it; the
+    f32 backward above 128 runs its products as 3xTF32, so its bound takes
+    that rate, with the FMA pipe's beside it (`bound_fma_ms`). Returns the
+    JSON rows of 128 and 256, their `max_abs_err` from `worst`
     (`check_wide_head_dims`), launches to be filled in by the D = 512 and
     D = 1024 phases."""
     from image_matching_tpu_torch.ops import attention as A
@@ -861,15 +888,21 @@ def time_wide_attention(torch, dev, rng, worst):
                          "attention_backward": (5, 7 * one + rows_b + b * n)}
                 for name in names:
                     products, nbytes = needs[name]
-                    bms, by = bound(nbytes, products * pair, rate)
-                    factor = chunked_work_factor(name, dh) * A.padded_head_dim(dh) / dh  # zero columns too
+                    factor = chunked_work_factor(name, dh, kind) * A.padded_head_dim(dh) / dh  # zero columns too
+                    # the f32 backward above 128 runs its products as 3xTF32: its bound at that
+                    # rate, the FMA pipe's beside it
+                    tf32 = f32 and dh > 128 and name not in ("attention", "attention_lse")
+                    bms, by = bound(nbytes, products * pair, F32_3XTF32_FLOPS if tf32 else rate)
+                    fma = bound(nbytes, products * pair, rate)[0] if tf32 else None
                     plain, lib = {"attention": ("plain", "lib_fwd"), "attention_lse": ("plain_lse", "lib_fwd")}.get(
                         name, ("plain_bwd", "lib_bwd"))
                     key = _wide_row(name, f32, A.padded_head_dim(dh)) if with_row else name
                     lib_text = ("refused" if t[lib] is None else f"{t[lib]:.4f} ms ({t[name] / t[lib]:.3f} of it)")
-                    print(f"{key} at dh {dh} ({b}, {n}, {h}x{dh}) {kind}: {t[name]:.4f} ms by CUDA graph replay, bound "
-                          f"{bms:.5f} ms ({by}; {bms / t[name]:.3f} of it reached; the kernels do {factor:.3f}x the "
-                          f"function's operations), plain {t[plain]:.4f} ms, scaled_dot_product_attention "
+                    fma_text = "" if fma is None else f", FMA pipe's bound {fma:.5f} ms ({fma / t[name]:.3f} of it)"
+                    print(f"{key} at dh {dh} ({b}, {n}, {h}x{dh}) {kind}: {t[name]:.4f} ms by CUDA graph replay, "
+                          f"{'3xTF32 ' if tf32 else ''}bound {bms:.5f} ms ({by}; {bms / t[name]:.3f} of it reached; the "
+                          f"kernels do {factor:.3f}x the function's operations){fma_text}, plain {t[plain]:.4f} ms, "
+                          f"scaled_dot_product_attention "
                           f"{'backward' if lib == 'lib_bwd' else 'forward'} {lib_text}")
                     if with_row:
                         source = ("attention.cu" if name in ("attention", "attention_lse")
@@ -881,6 +914,7 @@ def time_wide_attention(torch, dev, rng, worst):
                                          max_abs_err=worst[key], ms=t[name], plain_ms=t[plain], bound_ms=bms,
                                          bound_by=by, library_ms=t[lib],
                                          **({"work_factor": factor} if factor != 1.0 else {}),
+                                         **({"bound_fma_ms": fma} if fma is not None else {}),
                                          **({"library_covers": WHOLE_BACKWARD} if lib == "lib_bwd" else {})))
                 if "attention_dq" in names:
                     both = t["attention_dq"] + t["attention_dkdv"]
@@ -898,7 +932,11 @@ def time_f32_kernels(torch, dev, rng, libs):
     tensor cores) and a PyTorch call in full f32 (TF32 off): the f32
     attention forward, with and without LSE (`time_f32_attention_forward`),
     the f32 dQ and dK/dV kernels each on its own
-    (`time_f32_attention_backward`), the f32 image entry conv, and the f32
+    (`time_f32_attention_backward`; at 128 and below, then the chunked ones
+    at D = 1024's training shape, interleaved with
+    `build/attention_bwd_chunked_before.cu` where that file is there, and
+    what held PR 19's chunked pair: `measure_chunked_recompute`), the f32
+    image entry conv, and the f32
     s2d entry conv at the four shapes of one detect of 4 images at 480x640
     (`s2d_entry_ffma`; the image conv `s2d_entry_simt_image`), each against
     its plain version (two runs bit-identical) and timed beside its own f32
@@ -913,6 +951,9 @@ def time_f32_kernels(torch, dev, rng, libs):
     check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
     fwd_rows = time_f32_attention_forward(torch, dev, rng)
     bwd_rows = time_f32_attention_backward(torch, dev, rng)
+    time_f32_attention_backward(torch, dev, rng, "attention_bwd_chunked", EARLIER_ATTENTION_BWD_CHUNKED,
+                                F32_CHUNKED_BACKWARD_SHAPES, "D = 1024")
+    measure_chunked_recompute(torch, dev, rng)
 
     from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_plain
 
@@ -1098,27 +1139,114 @@ def with_attention_library(name, lib, call):
     return run
 
 
-def time_f32_attention_backward(torch, dev, rng):
-    """The f32 dQ (with its delta) and dK/dV kernels, each on its own, at
-    `F32_BACKWARD_SHAPES` (q, k, v views of one fused projection, as the
+EARLIER_ATTENTION_BWD_CHUNKED = ROOT / "build" / "attention_bwd_chunked_before.cu"
+# the f32 chunked backward's timed shape: D = 1024's training step (36 calls of each a step)
+F32_CHUNKED_BACKWARD_SHAPES = ((4, 512, 4, 256),)
+# PR 19's f32 chunked body (`chunked_bwd_ffma`), as `measure_chunked_recompute` edits it:
+# label -> [(text, replacement)]
+_OWN_STAGE = "      stage_f32<CW, FG>(slot, (p ? own_p : own_s) + cc * CW, p ? own_p_rs : own_s_rs, r0, own_rows, tid);\n"
+_S_PRODUCT = "      nt_product<CW>(s, slot + L.own * LD, tb + L.loop * LD);\n"
+_DP_PRODUCT = "      nt_product<CW>(dp, slot + L.own * LD, tb + L.loop * LD);\n"
+CHUNKED_ABLATIONS = {
+    "no recompute": [(_S_PRODUCT, "      if (sub == c)\n" + _S_PRODUCT),
+                     (_DP_PRODUCT, "      if (sub - C == c)\n" + _DP_PRODUCT)],
+    "own side once": [(_OWN_STAGE, "      if (u < STAGES)\n" + _OWN_STAGE)],
+}
+CHUNKED_ABLATIONS["both"] = CHUNKED_ABLATIONS["no recompute"] + CHUNKED_ABLATIONS["own side once"]
+
+
+def build_edited(name, prefix, src, variants):
+    """`src`, the text of a version of kernel source `name`, built as it is
+    and once for each of `variants` (label -> [(text, replacement)], every
+    text present), each a file `build/<prefix>_<label>.cu`
+    (`build_variants`): {label: library}."""
+    builds = []
+    for label, edits in {"as it is": [], **variants}.items():
+        text = src
+        for old, new in edits:
+            check(old in text, f"{prefix} {label}: the source has no {old.strip()[:60]!r}")
+            text = text.replace(old, new)
+        path = ROOT / "build" / f"{prefix}_{label.replace(' ', '_')}.cu"
+        path.write_text(text)
+        builds.append((label, path, ()))
+    return build_variants(name, builds)
+
+
+def time_chunked_pair(torch, dev, rng, libs):
+    """The f32 chunked dQ and dK/dV kernels of each of `libs` (label ->
+    library) at D = 1024's training shape, by CUDA graph replay,
+    interleaved: {label: (dQ ms, dK/dV ms)}."""
+    from image_matching_tpu_torch.ops import attention as A
+
+    b, n, h, dh = F32_CHUNKED_BACKWARD_SHAPES[0]
+    qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * h * dh)).astype("float32")).to(dev)
+    q, k, v = qkv[..., :h * dh], qkv[..., h * dh:2 * h * dh], qkv[..., 2 * h * dh:]
+    mask = torch.from_numpy(rng.uniform(size=(b, n)) < 0.8).to(dev)
+    mask[:, 0] = True
+    dout = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev)
+    _, lse = A.attention_lse(q, k, v, mask, h)
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=dev)  # written by dQ, read by dK/dV
+    dq, dk, dv = (torch.empty((b, n, h * dh), dtype=torch.float32, device=dev) for _ in range(3))
+    calls = {"dQ": lambda: A.attention_backward_kernel("attention_dq", q, k, v, mask, dout, lse, delta, (dq,), h),
+             "dK/dV": lambda: A.attention_backward_kernel("attention_dkdv", q, k, v, mask, dout, lse, delta, (dk, dv),
+                                                         h)}
+    times = time_interleaved({(label, name): with_attention_library("attention_bwd_chunked", lib, call)
+                              for label, lib in libs.items() for name, call in calls.items()}, reps=10)
+    return {label: tuple(statistics.mean(times[label, name]) for name in calls) for label in libs}
+
+
+def measure_chunked_recompute(torch, dev, rng):
+    """What held PR 19's f32 chunked backward pair, where its source is in
+    `build/attention_bwd_chunked_before.cu`: the pair at D = 1024's training
+    shape as it is, with the products of every chunk but the block's own
+    skipped (the recompute: dQ 9 chunk products a block and tile -> 5, dK
+    5 -> 3, dV 3 -> 2), with the own side's chunk staged only into the
+    ring's first slots and read from there again (the restaging of the own
+    side a step), and with both (`CHUNKED_ABLATIONS`); by CUDA graph
+    replay, interleaved. The results are wrong: timing only. Printed once."""
+    if not EARLIER_ATTENTION_BWD_CHUNKED.exists():
+        print("f32 chunked backward, recompute against restaging: no build/attention_bwd_chunked_before.cu; skipped")
+        return
+    src = EARLIER_ATTENTION_BWD_CHUNKED.read_text()
+    if not all(old in src for edits in CHUNKED_ABLATIONS.values() for old, _ in edits):
+        print("f32 chunked backward, recompute against restaging: build/attention_bwd_chunked_before.cu is not "
+              "PR 19's f32 body; skipped")
+        return
+    t = time_chunked_pair(torch, dev, rng, build_edited("attention_bwd_chunked", "attention_bwd_chunked_pr19", src,
+                                                        CHUNKED_ABLATIONS))
+    pair = {label: sum(ms) for label, ms in t.items()}
+    b, n, h, dh = F32_CHUNKED_BACKWARD_SHAPES[0]
+    print(f"f32 chunked backward of PR 19, recompute against restaging, ({b}, {n}, {h}x{dh}), ms by CUDA graph replay, "
+          "interleaved (wrong results, timing only): " + "; ".join(
+              f"{label}: dQ {t[label][0]:.4f}, dK/dV {t[label][1]:.4f}, pair {pair[label]:.4f} "
+              f"({pair[label] / pair['as it is']:.3f} of it as it is)" for label in t))
+
+
+def time_f32_attention_backward(torch, dev, rng, library="attention_bwd", earlier=EARLIER_ATTENTION_BWD,
+                                shapes=F32_BACKWARD_SHAPES, step="D = 128"):
+    """The f32 dQ (with its delta) and dK/dV kernels of `library`, each on
+    its own, at `shapes` (q, k, v views of one fused projection, as the
     model gives them): each build's error against the plain version (1e-4
     of the largest entry) and its distance to a float64 run of the same
     function beside the plain f32 version's own, two runs bit-identical;
     times by CUDA graph replay, this checkout's build interleaved with
-    `build/attention_bwd_before.cu` where that file is there (whose f32
-    and bf16 outputs are printed as bit-identical to this build's or
-    not), beside f32 SDPA's backward (forward + backward less forward), the plain version
-    and two bounds on the 7 products the function needs: the FMA pipe's
-    67 TFLOP/s and the 3xTF32 tensor-core rate SDPA's own products run at.
-    Returns the JSON rows of the two kernels at the training step's shape."""
+    `earlier` where that file is there (whose f32 and bf16 outputs are
+    printed as bit-identical to this build's or not), beside f32 SDPA's
+    backward (forward + backward less forward), the plain version and two
+    bounds on the 7 products the function needs: the FMA pipe's 67 TFLOP/s
+    and the 3xTF32 tensor-core rate SDPA's own products (and the chunked
+    kernels') run at; each kernel's bound at the rate its products run at
+    (above 128 3xTF32's) and the kernels' work factor. `step` names the
+    f32 training step whose 36 launches of each the shapes are. Returns the
+    JSON rows of the two kernels at the first shape."""
     import torch.nn.functional as F
     from image_matching_tpu_torch.ops import _build
     from image_matching_tpu_torch.ops import attention as A
 
-    builds = [("before", EARLIER_ATTENTION_BWD, ())] if EARLIER_ATTENTION_BWD.exists() else []
-    libs = {"this checkout": _build.library("attention_bwd"), **build_variants("attention_bwd", builds)}
+    builds = [("before", earlier, ())] if earlier.exists() else []
+    libs = {"this checkout": _build.library(library), **build_variants(library, builds)}
     rows = None
-    for b, n, h, dh in F32_BACKWARD_SHAPES:
+    for b, n, h, dh in shapes:
         qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * h * dh)).astype("float32")).to(dev)
         q, k, v = qkv[..., :h * dh], qkv[..., h * dh:2 * h * dh], qkv[..., 2 * h * dh:]
         mask = torch.from_numpy(rng.uniform(size=(b, n)) < 0.8).to(dev)
@@ -1145,7 +1273,7 @@ def time_f32_attention_backward(torch, dev, rng):
             runs = []
             for _ in range(2):
                 for call in calls.values():  # dQ first: it writes the delta dK/dV reads
-                    with_attention_library("attention_bwd", lib, call)()
+                    with_attention_library(library, lib, call)()
                 runs.append((dq.clone(), dk.clone(), dv.clone()))
             torch.cuda.synchronize()
             same = all(torch.equal(a, c) for a, c in zip(*runs))
@@ -1164,7 +1292,7 @@ def time_f32_attention_backward(torch, dev, rng):
         if len(libs) > 1:  # the bf16 kernels of each build too, on the same inputs rounded to bf16
             qb, kb, vb, db = (t.to(torch.bfloat16) for t in (q, k, v, dout))
             lse_b = A.attention_lse(qb, kb, vb, mask, h)[1]
-            bf16 = {label: with_attention_library("attention_bwd", lib,
+            bf16 = {label: with_attention_library(library, lib,
                                                   lambda: A.attention_backward(qb, kb, vb, mask, lse_b, db, h))()
                     for label, lib in libs.items()}
             for label in list(libs)[1:]:
@@ -1173,7 +1301,7 @@ def time_f32_attention_backward(torch, dev, rng):
                       f"dv {all(torch.equal(a, c) for a, c in zip(bf16[label], bf16['this checkout']))}")
             del qb, kb, vb, db, bf16
         del exact, q64, k64, v64, do64, first
-        times = time_interleaved({f"{name} [{label}]": with_attention_library("attention_bwd", lib, call)
+        times = time_interleaved({f"{name} [{label}]": with_attention_library(library, lib, call)
                                   for label, lib in libs.items() for name, call in calls.items()}, reps=10)
         qh, kh, vh = (t.reshape(b, n, h, dh).transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
         m4, doh = mask[:, None, None, :], dout.reshape(b, n, h, dh).transpose(1, 2).contiguous()
@@ -1190,8 +1318,10 @@ def time_f32_attention_backward(torch, dev, rng):
         # every input read and output written once: the function's 7 products; dQ needs
         # S, dP, dS K and writes delta, dK/dV needs S^T, dP^T, P^T dO, dS^T Q and reads it
         fma7, tc7 = (bound(6 * one + 2 * row_bytes + b * n, 7 * pair, rate) for rate in (F32_FLOPS, F32_3XTF32_FLOPS))
-        bounds = {"dQ": bound(5 * one + 2 * row_bytes + b * n, 3 * pair, F32_FLOPS),
-                  "dK/dV": bound(6 * one + 2 * row_bytes + b * n, 4 * pair, F32_FLOPS)}
+        # each kernel's bound at its products' rate: the FMA pipe's at 128 and below, 3xTF32 above
+        rate, rate_text = (F32_FLOPS, "67 TFLOP/s") if dh <= 128 else (F32_3XTF32_FLOPS, "3xTF32's 165 TFLOP/s")
+        bounds = {"dQ": bound(5 * one + 2 * row_bytes + b * n, 3 * pair, rate),
+                  "dK/dV": bound(6 * one + 2 * row_bytes + b * n, 4 * pair, rate)}
         mean = {key: statistics.mean(ts) for key, ts in times.items()}
         print(f"f32 attention backward {shape}: ms per call by CUDA graph replay, builds interleaved: " + "; ".join(
             f"{key} " + " / ".join(f"{t:.4f}" for t in ts) for key, ts in times.items()))
@@ -1199,10 +1329,14 @@ def time_f32_attention_backward(torch, dev, rng):
             both = mean[f"dQ [{label}]"] + mean[f"dK/dV [{label}]"]
             print(f"  [{label}] dQ + dK/dV {both:.4f} ms: {both / lib_ms:.3f} of f32 SDPA's backward ({lib_ms:.4f}); "
                   f"{fma7[0] / both:.3f} of the FMA pipe's bound reached, {tc7[0] / both:.3f} of the 3xTF32 one")
+        work = ("" if dh <= 128 else "; the kernels do " + ", ".join(
+            f"{name} {chunked_work_factor(key, dh, 'float32'):.3f}x" for name, key in (("dQ", "attention_dq"),
+                                                                                  ("dK/dV", "attention_dkdv")))
+                + " the function's operations")
         print(f"  plain backward (dq, dk, dv together) {plain_ms:.4f} ms; bounds on the 7 products: FMA pipe at 67 "
-              f"TFLOP/s {fma7[0]:.4f} ms, 3xTF32 tensor cores at 165 TFLOP/s {tc7[0]:.4f} ms; per kernel at 67 "
-              f"TFLOP/s: dQ {bounds['dQ'][0]:.4f} (3 products), dK/dV {bounds['dK/dV'][0]:.4f} (4); launches per f32 "
-              f"training step at D = 128: 36 of each")
+              f"TFLOP/s {fma7[0]:.4f} ms, 3xTF32 tensor cores at 165 TFLOP/s {tc7[0]:.4f} ms; per kernel at "
+              f"{rate_text}: dQ {bounds['dQ'][0]:.4f} (3 products), dK/dV {bounds['dK/dV'][0]:.4f} (4){work}; launches "
+              f"per f32 training step at {step}: 36 of each")
         if rows is None:
             rows = [dict(name=f"attention_{key}_f32", route="cuda", source="image_matching_tpu_torch/csrc/attention_bwd.cu",
                          replaces=f"image_matching_tpu/ops/pallas/attention.py:{line}", max_abs_err=worst[name],
@@ -1234,15 +1368,27 @@ def build_variants(name, builds):
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = []
     for label, src, flags in builds:
-        digest = hashlib.sha256(Path(src).read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-        out = _build.BUILD_DIR / f"lib{name}_{digest}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I", str(_build.CSRC), "-o", str(out), str(src)]
+        # named as `_build._target` names a library: the source, every shared header, all flags
+        h = hashlib.sha256(Path(src).read_bytes())
+        for header in sorted(_build.CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join((*_build.NVCC_FLAGS, *flags)).encode())
+        out = _build.BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+        if out.exists():  # the same build, made before
+            started.append((label, None, out, None))
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I", str(_build.CSRC), "-o", str(tmp), str(src)]
         started.append((label, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                        out))
+                        out, tmp))
     libs = {}
-    for label, proc, out in started:
+    for label, proc, out, tmp in started:
+        if proc is None:
+            libs[label] = ctypes.CDLL(str(out))
+            continue
         log, _ = proc.communicate()
         check(proc.returncode == 0, f"nvcc failed for the {label} build of {name}.cu:\n{log}")
+        os.replace(tmp, out)  # a later run never loads half a file
         for line in log.splitlines():
             if any(word in line for word in ("Compiling entry", "registers", "spill", "wgmma", "Performance")):
                 print(f"  [{label}] {line.strip()[:160]}")
@@ -4137,8 +4283,6 @@ def _model_parallel_rank(rank: int, world: int, port: int, root: str, backend: s
     `root/rank<r>.pt`. "gloo": every rank on card 0, then ranks 0 and 1 ask
     NCCL for a group of two ranks on one card and write its answer to
     `root/nccl<r>.txt`; "nccl": rank r on card r."""
-    import os
-
     import torch
     import torch.distributed as dist
 
@@ -4447,7 +4591,9 @@ def train_wide(torch, dev, images, d: int, dtype: str):
     weights, in `dtype`, through the trainer's step
     (`make_superglue_train_step`, which the CLI calls): launch counts of
     one step (each training kernel of the heads' width, 36 a step), steps/s (median of
-    `WIDE_TRAIN_STEPS`), peak memory, finite metrics; then every attention
+    `WIDE_TRAIN_STEPS`), peak memory, finite metrics, in f32 the step's
+    device time (at D = 1024 on `build/attention_bwd_chunked_before.cu`'s
+    build too, where that file is there); then every attention
     backward call of each of two more steps against the plain version
     (`check_backward_calls`; in f32 its distance to float64 moves with the
     training state). Returns the launch counts of one step."""
@@ -4491,6 +4637,14 @@ def train_wide(torch, dev, images, d: int, dtype: str):
         vals = {key: float(val) for key, val in mm.items()}
         check(all(math.isfinite(x) for x in vals.values()) and vals["skipped_nonfinite"] == 0,
               f"{label} step {i}: non-finite metrics or a skipped step {vals}")
+    if dtype == "float32":  # the step's device time, and at the chunked width on PR 19's chunked backward too
+        fmt = lambda ms: "not measured (profiler events lost)" if ms is None else f"{ms:.3f} ms"
+        line = f"{label}: device time per step (profiler, 2 steps) {fmt(device_ms(lambda: step(state, images, gen), 2, 1))}"
+        if d == 4 * CHUNKED_ROW_WIDTH and EARLIER_ATTENTION_BWD_CHUNKED.exists():
+            earlier = build_variants("attention_bwd_chunked", [("before", EARLIER_ATTENTION_BWD_CHUNKED, ())])["before"]
+            before = with_attention_library("attention_bwd_chunked", earlier, lambda: step(state, images, gen))
+            line += f"; on build/attention_bwd_chunked_before.cu {fmt(device_ms(before, 2, 1))}"
+        print(line)
     for i in range(2):
         calls = []
         with recorded_backward_calls(torch, calls):

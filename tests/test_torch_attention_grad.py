@@ -3,11 +3,12 @@ LSE, FA2 backward; plain versions on the CPU) against the JAX package:
 the Pallas forward-with-LSE and flash backward (interpreted on the CPU),
 and `jax.vjp` of the einsum oracle `attention_reference_heads`.
 
-All in f32, at heads of 16 to 128 values (96: the width the card pads to
-128). The two sides differ in summation order (and the Pallas
-backward takes delta = rowsum(dO * O) where the port takes
-rowsum(P * dP) / rowsum(P), equal in exact arithmetic): 2e-5 on outputs,
-LSE and gradients of O(1) inputs.
+All in f32, at heads of 16 to 384 values (96: the width the card pads to
+128; 256 and 384: the chunked kernels' widths, 2 and 3 chunks of 128).
+The two sides differ in summation order (and the Pallas backward takes
+delta = rowsum(dO * O) where the port takes rowsum(P * dP) / rowsum(P),
+equal in exact arithmetic): 2e-5 on outputs, LSE and gradients of O(1)
+inputs.
 
 A batch element with no valid key is held to the einsum oracle (output
 mean(V), dV = sum dO / M, dQ = dK = 0), not to the Pallas flash kernel,
@@ -109,7 +110,7 @@ def test_forward_lse_matches_oracle_logsumexp(dh, n, m, dead):
         np.testing.assert_allclose(lse.numpy()[-1], np.full((HEADS, n), np.log(m), np.float32), **TOL)
 
 
-@pytest.mark.parametrize("dh", [16, 32, 96, 128])
+@pytest.mark.parametrize("dh", [16, 32, 96, 128, 256])
 @pytest.mark.parametrize("n,m", [(40, 50), (70, 33)])
 def test_gradients_match_pallas_flash_on_live_elements(dh, n, m):
     b = 2
@@ -141,7 +142,7 @@ def test_plain_backward_with_fa2_delta_matches_pallas(dh):
         np.testing.assert_allclose(have.numpy(), _unfold(np.asarray(ref), b, dh), **TOL)
 
 
-@pytest.mark.parametrize("dh", [16, 32, 96, 128])
+@pytest.mark.parametrize("dh", [16, 32, 96, 128, 256, 384])
 @pytest.mark.parametrize("n,m", [(40, 50), (70, 33)])
 def test_gradients_match_einsum_oracle_with_a_dead_element(dh, n, m):
     b = 3

@@ -305,8 +305,8 @@ def test_attention_forward_f32_deep_sums(cuda, dh, b, n, m):
 def _assert_backward_close(got, ref, dtype):
     """bf16 rounds P for dV's tensor-core product (f32 on the plain side),
     and dS enters dQ and dK as a bf16 part plus its residue: at most a few
-    bf16 steps of the largest gradient entry. f32: full f32. Returns the
-    tolerance."""
+    bf16 steps of the largest gradient entry. f32: f32-accurate (above 128
+    the products are 3xTF32). Returns the tolerance."""
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     for a, r in zip(got, ref, strict=True):
         assert a.dtype == dtype and a.shape == r.shape and a.is_contiguous()
@@ -344,13 +344,15 @@ def test_attention_backward_kernels(cuda, dh, dtype, n, m):
 
 
 # (B, N, H, dh): deep f32 cases, a D = 256 training run's heads over 1024 keys
-# (one dead batch element) and D = 128's over 2048; D = 512's over 1024
-F32_DEEP_BACKWARD = [(2, 1024, 4, 64), (1, 2048, 4, 32), (2, 1024, 4, 128)]
+# (one dead batch element) and D = 128's over 2048; D = 512's over 1024; the
+# chunked kernels' (3xTF32 products): D = 1024's training heads over 512 keys
+# (a dead element) and heads of 512 over 1024
+F32_DEEP_BACKWARD = [(2, 1024, 4, 64), (1, 2048, 4, 32), (2, 1024, 4, 128), (2, 512, 4, 256), (1, 1024, 2, 512)]
 
 
 @pytest.mark.parametrize("b,n,h,dh", F32_DEEP_BACKWARD)
 def test_attention_backward_kernels_f32_deep_sums(cuda, b, n, h, dh):
-    """The f32 dQ and dK/dV kernels over 1024-2048 keys and queries, against
+    """The f32 dQ and dK/dV kernels over 512-2048 keys and queries, against
     float64 autograd of the plain attention: no further from it than twice
     the plain f32 version's own distance (sums of that many products in f32
     lie ~1e-6 of the largest entry from float64, in any order:
@@ -426,10 +428,12 @@ def test_attention_kernels_at_head_dims_they_are_not_built_for(cuda, dh, dtype):
 
 # (N, M): ragged across the 64-row tiles; both under one tile; 18 key tiles for one query tile
 CHUNKED_SHAPES = [(70, 133), (5, 9), (50, 1100)]
+# (dh, N, M): every width on those shapes, and 10 chunks, more than a cluster of 8
+# blocks holds (the f32 backward's blocks own 2 chunks each)
+CHUNKED_CASES = [(dh, n, m) for dh in (160, 256, 384, 512) for n, m in CHUNKED_SHAPES] + [(1280, 70, 133)]
 
 
-@pytest.mark.parametrize("n,m", CHUNKED_SHAPES)
-@pytest.mark.parametrize("dh", [160, 256, 384, 512])
+@pytest.mark.parametrize("dh,n,m", CHUNKED_CASES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_kernels_in_chunks_of_128(cuda, dh, dtype, n, m):
     """Heads above 128 values run through the chunked kernels (160 zero-
