@@ -794,40 +794,37 @@ def _attention_calls(torch, A, q, k, v, mask, dout, h):
 # (B, N, H, dh) at which the kernels at 128 and the chunked ones are timed: D = 512's and
 # D = 1024's inference forward (the headline's K = 1024, 36 calls a forward) and training
 # step (K = 512, 36 calls of each training kernel a step); D = 640's heads of 160 values,
-# zero-padded to 256, show what the padding costs (printed, no JSON rows)
-WIDE_TIMED = ((128, True), (256, True), (160, False))
+# zero-padded to 256, show what the padding costs, and D = 256's heads of 64 re-time the
+# kernels at 64 (`dq_wg<4>`, `dkdv_wg<3>`) beside SDPA (both printed, no JSON rows)
+WIDE_TIMED = ((128, True), (256, True), (160, False), (64, False))
 WIDE_INFERENCE, WIDE_TRAINING = (4, 1024, 4), (4, 512, 4)
 
 
 def cluster_blocks(c: int) -> int:
-    """Blocks of a cluster of the f32 chunked backward at c chunks: the
+    """Blocks of a cluster of the chunked backward at c chunks: the
     largest divisor of c up to 8 (`cluster_blocks` of
     csrc/attention_bwd_chunked.cu)."""
     return max(g for g in range(1, min(c, 8) + 1) if c % g == 0)
 
 
-def chunked_work_factor(name: str, dh: int, kind: str = "bfloat16") -> float:
+def chunked_work_factor(name: str, dh: int) -> float:
     """The chunked kernels' operations over the function's, at a head of dh
-    values in C = ceil(dh / 128) chunks (1 at 128 and below), for `kind`
-    "bfloat16" or "float32". The forwards and the bf16 backward: each of
-    the C output chunks' blocks sums S (and dP) over all C chunks. Forward
-    (with or without LSE) C (C + 1) chunk products for the function's 2 C;
-    dQ C (4 C + 1) (its delta pass: S and dP; then S, dP and dS K_c) for
-    3 C; dK/dV C (2 C + 1) + C (C + 1) (dK and dV blocks) for 4 C. The f32
-    backward: a cluster's G blocks own P = C / G chunks each and add their
-    partial S and dP; dQ a delta pass (2 C) and P output passes (2 C
+    values in C = ceil(dh / 128) chunks (1 at 128 and below). The
+    forwards: each of the C output chunks' blocks sums S over all C chunks,
+    C (C + 1) chunk products for the function's 2 C. The backward, bf16
+    and f32 alike: a cluster's G blocks own P = C / G chunks each and add
+    their partial S and dP; dQ a delta pass (2 C) and P output passes (2 C
     partials and C / P output products each), C (3 + 2 P) for 3 C; dK/dV
     P passes of 2 C + 2 C / P, C (2 P + 2) for 4 C (5/3 and 1 up to 8
     chunks). The backward: the two together over its 5 C."""
     c = -(-dh // 128)
     if c == 1:
         return 1.0
-    if kind == "float32" and name in ("attention_dq", "attention_dkdv", "attention_backward"):
-        p = c // cluster_blocks(c)
-        return {"attention_dq": (3 + 2 * p) / 3, "attention_dkdv": (2 * p + 2) / 4,
-                "attention_backward": (4 * p + 5) / 5}[name]
-    factors = {"attention": (c + 1) / 2, "attention_lse": (c + 1) / 2, "attention_dq": (4 * c + 1) / 3,
-               "attention_dkdv": (3 * c + 2) / 4, "attention_backward": (7 * c + 3) / 5}
+    if name in ("attention", "attention_lse"):
+        return (c + 1) / 2
+    p = c // cluster_blocks(c)
+    factors = {"attention_dq": (3 + 2 * p) / 3, "attention_dkdv": (2 * p + 2) / 4,
+               "attention_backward": (4 * p + 5) / 5}
     return factors[name]
 
 
@@ -852,7 +849,7 @@ def time_wide_attention(torch, dev, rng, worst):
     read and output written once, and the products the function needs at
     the real dh (forward 2, dQ 3, dK/dV 4, of 2 B H N M dh operations each)
     at the tensor cores' bf16 rate or the FMA pipe's f32 one, with the
-    chunked kernels' recompute factor (`chunked_work_factor`) beside it; the
+    chunked kernels' work factor (`chunked_work_factor`) beside it; the
     f32 backward above 128 runs its products as 3xTF32, so its bound takes
     that rate, with the FMA pipe's beside it (`bound_fma_ms`). Returns the
     JSON rows of 128 and 256, their `max_abs_err` from `worst`
@@ -866,7 +863,7 @@ def time_wide_attention(torch, dev, rng, worst):
         esize, rate = (4, F32_FLOPS) if f32 else (2, BF16_TENSOR_FLOPS)
         for dh, with_row in WIDE_TIMED:
             # a padded width: the backward's two kernels with the padding and the cut back
-            backward = ("attention_dq", "attention_dkdv") if with_row else ("attention_backward",)
+            backward = ("attention_dq", "attention_dkdv") if A.kernel_width(dh) else ("attention_backward",)
             for shape, names in ((WIDE_INFERENCE, ("attention",)), (WIDE_TRAINING, ("attention_lse", *backward))):
                 b, n, h = shape
                 qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * h * dh)).astype("float32")).to(dev, dtype)
@@ -888,7 +885,7 @@ def time_wide_attention(torch, dev, rng, worst):
                          "attention_backward": (5, 7 * one + rows_b + b * n)}
                 for name in names:
                     products, nbytes = needs[name]
-                    factor = chunked_work_factor(name, dh, kind) * A.padded_head_dim(dh) / dh  # zero columns too
+                    factor = chunked_work_factor(name, dh) * A.padded_head_dim(dh) / dh  # zero columns too
                     # the f32 backward above 128 runs its products as 3xTF32: its bound at that
                     # rate, the FMA pipe's beside it
                     tf32 = f32 and dh > 128 and name not in ("attention", "attention_lse")
@@ -913,7 +910,7 @@ def time_wide_attention(torch, dev, rng, worst):
                                          replaces=f"image_matching_tpu/ops/pallas/attention.py:{line}",
                                          max_abs_err=worst[key], ms=t[name], plain_ms=t[plain], bound_ms=bms,
                                          bound_by=by, library_ms=t[lib],
-                                         **({"work_factor": factor} if factor != 1.0 else {}),
+                                         **({"work_factor": factor} if dh > 128 else {}),
                                          **({"bound_fma_ms": fma} if fma is not None else {}),
                                          **({"library_covers": WHOLE_BACKWARD} if lib == "lib_bwd" else {})))
                 if "attention_dq" in names:
@@ -934,9 +931,8 @@ def time_f32_kernels(torch, dev, rng, libs):
     the f32 dQ and dK/dV kernels each on its own
     (`time_f32_attention_backward`; at 128 and below, then the chunked ones
     at D = 1024's training shape, interleaved with
-    `build/attention_bwd_chunked_before.cu` where that file is there, and
-    what held PR 19's chunked pair: `measure_chunked_recompute`), the f32
-    image entry conv, and the f32
+    `build/attention_bwd_chunked_before.cu` where that file is there), the
+    f32 image entry conv, and the f32
     s2d entry conv at the four shapes of one detect of 4 images at 480x640
     (`s2d_entry_ffma`; the image conv `s2d_entry_simt_image`), each against
     its plain version (two runs bit-identical) and timed beside its own f32
@@ -952,8 +948,7 @@ def time_f32_kernels(torch, dev, rng, libs):
     fwd_rows = time_f32_attention_forward(torch, dev, rng)
     bwd_rows = time_f32_attention_backward(torch, dev, rng)
     time_f32_attention_backward(torch, dev, rng, "attention_bwd_chunked", EARLIER_ATTENTION_BWD_CHUNKED,
-                                F32_CHUNKED_BACKWARD_SHAPES, "D = 1024")
-    measure_chunked_recompute(torch, dev, rng)
+                                (CHUNKED_BACKWARD_SHAPE,), "D = 1024")
 
     from image_matching_tpu_torch.ops.entry_conv import entry_conv, entry_conv_plain
 
@@ -1140,86 +1135,8 @@ def with_attention_library(name, lib, call):
 
 
 EARLIER_ATTENTION_BWD_CHUNKED = ROOT / "build" / "attention_bwd_chunked_before.cu"
-# the f32 chunked backward's timed shape: D = 1024's training step (36 calls of each a step)
-F32_CHUNKED_BACKWARD_SHAPES = ((4, 512, 4, 256),)
-# PR 19's f32 chunked body (`chunked_bwd_ffma`), as `measure_chunked_recompute` edits it:
-# label -> [(text, replacement)]
-_OWN_STAGE = "      stage_f32<CW, FG>(slot, (p ? own_p : own_s) + cc * CW, p ? own_p_rs : own_s_rs, r0, own_rows, tid);\n"
-_S_PRODUCT = "      nt_product<CW>(s, slot + L.own * LD, tb + L.loop * LD);\n"
-_DP_PRODUCT = "      nt_product<CW>(dp, slot + L.own * LD, tb + L.loop * LD);\n"
-CHUNKED_ABLATIONS = {
-    "no recompute": [(_S_PRODUCT, "      if (sub == c)\n" + _S_PRODUCT),
-                     (_DP_PRODUCT, "      if (sub - C == c)\n" + _DP_PRODUCT)],
-    "own side once": [(_OWN_STAGE, "      if (u < STAGES)\n" + _OWN_STAGE)],
-}
-CHUNKED_ABLATIONS["both"] = CHUNKED_ABLATIONS["no recompute"] + CHUNKED_ABLATIONS["own side once"]
-
-
-def build_edited(name, prefix, src, variants):
-    """`src`, the text of a version of kernel source `name`, built as it is
-    and once for each of `variants` (label -> [(text, replacement)], every
-    text present), each a file `build/<prefix>_<label>.cu`
-    (`build_variants`): {label: library}."""
-    builds = []
-    for label, edits in {"as it is": [], **variants}.items():
-        text = src
-        for old, new in edits:
-            check(old in text, f"{prefix} {label}: the source has no {old.strip()[:60]!r}")
-            text = text.replace(old, new)
-        path = ROOT / "build" / f"{prefix}_{label.replace(' ', '_')}.cu"
-        path.write_text(text)
-        builds.append((label, path, ()))
-    return build_variants(name, builds)
-
-
-def time_chunked_pair(torch, dev, rng, libs):
-    """The f32 chunked dQ and dK/dV kernels of each of `libs` (label ->
-    library) at D = 1024's training shape, by CUDA graph replay,
-    interleaved: {label: (dQ ms, dK/dV ms)}."""
-    from image_matching_tpu_torch.ops import attention as A
-
-    b, n, h, dh = F32_CHUNKED_BACKWARD_SHAPES[0]
-    qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * h * dh)).astype("float32")).to(dev)
-    q, k, v = qkv[..., :h * dh], qkv[..., h * dh:2 * h * dh], qkv[..., 2 * h * dh:]
-    mask = torch.from_numpy(rng.uniform(size=(b, n)) < 0.8).to(dev)
-    mask[:, 0] = True
-    dout = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev)
-    _, lse = A.attention_lse(q, k, v, mask, h)
-    delta = torch.empty((b, h, n), dtype=torch.float32, device=dev)  # written by dQ, read by dK/dV
-    dq, dk, dv = (torch.empty((b, n, h * dh), dtype=torch.float32, device=dev) for _ in range(3))
-    calls = {"dQ": lambda: A.attention_backward_kernel("attention_dq", q, k, v, mask, dout, lse, delta, (dq,), h),
-             "dK/dV": lambda: A.attention_backward_kernel("attention_dkdv", q, k, v, mask, dout, lse, delta, (dk, dv),
-                                                         h)}
-    times = time_interleaved({(label, name): with_attention_library("attention_bwd_chunked", lib, call)
-                              for label, lib in libs.items() for name, call in calls.items()}, reps=10)
-    return {label: tuple(statistics.mean(times[label, name]) for name in calls) for label in libs}
-
-
-def measure_chunked_recompute(torch, dev, rng):
-    """What held PR 19's f32 chunked backward pair, where its source is in
-    `build/attention_bwd_chunked_before.cu`: the pair at D = 1024's training
-    shape as it is, with the products of every chunk but the block's own
-    skipped (the recompute: dQ 9 chunk products a block and tile -> 5, dK
-    5 -> 3, dV 3 -> 2), with the own side's chunk staged only into the
-    ring's first slots and read from there again (the restaging of the own
-    side a step), and with both (`CHUNKED_ABLATIONS`); by CUDA graph
-    replay, interleaved. The results are wrong: timing only. Printed once."""
-    if not EARLIER_ATTENTION_BWD_CHUNKED.exists():
-        print("f32 chunked backward, recompute against restaging: no build/attention_bwd_chunked_before.cu; skipped")
-        return
-    src = EARLIER_ATTENTION_BWD_CHUNKED.read_text()
-    if not all(old in src for edits in CHUNKED_ABLATIONS.values() for old, _ in edits):
-        print("f32 chunked backward, recompute against restaging: build/attention_bwd_chunked_before.cu is not "
-              "PR 19's f32 body; skipped")
-        return
-    t = time_chunked_pair(torch, dev, rng, build_edited("attention_bwd_chunked", "attention_bwd_chunked_pr19", src,
-                                                        CHUNKED_ABLATIONS))
-    pair = {label: sum(ms) for label, ms in t.items()}
-    b, n, h, dh = F32_CHUNKED_BACKWARD_SHAPES[0]
-    print(f"f32 chunked backward of PR 19, recompute against restaging, ({b}, {n}, {h}x{dh}), ms by CUDA graph replay, "
-          "interleaved (wrong results, timing only): " + "; ".join(
-              f"{label}: dQ {t[label][0]:.4f}, dK/dV {t[label][1]:.4f}, pair {pair[label]:.4f} "
-              f"({pair[label] / pair['as it is']:.3f} of it as it is)" for label in t))
+# the chunked backward's timed shape: D = 1024's training step (36 calls of each a step)
+CHUNKED_BACKWARD_SHAPE = (4, 512, 4, 256)
 
 
 def time_f32_attention_backward(torch, dev, rng, library="attention_bwd", earlier=EARLIER_ATTENTION_BWD,
@@ -1232,12 +1149,18 @@ def time_f32_attention_backward(torch, dev, rng, library="attention_bwd", earlie
     times by CUDA graph replay, this checkout's build interleaved with
     `earlier` where that file is there (whose f32 and bf16 outputs are
     printed as bit-identical to this build's or not), beside f32 SDPA's
-    backward (forward + backward less forward), the plain version and two
-    bounds on the 7 products the function needs: the FMA pipe's 67 TFLOP/s
+    backward (forward + backward less forward), the
+    plain version and two bounds on the 7 products the function needs: the
+    FMA pipe's 67 TFLOP/s
     and the 3xTF32 tensor-core rate SDPA's own products (and the chunked
     kernels') run at; each kernel's bound at the rate its products run at
     (above 128 3xTF32's) and the kernels' work factor. `step` names the
-    f32 training step whose 36 launches of each the shapes are. Returns the
+    f32 training step whose 36 launches of each the shapes are. With
+    `earlier` there, the bf16 kernels of both builds too, on the same
+    inputs rounded to bf16: each build's error against the bf16 plain
+    version and the builds' distance from each other (relative to the
+    largest entry), and the dQ and dK/dV ms interleaved beside bf16 SDPA's
+    backward and the bound on the 7 products at 989 TFLOP/s. Returns the
     JSON rows of the two kernels at the first shape."""
     import torch.nn.functional as F
     from image_matching_tpu_torch.ops import _build
@@ -1289,17 +1212,35 @@ def time_f32_attention_backward(torch, dev, rng, library="attention_bwd", earlie
                   f"{same}")
             check(max(err) <= 1e-4 and same, f"f32 attention backward {shape} [{label}] disagrees or is not "
                                              "reproducible")
+        pair = 2.0 * b * h * n * n * dh  # operations of one (N x M x dh) product
+        one, row_bytes = b * n * h * dh * 4, b * h * n * 4  # one f32 operand; lse or delta
         if len(libs) > 1:  # the bf16 kernels of each build too, on the same inputs rounded to bf16
-            qb, kb, vb, db = (t.to(torch.bfloat16) for t in (q, k, v, dout))
-            lse_b = A.attention_lse(qb, kb, vb, mask, h)[1]
-            bf16 = {label: with_attention_library(library, lib,
-                                                  lambda: A.attention_backward(qb, kb, vb, mask, lse_b, db, h))()
+            qkv_b, db = qkv.to(torch.bfloat16), dout.to(torch.bfloat16)
+            qb, kb, vb = qkv_b[..., :h * dh], qkv_b[..., h * dh:2 * h * dh], qkv_b[..., 2 * h * dh:]
+            calls_b, _ = _attention_calls(torch, A, qb, kb, vb, mask, db, h)
+            plain_b = calls_b["plain_bwd"]()
+            bf16 = {label: with_attention_library(library, lib, calls_b["attention_backward"])()
                     for label, lib in libs.items()}
             for label in list(libs)[1:]:
+                same = all(torch.equal(a, c) for a, c in zip(first[label], first["this checkout"]))
+                same_bf16 = all(torch.equal(a, c) for a, c in zip(bf16[label], bf16["this checkout"]))
                 print(f"attention backward {shape} [{label}]: bit-identical to this checkout's build: f32 dq, dk, dv "
-                      f"{all(torch.equal(a, c) for a, c in zip(first[label], first['this checkout']))}; bf16 dq, dk, "
-                      f"dv {all(torch.equal(a, c) for a, c in zip(bf16[label], bf16['this checkout']))}")
-            del qb, kb, vb, db, bf16
+                      f"{same}; bf16 dq, dk, dv {same_bf16} (largest distance "
+                      f"{_grad_error(bf16[label], bf16['this checkout']):.2e} of the largest entry)")
+            times_b = time_interleaved({(label, name): with_attention_library(library, lib, calls_b[key])
+                                        for label, lib in libs.items()
+                                        for name, key in (("dQ", "attention_dq"), ("dK/dV", "attention_dkdv"))}, reps=10)
+            sdpa_b = graph_ms(calls_b["lib_fb"], 10) - graph_ms(calls_b["lib_fwd"], 10)
+            bound_b = bound(6 * one // 2 + 2 * row_bytes + b * n, 7 * pair, BF16_TENSOR_FLOPS)[0]
+            for label in libs:
+                dq_ms, dkdv_ms = (statistics.mean(times_b[label, name]) for name in ("dQ", "dK/dV"))
+                print(f"bf16 attention backward {shape} [{label}]: dQ {dq_ms:.4f} ms, dK/dV {dkdv_ms:.4f} ms, pair "
+                      f"{dq_ms + dkdv_ms:.4f} ms by CUDA graph replay, interleaved: "
+                      f"{(dq_ms + dkdv_ms) / sdpa_b:.3f} of bf16 SDPA's backward ({sdpa_b:.4f} ms), "
+                      f"{bound_b / (dq_ms + dkdv_ms):.3f} of the bound on its 7 products ({bound_b:.5f} ms at 989 "
+                      f"TFLOP/s); error against the plain version, relative to the largest entry: dq/dk/dv "
+                      + "/".join(f"{_grad_error((g,), (p,)):.2e}" for g, p in zip(bf16[label], plain_b)))
+            del qkv_b, db, calls_b, plain_b, bf16
         del exact, q64, k64, v64, do64, first
         times = time_interleaved({f"{name} [{label}]": with_attention_library(library, lib, call)
                                   for label, lib in libs.items() for name, call in calls.items()}, reps=10)
@@ -1313,8 +1254,6 @@ def time_f32_attention_backward(torch, dev, rng, library="attention_bwd", earlie
         lib_ms = graph_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m4),
                                                       (qh, kh, vh), doh), 10) - graph_ms(sdpa_fwd, 10)
         plain_ms = graph_ms(lambda: A.attention_backward_plain(q, k, v, mask, lse, dout, h), 3)
-        pair = 2.0 * b * h * n * n * dh  # operations of one (N x M x dh) product
-        one, row_bytes = b * n * h * dh * 4, b * h * n * 4  # one f32 operand; lse or delta
         # every input read and output written once: the function's 7 products; dQ needs
         # S, dP, dS K and writes delta, dK/dV needs S^T, dP^T, P^T dO, dS^T Q and reads it
         fma7, tc7 = (bound(6 * one + 2 * row_bytes + b * n, 7 * pair, rate) for rate in (F32_FLOPS, F32_3XTF32_FLOPS))
@@ -1330,8 +1269,8 @@ def time_f32_attention_backward(torch, dev, rng, library="attention_bwd", earlie
             print(f"  [{label}] dQ + dK/dV {both:.4f} ms: {both / lib_ms:.3f} of f32 SDPA's backward ({lib_ms:.4f}); "
                   f"{fma7[0] / both:.3f} of the FMA pipe's bound reached, {tc7[0] / both:.3f} of the 3xTF32 one")
         work = ("" if dh <= 128 else "; the kernels do " + ", ".join(
-            f"{name} {chunked_work_factor(key, dh, 'float32'):.3f}x" for name, key in (("dQ", "attention_dq"),
-                                                                                  ("dK/dV", "attention_dkdv")))
+            f"{name} {chunked_work_factor(key, dh):.3f}x" for name, key in (("dQ", "attention_dq"),
+                                                                            ("dK/dV", "attention_dkdv")))
                 + " the function's operations")
         print(f"  plain backward (dq, dk, dv together) {plain_ms:.4f} ms; bounds on the 7 products: FMA pipe at 67 "
               f"TFLOP/s {fma7[0]:.4f} ms, 3xTF32 tensor cores at 165 TFLOP/s {tc7[0]:.4f} ms; per kernel at "
@@ -4591,9 +4530,9 @@ def train_wide(torch, dev, images, d: int, dtype: str):
     weights, in `dtype`, through the trainer's step
     (`make_superglue_train_step`, which the CLI calls): launch counts of
     one step (each training kernel of the heads' width, 36 a step), steps/s (median of
-    `WIDE_TRAIN_STEPS`), peak memory, finite metrics, in f32 the step's
-    device time (at D = 1024 on `build/attention_bwd_chunked_before.cu`'s
-    build too, where that file is there); then every attention
+    `WIDE_TRAIN_STEPS`), peak memory, finite metrics, the step's device
+    time (at D = 1024 on `build/attention_bwd_chunked_before.cu`'s build
+    too, where that file is there); then every attention
     backward call of each of two more steps against the plain version
     (`check_backward_calls`; in f32 its distance to float64 moves with the
     training state). Returns the launch counts of one step."""
@@ -4637,14 +4576,14 @@ def train_wide(torch, dev, images, d: int, dtype: str):
         vals = {key: float(val) for key, val in mm.items()}
         check(all(math.isfinite(x) for x in vals.values()) and vals["skipped_nonfinite"] == 0,
               f"{label} step {i}: non-finite metrics or a skipped step {vals}")
-    if dtype == "float32":  # the step's device time, and at the chunked width on PR 19's chunked backward too
-        fmt = lambda ms: "not measured (profiler events lost)" if ms is None else f"{ms:.3f} ms"
-        line = f"{label}: device time per step (profiler, 2 steps) {fmt(device_ms(lambda: step(state, images, gen), 2, 1))}"
-        if d == 4 * CHUNKED_ROW_WIDTH and EARLIER_ATTENTION_BWD_CHUNKED.exists():
-            earlier = build_variants("attention_bwd_chunked", [("before", EARLIER_ATTENTION_BWD_CHUNKED, ())])["before"]
-            before = with_attention_library("attention_bwd_chunked", earlier, lambda: step(state, images, gen))
-            line += f"; on build/attention_bwd_chunked_before.cu {fmt(device_ms(before, 2, 1))}"
-        print(line)
+    # the step's device time, and at the chunked width on the earlier chunked backward's build too
+    fmt = lambda ms: "not measured (profiler events lost)" if ms is None else f"{ms:.3f} ms"
+    line = f"{label}: device time per step (profiler, 2 steps) {fmt(device_ms(lambda: step(state, images, gen), 2, 1))}"
+    if d == 4 * CHUNKED_ROW_WIDTH and EARLIER_ATTENTION_BWD_CHUNKED.exists():
+        earlier = build_variants("attention_bwd_chunked", [("before", EARLIER_ATTENTION_BWD_CHUNKED, ())])["before"]
+        before = with_attention_library("attention_bwd_chunked", earlier, lambda: step(state, images, gen))
+        line += f"; on build/attention_bwd_chunked_before.cu {fmt(device_ms(before, 2, 1))}"
+    print(line)
     for i in range(2):
         calls = []
         with recorded_backward_calls(torch, calls):

@@ -8,18 +8,28 @@
 // see its notes.
 //
 // Heads wider than 128 (dh = C * 128, C >= 2), bf16: `dq_chunked` /
-// `dkdv_chunked` (mma.sync), one body (`chunked_bwd`) in three roles. A
-// block owns 64 rows of one (b, head) and one 128-value chunk c of one
-// output: dQ_c, dK_c or dV_c (dK and dV in blocks of their own, so a
-// block's accumulators are those of width 128 and dV's blocks need no dP).
-// Per tile of the other side it adds S and dP over the head's C chunks, one
-// ring step a chunk product with the own side's and the tile's chunk staged
-// together (2 slots of two padded 64 x 128 tiles and a tile's lse / delta
-// rows), then takes one step with the tile's chunk c for the output's
-// product with dS or P. dQ's delta pass runs in every chunk block (S and dP
-// over the keys, the same for every chunk), and chunk 0 writes delta. Work:
-// dQ C (4 C + 1) chunk products for the function's 3 C, dK/dV C (3 C + 2)
-// for 4 C (3x and 2x at 256; PERF.md).
+// `dkdv_chunked`, one body (`chunked_bwd`), launched as thread block
+// clusters of the chunk blocks as the f32 pair below is, on Hopper's
+// warpgroup products. The G blocks of one 64-row tile (G the largest
+// divisor of C up to 8; each owns C / G chunks) keep their own rows' chunk
+// in shared memory (Q_c and dO_c for dQ, K_c and V_c for dK/dV), bring only
+// their chunk of each 64-row loop tile into a 3-slot ring by tensor copies
+// (TMA, in the 128-byte swizzle, issued by one thread, an mbarrier a slot),
+// multiply partial S_c (warpgroup 0) and dP_c (warpgroup 1) with
+// wgmma.m64n64k16, and add the cluster's partials in f32 through
+// distributed shared memory in rank order: one cluster barrier a tile,
+// split, with the next copies and (a chunk a block, C <= 8) the next tile's
+// partial products issued between its arrive and its wait. Then
+// the output product, A (P or dS, rounded to bf16) from registers: dQ_c +=
+// dS K_c, each warpgroup over half the tile's keys, or dV_c += P^T dO_c
+// (warpgroup 0) and dK_c += dS^T Q_c (warpgroup 1) in one block. dQ's delta
+// pass exchanges S only. Work: dQ 5 C chunk products (a delta pass of 2 C,
+// then 3 C) for the function's 3 C, dK/dV 4 C for 4 C. Bound: the
+// function's 7 products at D = 1024's training shape (4, 512, 4 x 256),
+// 15 GFLOP, take 0.0152 ms at 989 TFLOP/s. What holds the pair is the
+// exchange, the partner's partials read through distributed shared memory
+// and the barrier's release: half the pair's time on the card (PERF.md,
+// with the routes that were timed against this one).
 //
 // f32: `dq_3xtf32_chunked` / `dkdv_3xtf32_chunked`, one body
 // (`chunked_bwd_tf32`), launched as thread block clusters. The C chunk
@@ -55,220 +65,13 @@
 #include "attention_bwd.cuh"
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int CW = 128;  // head values a chunk
-enum Role { ROLE_DQ, ROLE_DK, ROLE_DV };
-
-// bf16: a ring slot holds two padded 64 x 128 tiles, then a loop tile's lse
-// and delta rows.
-constexpr int CHUNK_TILE = tile_elems<CW>();
-constexpr int CHUNK_SLOT_BYTES = 2 * CHUNK_TILE * 2 + 2 * T * 4;
-
-// One block's output chunk: dQ_c = dS K_c with delta (ROLE_DQ: two passes
-// over the keys, the first for delta, which chunk 0 writes), dK_c = dS^T Q_c
-// (ROLE_DK) or dV_c = P^T dO_c (ROLE_DV, which needs no dP), with the key
-// masking, dead elements and delta of `dq_mma` / `dkdv_mma`. One warpgroup.
-template <int ROLE>
-__device__ __forceinline__ void chunked_bwd(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
-                                            const __nv_bfloat16* __restrict__ k, int64_t k_bs, int64_t k_rs,
-                                            const __nv_bfloat16* __restrict__ v, int64_t v_bs, int64_t v_rs,
-                                            const uint8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ dout,
-                                            const float* __restrict__ lse, float* __restrict__ delta,
-                                            __nv_bfloat16* __restrict__ out, int N, int M, int H, float scale,
-                                            int C, int head_chunk, unsigned char* smem) {
-  constexpr bool DQ = ROLE == ROLE_DQ;
-  constexpr int LD = CW + PAD;
-  const int b = blockIdx.z, h = head_chunk / C, c = head_chunk % C, tid = threadIdx.x;
-  const int lane = tid % 32, wr = (tid / 32) * 16, g = lane / 4, t = lane % 4;
-  const int DH = C * CW, r0 = blockIdx.x * T;  // the block's own rows r0 .. r0 + 63
-  const int own_rows = DQ ? N : M, loop_rows = DQ ? M : N, ntiles = (loop_rows + T - 1) / T;
-  const int64_t do_rs = (int64_t)H * DH;
-  const __nv_bfloat16* qh = q + b * q_bs + h * DH;
-  const __nv_bfloat16* kh = k + b * k_bs + h * DH;
-  const __nv_bfloat16* vh = v + b * v_bs + h * DH;
-  const __nv_bfloat16* doh = dout + b * N * do_rs + h * DH;
-  // S's operands (own, loop): (Q, K) for dQ, (K, Q) for dK / dV; dP's (dO, V), (V, dO)
-  const __nv_bfloat16* own_s = DQ ? qh : kh;
-  const __nv_bfloat16* own_p = DQ ? doh : vh;
-  const __nv_bfloat16* loop_s = DQ ? kh : qh;
-  const __nv_bfloat16* loop_p = DQ ? vh : doh;
-  const int64_t own_s_rs = DQ ? q_rs : k_rs, own_p_rs = DQ ? do_rs : v_rs;
-  const int64_t loop_s_rs = DQ ? k_rs : q_rs, loop_p_rs = DQ ? v_rs : do_rs;
-  const float* lse_b = lse + ((int64_t)b * H + h) * N;
-  float* delta_b = delta + ((int64_t)b * H + h) * N;
-  // the steps of a loop tile: `prods` chunk products (S, then dP), then the output's
-  const int prods = ROLE == ROLE_DV ? C : 2 * C, per_tile = prods + 1;
-  const int pass1 = DQ ? ntiles * prods : 0;  // dQ's delta pass: S and dP only
-  const int steps = pass1 + ntiles * per_tile;
-
-  // step u's tiles into its slot: the own side's and the loop tile's chunk
-  // of a product, or the loop tile's chunk c of the output's product (K_c,
-  // Q_c, dO_c) and, for dK / dV, the loop tile's lse and delta
-  auto stage = [&](int u) {
-    unsigned char* slot = smem + (u % STAGES) * CHUNK_SLOT_BYTES;
-    __nv_bfloat16* ta = reinterpret_cast<__nv_bfloat16*>(slot);
-    const int w = u < pass1 ? u : u - pass1, per = u < pass1 ? prods : per_tile;
-    const int j0 = w / per * T, sub = w % per;
-    if (sub < prods) {
-      const int cc = sub % C;
-      const bool p = sub >= C;
-      stage_tile<CW, GROUP>(ta, (p ? own_p : own_s) + cc * CW, p ? own_p_rs : own_s_rs, r0, own_rows, tid);
-      stage_tile<CW, GROUP>(ta + CHUNK_TILE, (p ? loop_p : loop_s) + cc * CW, p ? loop_p_rs : loop_s_rs, j0,
-                            loop_rows, tid);
-      return;
-    }
-    if (ROLE == ROLE_DV) {
-      stage_tile<CW, GROUP>(ta + CHUNK_TILE, doh + c * CW, do_rs, j0, N, tid);
-    } else {
-      stage_tile<CW, GROUP>(ta + CHUNK_TILE, loop_s + c * CW, loop_s_rs, j0, loop_rows, tid);
-    }
-    if (!DQ) {  // rows past N: lse = delta = 0 beside dO = 0
-      float* rows = reinterpret_cast<float*>(slot + 2 * CHUNK_TILE * 2);
-      const int j = tid % T;
-      const bool ok = j0 + j < N;
-      const float* src = tid < T ? lse_b : delta_b;
-      cp_async_4(rows + tid, ok ? src + j0 + j : src, ok);
-    }
-  };
-
-  stage(0);
-  cp_async_commit();
-  // the key states: for dQ the batch element's valid keys, once per block
-  // (only valid keys carry dS, so a dead element needs no flag); for dK / dV
-  // the factors of this thread's two own keys
-  uint8_t* valid = smem + STAGES * CHUNK_SLOT_BYTES;  // dQ: [ntiles * T]
-  float lse_r[2] = {0.f, 0.f};                        // dQ: the own rows' lse
-  KeyRow key[2];
-  if constexpr (DQ) {
-    for (int j = tid; j < ntiles * T; j += GROUP) valid[j] = j < M && (mask == nullptr || mask[(int64_t)b * M + j]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) lse_r[r] = r0 + wr + g + 8 * r < N ? lse_b[r0 + wr + g + 8 * r] : INFINITY;
-  } else {
-    own_key_rows(key, mask, b, M, r0 + wr + g, scale);
-  }
-  const uint32_t lane_nt = nt_lane_offset<CW>(lane), lane_tn = tn_lane_offset<CW>(lane);
-
-  // P of S in place: rows = own g, g + 8 of the warp, columns = loop 8n + 2t + {0, 1}
-  auto probs = [&](float (*s)[4], const float* lse_s, int j0) {
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      if constexpr (DQ) {
-        const uchar2 ok = *reinterpret_cast<const uchar2*>(valid + j0 + n * 8 + 2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {  // the exponential outside the choice: no branch
-          const float pe = __expf(fmaf(s[n][e], scale, -lse_r[e >> 1]));
-          s[n][e] = ((e & 1) ? ok.y : ok.x) ? pe : 0.f;
-        }
-      } else {
-        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + n * 8 + 2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = p_of(s[n][e], key[e >> 1], (e & 1) ? l2.y : l2.x);
-      }
-    }
-  };
-
-  float s[8][4], dp[8][4], acc[CW / 8][4];
-  zero<CW / 8>(acc);
-  float num[2] = {0.f, 0.f}, den[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
-  for (int u = 0; u < steps; ++u) {
-    if (DQ && u == pass1) {  // delta = rowsum(P dP) / rowsum(P); the 4 threads of a row group share a row
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        num[r] += __shfl_xor_sync(0xffffffffu, num[r], 1);
-        num[r] += __shfl_xor_sync(0xffffffffu, num[r], 2);
-        den[r] += __shfl_xor_sync(0xffffffffu, den[r], 1);
-        den[r] += __shfl_xor_sync(0xffffffffu, den[r], 2);
-        delta_r[r] = den[r] > 0.f ? num[r] / den[r] : 0.f;
-        if (c == 0 && t == 0 && r0 + wr + g + 8 * r < N) delta_b[r0 + wr + g + 8 * r] = delta_r[r];
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // step u's tiles have landed; step u - 1's slot is read no more
-    if (u + 1 < steps) stage(u + 1);
-    cp_async_commit();
-    const unsigned char* slot = smem + (u % STAGES) * CHUNK_SLOT_BYTES;
-    const __nv_bfloat16* ta = reinterpret_cast<const __nv_bfloat16*>(slot);
-    const uint32_t tb = smem_addr(ta + CHUNK_TILE);
-    const int w = u < pass1 ? u : u - pass1, per = u < pass1 ? prods : per_tile;
-    const int j0 = w / per * T, sub = w % per;
-    if (sub < C) {  // S += own_c' loop_c'^T
-      if (sub == 0) zero<8>(s);
-      mma_nt_tile<CW>(s, a_lane_addr<CW>(ta, wr, lane), tb + lane_nt);
-    } else if (sub < prods) {  // dP += own_c' loop_c'^T
-      if (sub == C) zero<8>(dp);
-      mma_nt_tile<CW>(dp, a_lane_addr<CW>(ta, wr, lane), tb + lane_nt);
-    }
-    if (u < pass1) {
-      if (sub == prods - 1) {  // dQ's delta pass: the tile's rowsum(P dP) and rowsum(P)
-        probs(s, nullptr, j0);
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            num[e >> 1] += s[n][e] * dp[n][e];
-            den[e >> 1] += s[n][e];
-          }
-      }
-      continue;
-    }
-    if (sub < prods) continue;
-    // the tile's output product with chunk c: X = dS (dQ, dK) or P (dV)
-    const float* rows = reinterpret_cast<const float*>(slot + 2 * CHUNK_TILE * 2);  // lse, then delta
-    probs(s, rows, j0);
-    if (ROLE != ROLE_DV) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float2 d2 = *reinterpret_cast<const float2*>(rows + T + n * 8 + 2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float d = DQ ? delta_r[e >> 1] : ((e & 1) ? d2.y : d2.x);
-          s[n][e] = s[n][e] * (dp[n][e] - d) * (DQ ? scale : key[e >> 1].ds_scale);
-        }
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < T / 16; ++kk) mma_ds<CW>(acc, s + 2 * kk, tb + kk * 16 * LD * 2 + lane_tn);  // out += X . tile
-  }
-  cp_async_wait<0>();
-  store_rows<CW>(out, b, own_rows, H * C, h * C + c, r0 + wr + g, t, acc);  // chunk c of head h: "head" h C + c of 128
-}
-
-__host__ __device__ constexpr int chunked_smem_bytes(int key_tiles) { return STAGES * CHUNK_SLOT_BYTES + key_tiles * T; }
-
-__global__ void __launch_bounds__(GROUP)
-dq_chunked(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
-           const __nv_bfloat16* __restrict__ k, int64_t k_bs, int64_t k_rs,
-           const __nv_bfloat16* __restrict__ v, int64_t v_bs, int64_t v_rs,
-           const uint8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ dout,
-           const float* __restrict__ lse, float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-           int N, int M, int H, float scale, int C) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  chunked_bwd<ROLE_DQ>(q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, dout, lse, delta, dq, N, M, H, scale, C,
-                       blockIdx.y, smem);
-}
-
-// dK and dV blocks side by side: blockIdx.y = 2 (head C + chunk) + (1 for dK)
-__global__ void __launch_bounds__(GROUP)
-dkdv_chunked(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
-             const __nv_bfloat16* __restrict__ k, int64_t k_bs, int64_t k_rs,
-             const __nv_bfloat16* __restrict__ v, int64_t v_bs, int64_t v_rs,
-             const uint8_t* __restrict__ mask, const __nv_bfloat16* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-             int N, int M, int H, float scale, int C) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* d = const_cast<float*>(delta);  // read only
-  if (blockIdx.y % 2)
-    chunked_bwd<ROLE_DK>(q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, dout, lse, d, dk, N, M, H, scale, C,
-                         blockIdx.y / 2, smem);
-  else
-    chunked_bwd<ROLE_DV>(q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, dout, lse, d, dv, N, M, H, scale, C,
-                         blockIdx.y / 2, smem);
-}
 
 // ------------------------------------------------------------------ f32: clusters, 3xTF32
 //
@@ -677,6 +480,493 @@ dkdv_3xtf32_chunked(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
                           C, fsm);
 }
 
+// ------------------------------------------------------------------ bf16: clusters, wgmma
+//
+// The f32 pair's cluster, in bf16 on warpgroup products: G blocks (along y)
+// share one 64-row tile of one (b, head); block r owns chunks r, r + G, ...
+// Per 64-row loop tile each block multiplies only its own chunks into
+// partial S (warpgroup 0) and dP (warpgroup 1), 64 x 64 each
+// (wgmma.m64n64k16, both operands in shared memory in the 128-byte
+// swizzle), leaves them in its exchange buffer, and after one cluster
+// barrier adds the G partials through distributed shared memory in rank
+// order, so every block holds the same S and dP. Then its output product
+// with the loop tile's chunk, A from registers: dQ_c += dS K_c (warpgroup
+// w: the keys of half w of the tile, all 64 rows and 128 values; the two
+// halves' sums added at the end of the pass) or dV_c += P^T dO_c
+// (warpgroup 0) and dK_c += dS^T Q_c (warpgroup 1). dQ's delta pass
+// exchanges S only: each block adds rowsum(P dP_c) over its own chunks from
+// its own partial dP, and the cluster adds the 64 rows' sums once, at the
+// end of the pass.
+
+constexpr int CHUNK_TILE = 2 * WG_TILE_BYTES;  // 64 rows of a chunk: two 64-value panels in the 128-byte swizzle
+constexpr int PANEL = WG_TILE_BYTES >> 4;      // the second panel's step in a descriptor (16-byte units)
+constexpr int RINGB = 3;                       // ring stages
+constexpr int SLOT_B = 2 * CHUNK_TILE + 1024;  // a ring slot: the loop tile's two chunk tiles, then lse and delta rows
+constexpr int PART_F = T / 8 * GROUP * 4;      // floats of a warpgroup's 64 x 64 partial: 8 float4 a thread
+constexpr int EXCH_BF = 2 * PART_F;             // an exchange buffer: partial S, then partial dP
+// the own tiles, the ring, two exchange buffers and dK/dV's P; dQ adds its key bits
+constexpr int BF16_SMEM_BYTES = 1024 + 2 * CHUNK_TILE + RINGB * SLOT_B + (2 * EXCH_BF + PART_F) * 4;
+
+__host__ __device__ constexpr int bf16_smem_bytes(int key_tiles) { return BF16_SMEM_BYTES + 8 * key_tiles; }
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// This thread's arrival at `bar`, which completes its phase once `bytes` more have landed
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// Rows [r0, r0 + 64) of batch element b, the 128 values from column `col`,
+// of the operand that `map` describes (`bf16_map`), as a chunk tile: two
+// tensor copies of a 64-value panel each, in the 128-byte swizzle, rows
+// past the operand's end as zeros; they complete on `bar`.
+__device__ __forceinline__ void load_chunk(unsigned char* tile, const CUtensorMap* map, int col, int r0, int b,
+                                           uint64_t* bar) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
+        "[%5];\n" ::"r"(smem_addr(tile + p * WG_TILE_BYTES)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(col + 64 * p), "r"(r0), "r"(b), "r"(smem_addr(bar))
+        : "memory");
+}
+
+// 2^x, one instruction (as csrc/attention.cu's): relative error ~2^-22
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// part (the warpgroup's 64 own rows x 64 loop rows in wgmma's C layout:
+// this thread's rows wr + g, + 8 and loop rows 8n + 2t, + 1 at part[n])
+// = or += Own . Loop^T over one chunk's 128 values, `own` and `loop` the
+// chunk tiles' descriptors; committed, not waited for.
+__device__ __forceinline__ void partial_wg(float* part, uint64_t own, uint64_t loop, bool accumulate) {
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < CW / 16; ++ks) {
+    const int step = (ks / 4) * PANEL + 2 * (ks % 4);
+    wgmma_ss(part, own + step, loop + step, accumulate || ks > 0);
+  }
+  wg_commit();
+}
+
+// acc (the warpgroup's 64 own rows x the chunk's 128 values, acc[0 .. 7]
+// the first panel's n-tiles, acc[8 ..] the second's) += X . Y over NK
+// k-steps of 16 loop rows from k-step kk0: X's A fragments (this warp's 16
+// rows), Y the loop tile's chunk (loop rows x values); waited for.
+template <int NK>
+__device__ __forceinline__ void output_wg(float (*acc)[4], const uint32_t (*xa)[4], uint64_t y, int kk0) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    wgmma_rs(&acc[0][0], xa[kk], y + 128 * (kk0 + kk));
+    wgmma_rs(&acc[8][0], xa[kk], y + PANEL + 128 * (kk0 + kk));
+  }
+  wg_commit();
+  wg_wait<0>(&acc[0][0]);
+  wg_wait<0>(&acc[8][0]);
+}
+
+// This warp's rows of an output chunk (acc: the C layout of rows wr + g,
+// + 8 and the chunk's 128 values) as bf16 into `tile`, 64 rows of 256
+// bytes, 16-byte piece c of row r at piece c ^ (r % 8): a warp's stores on
+// distinct banks.
+__device__ __forceinline__ void put_out(unsigned char* tile, const float (*acc)[4], int wr, int g, int t) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = wr + g + 8 * e;
+#pragma unroll
+    for (int n = 0; n < CW / 8; ++n)
+      *reinterpret_cast<uint32_t*>(tile + row * CW * 2 + ((n ^ (row % 8)) * 16) + 4 * t) =
+          pack_bf16(acc[n][2 * e], acc[n][2 * e + 1]);
+  }
+}
+
+// `put_out`'s tile into values col .. col + 127 of rows r0 .. of a
+// contiguous (., rows, width) bf16 output, 16 bytes a thread and step.
+__device__ __forceinline__ void copy_out(__nv_bfloat16* out, const unsigned char* tile, int b, int rows, int width,
+                                         int col, int r0, int tid) {
+  for (int i = tid; i < T * CW / 8; i += FG) {
+    const int row = i / (CW / 8), c = i % (CW / 8);
+    if (r0 + row >= rows) continue;
+    *reinterpret_cast<uint4*>(out + ((int64_t)b * rows + r0 + row) * width + col + 8 * c) =
+        *reinterpret_cast<const uint4*>(tile + row * CW * 2 + ((c ^ (row % 8)) * 16));
+  }
+}
+
+// A warpgroup's 64 x 64 f32 tile in shared memory as its threads hold it:
+// n-tile n of thread gt (4 values of the C layout) at float4 GROUP n + gt,
+// so that a warp's accesses are 512 contiguous bytes, and every warpgroup's
+// thread gt holds the same entries.
+__device__ __forceinline__ void put_tile(float* tile, const float (*c)[4], int gt) {
+#pragma unroll
+  for (int n = 0; n < T / 8; ++n)
+    *reinterpret_cast<float4*>(tile + 4 * (GROUP * n + gt)) = make_float4(c[n][0], c[n][1], c[n][2], c[n][3]);
+}
+
+// x[n] = n-tile n0 + n of this thread's entries of tile `tile`
+template <int NX>
+__device__ __forceinline__ void get_tile(float (*x)[4], const float* tile, int n0, int gt) {
+#pragma unroll
+  for (int n = 0; n < NX; ++n) {
+    const float4 v = *reinterpret_cast<const float4*>(tile + 4 * (GROUP * (n0 + n) + gt));
+    x[n][0] = v.x;
+    x[n][1] = v.y;
+    x[n][2] = v.z;
+    x[n][3] = v.w;
+  }
+}
+
+// x[n] = the cluster's sum, in rank order, of exchange tile `tile` at this
+// thread's n-tile n0 + n
+template <int NX>
+__device__ __forceinline__ void sum_tile(float (*x)[4], cg::cluster_group& cluster, int G, int r, const float* tile,
+                                         int n0, int gt) {
+  zero<NX>(x);
+  for (int o = 0; o < G; ++o) {
+    const float* p = (o == r ? tile : cluster.map_shared_rank(tile, o)) + 4 * (GROUP * n0 + gt);
+    float4 v[NX];
+#pragma unroll
+    for (int n = 0; n < NX; ++n) v[n] = *reinterpret_cast<const float4*>(p + 4 * GROUP * n);
+#pragma unroll
+    for (int n = 0; n < NX; ++n) {
+      x[n][0] += v[n].x;
+      x[n][1] += v[n].y;
+      x[n][2] += v[n].z;
+      x[n][3] += v[n].w;
+    }
+  }
+}
+
+// The cluster barrier in two halves. Arrive, once this block's partials
+// are written: a block barrier, one thread's release fence at cluster scope
+// (cumulative: it covers the writes that the block barrier ordered before
+// it), a block barrier, then every thread's relaxed arrival; a release by
+// every thread takes longer (PERF.md). Wait: every block has arrived.
+__device__ __forceinline__ void cluster_arrive() {
+  __syncthreads();
+  if (threadIdx.x == 0) asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+  __syncthreads();
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One block of the cluster. dQ (DQ): a delta pass over the key tiles, then
+// one output pass per owned chunk; dK/dV: one output pass per owned chunk.
+// A pass walks the loop tiles; a tile takes one ring step per owned chunk,
+// the output pass's own chunk last, so that its loop tile is in the ring
+// for the output product. With one chunk a block (ONE: C <= 8) the own rows
+// are staged once, and the next tile's partial products are issued between
+// this tile's arrive and wait at the cluster barrier, so they run while the
+// barrier completes and the partner's partials are read; with several, each
+// step stages its chunk's own rows and then multiplies.
+template <bool DQ, bool ONE>
+__device__ __forceinline__ void chunked_bwd(const CUtensorMap* map_own_s, const CUtensorMap* map_own_p,
+                                            const CUtensorMap* map_loop_s, const CUtensorMap* map_loop_p,
+                                            const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+                                            float* __restrict__ delta, __nv_bfloat16* __restrict__ out_s,
+                                            __nv_bfloat16* __restrict__ out_p, int N, int M, int H, float scale, int C,
+                                            unsigned char* smem_raw) {
+  __shared__ float row_num[2][T], row_den[2][T], row_delta[T];  // dQ: each half's row sums, and delta
+  __shared__ uint64_t bars[RINGB + 1];                             // the ring's slots', then the own tiles' arrivals
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = cluster.num_blocks(), r = cluster.block_rank(), nr = ONE ? 1 : C / G;
+  const int b = blockIdx.z, h = blockIdx.y / G, r0 = blockIdx.x * T, tid = threadIdx.x;
+  const int w = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4, wr = 16 * (w % 4), half = w / 4;
+  const int gt = tid % GROUP;
+  const int DH = C * CW;
+  const int own_rows = DQ ? N : M, loop_rows = DQ ? M : N, ntiles = (loop_rows + T - 1) / T;
+  const float* lse_b = lse + ((int64_t)b * H + h) * N;
+  float* delta_b = delta + ((int64_t)b * H + h) * N;
+  unsigned char* own = align_1024(smem_raw);  // S's and dP's own chunk tiles
+  unsigned char* ring = own + 2 * CHUNK_TILE;
+  float* exch = reinterpret_cast<float*>(ring + RINGB * SLOT_B);
+  float* ptile = exch + 2 * EXCH_BF;                                   // dK/dV: P, from warpgroup 0 to 1
+  uint32_t* key_bits = reinterpret_cast<uint32_t*>(ptile + PART_F);  // dQ: the batch element's valid keys
+
+  // flat steps: pass (dQ: 0 the delta pass), loop tile, chunk step i < nr.
+  // Output pass p's tile takes chunks r + G ((p + 1 + i) % nr): its own, r + p G, last.
+  const int pass0 = DQ ? 1 : 0, per_pass = ntiles * nr, steps = (pass0 + nr) * per_pass;
+  auto chunk_of = [&](int u) {
+    const int p = u / per_pass - pass0;
+    return r + G * ((p + 1 + u % nr) % nr);  // the delta pass (p = -1): r, r + G, ...
+  };
+  auto stage_own = [&](int cc) {  // by one thread of warpgroup 1, the less busy one
+    mbar_expect(&bars[RINGB], 2 * CHUNK_TILE);
+    load_chunk(own, map_own_s, h * DH + cc * CW, r0, b, &bars[RINGB]);
+    load_chunk(own + CHUNK_TILE, map_own_p, h * DH + cc * CW, r0, b, &bars[RINGB]);
+  };
+  auto stage = [&](int u) {  // step u's loop tile, its chunk (one thread), and (dK/dV) the tile's lse and delta rows
+    unsigned char* slot = ring + (u % RINGB) * SLOT_B;
+    const int j0 = (u / nr) % ntiles * T, cc = chunk_of(u);
+    if (tid == GROUP) {
+      mbar_expect(&bars[u % RINGB], 2 * CHUNK_TILE);
+      load_chunk(slot, map_loop_s, h * DH + cc * CW, j0, b, &bars[u % RINGB]);
+      load_chunk(slot + CHUNK_TILE, map_loop_p, h * DH + cc * CW, j0, b, &bars[u % RINGB]);
+    }
+    if (!DQ && tid < 2 * T) {  // rows past N: lse = delta = 0 beside dO = 0
+      float* rows = reinterpret_cast<float*>(slot + 2 * CHUNK_TILE);
+      const int j = tid % T;
+      const bool ok = j0 + j < N;
+      const float* src = tid < T ? lse_b : delta_b;
+      cp_async_4(rows + tid, ok ? src + j0 + j : src, ok);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < RINGB + 1; ++i) mbar_init(&bars[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (nr == 1 && tid == GROUP) stage_own(r);
+  stage(0);
+  cp_async_commit();
+  if (steps > 1) stage(1);
+  cp_async_commit();
+  // the factors of this lane's own rows wr + g, + 8: dQ, the rows' lse log2 e
+  // (P = 0 past N); dK/dV, the keys' states as `dkdv_mma` takes them
+  float l2[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f}, ds_scale[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  bool counts[2] = {false, false};
+  const bool dead = DQ ? false : dead_batch(mask, b, M);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = r0 + wr + g + 8 * e;
+    if constexpr (DQ) {
+      l2[e] = row < N ? lse_b[row] * LOG2E : INFINITY;
+    } else {
+      const KeyRow key = key_row(key_state(mask, b, M, row, dead), scale);
+      s2[e] = key.s_scale * LOG2E;
+      ds_scale[e] = key.ds_scale;
+      counts[e] = key.counts;
+    }
+  }
+  if constexpr (DQ) {  // a bit a key, 0 past M: only valid keys carry P (a dead element needs no flag)
+    for (int base = 32 * w; base < ntiles * T; base += 32 * (FG / 32)) {
+      const int key = base + lane;
+      const uint32_t word = __ballot_sync(0xffffffffu, key < M && (mask == nullptr || mask[(int64_t)b * M + key]));
+      if (lane == 0) key_bits[base / 32] = word;
+    }
+  }
+  cp_async_wait<1>();  // step 0's lse and delta rows have landed
+  if (nr == 1) mbar_wait(&bars[RINGB], 0);  // and the own tiles
+  cluster.sync();  // every block of the cluster runs: its shared memory may be read
+
+  const uint64_t own_desc = wg_desc(smem_addr(own + half * CHUNK_TILE));
+  auto loop_desc = [&](int u, int tile) { return wg_desc(smem_addr(ring + (u % RINGB) * SLOT_B + tile * CHUNK_TILE)); };
+  constexpr int NT = T / 8, NQ = NT / 2;  // a tile's n-tiles; dQ: a warpgroup's half of them
+  float part[NT][4], acc[CW / 8][4];
+  zero<CW / 8>(acc);
+  float num[2] = {0.f, 0.f}, den[2] = {0.f, 0.f};
+  if constexpr (ONE) {
+    mbar_wait(&bars[0], 0);
+    partial_wg(&part[0][0], own_desc, loop_desc(0, half), false);
+  }
+  for (int u = 0; u < steps; ++u) {
+    const int i = u % nr, tile = u / nr, pass = u / per_pass, j0 = tile % ntiles * T;
+    const bool last = ONE || i == nr - 1;  // the tile's last chunk step: exchange, P and dS, output product
+    const bool delta_pass = DQ && pass == 0;
+    unsigned char* slot = ring + (u % RINGB) * SLOT_B;
+    if constexpr (!ONE) {
+      __syncthreads();  // this step's own chunk; every thread is done with the last one's
+      if (tid == GROUP) stage_own(chunk_of(u));
+      mbar_wait(&bars[RINGB], u & 1);
+      mbar_wait(&bars[u % RINGB], (u / RINGB) & 1);  // step u's tiles have landed
+      partial_wg(&part[0][0], own_desc, loop_desc(u, half), i > 0);  // S (warpgroup 0), dP (1)
+    }
+    // dQ: which of the keys of this warpgroup's half of the tile are valid, bits 2n + e
+    uint32_t ok = 0;
+    if (DQ && last) {
+      const uint64_t word = *reinterpret_cast<const uint64_t*>(key_bits + j0 / 32);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) ok |= (uint32_t)((word >> (8 * (half * NQ + n) + 2 * t)) & 3u) << (2 * n);
+    }
+    wg_wait<0>(&part[0][0]);
+    float* ex = exch + (tile % 2) * EXCH_BF;  // a tile's buffer; the next tile writes the other
+    if (last) put_tile(ex + half * PART_F, part, gt);  // dQ's delta pass: the partial dP is for this block only
+    if (!last) {
+      cp_async_wait<0>();  // step u + 1's lse and delta rows have landed
+      __syncthreads();
+      if (u + RINGB - 1 < steps) stage(u + RINGB - 1);  // into step u - 1's slot
+      cp_async_commit();
+      continue;
+    }
+    cluster_arrive();    // the partials are written
+    if constexpr (ONE) {  // the next tile's partial products (at the last, this tile's again, unused)
+      const int un = u + 1 < steps ? u + 1 : u;
+      mbar_wait(&bars[un % RINGB], (un / RINGB) & 1);
+      partial_wg(&part[0][0], own_desc, loop_desc(un, half), false);
+    }
+    cp_async_wait<0>();  // step u + 1's lse and delta rows have landed
+    __syncthreads();     // and are every thread's; every thread is done with step u - 1's slot
+    if (u + RINGB - 1 < steps) stage(u + RINGB - 1);
+    cp_async_commit();
+    cluster_wait();  // every block's partials are written
+
+    const uint64_t y_s = loop_desc(u, 0), y_p = loop_desc(u, 1);
+    uint32_t xa[T / 16][4];
+    if constexpr (DQ) {
+      // S, and dP (the delta pass: this block's partial), on this warpgroup's half of the tile's keys
+      float s[NQ][4], dp[NQ][4];
+      sum_tile<NQ>(s, cluster, G, r, ex, half * NQ, gt);
+      if (delta_pass) {
+        get_tile<NQ>(dp, ex + PART_F, half * NQ, gt);
+      } else {
+        sum_tile<NQ>(dp, cluster, G, r, ex + PART_F, half * NQ, gt);
+      }
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // the exponential outside the choice: no branch
+          const float pe = ex2(fmaf(s[n][e], scale * LOG2E, -l2[e >> 1]));
+          s[n][e] = (ok >> (2 * n + (e & 1))) & 1u ? pe : 0.f;
+        }
+      if (delta_pass) {  // rowsum(P dP_c) over this block's chunks, and rowsum(P)
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            num[e >> 1] = fmaf(s[n][e], dp[n][e], num[e >> 1]);
+            den[e >> 1] += s[n][e];
+          }
+        if (tile == ntiles - 1) {  // delta = rowsum(P dP) / rowsum(P): the row's 4 lanes, 2 halves, then the cluster
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            num[e] += __shfl_xor_sync(0xffffffffu, num[e], 1);
+            num[e] += __shfl_xor_sync(0xffffffffu, num[e], 2);
+            den[e] += __shfl_xor_sync(0xffffffffu, den[e], 1);
+            den[e] += __shfl_xor_sync(0xffffffffu, den[e], 2);
+            if (t == 0) {
+              row_num[half][wr + g + 8 * e] = num[e];
+              row_den[half][wr + g + 8 * e] = den[e];
+            }
+          }
+          cluster.sync();
+          if (tid < T) {  // in rank order, in every block
+            float sn = 0.f;
+            for (int o = 0; o < G; ++o) {
+              const float* rn = cluster.map_shared_rank(&row_num[0][0], o);
+              sn += rn[tid] + rn[T + tid];
+            }
+            const float sd = row_den[0][tid] + row_den[1][tid], d = sd > 0.f ? sn / sd : 0.f;
+            row_delta[tid] = d;
+            if (r == 0 && r0 + tid < N) delta_b[r0 + tid] = d;
+          }
+          __syncthreads();
+#pragma unroll
+          for (int e = 0; e < 2; ++e) delta_r[e] = row_delta[wr + g + 8 * e];
+        }
+        continue;
+      }
+      // dQ_c += dS K_c over this warpgroup's keys
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * (dp[n][e] - delta_r[e >> 1]) * scale;
+#pragma unroll
+      for (int kk = 0; kk < NQ / 2; ++kk) c_to_a(xa[kk], s + 2 * kk);
+      output_wg<NQ / 2>(acc, xa, y_s, half * NQ / 2);
+    } else {
+      // warpgroup 0: S, then P, which it hands to warpgroup 1; warpgroup 1: dP, then dS in its place
+      const float* rows = reinterpret_cast<const float*>(slot + 2 * CHUNK_TILE);  // the tile's lse, then delta
+      float s[NT][4], dp[NT][4];
+      if (half) {
+        sum_tile<NT>(dp, cluster, G, r, ex + PART_F, 0, gt);
+      } else {
+        sum_tile<NT>(s, cluster, G, r, ex, 0, gt);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float2 l = *reinterpret_cast<const float2*>(rows + 8 * n + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pe = ex2(fmaf(s[n][e], s2[e >> 1], -((e & 1) ? l.y : l.x) * LOG2E));
+            s[n][e] = counts[e >> 1] ? pe : 0.f;
+          }
+        }
+        put_tile(ptile, s, gt);
+      }
+      __syncthreads();  // P is in
+      if (half) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float4 p = *reinterpret_cast<const float4*>(ptile + 4 * (GROUP * n + gt));
+          const float2 d = *reinterpret_cast<const float2*>(rows + T + 8 * n + 2 * t);
+          const float pn[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[n][e] = pn[e] * (dp[n][e] - ((e & 1) ? d.y : d.x)) * ds_scale[e >> 1];
+        }
+#pragma unroll
+        for (int kk = 0; kk < T / 16; ++kk) c_to_a(xa[kk], dp + 2 * kk);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < T / 16; ++kk) c_to_a(xa[kk], s + 2 * kk);
+      }
+      output_wg<T / 16>(acc, xa, half ? y_s : y_p, 0);  // dV_c += P^T dO_c (warpgroup 0), dK_c += dS^T Q_c (1)
+    }
+    if (tile % ntiles == ntiles - 1) {  // the pass's output chunk is done: out through the own tiles' space
+      const int col = (h * C + chunk_of(u)) * CW;
+      if constexpr (DQ) {  // the two halves' sums over the keys, in order, through the exchange buffers
+        cluster.sync();  // no block reads this block's exchange buffers any more
+        if (half) put_partial<CW / 8>(exch, acc, gt);
+        __syncthreads();
+        if (!half) {
+          add_partial<CW / 8>(acc, exch, gt);
+          put_out(own, acc, wr, g, t);
+        }
+        __syncthreads();
+        copy_out(out_s, own, b, own_rows, H * DH, col, r0, tid);
+      } else {
+        put_out(own + half * CHUNK_TILE, acc, wr, g, t);  // dV, dK
+        __syncthreads();
+        copy_out(out_p, own, b, own_rows, H * DH, col, r0, tid);
+        copy_out(out_s, own + CHUNK_TILE, b, own_rows, H * DH, col, r0, tid);
+      }
+      fence_async_smem();  // before the next pass's own tiles land there
+      zero<CW / 8>(acc);
+    }
+  }
+  cp_async_wait<0>();
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// q, k, v and dout as tensor maps (`bf16_map`): S's operands (own, loop)
+// are (Q, K) for dQ and (K, Q) for dK/dV, dP's (dO, V) and (V, dO).
+template <bool ONE>
+__global__ void __launch_bounds__(FG, 1)
+dq_chunked(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+           const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+           const uint8_t* __restrict__ mask, const float* __restrict__ lse, float* __restrict__ delta,
+           __nv_bfloat16* __restrict__ dq, int N, int M, int H, float scale, int C) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  chunked_bwd<true, ONE>(&map_q, &map_do, &map_k, &map_v, mask, lse, delta, dq, nullptr, N, M, H, scale, C, smem);
+}
+
+template <bool ONE>
+__global__ void __launch_bounds__(FG, 1)
+dkdv_chunked(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+             const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+             const uint8_t* __restrict__ mask, const float* __restrict__ lse, const float* __restrict__ delta,
+             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int N, int M, int H, float scale, int C) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* d = const_cast<float*>(delta);  // read only
+  chunked_bwd<false, ONE>(&map_k, &map_v, &map_q, &map_do, mask, lse, d, dk, dv, N, M, H, scale, C, smem);
+}
+
 // ------------------------------------------------------------------ launch
 
 #define BWD_IN(T_)                                                                   \
@@ -685,36 +975,15 @@ dkdv_3xtf32_chunked(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
       const float *lse
 #define BWD_IN_PASS q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, dout, lse
 
-// A block per 64 own rows and 128-value chunk of its output (dK and dV
-// blocks side by side); heads of DH = C * 128 values, C >= 2, or the call's
-// error.
+// Heads of DH = C * 128 values, C >= 2, or the call's error.
 __host__ __device__ constexpr bool chunked_width(int DH) { return DH > CW && DH % CW == 0; }
-
-int run_chunked_bf16(BWD_IN(__nv_bfloat16), float* delta, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
-                     int B, int N, int M, int H, int DH, float scale, cudaStream_t stream) {
-  if (!chunked_width(DH)) return static_cast<int>(cudaErrorInvalidValue);
-  const int C = DH / CW;
-  if (dq != nullptr) {
-    const int bytes = chunked_smem_bytes((M + T - 1) / T);
-    const cudaError_t err = allow_smem(dq_chunked, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dq_chunked<<<dim3((N + T - 1) / T, H * C, B), GROUP, bytes, stream>>>(BWD_IN_PASS, delta, dq, N, M, H, scale, C);
-  } else {
-    const int bytes = chunked_smem_bytes(0);
-    const cudaError_t err = allow_smem(dkdv_chunked, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dkdv_chunked<<<dim3((M + T - 1) / T, 2 * H * C, B), GROUP, bytes, stream>>>(BWD_IN_PASS, delta, dk, dv, N, M,
-                                                                                 H, scale, C);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // A cluster of `cluster_blocks(C)` blocks along y per 64 own rows of one
 // (b, head), blockIdx.y = head G + rank; a launch the card refuses (no
 // cluster of that many such blocks fits) is the call's error.
 template <typename Kernel, typename... Args>
-cudaError_t launch_cluster(Kernel kernel, dim3 grid, int G, cudaStream_t stream, Args... args) {
-  cudaError_t err = allow_smem(kernel, TF32_SMEM_BYTES);
+cudaError_t launch_cluster(Kernel kernel, dim3 grid, int G, int bytes, cudaStream_t stream, Args... args) {
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -724,7 +993,7 @@ cudaError_t launch_cluster(Kernel kernel, dim3 grid, int G, cudaStream_t stream,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(FG);
-  cfg.dynamicSmemBytes = TF32_SMEM_BYTES;
+  cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -732,15 +1001,67 @@ cudaError_t launch_cluster(Kernel kernel, dim3 grid, int G, cudaStream_t stream,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (no link to the
+// driver library), or null.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (batches, rows, cols) bf16 operand, rows `rs` and batch elements `bs`
+// values apart, as tensor copies of 64 rows x 64 values in the 128-byte
+// swizzle, rows past `rows` read as zeros.
+bool bf16_map(CUtensorMap* map, const __nv_bfloat16* base, int64_t bs, int64_t rs, int batches, int rows, int cols) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batches};
+  const cuuint64_t strides[2] = {(cuuint64_t)rs * 2, (cuuint64_t)(batches > 1 ? bs : rs * rows) * 2};
+  const cuuint32_t box[3] = {64, T, 1}, step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<__nv_bfloat16*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int run_chunked_bf16(BWD_IN(__nv_bfloat16), float* delta, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                     int B, int N, int M, int H, int DH, float scale, cudaStream_t stream) {
+  if (!chunked_width(DH)) return static_cast<int>(cudaErrorInvalidValue);
+  const int C = DH / CW, G = cluster_blocks(C);
+  CUtensorMap mq, mk, mv, mdo;
+  if (!bf16_map(&mq, q, q_bs, q_rs, B, N, H * DH) || !bf16_map(&mk, k, k_bs, k_rs, B, M, H * DH) ||
+      !bf16_map(&mv, v, v_bs, v_rs, B, M, H * DH) ||
+      !bf16_map(&mdo, dout, (int64_t)N * H * DH, (int64_t)H * DH, B, N, H * DH))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool one = G == C;  // a chunk a block
+  if (dq != nullptr)
+    return static_cast<int>(launch_cluster(one ? dq_chunked<true> : dq_chunked<false>, dim3((N + T - 1) / T, H * G, B),
+                                           G, bf16_smem_bytes((M + T - 1) / T), stream, mq, mk, mv, mdo, mask, lse,
+                                           delta, dq, N, M, H, scale, C));
+  return static_cast<int>(launch_cluster(one ? dkdv_chunked<true> : dkdv_chunked<false>,
+                                         dim3((M + T - 1) / T, H * G, B), G, bf16_smem_bytes(0), stream, mq, mk, mv,
+                                         mdo, mask, lse, static_cast<const float*>(delta), dk, dv, N, M, H, scale, C));
+}
+
 int run_chunked_f32(BWD_IN(float), float* delta, float* dq, float* dk, float* dv, int B, int N, int M, int H, int DH,
                     float scale, cudaStream_t stream) {
   if (!chunked_width(DH)) return static_cast<int>(cudaErrorInvalidValue);
   const int C = DH / CW, G = cluster_blocks(C);
   if (dq != nullptr)
-    return static_cast<int>(launch_cluster(dq_3xtf32_chunked, dim3((N + T - 1) / T, H * G, B), G, stream,
-                                           BWD_IN_PASS, delta, dq, N, M, H, scale, C));
-  return static_cast<int>(launch_cluster(dkdv_3xtf32_chunked, dim3((M + T - 1) / T, H * G, B), G, stream,
-                                         BWD_IN_PASS, static_cast<const float*>(delta), dk, dv, N, M, H, scale, C));
+    return static_cast<int>(launch_cluster(dq_3xtf32_chunked, dim3((N + T - 1) / T, H * G, B), G, TF32_SMEM_BYTES,
+                                           stream, BWD_IN_PASS, delta, dq, N, M, H, scale, C));
+  return static_cast<int>(launch_cluster(dkdv_3xtf32_chunked, dim3((M + T - 1) / T, H * G, B), G, TF32_SMEM_BYTES,
+                                         stream, BWD_IN_PASS, static_cast<const float*>(delta), dk, dv, N, M, H, scale,
+                                         C));
 }
 
 }  // namespace

@@ -199,9 +199,11 @@ def attention_lse(q, k, v, key_mask=None, num_heads: int = 4):
 def attention_backward(q, k, v, key_mask, lse, dout, num_heads: int = 4):
     """(dq, dk, dv) of attention, dispatched on the device: the dQ and
     dK/dV kernels of `csrc/attention_bwd.cu` (heads above 128:
-    `csrc/attention_bwd_chunked.cu`) on the card (bf16: tensor cores;
-    f32 up to 128: `dq_ffma` and `dkdv_ffma`, register-tiled on plain f32
-    FMAs, full f32 throughout; f32 above 128: `dq_3xtf32_chunked` and
+    `csrc/attention_bwd_chunked.cu`) on the card (bf16: tensor cores,
+    above 128 `dq_chunked` and `dkdv_chunked`, thread block clusters of
+    the chunk blocks that add their partial S and dP in f32; f32 up to
+    128: `dq_ffma` and `dkdv_ffma`, register-tiled on plain f32 FMAs, full
+    f32 throughout; f32 above 128: `dq_3xtf32_chunked` and
     `dkdv_3xtf32_chunked`, whose products run on the tensor cores as
     three TF32 products each, f32-accurate as f32 SDPA's are, with P, dS
     and every sum in f32), `attention_backward_plain` on the CPU.

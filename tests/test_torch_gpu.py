@@ -428,9 +428,12 @@ def test_attention_kernels_at_head_dims_they_are_not_built_for(cuda, dh, dtype):
 
 # (N, M): ragged across the 64-row tiles; both under one tile; 18 key tiles for one query tile
 CHUNKED_SHAPES = [(70, 133), (5, 9), (50, 1100)]
-# (dh, N, M): every width on those shapes, and 10 chunks, more than a cluster of 8
-# blocks holds (the f32 backward's blocks own 2 chunks each)
-CHUNKED_CASES = [(dh, n, m) for dh in (160, 256, 384, 512) for n, m in CHUNKED_SHAPES] + [(1280, 70, 133)]
+# (dh, N, M): every width on those shapes; D = 1024's training shape; 8 chunks, the
+# backward's largest cluster (8 blocks of one chunk each); and 10 chunks, more than a
+# cluster of 8 blocks holds (the backward's blocks own 2 chunks each), ragged and across
+# several tiles of each side
+CHUNKED_CASES = ([(dh, n, m) for dh in (160, 256, 384, 512) for n, m in CHUNKED_SHAPES]
+                 + [(256, 512, 512), (1024, 70, 133), (1280, 70, 133), (1280, 130, 257)])
 
 
 @pytest.mark.parametrize("dh,n,m", CHUNKED_CASES)

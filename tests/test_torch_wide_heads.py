@@ -211,3 +211,74 @@ def test_f32_training_gradients_match_jax():
 
 def test_f32_training_gradients_match_jax_d640():
     _f32_training_gradients_match_jax(640)  # heads of 160 values: zero-padded to 256 on the card
+
+
+def _step_gradients(d, dtype):
+    """One training forward and backward of `_models(d)` (einsum attention,
+    f32 logits, f32 parameters) computing in `dtype` on both sides, JAX
+    compiled with STRICT_BF16: the JAX gradients and the port's, each a
+    flat dict of f32 arrays."""
+    (j0, t0), (j1, t1) = _keypoint_pair(1, d)
+    gt0, gt1 = jl.make_gt_matches(j0.xy, j1.xy, j0.mask, j1.mask, 3.0)
+    jm, v = _models(d, dtype, impl="einsum")
+
+    def loss_fn(params, batch_stats):
+        out, _ = jm.apply({"params": params, "batch_stats": batch_stats}, j0, j1, SHAPE, SHAPE, train=True,
+                          mutable=["batch_stats"])
+        return jl.superglue_nll_loss(out["log_coupling"], gt0, gt1, j0.mask, j1.mask)
+
+    grads = jax.jit(jax.grad(loss_fn), compiler_options=STRICT_BF16)(v["params"], v["batch_stats"])
+    tm = _port(d, v, dtype)
+    got = tm(t0, t1, SHAPE, SHAPE, train=True)
+    superglue_nll_loss(got["log_coupling"], torch.from_numpy(np.array(gt0)), torch.from_numpy(np.array(gt1)),
+                       t0.mask, t1.mask).backward()
+    want = {k: np.asarray(g, np.float32) for k, g in flatten_tree({"params": grads}).items()}
+    have = {k: np.asarray(g, np.float32) for k, g in params_to_jax({n: p.grad for n, p in tm.named_parameters()}).items()}
+    return want, have
+
+
+def test_bf16_training_gradients_held_to_jax_bf16_d1024():
+    """The bf16 training step at heads of 256 values, the width of the
+    chunked backward kernels on the card, held to JAX's bf16 step by the
+    measures of `test_torch_train.test_bf16_gradients_held_to_jax_bf16`: with
+    d = (1 - cosine of the gradients as one vector, the largest entry's
+    difference over the largest f32 entry) and d(JAX bf16, JAX f32) how far
+    bf16 moves JAX's gradients, over the live leaves,
+      * d(port bf16, port f32) <= 1.25 d(JAX bf16, JAX f32): bf16 moves the
+        port no further than it moves JAX (measured 1.005 and 1.014);
+      * d(port bf16, JAX bf16) <= (0.15, 0.5) d(JAX bf16, JAX f32)
+        (measured 0.114-0.116 and 0.108-0.257 with 1, 2, 4 and the default
+        CPU threads).
+    The D = 32 test's 0.1 is below this step's own noise: the port's bf16
+    step at another thread count, which changes only the order of the f32
+    sums in its matmuls, lies up to (0.067, 0.169) of d(JAX bf16, JAX f32)
+    from its default run, the largest entry always in the keypoint
+    encoder's first kernel. The bounds still fail a dropped rounding: with
+    the residual stream kept in f32 the port reads (0.185, 0.257).
+    Dead leaves, whose exact gradient is 0 (the biases ahead of a batch
+    norm, and the key, value and merge biases, which softmax and a batch
+    norm cancel), are those where JAX's f32 gradient is below 1e-5 of the
+    largest entry (at most 6.1e-7; the smallest live leaf reads 3.2e-3).
+    Both bf16 steps hold rounding noise there, and JAX's is the larger: its
+    compiled CPU code sums a bf16 bias cotangent in bf16, one rounding a
+    row, where the port rounds the f32 sum once (0.10 of the largest entry
+    against 0.006 in the encoder's first bias). So the dead leaves are held
+    to lie no further from 0 in the port than in JAX."""
+    jf, pf = _step_gradients(1024, "float32")
+    jb, pb = _step_gradients(1024, "bfloat16")
+    assert set(pf) == set(pb) == set(jb) == set(jf)
+    scale = max(np.abs(g).max() for g in jf.values())
+    live = sorted(k for k, g in jf.items() if np.abs(g).max() > 1e-5 * scale)
+    dead = sorted(set(jf) - set(live))
+    assert len(live) == 37 and len(dead) == 12, (len(live), len(dead))
+
+    def dists(a, b):
+        va, vb = (np.concatenate([g[k].ravel() for k in live]).astype(np.float64) for g in (a, b))
+        return np.array([1 - va @ vb / (np.linalg.norm(va) * np.linalg.norm(vb)),
+                         max(np.abs(a[k] - b[k]).max() for k in live) / scale])
+
+    pj, jj, pp = dists(pb, jb), dists(jb, jf), dists(pb, pf)
+    assert (jj > [1e-3, 0.05]).all(), jj  # JAX's bf16 did round: the bounds are not vacuous
+    assert (pp <= 1.25 * jj).all(), (pp, jj)
+    assert (pj <= [0.15, 0.5] * jj).all(), (pj, jj)
+    assert max(np.abs(pb[k]).max() for k in dead) <= max(np.abs(jb[k]).max() for k in dead)
