@@ -24,14 +24,16 @@ In order, it:
      put there by hand); where `build/attention_before.cu` holds an earlier version of
      `csrc/attention.cu` (put there by hand, not part of the repository),
      it times that build against this one, interleaved, at the bf16
-     forward's five timed shapes, and prints whether it gives this
-     build's bits; it runs the attention kernels at head dims they
+     forward's seven timed shapes (D = 1024's forward and forward with LSE
+     among them), and prints whether it gives this build's bits; it runs
+     the attention kernels at head dims they
      are not built for (8, 24, 48: zero-padded to 16, 32, 64), forward,
      forward with LSE and backward, against the plain versions; then the
      kernels at head width 128 and the chunked kernels above it (bf16 and
      f32: forward, forward with LSE, dQ, dK/dV) at heads of 80, 96, 128,
      160, 192, 256, 320 and 512 with masked keys and a dead batch element,
-     against the plain versions and, in f32, a float64 run, and times each
+     against the plain versions and, in f32, a float64 run, the forwards
+     bit-identical on a second run, and times each
      at D = 512's and D = 1024's shapes ((4, 1024, 4x128 / 4x256) forward,
      (4, 512, 4x128 / 4x256) training), and D = 640's heads of 160 (zero-
      padded to 256), beside `scaled_dot_product_attention` and the bound;
@@ -131,11 +133,13 @@ In order, it:
      no banked ones exist at those widths): the headline's `Matching` in
      bf16 and f32 (launches, pairs/s, peak memory, agreement with the
      all-plain path, the log-coupling held to `WIDE_MAX_Z_ERR`, the
-     profile), training at the training CLI's defaults in bf16 and f32
+     profile, at 1024 in bf16 on `build/attention_before.cu`'s build too
+     where that file is there), training at the training CLI's defaults in bf16 and f32
      through the trainer's step (launches, steps/s, peak memory, finite
-     metrics, in f32 the step's device time, at 1024 on
-     `build/attention_bwd_chunked_before.cu`'s build too where that file
-     is there, every attention backward call of two steps against the
+     metrics, the step's device time, at 1024 on
+     `build/attention_bwd_chunked_before.cu`'s build and, in bf16,
+     `build/attention_before.cu`'s too where those files are there,
+     every attention backward call of two steps against the
      plain version and, in f32, float64), the training CLI with --descriptor_dim
      D --gnn_layers 2 for one epoch of 6 steps (and at 1024 a resumed one:
      checkpoints, the step count), and match_pair --matcher superglue
@@ -651,7 +655,8 @@ def check_attention_head_dims(torch, dev, rng):
 # at the deep one, where the sums' rounding outweighs the chance of a few terms
 WIDE_CHECKS = ((3, 200, 333), (2, 1024, 1000))
 # SuperGlue's 4 heads at descriptor_dim 320, 384, 512 (the kernels at 128), and at 640,
-# 768, 1024, 1280, 2048 (the chunked kernels: 2, 2, 2, 3 and 4 chunks of 128)
+# 768, 1024, 1280, 2048 (2, 2, 2, 3 and 4 chunks of 128: in bf16 the forwards at 2 chunks
+# are `attention_wide`'s, the rest the chunked kernels')
 WIDE_DIMS = (80, 96, 128, 160, 192, 256, 320, 512)
 CHUNKED_ROW_WIDTH = 256  # the chunked kernels' JSON rows: their launches on the D = 1024 path
 
@@ -674,7 +679,8 @@ def check_wide_head_dims(torch, dev, rng):
     gradients 2e-2 of the largest entry); f32 within 1e-4 of max(|y|, 1)
     (LSE 1e-5), and, at the deep shape, no further from the same functions
     run in float64 than twice the plain f32 version; the dead element's
-    mean of V, log(M) and zero dQ, dK. Returns the worst absolute error of
+    mean of V, log(M) and zero dQ, dK; both forwards bit-identical on a
+    second run. Returns the worst absolute error of
     each kernel against its plain version, keyed by its JSON name (the
     chunked kernels' over every chunked width)."""
     from image_matching_tpu_torch.ops import _build
@@ -736,6 +742,10 @@ def check_wide_head_dims(torch, dev, rng):
                 check(dead["out - mean(V)"] <= (1e-5 if f32 else 2e-2) and dead["lse - log(M)"] <= 1e-5
                       and dead["dv - sum(dO)/M"] <= (1e-5 if f32 else 2e-2) and dead["|dq|, |dk|"] == 0,
                       f"attention {shape}: the dead element")
+                again, (again_out, again_lse) = A.attention(q, k, v, mask, h), A.attention_lse(q, k, v, mask, h)
+                same = torch.equal(again, out) and torch.equal(again_out, out_lse) and torch.equal(again_lse, lse)
+                line += f"; forwards bit-identical on a second run: {same}"
+                check(same, f"attention {shape}: a second forward gives other bits")
                 if f32 and m >= 1000:
                     # how far any f32 order of these sums lies from the answer: float64
                     q64, k64, v64, do64 = (t.double() for t in (q, k, v, dout))
@@ -807,11 +817,13 @@ def cluster_blocks(c: int) -> int:
     return max(g for g in range(1, min(c, 8) + 1) if c % g == 0)
 
 
-def chunked_work_factor(name: str, dh: int) -> float:
-    """The chunked kernels' operations over the function's, at a head of dh
+def chunked_work_factor(name: str, dh: int, f32: bool = False) -> float:
+    """The wide kernels' operations over the function's, at a head of dh
     values in C = ceil(dh / 128) chunks (1 at 128 and below). The
-    forwards: each of the C output chunks' blocks sums S over all C chunks,
-    C (C + 1) chunk products for the function's 2 C. The backward, bf16
+    forwards: 1 in bf16 at C = 2, whose heads `attention_wide` takes whole;
+    else each of the C output chunks' blocks (`attention_chunked`,
+    `attention_ffma_chunked`) sums S over all C chunks, C (C + 1) chunk
+    products for the function's 2 C. The backward, bf16
     and f32 alike: a cluster's G blocks own P = C / G chunks each and add
     their partial S and dP; dQ a delta pass (2 C) and P output passes (2 C
     partials and C / P output products each), C (3 + 2 P) for 3 C; dK/dV
@@ -821,7 +833,7 @@ def chunked_work_factor(name: str, dh: int) -> float:
     if c == 1:
         return 1.0
     if name in ("attention", "attention_lse"):
-        return (c + 1) / 2
+        return 1.0 if c == 2 and not f32 else (c + 1) / 2
     p = c // cluster_blocks(c)
     factors = {"attention_dq": (3 + 2 * p) / 3, "attention_dkdv": (2 * p + 2) / 4,
                "attention_backward": (4 * p + 5) / 5}
@@ -885,7 +897,7 @@ def time_wide_attention(torch, dev, rng, worst):
                          "attention_backward": (5, 7 * one + rows_b + b * n)}
                 for name in names:
                     products, nbytes = needs[name]
-                    factor = chunked_work_factor(name, dh) * A.padded_head_dim(dh) / dh  # zero columns too
+                    factor = chunked_work_factor(name, dh, f32) * A.padded_head_dim(dh) / dh  # zero columns too
                     # the f32 backward above 128 runs its products as 3xTF32: its bound at that
                     # rate, the FMA pipe's beside it
                     tf32 = f32 and dh > 128 and name not in ("attention", "attention_lse")
@@ -1287,9 +1299,11 @@ def time_f32_attention_backward(torch, dev, rng, library="attention_bwd", earlie
 
 # (B, N, H, dh, with LSE): the forward's timed shapes: the headline (36 calls per
 # forward) and the banked model's inference; D = 256 training, the TPU's flash band
-# and the training path's (36 calls per step) with LSE
+# and the training path's (36 calls per step) with LSE; D = 1024's inference forward
+# and its training step's forward with LSE (heads of 256, 36 calls each)
 ATTENTION_TIMED = ((4, 1024, 4, 64, False), (1, 1024, 4, 32, False), (4, 1024, 4, 64, True),
-                   (2, 2048, 4, 64, True), (4, 512, 4, 32, True))
+                   (2, 2048, 4, 64, True), (4, 512, 4, 32, True), (4, 1024, 4, 256, False),
+                   (4, 512, 4, 256, True))
 EARLIER_ATTENTION = ROOT / "build" / "attention_before.cu"
 
 
@@ -4520,6 +4534,10 @@ def run_wide_main_path(torch, dev, d: int, dtype: str):
                                min_kp_iou=1.0 if dtype == "bfloat16" else 0.99)
     check(z_err <= WIDE_MAX_Z_ERR[dtype], f"{label}: log-coupling {z_err} from the all-plain path's")
     profile_forward(torch, model, image0, image1, sec, f"{label} profile")
+    if d == 4 * CHUNKED_ROW_WIDTH and dtype == "bfloat16" and EARLIER_ATTENTION.exists():
+        earlier = build_variants("attention", [("before", EARLIER_ATTENTION, ())])["before"]
+        with_attention_library("attention", earlier, lambda: profile_forward(
+            torch, model, image0, image1, sec, f"{label} profile on build/attention_before.cu"))()
     return launches
 
 
@@ -4583,6 +4601,10 @@ def train_wide(torch, dev, images, d: int, dtype: str):
         earlier = build_variants("attention_bwd_chunked", [("before", EARLIER_ATTENTION_BWD_CHUNKED, ())])["before"]
         before = with_attention_library("attention_bwd_chunked", earlier, lambda: step(state, images, gen))
         line += f"; on build/attention_bwd_chunked_before.cu {fmt(device_ms(before, 2, 1))}"
+    if d == 4 * CHUNKED_ROW_WIDTH and dtype == "bfloat16" and EARLIER_ATTENTION.exists():
+        earlier = build_variants("attention", [("before", EARLIER_ATTENTION, ())])["before"]
+        before = with_attention_library("attention", earlier, lambda: step(state, images, gen))
+        line += f"; on build/attention_before.cu {fmt(device_ms(before, 2, 1))}"
     print(line)
     for i in range(2):
         calls = []

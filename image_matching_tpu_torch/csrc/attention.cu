@@ -87,12 +87,48 @@
 // time; the tiles' shared-memory loads (csrc/lds_probe.cu) allow two thirds.
 //
 // Heads wider than 128 (dh = C * 128, C >= 2; the wrapper zero-pads any
-// other width above 128 to the next multiple): `attention_chunked<LSE>`
-// (bf16) and `attention_ffma_chunked<LSE>` (f32). These replace
-// _onepass_forward and _flash_forward(_with_lse) at those widths, which keep
-// a whole head in VMEM; a 64-row tile of 256 values is 33 KB in bf16, 66 KB
-// in f32, and the kernels at 128 already fill a block's shared memory and
-// registers. So a block owns 64 queries of one (b, head) and ONE 128-value
+// other width above 128 to the next multiple). These replace
+// _onepass_forward, _onepass_heads_forward and _flash_forward(_with_lse) at
+// those widths, which keep a whole head in VMEM; a 64-row tile of 256
+// values is 32 KB in bf16, 64 KB in f32. The route is by width and dtype:
+//
+// bf16 at 256 (C = 2; D = 640-1024), `attention_wide<LSE>`: a block of one
+// warpgroup of 64 query rows. Bound:
+// at D = 1024's (4, 1024, 4 x 256) the function's 17.2 GFLOP take 0.01737
+// ms at 989 TFLOP/s (its 32 MB of q, k, v, o 0.0096 ms at HBM's rate); what
+// a block reads through L2 is K and V of every key tile, 64 KB a tile, so
+// at 64 rows a block the L2 traffic of a call is 16x the operands. The
+// design, against the chunk blocks below:
+//   * S once a key tile: a warpgroup owns all 256 output values of its
+//     rows (O 64 x 256 f32, 128 registers a thread) and multiplies S =
+//     Q K^T over the head's four 64-value panels (16 k-steps of wgmma_ss),
+//     so the work is the function's (the chunk blocks: 1.5x) and no block exchanges
+//     anything;
+//   * Q staged once, by TMA, and read by wgmma from shared memory each tile
+//     (no fragments in registers, no restaging);
+//   * K_0, V_0, K_1, ... stream through a ring of 32 KB slots by TMA tensor
+//     copies (128-byte swizzle, rows past M zeros) issued by thread 0,
+//     an mbarrier a slot for "landed" and one for "released" (every
+//     warp arrives once its products read the slot), so copies run ahead
+//     of the products by the ring's depth, 2 slots (99 KB: two blocks an
+//     SM, whose products cover each other's copies);
+//   * products on wgmma m64n64k16: S with both operands in shared memory;
+//     the online softmax on its C layout, O rescaled, P to A fragments in
+//     registers (wg_c_to_a), O += P V with V's four panels read transposed
+//     by their descriptors; S of the next tile is queued behind O += P V,
+//     so the tensor cores have both while the warpgroup waits once a tile.
+// Keys are a bit each in shared memory (8 bytes a tile: any key count), the
+// logits made from the bits as `stage_key_table`'s factors make them. A
+// block takes 64 rows: 128 (two warpgroups sharing a 4-slot ring, one
+// block an SM) ran slower on the card at both of D = 1024's shapes.
+// Measured (PERF.md): 0.049 ms at (4, 1024, 4 x 256), 0.64 of SDPA's time
+// and 0.35 of the bound; a build with both the softmax and the copies'
+// waits taken out still took two thirds of the time: what holds it is the
+// chain of each tile's 32 products and the wait for it.
+//
+// bf16 above 256 (C >= 3) and f32 at every width above 128:
+// `attention_chunked<LSE>` (bf16) and `attention_ffma_chunked<LSE>` (f32).
+// A block owns 64 queries of one (b, head) and ONE 128-value
 // chunk c of the output (blockIdx.y = head * C + c), and walks the key
 // tiles in steps through a 2-slot ring of padded 64 x 128 tiles: per key
 // tile, C steps that each stage Q_c' and K_c' together and add Q_c' K_c'^T
@@ -104,10 +140,9 @@
 // chunk block computes them again: C (C + 1) chunk products for the
 // function's 2 C, 1.5x at 256. One warpgroup a block in bf16 (68 KB of ring
 // plus the key table: 2 blocks an SM at K = 1024), one group of 8 warps in
-// f32 (150 KB). Chunk 0 writes the LSE. Bound: at D = 1024's (4, 1024,
-// 4 x 256) the tensor cores' rate (bf16) or the FMA pipe's (f32); each
-// chunk step brings 34 KB (68 KB in f32) through L2 with one step in flight,
-// and which of the two holds the kernels is not measured (PERF.md).
+// f32 (150 KB). Chunk 0 writes the LSE. Bound: the tensor cores' rate
+// (bf16) or the FMA pipe's (f32); each chunk step brings 34 KB (68 KB in
+// f32) through L2 with one step in flight.
 //
 // Forward with LSE (training): the same kernels with LSE = true also
 // write the f32 log-sum-exp of every query row, (B, H, N), for the backward
@@ -123,6 +158,7 @@
 
 #include "hopper.cuh"
 #include "ffma.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -164,25 +200,20 @@ __device__ __forceinline__ bool stage_key_table(float2* keys, const uint8_t* mas
 
 // One tile's online softmax over this thread's 32 scores, in the C layout
 // of 16 query rows x 64 keys (mma.sync's 8 n-tiles, or a warp's quarter of
-// wgmma's 64 x 64): s[4n + e] is row g + 8 (e >> 1), key 8n + 2t + (e & 1),
-// and `kt` points at the table entries of keys 2t, 2t + 1 of the tile. The
-// raw scores become logits in log2 units, the rows' running max m and this
-// thread's partial sums l move on, and the scores become P = 2^(logit - m);
-// `corr` gets the factor by which the rows' earlier output is rescaled.
-// Maxima and sums run in two chains a row, to halve their latency.
-__device__ __forceinline__ void online_softmax(float* s, float* m, float* l, float* corr, const float2* kt) {
+// wgmma's 64 x 64): s[4n + e] is row g + 8 (e >> 1), key 8n + 2t + (e & 1).
+// `logits(s + 4n, n)` turns n-tile n's raw scores into logits in log2 units,
+// the rows' running max m and this thread's partial sums l move on, and the
+// scores become P = 2^(logit - m); `corr` gets the factor by which the rows'
+// earlier output is rescaled. Maxima and sums run in two chains a row, to
+// halve their latency.
+template <typename Logits>
+__device__ __forceinline__ void online_softmax_by(float* s, float* m, float* l, float* corr, Logits logits) {
   float tmax[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
-    const float4 f = *reinterpret_cast<const float4*>(kt + 8 * n);  // keys 8n + 2t, + 1
+    logits(s + 4 * n, n);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float& x0 = s[4 * n + 2 * r];
-      float& x1 = s[4 * n + 2 * r + 1];
-      x0 = fmaf(x0, f.x, f.y);
-      x1 = fmaf(x1, f.z, f.w);
-      tmax[r][n & 1] = fmaxf(tmax[r][n & 1], fmaxf(x0, x1));
-    }
+    for (int r = 0; r < 2; ++r) tmax[r][n & 1] = fmaxf(tmax[r][n & 1], fmaxf(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]));
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {  // the 4 threads of a row group share a row
@@ -201,6 +232,19 @@ __device__ __forceinline__ void online_softmax(float* s, float* m, float* l, flo
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + (sum[r][0] + sum[r][1]);
+}
+
+// `online_softmax_by` with the logits s f + o from the key table
+// (`stage_key_table`), `kt` at the entries of keys 2t, 2t + 1 of the tile.
+__device__ __forceinline__ void online_softmax(float* s, float* m, float* l, float* corr, const float2* kt) {
+  online_softmax_by(s, m, l, corr, [&](float* x, int n) {
+    const float4 f = *reinterpret_cast<const float4*>(kt + 8 * n);  // keys 8n + 2t, + 1
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      x[2 * r] = fmaf(x[2 * r], f.x, f.y);
+      x[2 * r + 1] = fmaf(x[2 * r + 1], f.z, f.w);
+    }
+  });
 }
 
 // The groups' results for the block's rows, merged by group 0 in the
@@ -534,6 +578,174 @@ attention_chunked(ATTENTION_KERNEL_ARGS, int C) {
     }
   }
   store_rows<CW>(out, b, N, H * C, h * C + c, q0 + wr + g, t, o);  // chunk c of head h: "head" h C + c of 128
+}
+
+// ------------------------------------------------------------------ bf16, heads of 256: wgmma fed by TMA
+
+// A head of 256 values is four 64-value panels in the 128-byte swizzle: 64
+// rows of it make one 32 KB tile, a panel `WIDE_PANEL` on in a descriptor.
+constexpr int WIDE = 256;
+constexpr int WIDE_TILE = 4 * WG_TILE_BYTES;
+constexpr int WIDE_PANEL = WG_TILE_BYTES >> 4;
+
+// Ring slots of K and V tiles: two (99 KB of shared memory with Q's tile,
+// two blocks an SM).
+constexpr int WIDE_SLOTS = 2;
+
+// The Q tile, the ring and a bit a key, 1024-byte aligned.
+__host__ __device__ constexpr int wide_smem_bytes(int key_tiles) {
+  return 1024 + (1 + WIDE_SLOTS) * WIDE_TILE + 8 * key_tiles;
+}
+
+// The wgmma accumulators `d` as written here: after a wait, no read of
+// them moves above it.
+template <int NF>
+__device__ __forceinline__ void wg_hold(float* d) {
+#pragma unroll
+  for (int i = 0; i < NF; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// softmax(Q K^T scale) V for 64 queries of one (b, head) of 256 values, by
+// one warpgroup: Q staged once, S = Q K_j^T (wgmma_ss, 16 k-steps over the
+// four panels) once a key tile, the online softmax on wgmma's C layout, O
+// (64 x 256 f32, 128 registers a thread) += P V_j with P from registers
+// (wgmma_rs, four 64-value panels a k-step).
+// Thread 0 copies: Q, then K_0, V_0, K_1, ... through a ring of
+// `WIDE_SLOTS` slots, each slot refilled once every warp has released it
+// (an mbarrier each for "landed" and "released"). A copying warp of its
+// own would cap every thread at 168 registers (a third warp on an SM
+// sub-partition) and spill O. The warpgroup queues S of the next tile
+// behind O += P V of this one, so the tensor cores run both while it waits
+// once.
+template <bool LSE>
+__global__ void __launch_bounds__(GROUP, 2)
+attention_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v, const uint8_t* __restrict__ mask,
+               __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int N, int M, int H, float scale) {
+  constexpr int R = WIDE_SLOTS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t full[R], empty[R], q_full;
+  unsigned char* own_q = align_1024(smem);  // Q's tile
+  unsigned char* ring = own_q + WIDE_TILE;  // load u (K_{u/2}, or V_{u/2} for odd u) in slot u % R
+  uint32_t* key_bits = reinterpret_cast<uint32_t*>(ring + R * WIDE_TILE);  // a bit a key: valid
+
+  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
+  const int q0 = blockIdx.x * T, ntiles = (M + T - 1) / T, loads = 2 * ntiles;
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      mbar_init(&full[i]);
+      mbar_init(&empty[i], 4);  // every warp
+    }
+    mbar_init(&q_full);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int next = 0;  // thread 0: the next load to issue
+  // thread 0: loads next .. upto - 1, each once every warp has released its slot
+  auto issue = [&](int upto) {
+    for (; next < upto && next < loads; ++next) {
+      if (next >= R) mbar_wait(&empty[next % R], (next / R - 1) & 1);
+      uint64_t* bar = &full[next % R];
+      mbar_expect(bar, WIDE_TILE);
+      load_panels<4>(ring + (next % R) * WIDE_TILE, next % 2 ? &map_v : &map_k, h * WIDE, next / 2 * T, b, bar);
+    }
+  };
+  if (tid == 0) {  // Q, and the ring's first loads
+    mbar_expect(&q_full, WIDE_TILE);
+    load_panels<4>(own_q, &map_q, h * WIDE, q0, b, &q_full);
+    issue(R);
+  }
+  int any = 0;  // the batch element's valid keys, 0 past M, by every warp
+  for (int base = tid / 32 * 32; base < ntiles * T; base += blockDim.x) {
+    const int key = base + tid % 32;
+    const bool valid = key < M && (mask == nullptr || mask[(int64_t)b * M + key]);
+    const uint32_t word = __ballot_sync(0xffffffffu, valid);
+    if (tid % 32 == 0) key_bits[base / 32] = word;
+    any |= valid;
+  }
+  const bool dead = !__syncthreads_or(any);
+
+  const int lane = tid % 32, wr = (tid / 32) * 16, g = lane / 4, t = lane % 4;
+  const uint64_t qa = wg_desc(smem_addr(own_q)), ring_desc = wg_desc(smem_addr(ring));
+  const float scale2 = scale * LOG2E;
+  auto slot = [&](int u) { return ring_desc + (u % R) * (WIDE_TILE >> 4); };
+  auto landed = [&](int u) { mbar_wait(&full[u % R], (u / R) & 1); };
+  auto release = [&](int u) {
+    if (lane == 0) mbar_arrive(&empty[u % R]);
+  };
+  auto scores = [&](float* s, int j) {  // S = Q K_j^T, committed
+    const uint64_t kd = slot(2 * j);
+    wg_hold<32>(s);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < WIDE / 16; ++ks) {
+      const int step = (ks / 4) * WIDE_PANEL + 2 * (ks % 4);
+      wgmma_ss(s, qa + step, kd + step, ks > 0);
+    }
+    wg_commit();
+  };
+
+  float o[4][32];  // panel p of the output in wgmma's C layout
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
+  wg_hold<128>(&o[0][0]);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, s[32];  // rows wr + g, wr + g + 8
+  mbar_wait(&q_full, 0);
+  landed(0);
+  scores(s, 0);
+  wg_wait<0>(s);
+  // Each tile: S_j has landed (and O += P_{j-1} V_{j-1}); no product is in
+  // flight across the loop's back edge, so the accumulators keep their
+  // registers and the products their pipeline.
+  for (int j = 0; j < ntiles; ++j) {
+    release(2 * j);
+    if (j > 0) release(2 * j - 1);
+    if (tid == 0) issue(2 * j + 3);  // V_j and K_{j+1}, into the slots just released
+    // logits in log2 units: valid keys scaled, masked ones -1e9, those past M -inf
+    const uint64_t bits = *reinterpret_cast<const uint64_t*>(key_bits + 2 * j) >> (2 * t);
+    const int lim = M - j * T - 2 * t;  // this thread's keys 8n + e from lim on are past M
+    float corr[2];
+    online_softmax_by(s, m, l, corr, [&](float* x, int n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = (bits >> (8 * n + e)) & 1u;
+        const float off = 8 * n + e < lim ? MASKED * LOG2E : -INFINITY;
+        x[e] = valid ? x[e] * scale2 : off;
+        x[2 + e] = valid ? x[2 + e] * scale2 : off;
+      }
+    });
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[p][i] *= corr[(i >> 1) & 1];
+    uint32_t pa[4][4];
+    wg_c_to_a(pa, s);
+    landed(2 * j + 1);
+    const uint64_t vd = slot(2 * j + 1);
+    wg_hold<128>(&o[0][0]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < 4; ++p) wgmma_rs(o[p], pa[kk], vd + p * WIDE_PANEL + 128 * kk);  // O += P V_j
+    wg_commit();
+    if (j + 1 < ntiles) {  // S_{j+1} queued behind O += P V_j
+      landed(2 * j + 2);
+      scores(s, j + 1);
+    }
+    wg_wait<0>(s);
+    wg_hold<128>(&o[0][0]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the rows' sums over their 4 threads
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  write_rows<WIDE, LSE>(out, lse, &o[0][0], m, l, dead, b, N, H, h, q0 + wr + g, t);
 }
 
 // ------------------------------------------------------------------ f32: register-tiled FFMA
@@ -977,6 +1189,26 @@ int launch_chunked_bf16(ATTENTION_ARGS(__nv_bfloat16)) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Heads of 256 values: q, k and v as tensor maps, a block per 64 queries.
+// The carveout asks for all of the SM's shared memory, which two blocks
+// need.
+template <bool LSE>
+int launch_wide(ATTENTION_ARGS(__nv_bfloat16)) {
+  constexpr auto kernel = attention_wide<LSE>;
+  static const cudaError_t attr = allow_smem(kernel, smem_optin(kernel));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static const cudaError_t carveout =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (carveout != cudaSuccess) return static_cast<int>(carveout);
+  CUtensorMap mq, mk, mv;
+  if (!bf16_map(&mq, q, q_bs, q_rs, B, N, H * WIDE) || !bf16_map(&mk, k, k_bs, k_rs, B, M, H * WIDE) ||
+      !bf16_map(&mv, v, v_bs, v_rs, B, M, H * WIDE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = wide_smem_bytes((M + T - 1) / T);
+  kernel<<<dim3((N + T - 1) / T, H, B), GROUP, bytes, stream>>>(mq, mk, mv, mask, out, lse, N, M, H, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool LSE>
 int launch_chunked_f32(ATTENTION_ARGS(float)) {
   constexpr int BYTES = ffma_chunked_smem_bytes();
@@ -993,6 +1225,7 @@ __host__ __device__ constexpr bool chunked_width(int DH) { return DH > CW && DH 
 template <bool LSE>
 int launch_bf16(ATTENTION_ARGS(__nv_bfloat16)) {
 #define TILED_PASS q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, out, lse, B, N, M, H, DH, scale, stream
+  if (DH == WIDE) return launch_wide<LSE>(TILED_PASS);
   if (chunked_width(DH)) return launch_chunked_bf16<LSE>(TILED_PASS);
   switch (DH) {
     case 16:

@@ -63,9 +63,9 @@
 #include "hopper.cuh"
 #include "ffma.cuh"
 #include "attention_bwd.cuh"
+#include "tma.cuh"
 
 #include <cooperative_groups.h>
-#include <cuda.h>
 
 namespace cg = cooperative_groups;
 
@@ -508,38 +508,6 @@ constexpr int EXCH_BF = 2 * PART_F;             // an exchange buffer: partial S
 constexpr int BF16_SMEM_BYTES = 1024 + 2 * CHUNK_TILE + RINGB * SLOT_B + (2 * EXCH_BF + PART_F) * 4;
 
 __host__ __device__ constexpr int bf16_smem_bytes(int key_tiles) { return BF16_SMEM_BYTES + 8 * key_tiles; }
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// This thread's arrival at `bar`, which completes its phase once `bytes` more have landed
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// Rows [r0, r0 + 64) of batch element b, the 128 values from column `col`,
-// of the operand that `map` describes (`bf16_map`), as a chunk tile: two
-// tensor copies of a 64-value panel each, in the 128-byte swizzle, rows
-// past the operand's end as zeros; they complete on `bar`.
-__device__ __forceinline__ void load_chunk(unsigned char* tile, const CUtensorMap* map, int col, int r0, int b,
-                                           uint64_t* bar) {
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
-        "[%5];\n" ::"r"(smem_addr(tile + p * WG_TILE_BYTES)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(col + 64 * p), "r"(r0), "r"(b), "r"(smem_addr(bar))
-        : "memory");
-}
 
 // 2^x, one instruction (as csrc/attention.cu's): relative error ~2^-22
 __device__ __forceinline__ float ex2(float x) {
@@ -999,38 +967,6 @@ cudaError_t launch_cluster(Kernel kernel, dim3 grid, int G, int bytes, cudaStrea
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, through the runtime (no link to the
-// driver library), or null.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (batches, rows, cols) bf16 operand, rows `rs` and batch elements `bs`
-// values apart, as tensor copies of 64 rows x 64 values in the 128-byte
-// swizzle, rows past `rows` read as zeros.
-bool bf16_map(CUtensorMap* map, const __nv_bfloat16* base, int64_t bs, int64_t rs, int batches, int rows, int cols) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batches};
-  const cuuint64_t strides[2] = {(cuuint64_t)rs * 2, (cuuint64_t)(batches > 1 ? bs : rs * rows) * 2};
-  const cuuint32_t box[3] = {64, T, 1}, step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<__nv_bfloat16*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 int run_chunked_bf16(BWD_IN(__nv_bfloat16), float* delta, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,

@@ -8,9 +8,9 @@ The counterpart of the forward kernels of
 kernel (`csrc/attention.cu`) serves every key count, K=1024 included;
 its logits and softmax are f32 on chip, which is the JAX semantics at
 `logits_dtype="float32"`. The kernels take heads of 16, 32, 64 and 128
-values, and every multiple of 128 above it, which the chunked kernels
-take in chunks of 128 values (SuperGlue's 4 heads above descriptor_dim
-512). Any other head is zero-padded to the next of those widths on its
+values, and every multiple of 128 above it (SuperGlue's 4 heads above
+descriptor_dim 512): in bf16 a head of 256 whole (`attention_wide`), the
+other widths in chunks of 128 values (the chunked kernels). Any other head is zero-padded to the next of those widths on its
 way in (80 and 96 to 128, 160 and 200 to 256, 320 to 384) and cut back on
 its way out, which is exact: zero columns add nothing to a score and give
 zero output columns, and the scale stays 1/sqrt(dh) of the real head. The

@@ -41,7 +41,7 @@ def _port(q, k, v, mask, logits_dtype="float32"):
 RAGGED = [(129, 257), (65, 450)]
 
 
-@pytest.mark.parametrize("dh", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 96, 128, 256])
 @pytest.mark.parametrize("n,m", [(40, 128), (100, 77)] + RAGGED)
 def test_plain_matches_pallas_onepass_and_reference(dh, n, m):
     q, k, v, mask = _inputs(2, n, m, dh, seed=dh + n)
@@ -65,7 +65,7 @@ def test_fully_masked_row_averages_values():
     np.testing.assert_allclose(got[-1], np.broadcast_to(v[-1].mean(0), got[-1].shape), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("dh", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 96, 128, 256])
 @pytest.mark.parametrize("n,m", RAGGED)
 def test_plain_with_a_dead_element_matches_reference(dh, n, m):
     q, k, v, mask = _inputs(3, n, m, dh, seed=dh * n + m, fully_masked_row=True)

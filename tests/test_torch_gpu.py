@@ -428,19 +428,22 @@ def test_attention_kernels_at_head_dims_they_are_not_built_for(cuda, dh, dtype):
 
 # (N, M): ragged across the 64-row tiles; both under one tile; 18 key tiles for one query tile
 CHUNKED_SHAPES = [(70, 133), (5, 9), (50, 1100)]
-# (dh, N, M): every width on those shapes; D = 1024's training shape; 8 chunks, the
-# backward's largest cluster (8 blocks of one chunk each); and 10 chunks, more than a
-# cluster of 8 blocks holds (the backward's blocks own 2 chunks each), ragged and across
-# several tiles of each side
+# (dh, N, M): every width on those shapes; D = 1024's training shape; at 256, shapes
+# ragged across the forward's 64-row blocks (one row past two blocks, and over 18 key
+# tiles) and D = 1024's inference shape; 8 chunks, the backward's largest cluster (8 blocks of
+# one chunk each); and 10 chunks, more than a cluster of 8 blocks holds (the backward's
+# blocks own 2 chunks each), ragged and across several tiles of each side
 CHUNKED_CASES = ([(dh, n, m) for dh in (160, 256, 384, 512) for n, m in CHUNKED_SHAPES]
-                 + [(256, 512, 512), (1024, 70, 133), (1280, 70, 133), (1280, 130, 257)])
+                 + [(256, 512, 512), (256, 129, 257), (256, 200, 1100), (256, 1024, 1024), (1024, 70, 133),
+                    (1280, 70, 133), (1280, 130, 257)])
 
 
 @pytest.mark.parametrize("dh,n,m", CHUNKED_CASES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_kernels_in_chunks_of_128(cuda, dh, dtype, n, m):
-    """Heads above 128 values run through the chunked kernels (160 zero-
-    padded to 256): the forward, the forward with LSE and the backward
+    """Heads above 128 values run through the wide kernels (160 zero-padded
+    to 256; the bf16 forwards at 256 `attention_wide`, the rest chunked):
+    the forward, the forward with LSE and the backward
     against the plain versions at the tolerances of the widths up to 128,
     one launch each under the padded width's name; the dead element's dQ =
     dK = 0; the delta the dQ kernel writes; two runs bit-identical."""
