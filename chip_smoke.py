@@ -73,9 +73,10 @@ In order, it:
      attention forward (`attention_ffma`, with and without LSE) against
      its plain version and a float64 run at deep ragged shapes with a
      dead element, two runs bit-identical, and times it at the f32
-     inference forward's and the f32 training step's shapes beside f32
-     SDPA's forward, interleaved with `build/attention_before.cu`'s build
-     where that file is there; times the f32 image entry conv beside f32
+     inference forward's and the f32 training step's shapes, and
+     `attention_wide_3xtf32` at D = 1024's two, beside f32 SDPA's forward,
+     interleaved with `build/attention_before.cu`'s build where that file
+     is there; times the f32 image entry conv beside f32
      cuDNN; holds the f32 dQ and dK/dV kernels (`dq_ffma`,
      `dkdv_ffma`) against their plain version and a float64 run at the f32
      training step's shape and D = 256's, two runs bit-identical, and
@@ -129,15 +130,16 @@ In order, it:
      variant (--backbone vgg --descriptor_dim 256, SuperGlue loaded from a
      seeded synthetic official state dict) on 2 pairs;
  15. runs SuperGlue at descriptor_dim 512 and 1024 (4 heads of 128 values,
-     the kernels at 128, and of 256, the chunked kernels; seeded weights:
+     the kernels at 128, and of 256, `attention_wide` / `attention_wide_3xtf32`
+     and the chunked backward; seeded weights:
      no banked ones exist at those widths): the headline's `Matching` in
      bf16 and f32 (launches, pairs/s, peak memory, agreement with the
      all-plain path, the log-coupling held to `WIDE_MAX_Z_ERR`, the
-     profile, at 1024 in bf16 on `build/attention_before.cu`'s build too
-     where that file is there), training at the training CLI's defaults in bf16 and f32
+     profile, at 1024 on `build/attention_before.cu`'s build too where
+     that file is there), training at the training CLI's defaults in bf16 and f32
      through the trainer's step (launches, steps/s, peak memory, finite
      metrics, the step's device time, at 1024 on
-     `build/attention_bwd_chunked_before.cu`'s build and, in bf16,
+     `build/attention_bwd_chunked_before.cu`'s build and
      `build/attention_before.cu`'s too where those files are there,
      every attention backward call of two steps against the
      plain version and, in f32, float64), the training CLI with --descriptor_dim
@@ -164,7 +166,7 @@ In order, it:
      stage 3, `train_superpoint --data_root --labels --init_weights
      weights/sp_synth.npz` on those files and labels for 20 steps;
  18. runs the classical configs of the evaluation CLI (`cli/evaluate.py
-     --configs sift orb`) at its defaults (50 pairs at 480x640) and in the
+     --configs sift orb`) at its defaults cut to 20 pairs at 480x640 and in the
      regime of the JAX package's `EVAL_classical_photo.json` (40 pairs at
      240x320, each method held to a success rate of 0.9): metrics, ms a
      pair, peak memory, a pair's profile and busy share, where a pair's time
@@ -817,13 +819,14 @@ def cluster_blocks(c: int) -> int:
     return max(g for g in range(1, min(c, 8) + 1) if c % g == 0)
 
 
-def chunked_work_factor(name: str, dh: int, f32: bool = False) -> float:
+def chunked_work_factor(name: str, dh: int) -> float:
     """The wide kernels' operations over the function's, at a head of dh
     values in C = ceil(dh / 128) chunks (1 at 128 and below). The
-    forwards: 1 in bf16 at C = 2, whose heads `attention_wide` takes whole;
-    else each of the C output chunks' blocks (`attention_chunked`,
-    `attention_ffma_chunked`) sums S over all C chunks, C (C + 1) chunk
-    products for the function's 2 C. The backward, bf16
+    forwards: 1 at C = 2, whose heads `attention_wide` (bf16) and
+    `attention_wide_3xtf32` (f32) take whole; above it each of the C output
+    chunks' blocks (`attention_chunked`, `attention_ffma_chunked`) sums S
+    over all C chunks, C (C + 1) chunk products for the function's 2 C.
+    The backward, bf16
     and f32 alike: a cluster's G blocks own P = C / G chunks each and add
     their partial S and dP; dQ a delta pass (2 C) and P output passes (2 C
     partials and C / P output products each), C (3 + 2 P) for 3 C; dK/dV
@@ -833,7 +836,7 @@ def chunked_work_factor(name: str, dh: int, f32: bool = False) -> float:
     if c == 1:
         return 1.0
     if name in ("attention", "attention_lse"):
-        return 1.0 if c == 2 and not f32 else (c + 1) / 2
+        return 1.0 if c == 2 else (c + 1) / 2
     p = c // cluster_blocks(c)
     factors = {"attention_dq": (3 + 2 * p) / 3, "attention_dkdv": (2 * p + 2) / 4,
                "attention_backward": (4 * p + 5) / 5}
@@ -862,8 +865,9 @@ def time_wide_attention(torch, dev, rng, worst):
     the real dh (forward 2, dQ 3, dK/dV 4, of 2 B H N M dh operations each)
     at the tensor cores' bf16 rate or the FMA pipe's f32 one, with the
     chunked kernels' work factor (`chunked_work_factor`) beside it; the
-    f32 backward above 128 runs its products as 3xTF32, so its bound takes
-    that rate, with the FMA pipe's beside it (`bound_fma_ms`). Returns the
+    f32 backward above 128 and the f32 forwards at 256 run their products
+    as 3xTF32, so their bound takes that rate, with the FMA pipe's beside it
+    (`bound_fma_ms`). Returns the
     JSON rows of 128 and 256, their `max_abs_err` from `worst`
     (`check_wide_head_dims`), launches to be filled in by the D = 512 and
     D = 1024 phases."""
@@ -897,10 +901,11 @@ def time_wide_attention(torch, dev, rng, worst):
                          "attention_backward": (5, 7 * one + rows_b + b * n)}
                 for name in names:
                     products, nbytes = needs[name]
-                    factor = chunked_work_factor(name, dh, f32) * A.padded_head_dim(dh) / dh  # zero columns too
-                    # the f32 backward above 128 runs its products as 3xTF32: its bound at that
-                    # rate, the FMA pipe's beside it
-                    tf32 = f32 and dh > 128 and name not in ("attention", "attention_lse")
+                    factor = chunked_work_factor(name, dh) * A.padded_head_dim(dh) / dh  # zero columns too
+                    # the f32 backward above 128 and the f32 forwards at 256 run their products as
+                    # 3xTF32: their bound at that rate, the FMA pipe's beside it
+                    tf32 = f32 and dh > 128 and (name not in ("attention", "attention_lse")
+                                                 or A.padded_head_dim(dh) == 2 * A.CHUNK)
                     bms, by = bound(nbytes, products * pair, F32_3XTF32_FLOPS if tf32 else rate)
                     fma = bound(nbytes, products * pair, rate)[0] if tf32 else None
                     plain, lib = {"attention": ("plain", "lib_fwd"), "attention_lse": ("plain_lse", "lib_fwd")}.get(
@@ -1036,8 +1041,11 @@ def time_f32_kernels(torch, dev, rng, libs):
 
 
 # (B, N, H, dh, with LSE) of the f32 forward's timed shapes: the f32 inference forward at
-# the headline's width (36 calls a forward) and the f32 training step's (D = 128, 36 a step)
-F32_FORWARD_SHAPES = ((4, 1024, 4, 64, False), (4, 512, 4, 32, True))
+# the headline's width (36 calls a forward) and the f32 training step's (D = 128, 36 a step);
+# then D = 1024's two at heads of 256 (`attention_wide_3xtf32`, 36 calls each), whose JSON
+# rows `time_wide_attention` gives
+F32_FORWARD_SHAPES = ((4, 1024, 4, 64, False), (4, 512, 4, 32, True), (4, 1024, 4, 256, False),
+                      (4, 512, 4, 256, True))
 # (B, N, M, H, dh) of its deep checks: ragged key counts, the last batch element dead
 F32_FORWARD_DEEP = ((4, 1024, 1000, 4, 64), (2, 2048, 2000, 4, 64))
 
@@ -1051,8 +1059,10 @@ def time_f32_attention_forward(torch, dev, rng):
     `F32_FORWARD_SHAPES`, timed by CUDA graph replay interleaved with
     `build/attention_before.cu`'s build where that file is there
     (`compare_attention_builds`), beside f32 SDPA's forward, the plain
-    version and the bound (f32 operations at 67 TFLOP/s). Returns the JSON
-    rows `attention_f32` and `attention_lse_f32`."""
+    version and the bound (f32 operations at 67 TFLOP/s; at heads of 256,
+    `attention_wide_3xtf32`, at 3xTF32's 165 TFLOP/s with the FMA pipe's
+    beside it). Returns the JSON rows `attention_f32` and
+    `attention_lse_f32` (heads of 64 and 32)."""
     from image_matching_tpu_torch.ops import attention as A
 
     worst = {False: 0.0, True: 0.0}
@@ -1100,13 +1110,21 @@ def time_f32_attention_forward(torch, dev, rng):
     rows = []
     for (b, n, h, dh, with_lse), t in timed.items():
         ms = statistics.mean(t["times"]["this checkout"])
+        wide = dh > 128  # `attention_wide_3xtf32`: products as 3xTF32
         # q, k, v and out read or written once, the mask, the LSE
-        bms, by = bound(4 * b * n * h * dh * 4 + b * n + (b * h * n * 4 if with_lse else 0), 4.0 * b * h * n * n * dh,
-                        F32_FLOPS)
-        print(f"f32 attention_ffma{' with LSE' if with_lse else ''} ({b}, {n}, {h}x{dh}): {ms:.4f} ms, f32 SDPA "
-              f"forward {t['sdpa']:.4f} ms ({ms / t['sdpa']:.3f} of it), plain {t['plain']:.4f} ms, bound {bms:.4f} ms "
-              f"({by}; {bms / ms:.3f} of it reached); launches: 36 per f32 "
-              + ("training step" if with_lse else "forward at the headline's width"))
+        nbytes, ops = 4 * b * n * h * dh * 4 + b * n + (b * h * n * 4 if with_lse else 0), 4.0 * b * h * n * n * dh
+        bms, by = bound(nbytes, ops, F32_3XTF32_FLOPS if wide else F32_FLOPS)
+        before = {label: statistics.mean(ts) for label, ts in t["times"].items() if label != "this checkout"}
+        print(f"f32 {'attention_wide_3xtf32' if wide else 'attention_ffma'}{' with LSE' if with_lse else ''} ({b}, "
+              f"{n}, {h}x{dh}): {ms:.4f} ms" + "".join(f" ({label} build {x:.4f} ms, interleaved)"
+                                                        for label, x in before.items())
+              + f", f32 SDPA forward {t['sdpa']:.4f} ms ({ms / t['sdpa']:.3f} of it), plain {t['plain']:.4f} ms, "
+              f"{'3xTF32 ' if wide else ''}bound {bms:.4f} ms ({by}; {bms / ms:.3f} of it reached)"
+              + (f", FMA pipe's bound {bound(nbytes, ops, F32_FLOPS)[0]:.4f} ms" if wide else "")
+              + "; launches: 36 per " + ("D = 1024 " if wide else "") + "f32 "
+              + ("training step" if with_lse else "forward" + ("" if wide else " at the headline's width")))
+        if wide:
+            continue
         rows.append(dict(name="attention_lse_f32" if with_lse else "attention_f32", route="cuda",
                          source="image_matching_tpu_torch/csrc/attention.cu",
                          replaces=f"image_matching_tpu/ops/pallas/attention.py:{560 if with_lse else 371}",
@@ -3578,8 +3596,9 @@ def classical_against_cpu(torch, dev, pair, method: str):
 
 def run_classical_evaluation(torch, dev, smi: str):
     """`cli/evaluate.py --configs sift orb` in-process: the reference regime
-    (its defaults: 50 photo-texture pairs at 480x640, similarity RANSAC at
-    7 px, SIFT doubled to 960x1280, ORB over 8 levels), then the regime of
+    (its defaults: photo-texture pairs at 480x640, similarity RANSAC at 7
+    px, SIFT doubled to 960x1280, ORB over 8 levels; 20 of its 50 pairs,
+    to keep the script inside its time limit), then the regime of
     the JAX package's `EVAL_classical_photo.json` (40 pairs at 240x320),
     printed beside that record and held to a success rate of 0.9 a method;
     launches of the port's kernels (none), peak memory, a pair's profile
@@ -3593,7 +3612,7 @@ def run_classical_evaluation(torch, dev, smi: str):
     keys = ("success_rate", "mean_corner_err_px", "median_corner_err_px", "mean_matches", "mean_inliers",
             "fit_valid_rate", "wall_s_total")
     record = json.loads((ROOT / "EVAL_classical_photo.json").read_text())
-    for label, extra in (("reference regime, 50 pairs at 480x640", []),
+    for label, extra in (("reference regime, 20 pairs at 480x640", ["--n_pairs", "20"]),
                          ("EVAL_classical_photo.json regime, 40 pairs at 240x320",
                           ["--n_pairs", "40", "--height", "240", "--width", "320"])):
         out = ROOT / "build" / f"eval_classical_{'x'.join(extra[3::2]) or 'defaults'}.json"
@@ -4487,7 +4506,8 @@ def run_wide_main_path(torch, dev, d: int, dtype: str):
     of the heads' width, 36 a forward), pairs/s by the host clock (median
     of 5 forwards), peak memory, agreement with the all-plain path (the
     log-coupling within `WIDE_MAX_Z_ERR`), and the device time and busy
-    share of a forward (profiled). Returns the launch counts."""
+    share of a forward (profiled; at D = 1024 on `build/attention_before.cu`'s
+    build too, where that file is there). Returns the launch counts."""
     import numpy as np
     from image_matching_tpu_torch.models import Matching, MatchingConfig
     from image_matching_tpu_torch.ops import _build
@@ -4534,7 +4554,7 @@ def run_wide_main_path(torch, dev, d: int, dtype: str):
                                min_kp_iou=1.0 if dtype == "bfloat16" else 0.99)
     check(z_err <= WIDE_MAX_Z_ERR[dtype], f"{label}: log-coupling {z_err} from the all-plain path's")
     profile_forward(torch, model, image0, image1, sec, f"{label} profile")
-    if d == 4 * CHUNKED_ROW_WIDTH and dtype == "bfloat16" and EARLIER_ATTENTION.exists():
+    if d == 4 * CHUNKED_ROW_WIDTH and EARLIER_ATTENTION.exists():
         earlier = build_variants("attention", [("before", EARLIER_ATTENTION, ())])["before"]
         with_attention_library("attention", earlier, lambda: profile_forward(
             torch, model, image0, image1, sec, f"{label} profile on build/attention_before.cu"))()
@@ -4549,8 +4569,8 @@ def train_wide(torch, dev, images, d: int, dtype: str):
     (`make_superglue_train_step`, which the CLI calls): launch counts of
     one step (each training kernel of the heads' width, 36 a step), steps/s (median of
     `WIDE_TRAIN_STEPS`), peak memory, finite metrics, the step's device
-    time (at D = 1024 on `build/attention_bwd_chunked_before.cu`'s build
-    too, where that file is there); then every attention
+    time (at D = 1024 on the builds of `build/attention_bwd_chunked_before.cu`
+    and `build/attention_before.cu` too, where those files are there); then every attention
     backward call of each of two more steps against the plain version
     (`check_backward_calls`; in f32 its distance to float64 moves with the
     training state). Returns the launch counts of one step."""
@@ -4601,7 +4621,7 @@ def train_wide(torch, dev, images, d: int, dtype: str):
         earlier = build_variants("attention_bwd_chunked", [("before", EARLIER_ATTENTION_BWD_CHUNKED, ())])["before"]
         before = with_attention_library("attention_bwd_chunked", earlier, lambda: step(state, images, gen))
         line += f"; on build/attention_bwd_chunked_before.cu {fmt(device_ms(before, 2, 1))}"
-    if d == 4 * CHUNKED_ROW_WIDTH and dtype == "bfloat16" and EARLIER_ATTENTION.exists():
+    if d == 4 * CHUNKED_ROW_WIDTH and EARLIER_ATTENTION.exists():
         earlier = build_variants("attention", [("before", EARLIER_ATTENTION, ())])["before"]
         before = with_attention_library("attention", earlier, lambda: step(state, images, gen))
         line += f"; on build/attention_before.cu {fmt(device_ms(before, 2, 1))}"

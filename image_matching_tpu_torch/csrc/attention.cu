@@ -60,7 +60,7 @@
 //     x 128 (64 f32 a thread) beside Q's 32 fragment registers, and a block
 //     has 2 groups: 4 would need 296 KB of tiles, 2 take 157 KB.
 //
-// f32 (the f32 compute dtype): `attention_ffma<dh, NG, LSE>`, register-
+// f32 (the f32 compute dtype) up to 128: `attention_ffma<dh, NG, LSE>`, register-
 // tiled on plain f32 FMAs with the tiles of csrc/ffma.cuh that the f32
 // backward kernels use; no tensor cores, which would round the products to
 // TF32. Bound: the FMA pipe, 67 TFLOP/s: the function's two products are
@@ -126,7 +126,42 @@
 // waits taken out still took two thirds of the time: what holds it is the
 // chain of each tile's 32 products and the wait for it.
 //
-// bf16 above 256 (C >= 3) and f32 at every width above 128:
+// f32 at 256 (C = 2), `attention_wide_3xtf32<LSE>`: a block of 64 query
+// rows and two warpgroups. Bound: at D = 1024's (4, 1024, 4 x 256) the
+// function's 17.2 GFLOP take 0.1041 ms at 165 TFLOP/s, the rate of
+// f32-accurate products on the tensor cores as three TF32 ones (f32 SDPA's
+// route), 0.2564 ms on the FMA pipe. The design:
+//   * S once a key tile (work 1.0x; the chunk blocks below: 1.5x): warp w
+//     owns rows 16 (w % 4) and head half w / 4; it multiplies its rows'
+//     partial S over its half, and warps w and w ^ 4 swap the 16 x 16
+//     partials through shared memory behind a 64-thread barrier of their
+//     own and add them, the same bits in both (f32 addition commutes), so
+//     both run the same softmax; each then adds P V over its own half of
+//     the output (O 16 x 128 a warp, 64 registers a thread);
+//   * both products as 3xTF32 on mma.sync.m16n8k8 (csrc/tf32.cuh): every
+//     operand, P too, split into a TF32 part rounded to nearest and its
+//     rest, three products a k-step summed from zero and added to the f32
+//     total (the tensor cores' truncating sums, chained through the
+//     total, would drift from float64 with the depth of the sum). wgmma
+//     takes TF32 only K-major, which V (keys x values) is not for P V;
+//   * S's columns are keys in the order t, t + 4 of each 8 (`wf_key`), so
+//     that S's C layout is P's A fragment for keys in order and V's B
+//     fragments come as one 16-byte load a row and four n-tiles (values
+//     16c + n of column c), on distinct banks at a pitch of 132 floats,
+//     as Q's A and K's B fragments by ldmatrix;
+//   * a warpgroup stages its own halves of Q (once), K and V (16-key tiles
+//     through a 3-slot `cp.async` ring), which it alone reads, behind a
+//     barrier of its own: no block barrier in the loop, and the exchange
+//     tiles alternate by tile (189 KB of shared memory: one block an SM);
+//   * the softmax, shifts, LSE and dead element as `attention_ffma`'s.
+// Measured (PERF.md): 0.45 ms at (4, 1024, 4 x 256), 0.88x f32 SDPA's time
+// and 0.23 of the bound. Builds with one warp a row block's whole head, 4
+// warps a row block, 32-key tiles, K and V copied by TMA bulk copies, or
+// split once as they land all ran slower; taking parts out puts the time
+// in the products with their operands' loads (the P V product a third)
+// and the staging (a fifth), little in the splits or the exchange.
+//
+// bf16 above 256 (C >= 3) and f32 above 256:
 // `attention_chunked<LSE>` (bf16) and `attention_ffma_chunked<LSE>` (f32).
 // A block owns 64 queries of one (b, head) and ONE 128-value
 // chunk c of the output (blockIdx.y = head * C + c), and walks the key
@@ -159,6 +194,7 @@
 #include "hopper.cuh"
 #include "ffma.cuh"
 #include "tma.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -1142,6 +1178,228 @@ attention_ffma_chunked(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
   store_out<OW>(out + (int64_t)b * N * H * DH + h * DH + c * CW, q0, N, (int64_t)H * DH, acc, R);
 }
 
+// ------------------------------------------------------------------ f32, heads of 256: 3xTF32 on mma.sync
+
+// A block of `attention_wide_3xtf32`: 64 query rows of one (b, head) of 256
+// values, two warpgroups; warp w owns rows 16 (w % 4) and the head's half
+// w / 4 (128 values). Keys come in tiles of WF_KEYS through a ring of
+// WF_SLOTS slots; every staged tile is kept as its two halves, rows of 132
+// floats. 16 keys in 3 slots: 32 in 2 spilled (255 registers), and the
+// two took as long (PERF.md).
+constexpr int WF_KEYS = 16, WF_SLOTS = 3;
+constexpr int WF_THREADS = 2 * GROUP;
+constexpr int WF_LD = f32_ld<CW>();       // row pitch of a staged half, in floats
+constexpr int WF_EP = WF_KEYS + 8;        // row pitch of an exchange tile: float2 stores on distinct banks
+constexpr int WF_Q = 2 * T * WF_LD;       // Q's two halves
+constexpr int WF_SLOT = 4 * WF_KEYS * WF_LD;  // a slot: K's two halves, then V's
+constexpr int WF_EXCH = 4 * T * WF_EP;    // each half's partial S, for even and odd tiles
+constexpr int WF_SMEM_BYTES = (WF_Q + WF_SLOTS * WF_SLOT + WF_EXCH) * 4;
+
+// The key of S's column c (0 .. 7) of an n-tile, relative to the n-tile's
+// first: 2t -> t and 2t + 1 -> t + 4, so that the C layout of S (lane t:
+// columns 2t, 2t + 1) is P's A fragment for O += P V with k-step columns t,
+// t + 4 in key order, and V's B fragments lie in rows t, t + 4.
+__host__ __device__ constexpr int wf_key(int c) { return c / 2 + 4 * (c % 2); }
+
+// s[n] (the warp's 16 rows x the tile's keys 8n + wf_key(c), C layout) +=
+// Q K^T over the warp's half: `q_addr` the lane's ldmatrix address in Q's
+// half (matrix i of x4 is A fragment a_i of m16n8k8: rows g, g + 8,
+// columns t, t + 4), `k_addr` the lane's in K's (two n-tiles' B fragments
+// an x4, the lane's row the key of its column). Each k-step's three
+// products summed from zero.
+__device__ __forceinline__ void wf_scores(float (*s)[4], uint32_t q_addr, uint32_t k_addr) {
+#pragma unroll 4
+  for (int ks = 0; ks < CW / 8; ++ks) {
+    uint32_t a[4], ah[4], al[4];
+    ldsm_x4(a, q_addr + ks * 32);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(a[e]), ah[e], al[e]);
+    uint32_t bf[WF_KEYS / 4], bh[WF_KEYS / 8][2], bl[WF_KEYS / 8][2];
+#pragma unroll
+    for (int np = 0; np < WF_KEYS / 16; ++np) ldsm_x4(bf + 4 * np, k_addr + np * 16 * WF_LD * 4 + ks * 32);
+#pragma unroll
+    for (int i = 0; i < WF_KEYS / 4; ++i) split_tf32(__uint_as_float(bf[i]), bh[i / 2][i % 2], bl[i / 2][i % 2]);
+    mma_3xtf32_tiles<WF_KEYS / 8>(s, ah, al, bh, bl);
+  }
+}
+
+// o[n] (the warp's 16 rows x its half's values 16c + n of column c, C
+// layout: lane t holds values 32t .. 32t + 31) += P V over the tile's keys,
+// P's split A fragments (ph, pl) from S's C layout: k-step kk takes keys 8
+// kk + t and 8 kk + t + 4 (`wf_key`), so that `y` (V's half at row t,
+// value 16g) gives each lane its four n-tiles' B fragments in one 16-byte
+// load a row, on distinct banks (4t + 16g at a pitch of 132).
+__device__ __forceinline__ void wf_values(float (*o)[4], const uint32_t (*ph)[4], const uint32_t (*pl)[4],
+                                          const float* y) {
+#pragma unroll
+  for (int kk = 0; kk < WF_KEYS / 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < CW / 32; ++i) {  // n-tiles 4i .. 4i + 3
+      const float4 y0 = *reinterpret_cast<const float4*>(y + kk * 8 * WF_LD + 4 * i);
+      const float4 y1 = *reinterpret_cast<const float4*>(y + (kk * 8 + 4) * WF_LD + 4 * i);
+      const float b0[4] = {y0.x, y0.y, y0.z, y0.w}, b1[4] = {y1.x, y1.y, y1.z, y1.w};
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        split_tf32(b0[e], bh[e][0], bl[e][0]);
+        split_tf32(b1[e], bh[e][1], bl[e][1]);
+      }
+      mma_3xtf32_tiles<4>(o + 4 * i, ph[kk], pl[kk], bh, bl);
+    }
+}
+
+// softmax(Q K^T scale) V for 64 queries of one (b, head) of 256 values, in
+// f32 with both products on the tensor cores as 3xTF32. Per key tile: warp
+// w multiplies its rows' partial S over its half of the head; warps w and
+// w ^ 4, which share rows, swap partials through shared memory behind a
+// barrier of their own and add them (the same bits in both: f32 addition
+// commutes), run the same online softmax (integer shifts in log2 units, as
+// `attention_ffma`'s, so every rescale is exact), and each adds P V over
+// its own half of the output. S is computed once a key tile.
+template <bool LSE>
+__global__ void __launch_bounds__(WF_THREADS, 1)
+attention_wide_3xtf32(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
+                      const float* __restrict__ k, int64_t k_bs, int64_t k_rs,
+                      const float* __restrict__ v, int64_t v_bs, int64_t v_rs,
+                      const uint8_t* __restrict__ mask, float* __restrict__ out,
+                      float* __restrict__ lse, int N, int M, int H, float scale) {
+  constexpr int KT = WF_KEYS, LD = WF_LD, NT = KT / 8, EP = WF_EP;
+  extern __shared__ __align__(16) float fsm[];
+  float* own_q = fsm;                           // Q's halves
+  float* ring = own_q + WF_Q;                   // slots of K's and V's halves
+  float* exch = ring + WF_SLOTS * WF_SLOT;      // each half's partial S, even and odd tiles
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * T, tid = threadIdx.x;
+  const int w = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4, wr = 16 * (w % 4), hf = w / 4;
+  const int ntiles = (M + KT - 1) / KT;
+  const float* k_h = k + b * k_bs + h * WIDE;
+  const float* v_h = v + b * v_bs + h * WIDE;
+
+  // the warpgroup's halves of K and V of key tile j into its slot, rows past M zeros
+  auto stage = [&](int j) {
+    float* slot = ring + (j % WF_SLOTS) * WF_SLOT;
+    stage_f32<CW, GROUP, KT>(slot + hf * KT * LD, k_h + hf * CW, k_rs, j * KT, M, tid % GROUP);
+    stage_f32<CW, GROUP, KT>(slot + (2 + hf) * KT * LD, v_h + hf * CW, v_rs, j * KT, M, tid % GROUP);
+  };
+  stage_f32<CW, GROUP>(own_q + hf * T * LD, q + b * q_bs + h * WIDE + hf * CW, q_rs, q0, N, tid % GROUP);
+#pragma unroll
+  for (int j = 0; j < WF_SLOTS - 1; ++j) {
+    if (j < ntiles) stage(j);
+    cp_async_commit();
+  }
+  bool dead = false;
+  if constexpr (LSE) dead = dead_batch(mask, b, M);
+
+  const uint32_t q_addr =
+      smem_addr(own_q + hf * T * LD) + ((wr + lane % 8 + 8 * ((lane / 8) % 2)) * LD + 4 * (lane / 16)) * 4;
+  // the lane's row of K: the key of column lane % 8 of n-tile lane / 16 (of a pair)
+  const uint32_t k_lane = ((hf * KT + 8 * (lane / 16) + wf_key(lane % 8)) * LD + 4 * ((lane / 8) % 2)) * 4;
+  float o[CW / 8][4];
+  zero<CW / 8>(o);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows wr + g, + 8: shift (log2 units); partial sums
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<WF_SLOTS - 2>();  // tile j has landed
+    // for the warpgroup, which alone reads its halves; and its tile j - 1 is read no more
+    asm volatile("bar.sync %0, %1;\n" :: "r"(5 + hf), "n"(GROUP) : "memory");
+    if (j + WF_SLOTS - 1 < ntiles) stage(j + WF_SLOTS - 1);
+    cp_async_commit();
+    const float* slot = ring + (j % WF_SLOTS) * WF_SLOT;
+    // this lane's keys 8n + wf_key(2t + e): valid (bit 2n + e), in range (bit 16 + 2n + e),
+    // the mask bytes asked for ahead of the product
+    uint32_t state = 0;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = j * KT + 8 * n + wf_key(2 * t + e);
+        const bool valid = key < M && (mask == nullptr || mask[(int64_t)b * M + key]);
+        state |= (valid ? 1u : 0u) << (2 * n + e) | (key < M ? 1u : 0u) << (16 + 2 * n + e);
+      }
+    float s[NT][4];
+    zero<NT>(s);
+    wf_scores(s, q_addr, smem_addr(slot) + k_lane);
+    // partial S swapped with the partner through the buffers of tile j's parity, which
+    // the partner read for tile j - 2 before the pair's barrier of tile j - 1
+    float* mine = exch + ((j & 1) * 2 + hf) * T * EP + (wr + g) * EP + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      *reinterpret_cast<float2*>(mine + 8 * n) = make_float2(s[n][0], s[n][1]);
+      *reinterpret_cast<float2*>(mine + 8 * EP + 8 * n) = make_float2(s[n][2], s[n][3]);
+    }
+    asm volatile("bar.sync %0, 64;\n" :: "r"(1 + w % 4) : "memory");
+    const float* other = mine + (1 - 2 * hf) * T * EP;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 top = *reinterpret_cast<const float2*>(other + 8 * n);
+      const float2 bot = *reinterpret_cast<const float2*>(other + 8 * EP + 8 * n);
+      s[n][0] += top.x;
+      s[n][1] += top.y;
+      s[n][2] += bot.x;
+      s[n][3] += bot.y;
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // the logit: s scale, -1e9 masked, -inf past M
+        const int bit = 2 * n + (e & 1);
+        s[n][e] = (state >> bit) & 1u ? s[n][e] * scale : ((state >> (16 + bit)) & 1u ? MASKED : -INFINITY);
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the row's 4 lanes; finite: key 0 of a tile is in range
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], ceilf(mx[r] * LOG2E));
+      corr[r] = pow2(m[r] - m_new);  // 0 at the first tile (m = -inf)
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = ex2(fmaf(s[n][e], LOG2E, -m[e >> 1]));
+        sum[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+#pragma unroll
+    for (int n = 0; n < CW / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+    uint32_t ph[NT][4], pl[NT][4];  // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4): C's 0, 2, 1, 3
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      split_tf32(s[kk][0], ph[kk][0], pl[kk][0]);
+      split_tf32(s[kk][2], ph[kk][1], pl[kk][1]);
+      split_tf32(s[kk][1], ph[kk][2], pl[kk][2]);
+      split_tf32(s[kk][3], ph[kk][3], pl[kk][3]);
+    }
+    wf_values(o, ph, pl, slot + (2 + hf) * KT * LD + t * LD + 16 * g);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the rows' sums over their 4 lanes, in one order in both warps
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + wr + g + 8 * r;
+    if (LSE && hf == 0 && t == 0 && row < N)
+      lse[((int64_t)b * H + h) * N + row] = dead ? static_cast<float>(log(static_cast<double>(M)))
+                                                 : static_cast<float>(m[r] * LN2_D + log(static_cast<double>(l[r])));
+    if (row >= N) continue;
+    const float inv = 1.f / l[r];
+    float* dst = out + ((int64_t)b * N + row) * H * WIDE + h * WIDE + hf * CW + 32 * t;  // values 32t ..
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {  // value 16c + n from o[n][c - 2t]: 4 n-tiles a store
+      const int c = i / 4, n = 4 * (i % 4);
+      *reinterpret_cast<float4*>(dst + 4 * i) = make_float4(o[n][2 * r + c] * inv, o[n + 1][2 * r + c] * inv,
+                                                            o[n + 2][2 * r + c] * inv, o[n + 3][2 * r + c] * inv);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ launch
 
 #define ATTENTION_ARGS(T_)                                                              \
@@ -1219,6 +1477,16 @@ int launch_chunked_f32(ATTENTION_ARGS(float)) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Heads of 256 values in f32: a block per 64 query rows.
+template <bool LSE>
+int launch_wide_f32(ATTENTION_ARGS(float)) {
+  constexpr auto kernel = attention_wide_3xtf32<LSE>;
+  static const cudaError_t attr = allow_smem(kernel, WF_SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<dim3((N + T - 1) / T, H, B), WF_THREADS, WF_SMEM_BYTES, stream>>>(ATTENTION_PASS);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // a head width the chunked kernels take: a multiple of 128 above it
 __host__ __device__ constexpr bool chunked_width(int DH) { return DH > CW && DH % CW == 0; }
 
@@ -1258,6 +1526,7 @@ int run_f32(ATTENTION_ARGS(float)) {
 template <bool LSE>
 int launch_f32(ATTENTION_ARGS(float)) {
 #define F32_PASS q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, out, lse, B, N, M, H, DH, scale, stream
+  if (DH == WIDE) return launch_wide_f32<LSE>(F32_PASS);
   if (chunked_width(DH)) return launch_chunked_f32<LSE>(F32_PASS);
   switch (DH) {
     case 16: return run_f32<16, LSE>(F32_PASS);

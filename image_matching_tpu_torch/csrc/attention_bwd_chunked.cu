@@ -64,6 +64,7 @@
 #include "ffma.cuh"
 #include "attention_bwd.cuh"
 #include "tma.cuh"
+#include "tf32.cuh"
 
 #include <cooperative_groups.h>
 
@@ -102,38 +103,6 @@ __host__ __device__ constexpr int cluster_blocks(int C) {
   int g = C < MAX_CLUSTER ? C : MAX_CLUSTER;
   while (C % g) --g;
   return g;
-}
-
-// x as a TF32 part, rounded to nearest (ties away), and the rest, whose low
-// 13 bits the tensor cores drop.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  hi = h;
-  lo = __float_as_uint(x - __uint_as_float(h));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a . b over one k-step as three TF32 products, the small ones first
-// (lo hi, hi lo, hi hi), summed from zero and added to c in f32. An mma's
-// sum rounds toward zero at the scale of its largest term: carried through
-// the running total, that bias grew with the depth of the sum (4-6x the
-// plain f32 version's distance to float64 on the card); from zero it stays
-// at the scale of 8 products, and the total rounds to nearest.
-__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ah, const uint32_t* al, const uint32_t* bh,
-                                           const uint32_t* bl) {
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(d, al, bh[0], bh[1]);
-  mma_tf32(d, ah, bl[0], bl[1]);
-  mma_tf32(d, ah, bh[0], bh[1]);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += d[e];
 }
 
 // Rows [r0, r0 + R) of a row-strided f32 matrix, the 128 values from `base`,

@@ -26,12 +26,12 @@ __device__ __forceinline__ void ffma_group_sync(int grp) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(grp + 1), "n"(FG) : "memory");
 }
 
-// Rows [r0, r0 + T) of a row-strided (rows, DH) f32 matrix into a tile of
+// Rows [r0, r0 + R) of a row-strided (rows, DH) f32 matrix into a tile of
 // pitch DH + 4 by `NT` threads, 16 bytes a `cp.async`, zeros past `rows`.
-template <int DH, int NT>
+template <int DH, int NT, int R = T>
 __device__ __forceinline__ void stage_f32(float* tile, const float* base, int64_t rs, int r0, int rows, int tid) {
   constexpr int CH = DH / 4;
-  for (int c = tid; c < T * CH; c += NT) {
+  for (int c = tid; c < R * CH; c += NT) {
     const int row = c / CH, col = (c % CH) * 4;
     const bool ok = r0 + row < rows;
     cp_async_16(tile + row * f32_ld<DH>() + col, ok ? base + (r0 + row) * rs + col : base, ok);

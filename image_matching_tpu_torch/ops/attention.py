@@ -9,8 +9,11 @@ kernel (`csrc/attention.cu`) serves every key count, K=1024 included;
 its logits and softmax are f32 on chip, which is the JAX semantics at
 `logits_dtype="float32"`. The kernels take heads of 16, 32, 64 and 128
 values, and every multiple of 128 above it (SuperGlue's 4 heads above
-descriptor_dim 512): in bf16 a head of 256 whole (`attention_wide`), the
-other widths in chunks of 128 values (the chunked kernels). Any other head is zero-padded to the next of those widths on its
+descriptor_dim 512): a head of 256 whole (bf16 `attention_wide` on wgmma;
+f32 `attention_wide_3xtf32`, its products on the tensor cores as three
+TF32 products each, f32-accurate as f32 SDPA's are), the wider ones in
+chunks of 128 values (the chunked kernels; f32 on plain FMAs, as at 128
+and below). Any other head is zero-padded to the next of those widths on its
 way in (80 and 96 to 128, 160 and 200 to 256, 320 to 384) and cut back on
 its way out, which is exact: zero columns add nothing to a score and give
 zero output columns, and the scale stays 1/sqrt(dh) of the real head. The
@@ -188,9 +191,11 @@ def attention_delta_plain(q, k, v, key_mask, lse, dout, num_heads: int = 4):
 
 def attention_lse(q, k, v, key_mask=None, num_heads: int = 4):
     """Forward with LSE, dispatched on the device: `csrc/attention.cu`
-    (LSE on; bf16: tensor cores, f32: `attention_ffma`, register-tiled on
-    plain f32 FMAs) on the card, `attention_lse_plain` on the CPU. Returns
-    (out (B, N, H*dh), lse (B, H, N) f32)."""
+    (LSE on; bf16: tensor cores; f32: `attention_ffma` and, above 256,
+    `attention_ffma_chunked`, register-tiled on plain f32 FMAs, and at 256
+    `attention_wide_3xtf32`, 3xTF32 products on the tensor cores) on the
+    card, `attention_lse_plain` on the CPU. Returns (out (B, N, H*dh), lse
+    (B, H, N) f32)."""
     if q.device.type == "cpu":
         return attention_lse_plain(q, k, v, key_mask, num_heads)
     return _attention_cuda(q, k, v, key_mask, num_heads, with_lse=True)

@@ -279,9 +279,11 @@ F32_DEEP_FORWARD = [(2, 2048, 2048), (2, 2048, 2000)]
 
 
 @pytest.mark.parametrize("b,n,m", F32_DEEP_FORWARD)
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 160, 256, 384])
 def test_attention_forward_f32_deep_sums(cuda, dh, b, n, m):
-    """The f32 forward (`attention_ffma`), with and without LSE, over 2048
+    """The f32 forward (`attention_ffma`; at 160, zero-padded, and 256
+    `attention_wide_3xtf32`, its products 3xTF32; at 384 the chunked
+    `attention_ffma_chunked`), with and without LSE, over 2048
     keys: against the plain f32 version (1e-5, the LSE too) and against the
     same function in float64, no further from it than twice the plain f32
     version's own distance (sums of that many products in f32 lie ~1e-7 of
@@ -442,7 +444,8 @@ CHUNKED_CASES = ([(dh, n, m) for dh in (160, 256, 384, 512) for n, m in CHUNKED_
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_kernels_in_chunks_of_128(cuda, dh, dtype, n, m):
     """Heads above 128 values run through the wide kernels (160 zero-padded
-    to 256; the bf16 forwards at 256 `attention_wide`, the rest chunked):
+    to 256; the forwards at 256 `attention_wide` in bf16 and
+    `attention_wide_3xtf32` in f32, the rest chunked):
     the forward, the forward with LSE and the backward
     against the plain versions at the tolerances of the widths up to 128,
     one launch each under the padded width's name; the dead element's dQ =
