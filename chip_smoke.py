@@ -24,8 +24,9 @@ In order, it:
      put there by hand); where `build/attention_before.cu` holds an earlier version of
      `csrc/attention.cu` (put there by hand, not part of the repository),
      it times that build against this one, interleaved, at the bf16
-     forward's seven timed shapes (D = 1024's forward and forward with LSE
-     among them), and prints whether it gives this build's bits; it runs
+     forward's nine timed shapes (D = 512's and D = 1024's forward and
+     forward with LSE among them), and prints whether it gives this
+     build's bits; it runs
      the attention kernels at head dims they
      are not built for (8, 24, 48: zero-padded to 16, 32, 64), forward,
      forward with LSE and backward, against the plain versions; then the
@@ -130,17 +131,18 @@ In order, it:
      variant (--backbone vgg --descriptor_dim 256, SuperGlue loaded from a
      seeded synthetic official state dict) on 2 pairs;
  15. runs SuperGlue at descriptor_dim 512 and 1024 (4 heads of 128 values,
-     the kernels at 128, and of 256, `attention_wide` / `attention_wide_3xtf32`
-     and the chunked backward; seeded weights:
+     the kernels at 128 (bf16 forward `attention_wide<128>`), and of 256,
+     `attention_wide<256>` / `attention_wide_3xtf32` and the chunked
+     backward; seeded weights:
      no banked ones exist at those widths): the headline's `Matching` in
      bf16 and f32 (launches, pairs/s, peak memory, agreement with the
      all-plain path, the log-coupling held to `WIDE_MAX_Z_ERR`, the
-     profile, at 1024 on `build/attention_before.cu`'s build too where
-     that file is there), training at the training CLI's defaults in bf16 and f32
+     profile, on `build/attention_before.cu`'s build too where that file
+     is there), training at the training CLI's defaults in bf16 and f32
      through the trainer's step (launches, steps/s, peak memory, finite
-     metrics, the step's device time, at 1024 on
-     `build/attention_bwd_chunked_before.cu`'s build and
-     `build/attention_before.cu`'s too where those files are there,
+     metrics, the step's device time, on `build/attention_before.cu`'s
+     build too and at 1024 on `build/attention_bwd_chunked_before.cu`'s,
+     where those files are there,
      every attention backward call of two steps against the
      plain version and, in f32, float64), the training CLI with --descriptor_dim
      D --gnn_layers 2 for one epoch of 6 steps (and at 1024 a resumed one:
@@ -853,6 +855,39 @@ def _graph_ms_or_refused(fn, reps: int):
         return None
 
 
+def _timed_inputs_error(torch, A, calls, q, k, v, mask, lse, dout, h, names, kind, f32):
+    """The kernels of `names` against their plain versions on the inputs
+    that `time_wide_attention` times them on, to `check_wide_head_dims`'s
+    tolerances (bf16: out 3e-2 of max(|y|, 1), LSE 2e-4, gradients 2e-2 of
+    the largest entry; f32: 1e-4, 1e-5, 1e-4). Returns each name's largest
+    absolute error."""
+    b, n, dt = q.shape
+    t_out, t_lse, t_bwd = (1e-4, 1e-5, 1e-4) if f32 else (3e-2, 2e-4, 2e-2)
+    err, rel = {}, {}
+    if "attention" in names:
+        out, ref = calls["attention"](), calls["plain"]()
+        err["attention"] = (out.float() - ref.float()).abs().max().item()
+        rel["attention"] = (err["attention"] / max(ref.float().abs().max().item(), 1.0), t_out)
+    if "attention_lse" in names:
+        (out, got_lse), (ref, ref_lse) = calls["attention_lse"](), calls["plain_lse"]()
+        err["attention_lse"] = (out.float() - ref.float()).abs().max().item()
+        rel["attention_lse"] = (err["attention_lse"] / max(ref.float().abs().max().item(), 1.0), t_out)
+        rel["lse"] = ((got_lse - ref_lse).abs().max().item(), t_lse)
+    if any(name in names for name in ("attention_dq", "attention_dkdv", "attention_backward")):
+        grads = A.attention_backward(q, k, v, mask, lse, dout, h)
+        plain = calls["plain_bwd"]()
+        err["attention_dq"] = (grads[0].float() - plain[0].float()).abs().max().item()
+        err["attention_dkdv"] = max((g.float() - r.float()).abs().max().item() for g, r in zip(grads[1:], plain[1:]))
+        err["attention_backward"] = max(err["attention_dq"], err["attention_dkdv"])
+        rel["dq, dk, dv"] = (_grad_error(grads, plain), t_bwd)
+    torch.cuda.synchronize()
+    line = ", ".join(f"{key} {e:.2e} (tol {tol})" for key, (e, tol) in rel.items())
+    print(f"  on the timed inputs ({b}, {n}, {h}x{dt // h}) {kind}, against the plain versions: {line}")
+    check(all(e <= tol for e, tol in rel.values()), f"attention ({b}, {n}, {h}x{dt // h}) {kind} on the timed "
+                                                   "inputs disagrees with its plain version")
+    return err
+
+
 def time_wide_attention(torch, dev, rng, worst):
     """The kernels at head width 128 and the chunked kernels, bf16 and f32,
     timed by CUDA graph replay at heads of `WIDE_TIMED` values: the forward
@@ -867,10 +902,12 @@ def time_wide_attention(torch, dev, rng, worst):
     chunked kernels' work factor (`chunked_work_factor`) beside it; the
     f32 backward above 128 and the f32 forwards at 256 run their products
     as 3xTF32, so their bound takes that rate, with the FMA pipe's beside it
-    (`bound_fma_ms`). Returns the
-    JSON rows of 128 and 256, their `max_abs_err` from `worst`
-    (`check_wide_head_dims`), launches to be filled in by the D = 512 and
-    D = 1024 phases."""
+    (`bound_fma_ms`). Each kernel with a JSON row (widths 128 and 256) is
+    first held against its plain version on the inputs it is timed on, to
+    `check_wide_head_dims`'s tolerances. Returns the JSON rows of 128 and
+    256, their `max_abs_err` the larger of that error and the kernel's
+    worst in `worst` (`check_wide_head_dims`), launches to be filled in by
+    the D = 512 and D = 1024 phases."""
     from image_matching_tpu_torch.ops import attention as A
 
     rows = []
@@ -887,7 +924,9 @@ def time_wide_attention(torch, dev, rng, worst):
                 mask = torch.from_numpy(rng.uniform(size=(b, n)) < 0.8).to(dev)
                 mask[:, 0] = True
                 dout = torch.from_numpy(rng.normal(size=(b, n, h * dh)).astype("float32")).to(dev, dtype)
-                calls, _ = _attention_calls(torch, A, q, k, v, mask, dout, h)
+                calls, lse = _attention_calls(torch, A, q, k, v, mask, dout, h)
+                timed_err = _timed_inputs_error(torch, A, calls, q, k, v, mask, lse, dout, h, names, kind,
+                                                f32) if with_row else {}
                 t = {key: graph_ms(fn, 3 if key.startswith("plain") else 20) for key, fn in calls.items()
                      if key in names or key in ("plain", "plain_lse", "plain_bwd")}
                 for key in ("lib_fwd", "lib_fb"):
@@ -925,7 +964,8 @@ def time_wide_attention(torch, dev, rng, worst):
                                 "attention_dkdv": 121}[name]
                         rows.append(dict(name=key, route="cuda", source=f"image_matching_tpu_torch/csrc/{source}",
                                          replaces=f"image_matching_tpu/ops/pallas/attention.py:{line}",
-                                         max_abs_err=worst[key], ms=t[name], plain_ms=t[plain], bound_ms=bms,
+                                         max_abs_err=max(worst[key], timed_err[name]), ms=t[name],
+                                         plain_ms=t[plain], bound_ms=bms,
                                          bound_by=by, library_ms=t[lib],
                                          **({"work_factor": factor} if dh > 128 else {}),
                                          **({"bound_fma_ms": fma} if fma is not None else {}),
@@ -1317,11 +1357,12 @@ def time_f32_attention_backward(torch, dev, rng, library="attention_bwd", earlie
 
 # (B, N, H, dh, with LSE): the forward's timed shapes: the headline (36 calls per
 # forward) and the banked model's inference; D = 256 training, the TPU's flash band
-# and the training path's (36 calls per step) with LSE; D = 1024's inference forward
-# and its training step's forward with LSE (heads of 256, 36 calls each)
+# and the training path's (36 calls per step) with LSE; D = 512's and D = 1024's
+# inference forwards and their training steps' forwards with LSE (heads of 128 and
+# 256, `attention_wide`, 36 calls each)
 ATTENTION_TIMED = ((4, 1024, 4, 64, False), (1, 1024, 4, 32, False), (4, 1024, 4, 64, True),
-                   (2, 2048, 4, 64, True), (4, 512, 4, 32, True), (4, 1024, 4, 256, False),
-                   (4, 512, 4, 256, True))
+                   (2, 2048, 4, 64, True), (4, 512, 4, 32, True), (4, 1024, 4, 128, False),
+                   (4, 512, 4, 128, True), (4, 1024, 4, 256, False), (4, 512, 4, 256, True))
 EARLIER_ATTENTION = ROOT / "build" / "attention_before.cu"
 
 
@@ -4506,8 +4547,8 @@ def run_wide_main_path(torch, dev, d: int, dtype: str):
     of the heads' width, 36 a forward), pairs/s by the host clock (median
     of 5 forwards), peak memory, agreement with the all-plain path (the
     log-coupling within `WIDE_MAX_Z_ERR`), and the device time and busy
-    share of a forward (profiled; at D = 1024 on `build/attention_before.cu`'s
-    build too, where that file is there). Returns the launch counts."""
+    share of a forward (profiled; on `build/attention_before.cu`'s build too,
+    where that file is there). Returns the launch counts."""
     import numpy as np
     from image_matching_tpu_torch.models import Matching, MatchingConfig
     from image_matching_tpu_torch.ops import _build
@@ -4554,7 +4595,7 @@ def run_wide_main_path(torch, dev, d: int, dtype: str):
                                min_kp_iou=1.0 if dtype == "bfloat16" else 0.99)
     check(z_err <= WIDE_MAX_Z_ERR[dtype], f"{label}: log-coupling {z_err} from the all-plain path's")
     profile_forward(torch, model, image0, image1, sec, f"{label} profile")
-    if d == 4 * CHUNKED_ROW_WIDTH and EARLIER_ATTENTION.exists():
+    if EARLIER_ATTENTION.exists():
         earlier = build_variants("attention", [("before", EARLIER_ATTENTION, ())])["before"]
         with_attention_library("attention", earlier, lambda: profile_forward(
             torch, model, image0, image1, sec, f"{label} profile on build/attention_before.cu"))()
@@ -4569,8 +4610,9 @@ def train_wide(torch, dev, images, d: int, dtype: str):
     (`make_superglue_train_step`, which the CLI calls): launch counts of
     one step (each training kernel of the heads' width, 36 a step), steps/s (median of
     `WIDE_TRAIN_STEPS`), peak memory, finite metrics, the step's device
-    time (at D = 1024 on the builds of `build/attention_bwd_chunked_before.cu`
-    and `build/attention_before.cu` too, where those files are there); then every attention
+    time (on the build of `build/attention_before.cu` too, and at D = 1024 on
+    that of `build/attention_bwd_chunked_before.cu`, where those files are
+    there); then every attention
     backward call of each of two more steps against the plain version
     (`check_backward_calls`; in f32 its distance to float64 moves with the
     training state). Returns the launch counts of one step."""
@@ -4621,7 +4663,7 @@ def train_wide(torch, dev, images, d: int, dtype: str):
         earlier = build_variants("attention_bwd_chunked", [("before", EARLIER_ATTENTION_BWD_CHUNKED, ())])["before"]
         before = with_attention_library("attention_bwd_chunked", earlier, lambda: step(state, images, gen))
         line += f"; on build/attention_bwd_chunked_before.cu {fmt(device_ms(before, 2, 1))}"
-    if d == 4 * CHUNKED_ROW_WIDTH and EARLIER_ATTENTION.exists():
+    if EARLIER_ATTENTION.exists():
         earlier = build_variants("attention", [("before", EARLIER_ATTENTION, ())])["before"]
         before = with_attention_library("attention", earlier, lambda: step(state, images, gen))
         line += f"; on build/attention_before.cu {fmt(device_ms(before, 2, 1))}"

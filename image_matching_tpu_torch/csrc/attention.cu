@@ -31,8 +31,8 @@
 //     V uniformly, as the plain version does); keys past the end weigh
 //     nothing.
 //
-// bf16 (the main path): one block per (b, head, 64-row query tile), NG
-// warpgroups of 4 warps (16 query rows a warp). The groups split the key
+// bf16 (the main path) up to 64: one block per (b, head, 64-row query
+// tile), NG warpgroups of 4 warps (16 query rows a warp). The groups split the key
 // tiles: group g takes tiles g, g + NG, ..., so a block holds 4 NG warps
 // although it owns only 64 rows, and one group's exponentials run beside
 // another's products. Each group brings its K and V tiles by 16-byte
@@ -52,13 +52,30 @@
 //     memory (K-major), O += P V with P's C layout reused as the A
 //     fragments in registers and V (row-major by key) read transposed by
 //     its descriptor.
-//   * dh <= 32 and dh = 128, `attention_mma`: mma.sync.m16n8k16 (f32
-//     accumulate) on one padded row-major copy of each tile (8 bf16 of
-//     padding per row, so the 8 rows of an ldmatrix fall on distinct banks):
-//     Q's A fragments and K's B fragments by `ldmatrix`, V's by
-//     `ldmatrix.trans` from the same copy. At dh = 128 a warp's O is 16 rows
-//     x 128 (64 f32 a thread) beside Q's 32 fragment registers, and a block
-//     has 2 groups: 4 would need 296 KB of tiles, 2 take 157 KB.
+//   * dh <= 32, `attention_mma`: mma.sync.m16n8k16 (f32 accumulate) on one
+//     padded row-major copy of each tile (8 bf16 of padding per row, so the
+//     8 rows of an ldmatrix fall on distinct banks): Q's A fragments and K's
+//     B fragments by `ldmatrix`, V's by `ldmatrix.trans` from the same copy.
+//
+// bf16 at 128 (D = 320-512; heads of 80 and 96 zero-padded),
+// `attention_wide<128, LSE>`, the kernel at 256 below at half its panels: O
+// is 64 f32 registers a thread, S = Q K^T 8 k-steps of wgmma_ss over two
+// panels, K and V tiles of 16 KB, one warpgroup a block and two blocks an
+// SM. Bound: at D = 512's (4, 1024, 4 x 128) the function's 8.6 GFLOP take
+// 0.00869 ms at 989 TFLOP/s. One thing differs from 256, measured on the
+// card (PERF.md): a warp of its own copies K and V (`wide_producer`). With
+// thread 0 of the warpgroup copying, as at 256, a call took 1.5x the time,
+// and taking the copies out altogether 0.6x: the copying thread, waiting
+// for the other warps to release a slot, held the warpgroup's products
+// back. Deeper rings, 128 rows a block sharing the ring, clusters of 2 or 4
+// blocks sharing each copy (multicast) and two warpgroups a block that
+// split the key tiles did not help enough to keep (PERF.md).
+// Measured (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W): 0.026 ms at (4,
+// 1024, 4 x 128), 0.79 of SDPA's time and 0.34 of the bound
+// (`attention_mma<128, 2>` before it: 0.056); 0.013 with LSE at (4, 512,
+// 4 x 128), 0.6 of SDPA's (0.018 before it).
+// Taking out the softmax or the copies each saves a sixth; no one part
+// holds it.
 //
 // f32 (the f32 compute dtype) up to 128: `attention_ffma<dh, NG, LSE>`, register-
 // tiled on plain f32 FMAs with the tiles of csrc/ffma.cuh that the f32
@@ -92,8 +109,8 @@
 // those widths, which keep a whole head in VMEM; a 64-row tile of 256
 // values is 32 KB in bf16, 64 KB in f32. The route is by width and dtype:
 //
-// bf16 at 256 (C = 2; D = 640-1024), `attention_wide<LSE>`: a block of one
-// warpgroup of 64 query rows. Bound:
+// bf16 at 256 (C = 2; D = 640-1024), `attention_wide<256, LSE>`: a block
+// of one warpgroup of 64 query rows. Bound:
 // at D = 1024's (4, 1024, 4 x 256) the function's 17.2 GFLOP take 0.01737
 // ms at 989 TFLOP/s (its 32 MB of q, k, v, o 0.0096 ms at HBM's rate); what
 // a block reads through L2 is K and V of every key tile, 64 KB a tile, so
@@ -206,9 +223,8 @@ constexpr double LN2_D = 0.6931471805599453;
 // Warpgroups that split a block's key tiles, and tiles in a group's ring,
 // each measured on the card against its neighbours (PERF.md): at dh = 64 two
 // blocks of 2 groups on an SM (128 registers), at dh <= 32 one block of 4.
-// A third stage moved nothing. At dh = 128 (not measured against others) 2
-// groups, what the shared memory holds.
-constexpr int STAGES = 2, WG_GROUPS = 2, MMA_GROUPS = 4, WIDE_GROUPS = 2;
+// A third stage moved nothing. (Heads of 128 and 256: `attention_wide`.)
+constexpr int STAGES = 2, WG_GROUPS = 2, MMA_GROUPS = 4;
 
 // ------------------------------------------------------------------ bf16, both kernels
 
@@ -440,7 +456,7 @@ attention_wg(ATTENTION_KERNEL_ARGS) {
   if (grp == 0) write_rows<DH, LSE>(out, lse, o, m, l, dead, b, N, H, h, q0 + wr + g, t);
 }
 
-// ------------------------------------------------------------------ bf16, dh <= 32 and 128: mma.sync
+// ------------------------------------------------------------------ bf16, dh <= 32: mma.sync
 
 template <int DH, int NG>
 __host__ __device__ constexpr int mma_smem_bytes() { return (1 + NG * STAGES * 2) * tile_elems<DH>() * 2; }
@@ -616,21 +632,34 @@ attention_chunked(ATTENTION_KERNEL_ARGS, int C) {
   store_rows<CW>(out, b, N, H * C, h * C + c, q0 + wr + g, t, o);  // chunk c of head h: "head" h C + c of 128
 }
 
-// ------------------------------------------------------------------ bf16, heads of 256: wgmma fed by TMA
+// ------------------------------------------------------------------ bf16, heads of 128 and 256: wgmma fed by TMA
 
-// A head of 256 values is four 64-value panels in the 128-byte swizzle: 64
-// rows of it make one 32 KB tile, a panel `WIDE_PANEL` on in a descriptor.
+// A head of DH values is DH / 64 panels of 64 values in the 128-byte
+// swizzle: 64 rows of it make one tile, a panel `WIDE_PANEL` on in a
+// descriptor.
 constexpr int WIDE = 256;
-constexpr int WIDE_TILE = 4 * WG_TILE_BYTES;
 constexpr int WIDE_PANEL = WG_TILE_BYTES >> 4;
 
-// Ring slots of K and V tiles: two (99 KB of shared memory with Q's tile,
-// two blocks an SM).
+template <int DH>
+__host__ __device__ constexpr int wide_tile() { return DH / 64 * WG_TILE_BYTES; }
+
+// Key tiles in a ring: two slots (three and four ran slower at 128, and
+// more would not let two blocks share an SM at 256).
 constexpr int WIDE_SLOTS = 2;
 
+// At 128 a warp of its own copies K and V: thread 0 of a warpgroup, waiting
+// there for every warp to release a slot, held the warpgroup's products
+// back (1.5x the time). At 256 its registers would spill O.
+template <int DH>
+__host__ __device__ constexpr bool wide_producer() { return DH == 128; }
+
+template <int DH>
+__host__ __device__ constexpr int wide_threads() { return GROUP + (wide_producer<DH>() ? 32 : 0); }
+
 // The Q tile, the ring and a bit a key, 1024-byte aligned.
+template <int DH>
 __host__ __device__ constexpr int wide_smem_bytes(int key_tiles) {
-  return 1024 + (1 + WIDE_SLOTS) * WIDE_TILE + 8 * key_tiles;
+  return 1024 + (1 + WIDE_SLOTS) * wide_tile<DH>() + 8 * key_tiles;
 }
 
 // The wgmma accumulators `d` as written here: after a wait, no read of
@@ -641,29 +670,29 @@ __device__ __forceinline__ void wg_hold(float* d) {
   for (int i = 0; i < NF; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// softmax(Q K^T scale) V for 64 queries of one (b, head) of 256 values, by
-// one warpgroup: Q staged once, S = Q K_j^T (wgmma_ss, 16 k-steps over the
-// four panels) once a key tile, the online softmax on wgmma's C layout, O
-// (64 x 256 f32, 128 registers a thread) += P V_j with P from registers
-// (wgmma_rs, four 64-value panels a k-step).
-// Thread 0 copies: Q, then K_0, V_0, K_1, ... through a ring of
+// softmax(Q K^T scale) V for 64 queries of one (b, head) of DH = 128 or 256
+// values, by one warpgroup holding the whole head of its rows: Q staged
+// once, S = Q K_j^T (wgmma_ss, DH / 16 k-steps over the panels) once a key
+// tile, the online softmax on wgmma's C layout, O (64 x DH f32, DH / 2
+// registers a thread) += P V_j with P from registers (wgmma_rs, a panel
+// each a k-step). Q, then K_0, V_0, K_1, ... come through a ring of
 // `WIDE_SLOTS` slots, each slot refilled once every warp has released it
-// (an mbarrier each for "landed" and "released"). A copying warp of its
-// own would cap every thread at 168 registers (a third warp on an SM
-// sub-partition) and spill O. The warpgroup queues S of the next tile
-// behind O += P V of this one, so the tensor cores run both while it waits
-// once.
-template <bool LSE>
-__global__ void __launch_bounds__(GROUP, 2)
+// (an mbarrier each for "landed" and "released"), copied by the copying
+// warp (`wide_producer`) or else by thread 0. The warpgroup queues S of the
+// next tile behind O += P V of this one, so the tensor cores run both while
+// it waits once.
+template <int DH, bool LSE>
+__global__ void __launch_bounds__(wide_threads<DH>(), 2)
 attention_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v, const uint8_t* __restrict__ mask,
                __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int N, int M, int H, float scale) {
-  constexpr int R = WIDE_SLOTS;
+  constexpr int R = WIDE_SLOTS, P = DH / 64, TILE = wide_tile<DH>();
+  constexpr bool PW = wide_producer<DH>();
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t full[R], empty[R], q_full;
   unsigned char* own_q = align_1024(smem);  // Q's tile
-  unsigned char* ring = own_q + WIDE_TILE;  // load u (K_{u/2}, or V_{u/2} for odd u) in slot u % R
-  uint32_t* key_bits = reinterpret_cast<uint32_t*>(ring + R * WIDE_TILE);  // a bit a key: valid
+  unsigned char* ring = own_q + TILE;       // load u (K_{u/2}, or V_{u/2} for odd u) in slot u % R
+  uint32_t* key_bits = reinterpret_cast<uint32_t*>(ring + R * TILE);  // a bit a key: valid
 
   const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
   const int q0 = blockIdx.x * T, ntiles = (M + T - 1) / T, loads = 2 * ntiles;
@@ -671,25 +700,26 @@ attention_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       mbar_init(&full[i]);
-      mbar_init(&empty[i], 4);  // every warp
+      mbar_init(&empty[i], 4);  // every warp of the warpgroup
     }
     mbar_init(&q_full);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  int next = 0;  // thread 0: the next load to issue
-  // thread 0: loads next .. upto - 1, each once every warp has released its slot
+  int next = 0;  // the copying thread: the next load to issue
+  // the copying thread: loads next .. upto - 1, each once every warp has released its slot
   auto issue = [&](int upto) {
     for (; next < upto && next < loads; ++next) {
       if (next >= R) mbar_wait(&empty[next % R], (next / R - 1) & 1);
       uint64_t* bar = &full[next % R];
-      mbar_expect(bar, WIDE_TILE);
-      load_panels<4>(ring + (next % R) * WIDE_TILE, next % 2 ? &map_v : &map_k, h * WIDE, next / 2 * T, b, bar);
+      mbar_expect(bar, TILE);
+      load_panels<P>(ring + (next % R) * TILE, next % 2 ? &map_v : &map_k, h * DH, next / 2 * T, b, bar);
     }
   };
-  if (tid == 0) {  // Q, and the ring's first loads
-    mbar_expect(&q_full, WIDE_TILE);
-    load_panels<4>(own_q, &map_q, h * WIDE, q0, b, &q_full);
+  const bool copies = tid == (PW ? GROUP : 0);
+  if (copies) {  // Q, and the ring's first loads
+    mbar_expect(&q_full, TILE);
+    load_panels<P>(own_q, &map_q, h * DH, q0, b, &q_full);
     issue(R);
   }
   int any = 0;  // the batch element's valid keys, 0 past M, by every warp
@@ -701,11 +731,15 @@ attention_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
     any |= valid;
   }
   const bool dead = !__syncthreads_or(any);
+  if (PW && tid >= GROUP) {  // the copying warp: the rest of the loads
+    if (copies) issue(loads);
+    return;
+  }
 
   const int lane = tid % 32, wr = (tid / 32) * 16, g = lane / 4, t = lane % 4;
   const uint64_t qa = wg_desc(smem_addr(own_q)), ring_desc = wg_desc(smem_addr(ring));
   const float scale2 = scale * LOG2E;
-  auto slot = [&](int u) { return ring_desc + (u % R) * (WIDE_TILE >> 4); };
+  auto slot = [&](int u) { return ring_desc + (u % R) * (TILE >> 4); };
   auto landed = [&](int u) { mbar_wait(&full[u % R], (u / R) & 1); };
   auto release = [&](int u) {
     if (lane == 0) mbar_arrive(&empty[u % R]);
@@ -715,19 +749,19 @@ attention_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
     wg_hold<32>(s);
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < WIDE / 16; ++ks) {
+    for (int ks = 0; ks < DH / 16; ++ks) {
       const int step = (ks / 4) * WIDE_PANEL + 2 * (ks % 4);
       wgmma_ss(s, qa + step, kd + step, ks > 0);
     }
     wg_commit();
   };
 
-  float o[4][32];  // panel p of the output in wgmma's C layout
+  float o[P][32];  // panel p of the output in wgmma's C layout
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
+  for (int p = 0; p < P; ++p)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
-  wg_hold<128>(&o[0][0]);
+  wg_hold<DH / 2>(&o[0][0]);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, s[32];  // rows wr + g, wr + g + 8
   mbar_wait(&q_full, 0);
   landed(0);
@@ -739,7 +773,7 @@ attention_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
   for (int j = 0; j < ntiles; ++j) {
     release(2 * j);
     if (j > 0) release(2 * j - 1);
-    if (tid == 0) issue(2 * j + 3);  // V_j and K_{j+1}, into the slots just released
+    if (!PW && copies) issue(2 * j + R + 1);  // V_j and K_{j+1}, into the slots just released
     // logits in log2 units: valid keys scaled, masked ones -1e9, those past M -inf
     const uint64_t bits = *reinterpret_cast<const uint64_t*>(key_bits + 2 * j) >> (2 * t);
     const int lim = M - j * T - 2 * t;  // this thread's keys 8n + e from lim on are past M
@@ -754,26 +788,26 @@ attention_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
       }
     });
 #pragma unroll
-    for (int p = 0; p < 4; ++p)
+    for (int p = 0; p < P; ++p)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[p][i] *= corr[(i >> 1) & 1];
     uint32_t pa[4][4];
     wg_c_to_a(pa, s);
     landed(2 * j + 1);
     const uint64_t vd = slot(2 * j + 1);
-    wg_hold<128>(&o[0][0]);
+    wg_hold<DH / 2>(&o[0][0]);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < T / 16; ++kk)
 #pragma unroll
-      for (int p = 0; p < 4; ++p) wgmma_rs(o[p], pa[kk], vd + p * WIDE_PANEL + 128 * kk);  // O += P V_j
+      for (int p = 0; p < P; ++p) wgmma_rs(o[p], pa[kk], vd + p * WIDE_PANEL + 128 * kk);  // O += P V_j
     wg_commit();
     if (j + 1 < ntiles) {  // S_{j+1} queued behind O += P V_j
       landed(2 * j + 2);
       scores(s, j + 1);
     }
     wg_wait<0>(s);
-    wg_hold<128>(&o[0][0]);
+    wg_hold<DH / 2>(&o[0][0]);
   }
 
 #pragma unroll
@@ -781,7 +815,7 @@ attention_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant_
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  write_rows<WIDE, LSE>(out, lse, &o[0][0], m, l, dead, b, N, H, h, q0 + wr + g, t);
+  write_rows<DH, LSE>(out, lse, &o[0][0], m, l, dead, b, N, H, h, q0 + wr + g, t);
 }
 
 // ------------------------------------------------------------------ f32: register-tiled FFMA
@@ -1447,23 +1481,24 @@ int launch_chunked_bf16(ATTENTION_ARGS(__nv_bfloat16)) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Heads of 256 values: q, k and v as tensor maps, a block per 64 queries.
-// The carveout asks for all of the SM's shared memory, which two blocks
-// need.
-template <bool LSE>
+// Heads of 128 or 256 values: q, k and v as tensor maps, a block per 64
+// queries. The carveout asks for all of the SM's shared memory, which two
+// blocks need.
+template <int W, bool LSE>
 int launch_wide(ATTENTION_ARGS(__nv_bfloat16)) {
-  constexpr auto kernel = attention_wide<LSE>;
+  constexpr auto kernel = attention_wide<W, LSE>;
   static const cudaError_t attr = allow_smem(kernel, smem_optin(kernel));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   static const cudaError_t carveout =
       cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
   if (carveout != cudaSuccess) return static_cast<int>(carveout);
   CUtensorMap mq, mk, mv;
-  if (!bf16_map(&mq, q, q_bs, q_rs, B, N, H * WIDE) || !bf16_map(&mk, k, k_bs, k_rs, B, M, H * WIDE) ||
-      !bf16_map(&mv, v, v_bs, v_rs, B, M, H * WIDE))
+  if (!bf16_map(&mq, q, q_bs, q_rs, B, N, H * W) || !bf16_map(&mk, k, k_bs, k_rs, B, M, H * W) ||
+      !bf16_map(&mv, v, v_bs, v_rs, B, M, H * W))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = wide_smem_bytes((M + T - 1) / T);
-  kernel<<<dim3((N + T - 1) / T, H, B), GROUP, bytes, stream>>>(mq, mk, mv, mask, out, lse, N, M, H, scale);
+  const int bytes = wide_smem_bytes<W>((M + T - 1) / T);
+  kernel<<<dim3((N + T - 1) / T, H, B), wide_threads<W>(), bytes, stream>>>(mq, mk, mv, mask, out, lse, N, M, H,
+                                                                              scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1493,7 +1528,7 @@ __host__ __device__ constexpr bool chunked_width(int DH) { return DH > CW && DH 
 template <bool LSE>
 int launch_bf16(ATTENTION_ARGS(__nv_bfloat16)) {
 #define TILED_PASS q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, out, lse, B, N, M, H, DH, scale, stream
-  if (DH == WIDE) return launch_wide<LSE>(TILED_PASS);
+  if (DH == WIDE) return launch_wide<WIDE, LSE>(TILED_PASS);
   if (chunked_width(DH)) return launch_chunked_bf16<LSE>(TILED_PASS);
   switch (DH) {
     case 16:
@@ -1504,9 +1539,7 @@ int launch_bf16(ATTENTION_ARGS(__nv_bfloat16)) {
                                                               MMA_GROUPS * GROUP, TILED_PASS);
     case 64:
       return launch_tiled<attention_wg<WG_GROUPS, LSE>>(wg_smem_bytes<WG_GROUPS>(), WG_GROUPS * GROUP, TILED_PASS);
-    case 128:
-      return launch_tiled<attention_mma<128, WIDE_GROUPS, LSE>>(mma_smem_bytes<128, WIDE_GROUPS>(),
-                                                                WIDE_GROUPS * GROUP, TILED_PASS);
+    case 128: return launch_wide<128, LSE>(TILED_PASS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef TILED_PASS

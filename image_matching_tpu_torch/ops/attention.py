@@ -9,11 +9,12 @@ kernel (`csrc/attention.cu`) serves every key count, K=1024 included;
 its logits and softmax are f32 on chip, which is the JAX semantics at
 `logits_dtype="float32"`. The kernels take heads of 16, 32, 64 and 128
 values, and every multiple of 128 above it (SuperGlue's 4 heads above
-descriptor_dim 512): a head of 256 whole (bf16 `attention_wide` on wgmma;
-f32 `attention_wide_3xtf32`, its products on the tensor cores as three
-TF32 products each, f32-accurate as f32 SDPA's are), the wider ones in
-chunks of 128 values (the chunked kernels; f32 on plain FMAs, as at 128
-and below). Any other head is zero-padded to the next of those widths on its
+descriptor_dim 512): in bf16 `attention_mma` up to 32, `attention_wg` at 64
+and `attention_wide` (wgmma fed by TMA) at 128 and 256; in f32
+`attention_ffma` up to 128 and `attention_wide_3xtf32` at 256, its products
+on the tensor cores as three TF32 products each, f32-accurate as f32
+SDPA's are; the wider heads in chunks of 128 values (the chunked kernels;
+f32 on plain FMAs). Any other head is zero-padded to the next of those widths on its
 way in (80 and 96 to 128, 160 and 200 to 256, 320 to 384) and cut back on
 its way out, which is exact: zero columns add nothing to a score and give
 zero output columns, and the scale stays 1/sqrt(dh) of the real head. The

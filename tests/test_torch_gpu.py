@@ -273,6 +273,37 @@ def test_attention_forward_with_lse_kernel(cuda, dh, dtype, n, m):
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
 
+# (B, N, M) of the bf16 forward at heads of 128 (`attention_wide<128>`): D = 512's
+# inference and training shapes (256 and 128 blocks); ragged across the 64-row blocks
+# and the ring, at fewer and more blocks than an H100 has SMs; over 2048 keys at both
+WIDE_128_CASES = [(4, 1024, 1024), (4, 512, 512), (2, 129, 257), (2, 200, 1100), (3, 1000, 1100), (2, 70, 2100),
+                  (2, 1100, 2100)]
+
+
+@pytest.mark.parametrize("b,n,m", WIDE_128_CASES)
+def test_attention_forward_bf16_at_128(cuda, b, n, m):
+    """The bf16 forward at heads of 128, with and without LSE: against the
+    plain versions (3e-2; the LSE 2e-4), the dead element's mean of V and
+    log M, one launch each under the `_dh128` names, two runs
+    bit-identical."""
+    q, k, v, mask, _ = _attention_case(cuda, 128, torch.bfloat16, b=b, n=n, m=m)
+    before = dict(_build.LAUNCHES)
+    out = attention(q, k, v, mask, 4)
+    out_lse, lse = attention_lse(q, k, v, mask, 4)
+    torch.cuda.synchronize()
+    for name in ("attention", "attention_lse"):
+        count = launch_name(name, 128)
+        assert _build.LAUNCHES[count] == before.get(count, 0) + 1
+    ref_out, ref_lse = attention_lse_plain(q, k, v, mask, 4)
+    for got in (out, out_lse):
+        torch.testing.assert_close(got.float(), ref_out.float(), rtol=3e-2, atol=3e-2)
+        torch.testing.assert_close(got[-1].float(), v[-1].float().mean(0).expand_as(got[-1]), rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=2e-4)
+    torch.testing.assert_close(lse[-1], torch.full_like(lse[-1], math.log(m)))
+    again = (attention(q, k, v, mask, 4), *attention_lse(q, k, v, mask, 4))
+    assert all(torch.equal(a, c) for a, c in zip((out, out_lse, lse), again, strict=True))
+
+
 # (B, N, M): deep f32 forward cases, 2048 queries over 2048 keys and over a
 # ragged 2000 (neither a multiple of a block's 2 x 64 keys in flight)
 F32_DEEP_FORWARD = [(2, 2048, 2048), (2, 2048, 2000)]
