@@ -1229,12 +1229,6 @@ constexpr int WF_SLOT = 4 * WF_KEYS * WF_LD;  // a slot: K's two halves, then V'
 constexpr int WF_EXCH = 4 * T * WF_EP;    // each half's partial S, for even and odd tiles
 constexpr int WF_SMEM_BYTES = (WF_Q + WF_SLOTS * WF_SLOT + WF_EXCH) * 4;
 
-// The key of S's column c (0 .. 7) of an n-tile, relative to the n-tile's
-// first: 2t -> t and 2t + 1 -> t + 4, so that the C layout of S (lane t:
-// columns 2t, 2t + 1) is P's A fragment for O += P V with k-step columns t,
-// t + 4 in key order, and V's B fragments lie in rows t, t + 4.
-__host__ __device__ constexpr int wf_key(int c) { return c / 2 + 4 * (c % 2); }
-
 // s[n] (the warp's 16 rows x the tile's keys 8n + wf_key(c), C layout) +=
 // Q K^T over the warp's half: `q_addr` the lane's ldmatrix address in Q's
 // half (matrix i of x4 is A fragment a_i of m16n8k8: rows g, g + 8,

@@ -94,14 +94,14 @@
 // Heads wider than 128 run in csrc/attention_bwd_chunked.cu, in chunks of
 // 128 values.
 //
-// f32 (compute_dtype="float32"): `dq_ffma` and `dkdv_ffma`, register-tiled
-// SIMT kernels on plain f32 FMAs; products and exponentials in full f32
-// (the tensor cores would round the products to TF32). Bound: the FMA pipe,
-// 67 TFLOP/s. The function's 7 products are 1.88 GFLOP at (4, 512, 4 x 32),
-// 0.028 ms (its 7.3 MB of q/k/v/dO/dq/dk/dv: 0.0022 ms); the kernels do 9
-// (the delta pass computes S and dP too), 0.036 ms. PyTorch's f32 SDPA
-// backward runs its products on the tensor cores as three TF32 products
-// each, a ceiling of 165 TFLOP/s. What the design does about the FMA pipe:
+// f32 (compute_dtype="float32") up to dh = 64: `dq_ffma` and `dkdv_ffma`,
+// register-tiled SIMT kernels on plain f32 FMAs; products and exponentials
+// in full f32. Bound: the FMA pipe, 67 TFLOP/s. The function's 7 products
+// are 1.88 GFLOP at (4, 512, 4 x 32), 0.028 ms (its 7.3 MB of
+// q/k/v/dO/dq/dk/dv: 0.0022 ms); the kernels do 9 (the delta pass computes
+// S and dP too), 0.036 ms. PyTorch's f32 SDPA backward runs its products on
+// the tensor cores as three TF32 products each, a ceiling of 165 TFLOP/s.
+// What the design does about the FMA pipe:
 //  - A group of 8 warps takes a 64 x 64 tile of S and of dP, 4 x 4 of each
 //    a thread (own rows 8 apart, looped rows 4 apart): per 4 dims, 8
 //    LDS.128 (a warp's 8 own rows on distinct banks, its 4 looped rows
@@ -116,9 +116,7 @@
 //    ring and named barrier; their partial sums are added through shared
 //    memory in the groups' order. dK/dV at dh = 64 keeps one group (two
 //    would need 244 KB of shared memory), and so does dQ at dh = 16 (two
-//    spill at 128 registers a thread). At dh = 128 both keep one group, and
-//    dK/dV a ring of one stage (two would need 241 KB): it loads the next
-//    query tile once the group is done with this one.
+//    spill at 128 registers a thread).
 //  - dQ's first pass keeps each thread's partial rowsum(P dP) and
 //    rowsum(P), reduced once after it (the row's 4 lanes by shuffles, then
 //    its 4 warps and the groups through shared memory, in a fixed order);
@@ -130,11 +128,47 @@
 // tiles cap them at two thirds of it (csrc/lds_probe.cu: an LDS.128 costs
 // the SM 4 cycles, 2 when each quarter-warp reads one address), so the
 // loads are not all that holds them.
+//
+// f32 at dh = 128: `dq_3xtf32` and `dkdv_3xtf32`, one body
+// (`wide_bwd_tf32`), every product on the tensor cores as 3xTF32
+// (csrc/tf32.cuh: each operand a TF32 part rounded to nearest and its rest,
+// three mma.sync.m16n8k8 products a k-step summed from zero and added to the
+// f32 total), P, dS, delta and every sum in f32. On the FMA pipe the 9
+// products' work of the pair takes 0.144 ms at the training shape (4, 512,
+// 4 x 128), 0.78x f32 SDPA's backward at a perfect pipe; 3xTF32's 165
+// TFLOP/s bound the function's 7 at 0.0455 ms. The design, that of
+// `attention_wide_3xtf32` (csrc/attention.cu) carried to the backward:
+//  - A warp owns 16 own rows and half of the head (64 values): it
+//    multiplies its rows' partial S and dP over its half, and the warp
+//    holding the other half of the same rows swaps them with it through
+//    shared memory behind a 64-thread barrier of their own; both add them
+//    in the same order, so both hold the same bits of S, dP, P and dS.
+//  - Then each adds its half of the outputs: dQ_half += dS K_half, or
+//    dV_half += P^T dO_half and dK_half += dS^T Q_half. S's columns are the
+//    loop rows in `wf_key` order, so that S's C layout is the A fragment of
+//    these products, and their B fragments come as two 16-byte loads a row
+//    (`wb_value`).
+//  - dQ += dS (K - 1 k0^T), k0 the batch element's first key row: every
+//    row of dS sums to 0, so it is dS K, and a common part of the keys
+//    drops out before the products round it (their split is coarser than
+//    an FMA's rounding): it brings dQ's worst distance from float64 over a
+//    D = 512 f32 step's calls down by a tenth or more (PERF.md).
+//  - Each half's warps stage their half of the own rows once and of each
+//    loop tile through a 2-slot `cp.async` ring of their own, behind a
+//    barrier of their own: no block barrier in the loop.
+//  - dQ: 64 own rows a block (8 warps, one block an SM), 32-row loop tiles,
+//    the score products unrolled 4 k-steps deep (fully: 255 registers,
+//    slower); its delta pass computes S and dP as `dq_ffma`'s does. dK/dV:
+//    32 own rows a block (4 warps, two blocks an SM), 16-row loop tiles
+//    (32-row ones spill beside dK and dV's 64 registers a thread).
+//  - Every thread may take 255 registers (`__launch_bounds__` with the
+//    blocks an SM): a bound on threads alone drew ~190 and ran 10-20% slower.
 #include <math.h>
 
 #include "hopper.cuh"
 #include "ffma.cuh"
 #include "attention_bwd.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -747,17 +781,11 @@ dq_wg(const __nv_bfloat16* __restrict__ q, int64_t q_bs, int64_t q_rs,
 // Groups of a block, each count measured on the card against one group
 // (PERF.md): two where their shared memory fits and their registers (128 a
 // thread at 512 threads) do not spill; one for dK/dV at dh = 64 (two would
-// need 244 KB) and for dQ at dh = 16 (two spill). At dh = 128 one each:
-// two groups' rings do not fit.
+// need 244 KB) and for dQ at dh = 16 (two spill).
 template <int DH>
-__host__ __device__ constexpr int dkdv_ffma_groups() { return DH >= 64 ? 1 : 2; }
+__host__ __device__ constexpr int dkdv_ffma_groups() { return DH == 64 ? 1 : 2; }
 template <int DH>
-__host__ __device__ constexpr int dq_ffma_groups() { return DH == 16 || DH > 64 ? 1 : 2; }
-
-// Stages of a dK/dV group's ring: one at dh = 128, where two would need
-// 241 KB of shared memory.
-template <int DH>
-__host__ __device__ constexpr int dkdv_ffma_stages() { return DH > 64 ? 1 : STAGES; }
+__host__ __device__ constexpr int dq_ffma_groups() { return DH == 16 ? 1 : 2; }
 
 // One dK/dV group's ring stage: Q and dO tiles, then the lse and delta rows.
 template <int DH>
@@ -766,7 +794,7 @@ __host__ __device__ constexpr int dkdv_ffma_stage() { return 2 * T * f32_ld<DH>(
 // A group's floats: its ring, then the P and dS tiles.
 template <int DH>
 __host__ __device__ constexpr int dkdv_ffma_group() {
-  return dkdv_ffma_stages<DH>() * dkdv_ffma_stage<DH>() + 2 * T * XLD;
+  return STAGES * dkdv_ffma_stage<DH>() + 2 * T * XLD;
 }
 
 template <int DH, int NG>
@@ -785,14 +813,13 @@ dkdv_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
           const float* __restrict__ lse, const float* __restrict__ delta,
           float* __restrict__ dk, float* __restrict__ dv, int N, int M, int H, float scale) {
   constexpr int LD = f32_ld<DH>(), DW = DH / 8, STAGE = dkdv_ffma_stage<DH>(), GROUP_F = dkdv_ffma_group<DH>();
-  constexpr int ST = dkdv_ffma_stages<DH>();
   extern __shared__ __align__(16) float fsm[];
   float* own_k = fsm;
   float* own_v = own_k + T * LD;
   float* rings = own_v + T * LD;
   const int tid = threadIdx.x, grp = tid / FG, gt = tid % FG;
   float* ring = rings + grp * GROUP_F;
-  float* xp = ring + ST * STAGE;  // P[query][key]
+  float* xp = ring + STAGES * STAGE;  // P[query][key]
   float* xs = xp + T * XLD;           // dS[query][key]
 
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * T;
@@ -807,7 +834,7 @@ dkdv_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
   // the group's `it`-th query tile into its stage; rows past N are zeros
   // (lse = delta = 0 beside dO = 0: P finite, dS = 0, no dV)
   auto stage = [&](int it) {
-    float* s = ring + (it % ST) * STAGE;
+    float* s = ring + (it % STAGES) * STAGE;
     const int r0 = (grp + it * NG) * T;
     stage_f32<DH, FG>(s, q_b, q_rs, r0, N, gt);
     stage_f32<DH, FG>(s + T * LD, do_b, do_rs, r0, N, gt);
@@ -851,9 +878,9 @@ dkdv_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
   for (int it = 0; it < cnt; ++it) {
     cp_async_wait<0>();  // tile it has landed; the group is done with tile it - 1
     ffma_group_sync(grp);
-    if (ST > 1 && it + 1 < cnt) stage(it + 1);
+    if (it + 1 < cnt) stage(it + 1);
     cp_async_commit();
-    const float* cur = ring + (it % ST) * STAGE;
+    const float* cur = ring + (it % STAGES) * STAGE;
     const float* qs = cur;
     const float* dos = cur + T * LD;
     const float* rows = cur + 2 * T * LD;  // lse, then delta
@@ -878,11 +905,6 @@ dkdv_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
     store_x(xs, dp, L);
     ffma_group_sync(grp);
     tn_product<DH, DW>(acc, (role ? xs : xp) + R.own, (role ? qs : dos) + R.dim);
-    if (ST == 1 && it + 1 < cnt) {  // one stage: the next tile once the group is done with this one
-      ffma_group_sync(grp);
-      stage(it + 1);
-      cp_async_commit();
-    }
   }
 
   add_groups<NG, 4 * DW>(&acc[0][0], rings, GROUP_F, grp, gt);
@@ -1049,6 +1071,366 @@ dq_ffma(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
   if (grp == 0) store_out<DW>(dq + (int64_t)b * N * do_rs + h * DH, q0, N, do_rs, acc, R);
 }
 
+// ------------------------------------------------------------------ f32, heads of 128: 3xTF32 on mma.sync
+
+// A block of `dq_3xtf32` / `dkdv_3xtf32`: BR own rows of one (b, head) of
+// 128 values and 2 BR / 16 warps; warp w owns rows 16 (w % (BR / 16)) and
+// the head's half w / (BR / 16), 64 values. Every staged tile is kept as
+// its two halves, rows of 68 floats (ldmatrix's 8 rows, and the output
+// products' float4 of 8 lanes, on distinct banks); each half's warps stage,
+// read and wait for their own half alone. Loop tiles of KT rows come
+// through a ring of SLOTS slots a half.
+constexpr int WB_DH = 128, WB_HALF = 64;
+constexpr int WB_LD = f32_ld<WB_HALF>();  // row pitch of a staged half, in floats
+
+template <int BR>
+__host__ __device__ constexpr int wb_threads() { return 2 * BR / 16 * 32; }
+
+// A half's slot: its two loop tiles and, for dK/dV, the tile's lse and delta
+// rows. An exchange tile: one warp pair's partial S or dP (BR rows of KT + 8).
+template <bool DQ, int KT>
+__host__ __device__ constexpr int wb_slot() { return 2 * KT * WB_LD + (DQ ? 0 : 2 * KT); }
+template <int BR, int KT>
+__host__ __device__ constexpr int wb_exch() { return BR * (KT + 8); }
+
+// The bytes of a block's shared memory: each half's own tiles (S's operand,
+// then dP's), each half's ring, and the exchange tiles for even and odd
+// steps, each half, S and dP.
+template <bool DQ, int BR, int KT, int SLOTS>
+__host__ __device__ constexpr int wb_smem_bytes() {
+  return (4 * BR * WB_LD + 2 * SLOTS * wb_slot<DQ, KT>() + 8 * wb_exch<BR, KT>()) * 4;
+}
+
+// The value (of the warp's half) that an output product's column c of
+// n-tile n takes: wb_value(c) + n. A lane's B fragments of the 8 n-tiles
+// are then two 16-byte loads a row (at value wb_value(g)), on distinct
+// banks for the 8 lanes of a quarter warp.
+__host__ __device__ constexpr int wb_value(int c) { return 16 * (c % 4) + 8 * (c / 4); }
+
+// s[n] (the warp's 16 own rows x the loop tile's rows 8n + wf_key(c), C
+// layout) += Own . Loop^T over the warp's half: `a_addr` the lane's
+// ldmatrix address in its own half tile, `b_addr` the lane's in the loop
+// half tile (two n-tiles' B fragments an x4, the lane's row the loop row of
+// its column). Each k-step's three products summed from zero; UNROLL
+// k-steps unrolled.
+template <int NT, int UNROLL>
+__device__ __forceinline__ void wb_scores(float (*s)[4], uint32_t a_addr, uint32_t b_addr) {
+#pragma unroll (UNROLL)
+  for (int ks = 0; ks < WB_HALF / 8; ++ks) {
+    uint32_t a[4], ah[4], al[4];
+    ldsm_x4(a, a_addr + ks * 32);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(a[e]), ah[e], al[e]);
+    uint32_t bf[2 * NT], bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) ldsm_x4(bf + 4 * np, b_addr + np * 16 * WB_LD * 4 + ks * 32);
+#pragma unroll
+    for (int i = 0; i < 2 * NT; ++i) split_tf32(__uint_as_float(bf[i]), bh[i / 2][i % 2], bl[i / 2][i % 2]);
+    mma_3xtf32_tiles<NT>(s, ah, al, bh, bl);
+  }
+}
+
+// c[n] (the warp's 16 own rows x its half's values wb_value(col) + n, C
+// layout) += X . (Y - 1 y0^T) over the loop tile's KT rows: X's split A
+// fragments from S's C layout (k-step kk takes loop rows 8 kk + t and 8 kk
+// + t + 4, `wf_key`), `y` the loop half tile at row t and value wb_value(g),
+// `y0` (the lane's 8 values of a row taken from every loop row; zeros for
+// none) subtracted before the split.
+template <int KT>
+__device__ __forceinline__ void wb_output(float (*c)[4], const uint32_t (*xh)[4], const uint32_t (*xl)[4],
+                                          const float* y, const float* y0) {
+#pragma unroll
+  for (int kk = 0; kk < KT / 8; ++kk) {
+    const float* r0 = y + kk * 8 * WB_LD;
+    const float* r1 = r0 + 4 * WB_LD;
+    const float4 b00 = *reinterpret_cast<const float4*>(r0), b01 = *reinterpret_cast<const float4*>(r0 + 4);
+    const float4 b10 = *reinterpret_cast<const float4*>(r1), b11 = *reinterpret_cast<const float4*>(r1 + 4);
+    const float b0[8] = {b00.x, b00.y, b00.z, b00.w, b01.x, b01.y, b01.z, b01.w};
+    const float b1[8] = {b10.x, b10.y, b10.z, b10.w, b11.x, b11.y, b11.z, b11.w};
+    uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      split_tf32(b0[n] - y0[n], bh[n][0], bl[n][0]);
+      split_tf32(b1[n] - y0[n], bh[n][1], bl[n][1]);
+    }
+    mma_3xtf32_tiles<8>(c, xh[kk], xl[kk], bh, bl);
+  }
+}
+
+// x (n-tiles of the C layout, loop rows 8 kk + t, + 4 as `wb_scores` orders
+// them) as split A fragments: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3
+// (g + 8, t + 4), C's 0, 2, 1, 3
+template <int NT>
+__device__ __forceinline__ void wb_fragments(uint32_t (*xh)[4], uint32_t (*xl)[4], const float (*x)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk) {
+    split_tf32(x[kk][0], xh[kk][0], xl[kk][0]);
+    split_tf32(x[kk][2], xh[kk][1], xl[kk][1]);
+    split_tf32(x[kk][1], xh[kk][2], xl[kk][2]);
+    split_tf32(x[kk][3], xh[kk][3], xl[kk][3]);
+  }
+}
+
+// The warp's 16 rows of its half of an output (C layout as `wb_output`
+// leaves it) to a contiguous (., H * 128) f32 matrix at `out` (the batch,
+// head and half applied): lane t's columns 2t, 2t + 1 are 8 consecutive
+// values each.
+__device__ __forceinline__ void wb_store(float* out, int row0, int rows, int64_t rs, const float (*c)[4], int g,
+                                         int t) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = row0 + g + 8 * e;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int i = 2 * e + cc;
+      float* o = out + (int64_t)row * rs + wb_value(2 * t + cc);
+      *reinterpret_cast<float4*>(o) = make_float4(c[0][i], c[1][i], c[2][i], c[3][i]);
+      *reinterpret_cast<float4*>(o + 4) = make_float4(c[4][i], c[5][i], c[6][i], c[7][i]);
+    }
+  }
+}
+
+// Own rows a block, loop rows a step, ring slots a half and the score
+// products' unrolled k-steps at heads of 128, each kernel's measured on the
+// card against its neighbours (PERF.md).
+constexpr int DQ_ROWS = 64, DQ_KT = 32, DQ_SLOTS = 2, DQ_UNROLL = 4;
+constexpr int DKDV_ROWS = 32, DKDV_KT = 16, DKDV_SLOTS = 2, DKDV_UNROLL = 8;
+
+// One block. dQ (DQ): own rows are queries; a delta pass over the key tiles,
+// then a second pass for dS and dQ_half += dS K_half. dK/dV: own rows are
+// keys; one pass over the query tiles, dV_half += P^T dO_half and dK_half +=
+// dS^T Q_half. Every step, warp w multiplies its rows' partial S and dP
+// over its half; warps w and w's partner in the other half swap them
+// through shared memory behind a 64-thread barrier of their own and add
+// them (the same bits in both: f32 addition commutes), so both take the same
+// P and dS.
+template <bool DQ, int BR, int KT, int SLOTS, int UNROLL>
+__device__ __forceinline__ void wide_bwd_tf32(const float* __restrict__ q, int64_t q_bs, int64_t q_rs,
+                                              const float* __restrict__ k, int64_t k_bs, int64_t k_rs,
+                                              const float* __restrict__ v, int64_t v_bs, int64_t v_rs,
+                                              const uint8_t* __restrict__ mask, const float* __restrict__ dout,
+                                              const float* __restrict__ lse, float* __restrict__ delta,
+                                              float* __restrict__ out_s, float* __restrict__ out_p, int N, int M,
+                                              int H, float scale, float* fsm) {
+  constexpr int RG = BR / 16, HT = RG * 32, NT = KT / 8, EP = KT + 8;
+  constexpr int OWN = BR * WB_LD, SLOT = wb_slot<DQ, KT>(), EXCH = wb_exch<BR, KT>();
+  const int b = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * BR, tid = threadIdx.x;
+  const int w = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int rg = w % RG, hf = w / RG, wr = 16 * rg, ht = tid % HT;
+  const int own_rows = DQ ? N : M, loop_rows = DQ ? M : N, ntiles = (loop_rows + KT - 1) / KT;
+  const int steps = (DQ ? 2 : 1) * ntiles;  // dQ: the delta pass, then the output pass
+  const int64_t do_rs = (int64_t)H * WB_DH;
+  const int col0 = h * WB_DH + hf * WB_HALF;  // the half's first value in a row
+  const float* qh = q + b * q_bs + col0;
+  const float* kh = k + b * k_bs + col0;
+  const float* vh = v + b * v_bs + col0;
+  const float* doh = dout + b * N * do_rs + col0;
+  // S's operands (own, loop): (Q, K) for dQ, (K, Q) for dK/dV; dP's (dO, V), (V, dO)
+  const float* own_s = DQ ? qh : kh;
+  const float* own_p = DQ ? doh : vh;
+  const float* loop_s = DQ ? kh : qh;
+  const float* loop_p = DQ ? vh : doh;
+  const int64_t own_s_rs = DQ ? q_rs : k_rs, own_p_rs = DQ ? do_rs : v_rs;
+  const int64_t loop_s_rs = DQ ? k_rs : q_rs, loop_p_rs = DQ ? v_rs : do_rs;
+  const float* lse_b = lse + ((int64_t)b * H + h) * N;
+  float* delta_b = delta + ((int64_t)b * H + h) * N;
+  float* own = fsm + hf * 2 * OWN;                     // the half's own tiles: S's operand, dP's
+  float* ring = fsm + 4 * OWN + hf * SLOTS * SLOT;      // the half's slots
+  float* exch = fsm + 4 * OWN + 2 * SLOTS * SLOT;       // [parity][half][S, dP]
+
+  // step u's loop tile (tile u % ntiles) into its slot: the half's columns of
+  // both operands, rows past the end zeros; dK/dV: the tile's lse and delta
+  // rows, 0 past N (beside dO = 0: P finite, dS = 0, no dV)
+  auto stage = [&](int u) {
+    float* slot = ring + (u % SLOTS) * SLOT;
+    const int j0 = u % ntiles * KT;
+    stage_f32<WB_HALF, HT, KT>(slot, loop_s, loop_s_rs, j0, loop_rows, ht);
+    stage_f32<WB_HALF, HT, KT>(slot + KT * WB_LD, loop_p, loop_p_rs, j0, loop_rows, ht);
+    if (!DQ && ht < 2 * KT) {
+      const int j = ht % KT;
+      const bool ok = j0 + j < N;
+      const float* src = ht < KT ? lse_b : delta_b;
+      cp_async_4(slot + 2 * KT * WB_LD + ht, ok ? src + j0 + j : src, ok);
+    }
+  };
+  stage_f32<WB_HALF, HT, BR>(own, own_s, own_s_rs, r0, own_rows, ht);
+  stage_f32<WB_HALF, HT, BR>(own + OWN, own_p, own_p_rs, r0, own_rows, ht);
+#pragma unroll
+  for (int u = 0; u < SLOTS - 1; ++u) {
+    if (u < steps) stage(u);
+    cp_async_commit();
+  }
+  // the factors of this lane's own rows wr + g, + 8: dQ, the rows' lse log2 e
+  // (P = 0 past N); dK/dV, the keys' states as `dkdv_ffma` takes them
+  float l2[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f}, ds_scale[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  bool counts[2] = {false, false};
+  const bool dead = DQ ? false : dead_batch(mask, b, M);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = r0 + wr + g + 8 * e;
+    if constexpr (DQ) {
+      l2[e] = row < N ? lse_b[row] * LOG2E : INFINITY;
+    } else {
+      const KeyRow key = key_row(key_state(mask, b, M, row, dead), scale);
+      s2[e] = key.s_scale * LOG2E;
+      ds_scale[e] = key.ds_scale;
+      counts[e] = key.counts;
+    }
+  }
+
+  const uint32_t a_addr = smem_addr(own) + ((wr + lane % 8 + 8 * ((lane / 8) % 2)) * WB_LD + 4 * (lane / 16)) * 4;
+  // the lane's loop row: that of column lane % 8 of n-tile lane / 16 (of a pair)
+  const uint32_t b_lane = ((8 * (lane / 16) + wf_key(lane % 8)) * WB_LD + 4 * ((lane / 8) % 2)) * 4;
+  const int y_lane = t * WB_LD + wb_value(g);
+  // dQ: every row of dS sums to 0, so dS K = dS (K - 1 k0^T), k0 the first key's row: the
+  // product takes K less it, and the keys' common part, which the 3xTF32 products would
+  // round, drops out before them. dK and dV subtract nothing.
+  float k0[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if constexpr (DQ) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) k0[n] = kh[wb_value(g) + n];
+  }
+  float acc[DQ ? 1 : 2][8][4];  // dQ; dK, then dV
+#pragma unroll
+  for (int i = 0; i < (DQ ? 1 : 2); ++i) zero<8>(acc[i]);
+  float num[2] = {0.f, 0.f}, den[2] = {0.f, 0.f};
+  for (int u = 0; u < steps; ++u) {
+    cp_async_wait<SLOTS - 2>();  // step u's tile has landed
+    // for the half's warps, which alone read its slots; and step u - 1's slot is read no more
+    asm volatile("bar.sync %0, %1;\n" :: "r"(1 + hf), "n"(HT) : "memory");
+    if (u + SLOTS - 1 < steps) stage(u + SLOTS - 1);
+    cp_async_commit();
+    const float* slot = ring + (u % SLOTS) * SLOT;
+    const int j0 = u % ntiles * KT;
+    // dQ: this lane's keys 8n + wf_key(2t + e), valid (bit 2n + e), asked for ahead of the products
+    uint32_t ok = 0;
+    if constexpr (DQ) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = j0 + 8 * n + t + 4 * e;
+          ok |= (key < M && (mask == nullptr || mask[(int64_t)b * M + key]) ? 1u : 0u) << (2 * n + e);
+        }
+    }
+    float s[NT][4], dp[NT][4];
+    zero<NT>(s);
+    zero<NT>(dp);
+    wb_scores<NT, UNROLL>(s, a_addr, smem_addr(slot) + b_lane);
+    wb_scores<NT, UNROLL>(dp, a_addr + OWN * 4, smem_addr(slot + KT * WB_LD) + b_lane);
+    // the partials swapped with the partner through the tiles of step u's parity, which
+    // the partner read at step u - 2, before the pair's barrier of step u - 1
+    float* mine = exch + ((u & 1) * 2 + hf) * 2 * EXCH + (wr + g) * EP + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      *reinterpret_cast<float2*>(mine + 8 * n) = make_float2(s[n][0], s[n][1]);
+      *reinterpret_cast<float2*>(mine + 8 * EP + 8 * n) = make_float2(s[n][2], s[n][3]);
+      *reinterpret_cast<float2*>(mine + EXCH + 8 * n) = make_float2(dp[n][0], dp[n][1]);
+      *reinterpret_cast<float2*>(mine + EXCH + 8 * EP + 8 * n) = make_float2(dp[n][2], dp[n][3]);
+    }
+    asm volatile("bar.sync %0, 64;\n" :: "r"(3 + rg) : "memory");
+    const float* other = mine + (1 - 2 * hf) * 2 * EXCH;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float2 s0 = *reinterpret_cast<const float2*>(other + 8 * n);
+      const float2 s1 = *reinterpret_cast<const float2*>(other + 8 * EP + 8 * n);
+      const float2 d0 = *reinterpret_cast<const float2*>(other + EXCH + 8 * n);
+      const float2 d1 = *reinterpret_cast<const float2*>(other + EXCH + 8 * EP + 8 * n);
+      s[n][0] += s0.x;
+      s[n][1] += s0.y;
+      s[n][2] += s1.x;
+      s[n][3] += s1.y;
+      dp[n][0] += d0.x;
+      dp[n][1] += d0.y;
+      dp[n][2] += d1.x;
+      dp[n][3] += d1.y;
+    }
+    uint32_t xh[NT][4], xl[NT][4];
+    if constexpr (DQ) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // the exponential outside the choice: no branch
+          const float pe = exp2f(fmaf(s[n][e], scale * LOG2E, -l2[e >> 1]));
+          s[n][e] = (ok >> (2 * n + (e & 1))) & 1u ? pe : 0.f;
+        }
+      if (u < ntiles) {  // the delta pass: this lane's sums over its keys
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            num[e >> 1] = fmaf(s[n][e], dp[n][e], num[e >> 1]);
+            den[e >> 1] += s[n][e];
+          }
+        if (u == ntiles - 1) {  // delta = rowsum(P dP) / rowsum(P): the row's 4 lanes, in one order in both warps
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            num[e] += __shfl_xor_sync(0xffffffffu, num[e], 1);
+            num[e] += __shfl_xor_sync(0xffffffffu, num[e], 2);
+            den[e] += __shfl_xor_sync(0xffffffffu, den[e], 1);
+            den[e] += __shfl_xor_sync(0xffffffffu, den[e], 2);
+            delta_r[e] = den[e] > 0.f ? num[e] / den[e] : 0.f;
+            const int row = r0 + wr + g + 8 * e;
+            if (hf == 0 && t == 0 && row < N) delta_b[row] = delta_r[e];
+          }
+        }
+        continue;
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * (dp[n][e] - delta_r[e >> 1]) * scale;
+      wb_fragments<NT>(xh, xl, s);
+      wb_output<KT>(acc[0], xh, xl, slot + y_lane, k0);  // dQ_half += dS (K_half - 1 k0^T)
+    } else {
+      const float* rows = slot + 2 * KT * WB_LD;  // the tile's lse, then delta
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * n + t + 4 * (e & 1);
+          const float pe = exp2f(fmaf(s[n][e], s2[e >> 1], -rows[col] * LOG2E));
+          s[n][e] = counts[e >> 1] ? pe : 0.f;
+          dp[n][e] = s[n][e] * (dp[n][e] - rows[KT + col]) * ds_scale[e >> 1];
+        }
+      wb_fragments<NT>(xh, xl, s);
+      wb_output<KT>(acc[1], xh, xl, slot + KT * WB_LD + y_lane, k0);  // dV_half += P^T dO_half
+      wb_fragments<NT>(xh, xl, dp);
+      wb_output<KT>(acc[0], xh, xl, slot + y_lane, k0);  // dK_half += dS^T Q_half
+    }
+  }
+  cp_async_wait<0>();
+  wb_store(out_s + (int64_t)b * own_rows * do_rs + col0, r0 + wr, own_rows, do_rs, acc[0], g, t);
+  if constexpr (!DQ) wb_store(out_p + (int64_t)b * own_rows * do_rs + col0, r0 + wr, own_rows, do_rs, acc[1], g, t);
+}
+
+// Every thread may take 255 registers: as many blocks an SM as 256 threads
+// make (a bound without it drew ~190 registers and ran 10-20% slower).
+template <int BR>
+__host__ __device__ constexpr int wb_min_blocks() { return 256 / wb_threads<BR>(); }
+
+__global__ void __launch_bounds__(wb_threads<DQ_ROWS>(), wb_min_blocks<DQ_ROWS>())
+dq_3xtf32(const float* __restrict__ q, int64_t q_bs, int64_t q_rs, const float* __restrict__ k, int64_t k_bs,
+          int64_t k_rs, const float* __restrict__ v, int64_t v_bs, int64_t v_rs, const uint8_t* __restrict__ mask,
+          const float* __restrict__ dout, const float* __restrict__ lse, float* __restrict__ delta,
+          float* __restrict__ dq, int N, int M, int H, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  wide_bwd_tf32<true, DQ_ROWS, DQ_KT, DQ_SLOTS, DQ_UNROLL>(q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask, dout,
+                                                           lse, delta, dq, nullptr, N, M, H, scale, fsm);
+}
+
+__global__ void __launch_bounds__(wb_threads<DKDV_ROWS>(), wb_min_blocks<DKDV_ROWS>())
+dkdv_3xtf32(const float* __restrict__ q, int64_t q_bs, int64_t q_rs, const float* __restrict__ k, int64_t k_bs,
+            int64_t k_rs, const float* __restrict__ v, int64_t v_bs, int64_t v_rs, const uint8_t* __restrict__ mask,
+            const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+            float* __restrict__ dk, float* __restrict__ dv, int N, int M, int H, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  float* d = const_cast<float*>(delta);  // read only
+  wide_bwd_tf32<false, DKDV_ROWS, DKDV_KT, DKDV_SLOTS, DKDV_UNROLL>(q, q_bs, q_rs, k, k_bs, k_rs, v, v_bs, v_rs, mask,
+                                                                   dout, lse, d, dk, dv, N, M, H, scale, fsm);
+}
+
 // ------------------------------------------------------------------ launch
 
 #define BWD_IN(T_)                                                                   \
@@ -1144,13 +1526,33 @@ int run_dq_f32(BWD_IN(float), float* delta, float* dq, int B, int N, int M, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+int run_dkdv_3xtf32(BWD_IN(float), const float* delta, float* dk, float* dv, int B, int N, int M, int H, float scale,
+                    cudaStream_t stream) {
+  constexpr int BYTES = wb_smem_bytes<false, DKDV_ROWS, DKDV_KT, DKDV_SLOTS>();
+  const cudaError_t err = allow_smem(dkdv_3xtf32, BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv_3xtf32<<<dim3((M + DKDV_ROWS - 1) / DKDV_ROWS, H, B), wb_threads<DKDV_ROWS>(), BYTES, stream>>>(
+      BWD_IN_PASS, delta, dk, dv, N, M, H, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int run_dq_3xtf32(BWD_IN(float), float* delta, float* dq, int B, int N, int M, int H, float scale,
+                  cudaStream_t stream) {
+  constexpr int BYTES = wb_smem_bytes<true, DQ_ROWS, DQ_KT, DQ_SLOTS>();
+  const cudaError_t err = allow_smem(dq_3xtf32, BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_3xtf32<<<dim3((N + DQ_ROWS - 1) / DQ_ROWS, H, B), wb_threads<DQ_ROWS>(), BYTES, stream>>>(
+      BWD_IN_PASS, delta, dq, N, M, H, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_dkdv_f32(BWD_IN(float), const float* delta, float* dk, float* dv, int B, int N, int M, int H,
                     int DH, float scale, cudaStream_t stream) {
   switch (DH) {
     case 16: return run_dkdv_f32<16>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
     case 32: return run_dkdv_f32<32>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
     case 64: return run_dkdv_f32<64>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
-    case 128: return run_dkdv_f32<128>(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
+    case 128: return run_dkdv_3xtf32(BWD_IN_PASS, delta, dk, dv, B, N, M, H, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1161,7 +1563,7 @@ int launch_dq_f32(BWD_IN(float), float* delta, float* dq, int B, int N, int M, i
     case 16: return run_dq_f32<16>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
     case 32: return run_dq_f32<32>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
     case 64: return run_dq_f32<64>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
-    case 128: return run_dq_f32<128>(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
+    case 128: return run_dq_3xtf32(BWD_IN_PASS, delta, dq, B, N, M, H, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

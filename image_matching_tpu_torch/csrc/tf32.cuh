@@ -1,14 +1,21 @@
 // f32-accurate products on the tensor cores for sm_90a, shared by the f32
 // kernels that multiply as 3xTF32 (csrc/attention.cu's forward at heads of
-// 256, csrc/attention_bwd_chunked.cu's backward above 128): each f32
-// operand as a TF32 part and its rest, three `mma.sync.m16n8k8` products a
-// k-step. Each source includes it once, after hopper.cuh, inside no
-// namespace.
+// 256, csrc/attention_bwd.cu's backward at 128 and
+// csrc/attention_bwd_chunked.cu's above it): each f32 operand as a TF32
+// part and its rest, three `mma.sync.m16n8k8` products a k-step. Each
+// source includes it once, after hopper.cuh, inside no namespace.
 #pragma once
 
 #include "hopper.cuh"
 
 namespace {
+
+// The loop row of a product's column c (0 .. 7) of an n-tile, relative to
+// the n-tile's first: 2t -> t and 2t + 1 -> t + 4, so that the C layout of
+// S (lane t: columns 2t, 2t + 1) is P's A fragment for the next product,
+// which contracts over those rows, with k-step columns t, t + 4 in row
+// order, and its B fragments lie in rows t, t + 4.
+__host__ __device__ constexpr int wf_key(int c) { return c / 2 + 4 * (c % 2); }
 
 // x as a TF32 part, rounded to nearest (ties away), and the rest, whose low
 // 13 bits the tensor cores drop.

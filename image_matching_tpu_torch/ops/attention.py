@@ -14,7 +14,8 @@ and `attention_wide` (wgmma fed by TMA) at 128 and 256; in f32
 `attention_ffma` up to 128 and `attention_wide_3xtf32` at 256, its products
 on the tensor cores as three TF32 products each, f32-accurate as f32
 SDPA's are; the wider heads in chunks of 128 values (the chunked kernels;
-f32 on plain FMAs). Any other head is zero-padded to the next of those widths on its
+f32 on plain FMAs). The backward's kernels take the same widths, in f32 on
+plain FMAs up to 64 and as 3xTF32 from 128 up (`attention_backward`). Any other head is zero-padded to the next of those widths on its
 way in (80 and 96 to 128, 160 and 200 to 256, 320 to 384) and cut back on
 its way out, which is exact: zero columns add nothing to a score and give
 zero output columns, and the scale stays 1/sqrt(dh) of the real head. The

@@ -377,10 +377,11 @@ def test_attention_backward_kernels(cuda, dh, dtype, n, m):
 
 
 # (B, N, H, dh): deep f32 cases, a D = 256 training run's heads over 1024 keys
-# (one dead batch element) and D = 128's over 2048; D = 512's over 1024; the
-# chunked kernels' (3xTF32 products): D = 1024's training heads over 512 keys
-# (a dead element) and heads of 512 over 1024
-F32_DEEP_BACKWARD = [(2, 1024, 4, 64), (1, 2048, 4, 32), (2, 1024, 4, 128), (2, 512, 4, 256), (1, 1024, 2, 512)]
+# (one dead batch element) and D = 128's over 2048; D = 512's over 1024 and its
+# training shape (a dead element); the kernels with 3xTF32 products above 128:
+# D = 1024's training heads over 512 keys (a dead element) and heads of 512 over 1024
+F32_DEEP_BACKWARD = [(2, 1024, 4, 64), (1, 2048, 4, 32), (2, 1024, 4, 128), (4, 512, 4, 128), (2, 512, 4, 256),
+                     (1, 1024, 2, 512)]
 
 
 @pytest.mark.parametrize("b,n,h,dh", F32_DEEP_BACKWARD)
@@ -411,19 +412,21 @@ def test_attention_backward_kernels_f32_deep_sums(cuda, b, n, h, dh):
 
 
 @pytest.mark.parametrize("n,m", [(70, 133), (130, 257)])
+@pytest.mark.parametrize("dh", [32, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_attention_backward_kernels_without_a_mask(cuda, dtype, n, m):
-    q, k, v, _, dout = _attention_case(cuda, 32, dtype, n=n, m=m)
+def test_attention_backward_kernels_without_a_mask(cuda, dtype, dh, n, m):
+    q, k, v, _, dout = _attention_case(cuda, dh, dtype, n=n, m=m)
     _, lse = attention_lse_plain(q, k, v, None, 4)
     got = attention_backward(q, k, v, None, lse, dout, 4)
     _assert_backward_close(got, attention_backward_plain(q, k, v, None, lse, dout, 4), dtype)
 
 
 @pytest.mark.parametrize("n,m", [(70, 133), (50, 1100)])
+@pytest.mark.parametrize("dh", [32, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_attention_dq_kernel_writes_delta(cuda, dtype, n, m):
+def test_attention_dq_kernel_writes_delta(cuda, dtype, dh, n, m):
     # delta is the dQ kernel's second output, which the dK/dV kernel reads
-    q, k, v, mask, dout = _attention_case(cuda, 32, dtype, n=n, m=m)
+    q, k, v, mask, dout = _attention_case(cuda, dh, dtype, n=n, m=m)
     _, lse = attention_lse_plain(q, k, v, mask, 4)
     delta = torch.full((q.shape[0], 4, n), float("nan"), device=cuda)
     attention_ops.attention_backward_kernel("attention_dq", q, k, v, mask, dout, lse, delta,
@@ -432,6 +435,29 @@ def test_attention_dq_kernel_writes_delta(cuda, dtype, n, m):
     # f32 sums of the same products in another order
     assert ((delta - ref).abs().max() / ref.abs().max()) <= 1e-4
     assert not delta[-1].any()  # no valid key: no row of dS to centre
+
+
+@pytest.mark.parametrize("n,m", [(70, 2100), (2100, 70)])
+def test_attention_backward_f32_at_128_over_many_tiles(cuda, n, m):
+    """The f32 kernels at 128 (3xTF32 products) over more than 2048 keys
+    or queries, ragged on every tile: against the plain version (1e-4 of
+    the largest entry) and no further from float64 autograd than twice the
+    plain f32 version's own distance; the dead element's dQ = dK = 0 and
+    dV = sum(dO) / M; two runs bit-identical."""
+    q, k, v, mask, dout = _attention_case(cuda, 128, torch.float32, b=2, n=n, m=m)
+    _, lse = attention_lse(q, k, v, mask, 4)
+    got = attention_backward(q, k, v, mask, lse, dout, 4)
+    plain = attention_backward_plain(q, k, v, mask, lse, dout, 4)
+    _assert_backward_close(got, plain, torch.float32)
+    qkv = [t.double().requires_grad_() for t in (q, k, v)]
+    exact = torch.autograd.grad(attention_plain(*qkv, mask, 4, "float32"), qkv, dout.double())
+    for a, p, e in zip(got, plain, exact, strict=True):
+        assert (a.double() - e).abs().max() <= 2 * (p.double() - e).abs().max()
+    dq, dk, dv = got
+    assert not dq[-1].any() and not dk[-1].any()
+    torch.testing.assert_close(dv[-1], (dout[-1].sum(0) / m).expand_as(dv[-1]), rtol=1e-5, atol=1e-5)
+    again = attention_backward(q, k, v, mask, lse, dout, 4)
+    assert all(torch.equal(a, c) for a, c in zip(got, again, strict=True))
 
 
 @pytest.mark.parametrize("dh", [8, 24, 48, 80, 96])
